@@ -1,0 +1,241 @@
+"""CLIP text and vision towers (port of `leaf_tpu/models/clip.py`).
+
+The towers are `nn.Module`s whose parameter names follow the JAX pytree
+(`text.token_embedding`, `text.blocks.<i>.attn.qkv_w`,
+`visual.patch_embedding`, ...).  A tower's working dtype is the dtype of
+its embedding weights: the factory casts matrix weights and embeddings
+once, and LayerNorm parameters stay fp32.
+
+Text: short sequences are packed G per row (`_pack_groups`, target 128
+tokens as in the JAX package) under a block-diagonal causal pattern;
+every block then runs the fused attention sub-block with
+`packed=(S, causal)`.  Vision: the CLIP-ViT branch (class token, ln_pre,
+token pool, projection) runs every block with `packed=(T, False)`, one
+sequence per row.  Images are NHWC, and the patch embedding is a reshape
+plus one matmul (the stride-p conv of OpenCLIP, `patchify`).
+
+Not ported yet (the port's configs cannot ask for them): patch dropout
+(train time only), the SigLIP attention-pool head, timm MLP heads, text
+projection biases and CLIPA's pool-then-LN ordering.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+from torch import nn
+
+from leaf_tpu_torch.models import layers
+from leaf_tpu_torch.models.config import CLIPConfig, TextConfig, VisionConfig
+from leaf_tpu_torch.ops.packed_attention import block_mask
+
+
+# ---------------------------------------------------------------------------
+# Masks & pooling
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache()
+def causal_mask(seq_len: int) -> np.ndarray:
+    """Additive causal mask [S, S]; -inf above the diagonal (a host
+    constant, read-only)."""
+    m = np.triu(np.full((seq_len, seq_len), -np.inf, np.float32), k=1)
+    m.flags.writeable = False
+    return m
+
+
+@functools.lru_cache()
+def packed_block_mask(seq_len: int, groups: int, causal: bool) -> np.ndarray:
+    """Additive mask [G*S, G*S] for G sequences packed along the length
+    axis: (causal) attention within each S-block, -inf across blocks.
+    The mask that `packed=(seq_len, causal)` stands for: the additive form
+    of `ops.packed_attention.block_mask`."""
+    allowed = block_mask(groups * seq_len, seq_len, causal).numpy()
+    m = np.where(allowed, 0.0, -np.inf).astype(np.float32)
+    m.flags.writeable = False
+    return m
+
+
+def _pack_groups(batch: int, seq_len: int, target: int = 128) -> int:
+    """Largest G dividing `batch` with G*S <= target."""
+    g = max(1, target // seq_len)
+    while g > 1 and batch % g:
+        g -= 1
+    return g
+
+
+def text_pool(x: torch.Tensor, tokens: torch.Tensor,
+              pool_type: str) -> torch.Tensor:
+    """Pool token features [B, S, D] -> [B, D].  'argmax' takes the EOT
+    position (EOT has the highest token id in every sequence)."""
+    if pool_type == "argmax":
+        eot = tokens.argmax(dim=-1)
+        return x[torch.arange(x.shape[0], device=x.device), eot]
+    if pool_type == "first":
+        return x[:, 0]
+    if pool_type == "last":
+        return x[:, -1]
+    raise ValueError(f"unsupported pool_type {pool_type!r}")
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """x / max(||x||, eps), as torch's F.normalize."""
+    norm = torch.linalg.vector_norm(x, dim=dim, keepdim=True)
+    return x / norm.clamp_min(eps)
+
+
+def _act(quick_gelu: bool):
+    return layers.quick_gelu if quick_gelu else layers.gelu
+
+
+# ---------------------------------------------------------------------------
+# Text tower
+# ---------------------------------------------------------------------------
+
+class TextTower(nn.Module):
+    def __init__(self, cfg: TextConfig, quick_gelu: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        w = cfg.width
+        self.token_embedding = nn.Parameter(torch.zeros(cfg.vocab_size, w))
+        self.positional_embedding = nn.Parameter(
+            torch.zeros(cfg.context_length, w))
+        self.blocks = layers.Transformer(w, cfg.layers, cfg.heads,
+                                         int(w * cfg.mlp_ratio),
+                                         _act(quick_gelu), cfg.ln_eps)
+        self.ln_final = layers.LayerNorm(w, cfg.ln_eps)
+        self.text_projection = nn.Parameter(torch.zeros(w, cfg.output_dim))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        layers.normal_(self.token_embedding, 0.02, generator)
+        layers.normal_(self.positional_embedding, 0.01, generator)
+        self.blocks.init_weights(generator)
+        layers.normal_(self.text_projection, self.cfg.width ** -0.5, generator)
+
+    def _packed(self, seq_len: int):
+        """The `packed` declaration of rows of `seq_len`-token sequences."""
+        return seq_len, not self.cfg.no_causal_mask
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token ids [B, S] -> embeddings [B, S, D] (the PEZ hook)."""
+        return self.token_embedding[tokens.long()]
+
+    def encode_text_embedding(self, embeds: torch.Tensor,
+                              tokens: torch.Tensor,
+                              normalize: bool = False) -> torch.Tensor:
+        """Text forward from embeddings [B, S, D], one sequence per row
+        (tokens only drive the EOT pool)."""
+        S = embeds.shape[1]
+        x = embeds + self.positional_embedding[:S]
+        x = self.blocks(x, packed=self._packed(S))
+        return self._text_tail(x, tokens, normalize)
+
+    def _text_tail(self, x: torch.Tensor, tokens: torch.Tensor,
+                   normalize: bool) -> torch.Tensor:
+        """ln_final -> pool -> projection -> normalize, shared by the
+        packed and unpacked paths."""
+        x = self.ln_final(x)
+        if x.shape[0] != tokens.shape[0]:
+            x = x.reshape(tokens.shape[0], tokens.shape[1], x.shape[-1])
+        pooled = text_pool(x, tokens, self.cfg.pool_type)
+        pooled = pooled @ self.text_projection
+        return l2_normalize(pooled) if normalize else pooled
+
+    def encode_text(self, tokens: torch.Tensor, normalize: bool = False,
+                    pack: bool = True) -> torch.Tensor:
+        """Token ids [B, S] -> text features [B, output_dim].
+
+        Short sequences are packed G per row (`_pack_groups`); the packed
+        block-diagonal computation equals the unpacked one."""
+        B, S = tokens.shape
+        G = _pack_groups(B, S) if (pack and S < 128) else 1
+        if G <= 1:
+            return self.encode_text_embedding(self.embed_tokens(tokens),
+                                              tokens, normalize)
+        x = self.embed_tokens(tokens) + self.positional_embedding[:S]
+        x = x.reshape(B // G, G * S, x.shape[-1])
+        x = self.blocks(x, packed=self._packed(S))
+        return self._text_tail(x, tokens, normalize)
+
+
+# ---------------------------------------------------------------------------
+# Vision tower
+# ---------------------------------------------------------------------------
+
+def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """NHWC images [B, H, W, 3] -> patches [B, gh*gw, p*p*3], pixels in
+    (ph, pw, c) order.  Sizes that do not divide crop the right/bottom
+    edge, like a stride-p conv."""
+    B, H, W, C = images.shape
+    p = patch_size
+    gh, gw = H // p, W // p
+    x = images[:, :gh * p, :gw * p].reshape(B, gh, p, gw, p, C)
+    x = x.permute(0, 1, 3, 2, 4, 5)          # [B, gh, gw, p, p, C]
+    return x.reshape(B, gh * gw, p * p * C)
+
+
+class VisionTower(nn.Module):
+    """CLIP-ViT vision tower: patch embedding, class token, ln_pre,
+    transformer, ln_post, class-token pool, projection."""
+
+    def __init__(self, cfg: VisionConfig, quick_gelu: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        w = cfg.width
+        self.patch_embedding = nn.Parameter(
+            torch.zeros(cfg.patch_size * cfg.patch_size * 3, w))
+        self.class_embedding = nn.Parameter(torch.zeros(w))
+        self.positional_embedding = nn.Parameter(torch.zeros(cfg.num_tokens, w))
+        self.ln_pre = layers.LayerNorm(w, cfg.ln_eps)
+        self.blocks = layers.Transformer(w, cfg.layers, cfg.heads,
+                                         int(w * cfg.mlp_ratio),
+                                         _act(quick_gelu), cfg.ln_eps)
+        self.ln_post = layers.LayerNorm(w, cfg.ln_eps)
+        self.proj = nn.Parameter(torch.zeros(w, cfg.output_dim))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        scale = self.cfg.width ** -0.5
+        layers.normal_(self.patch_embedding, scale, generator)
+        layers.normal_(self.class_embedding, scale, generator)
+        layers.normal_(self.positional_embedding, scale, generator)
+        self.blocks.init_weights(generator)
+        layers.normal_(self.proj, scale, generator)
+
+    def encode_image(self, images: torch.Tensor,
+                     normalize: bool = False) -> torch.Tensor:
+        """NHWC images [B, H, W, 3] -> image features [B, output_dim]."""
+        dtype = self.patch_embedding.dtype
+        x = patchify(images.to(dtype), self.cfg.patch_size) @ self.patch_embedding
+        cls = self.class_embedding.expand(x.shape[0], 1, x.shape[-1])
+        x = torch.cat([cls, x], dim=1) + self.positional_embedding
+        x = self.ln_pre(x)
+        x = self.blocks(x, packed=(x.shape[1], False))
+        pooled = self.ln_post(x)[:, 0] @ self.proj
+        return l2_normalize(pooled) if normalize else pooled
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+class CLIP(nn.Module):
+    def __init__(self, cfg: CLIPConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.text = TextTower(cfg.text, cfg.quick_gelu)
+        self.visual = VisionTower(cfg.vision, cfg.quick_gelu)
+        self.logit_scale = nn.Parameter(torch.tensor(cfg.init_logit_scale))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """The JAX package's init distributions, drawn from `generator`."""
+        self.text.init_weights(generator)
+        self.visual.init_weights(generator)
+
+    def encode_text(self, tokens: torch.Tensor, normalize: bool = False,
+                    pack: bool = True) -> torch.Tensor:
+        return self.text.encode_text(tokens, normalize, pack)
+
+    def encode_image(self, images: torch.Tensor,
+                     normalize: bool = False) -> torch.Tensor:
+        return self.visual.encode_image(images, normalize)

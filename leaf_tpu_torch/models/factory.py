@@ -1,0 +1,102 @@
+"""Model factory: name -> model, transforms and tokenizer (port of
+`leaf_tpu/models/factory.py` for CLIP-ViT configs).
+
+Weights are made on the CPU, from the given checkpoint or from a seeded
+`torch.Generator` with the JAX package's init distributions, then moved
+to the requested device, so a CPU copy and a CUDA copy of one seed hold
+identical weights.  Precision then casts the matrix weights and
+embeddings to the working dtype once; LayerNorm parameters (and the
+logit scale) stay fp32, as the JAX package casts at each use.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import os
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from leaf_tpu_torch.models import interop
+from leaf_tpu_torch.models.clip import CLIP
+from leaf_tpu_torch.models.config import CLIPConfig, get_model_config
+from leaf_tpu_torch.models.layers import LayerNorm
+from leaf_tpu_torch.models.preprocess import image_transform
+from leaf_tpu_torch.tokenizer import get_tokenizer as _get_bpe
+
+PRECISIONS = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+@dataclasses.dataclass
+class CLIPModel:
+    """A CLIP module on its device, with entry points that take host
+    arrays (numpy or tensors) and return device tensors."""
+    cfg: CLIPConfig
+    module: CLIP
+    dtype: torch.dtype
+    device: torch.device
+
+    def encode_text(self, tokens, normalize: bool = False) -> torch.Tensor:
+        return self.module.encode_text(
+            torch.as_tensor(np.asarray(tokens), device=self.device), normalize)
+
+    def encode_image(self, images, normalize: bool = False) -> torch.Tensor:
+        return self.module.encode_image(
+            torch.as_tensor(np.asarray(images), device=self.device), normalize)
+
+
+def _cast_weights(module: torch.nn.Module, dtype: torch.dtype) -> None:
+    """Matrix weights, biases and embeddings to `dtype`; LayerNorm
+    parameters and the CLIP-level scalars stay fp32."""
+    for m in module.modules():
+        if isinstance(m, (LayerNorm, CLIP)):
+            continue
+        for p in m.parameters(recurse=False):
+            p.data = p.data.to(dtype)
+
+
+def create_model(model_name: str, pretrained: Optional[str] = None,
+                 precision: str = "fp32", seed: int = 0, *,
+                 device) -> CLIPModel:
+    """Build a CLIP model by registry name on `device` ('cuda', 'cpu',
+    ...).  `pretrained` is a local OpenCLIP checkpoint file or snapshot
+    directory; without it the weights are a seeded random init."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           "available")
+    cfg = get_model_config(model_name)
+    module = CLIP(cfg)
+    if pretrained:
+        if not os.path.exists(pretrained):
+            raise FileNotFoundError(
+                f"{pretrained!r} does not exist (pretrained registry tags and "
+                "hub ids are not ported yet: pass a local checkpoint)")
+        module.load_state_dict(interop.load_pretrained(pretrained, cfg))
+    else:
+        module.init_weights(torch.Generator().manual_seed(seed))
+    module.to(device)
+    dtype = PRECISIONS[precision]
+    _cast_weights(module, dtype)
+    module.eval()
+    return CLIPModel(cfg=cfg, module=module, dtype=dtype, device=device)
+
+
+def create_model_and_transforms(
+        model_name: str, pretrained: Optional[str] = None,
+        precision: str = "fp32", seed: int = 0, *,
+        device) -> Tuple[CLIPModel, Callable, Callable]:
+    """(model, preprocess_train, preprocess_val); serving needs no
+    augmentation, so both transforms are the eval pipeline."""
+    model = create_model(model_name, pretrained, precision, seed,
+                         device=device)
+    preprocess = image_transform(model.cfg.vision.image_size)
+    return model, preprocess, preprocess
+
+
+@functools.lru_cache()
+def get_tokenizer(model_name: str = ""):
+    """Tokenizer for a model name: the CLIP byte-BPE tokenizer (the only
+    one the registry's configs use so far)."""
+    return _get_bpe()

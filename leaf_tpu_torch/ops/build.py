@@ -1,0 +1,111 @@
+"""Build and load the port's CUDA kernels.
+
+`library()` compiles every `csrc/*.cu` with nvcc into one shared library
+with a plain C interface, under the git-ignored `build/` directory next
+to this file, and loads it with `ctypes`.  It builds at first use, and
+again when a source is newer than the library; the compiler writes to a
+unique temporary name that is renamed into place, so a concurrent process
+never loads a partial file.  Nothing is built at import.
+
+There is no fallback: a missing nvcc or a failed build raises, with the
+compiler's output in the message.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import os
+import shutil
+import subprocess
+
+CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+LIBRARY = os.path.join(BUILD_DIR, "libleaf_kernels.so")
+# where the CUDA toolkit installs by default, tried after $CUDA_HOME and PATH
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing, or compiling the kernels failed."""
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: `$CUDA_HOME/bin`, then PATH, then the default
+    toolkit location."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append(os.path.join(DEFAULT_CUDA_HOME, "bin", "nvcc"))
+    for path in candidates:
+        if os.path.isfile(path) and os.access(path, os.X_OK):
+            return path
+    raise KernelBuildError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
+        f"{DEFAULT_CUDA_HOME}/bin): the CUDA kernels of leaf_tpu_torch are "
+        "built from source at first use and need the CUDA toolkit")
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _stale() -> bool:
+    if not os.path.exists(LIBRARY):
+        return True
+    inputs = sources() + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    return max(os.path.getmtime(p) for p in inputs) > os.path.getmtime(LIBRARY)
+
+
+def compile_library() -> str:
+    """Compile `csrc/*.cu` into `LIBRARY`; returns nvcc's report
+    (registers, shared memory and spills of every kernel)."""
+    nvcc = find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources()]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise KernelBuildError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, LIBRARY)
+    return proc.stdout + proc.stderr
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # every launcher ends in (device index, cudaStream_t) and returns a
+    # cudaError_t
+    lib.leaf_packed_attention.argtypes = [p, p, i, i, i, i, i, i, i, f, i, p]
+    lib.leaf_packed_attention.restype = i
+    lib.leaf_layer_norm.argtypes = [p, p, p, p, i, i, i, f, i, p]
+    lib.leaf_layer_norm.restype = i
+    lib.leaf_gemm_bias.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.leaf_gemm_bias.restype = i
+    lib.leaf_error_string.argtypes = [i]
+    lib.leaf_error_string.restype = ctypes.c_char_p
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if missing or stale."""
+    if _stale():
+        compile_library()
+    lib = ctypes.CDLL(LIBRARY)
+    _declare(lib)
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if code != 0:
+        msg = library().leaf_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,0 +1,203 @@
+"""leaf_tpu_torch ops against the JAX package's Pallas kernels.
+
+On the CPU the port's ops run their plain PyTorch versions; the JAX side
+runs its Pallas kernels in interpret mode and its XLA references, as
+`tests/test_packed_attention.py` does.  Inputs are made with numpy from
+a seed and handed to both.  The CUDA kernels themselves are checked
+against these plain versions on the card by `chip_smoke.py`.
+"""
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from leaf_tpu_torch.ops import build
+from leaf_tpu_torch.ops import packed_attention as tpa
+
+# `leaf_tpu.ops` re-exports the function under the module's name
+jpa = importlib.import_module("leaf_tpu.ops.packed_attention")
+
+torch.set_num_threads(2)
+
+ATTENTION_CASES = [
+    (16, 8, True),    # bucket-16 captions, 8 per 128-token row
+    (16, 8, False),
+    (32, 4, True),
+    (77, 1, True),    # one full-context caption per row
+    (13, 3, True),    # odd group length
+    (33, 1, False),   # odd, non-causal, one group: stands in for vision's 257
+]
+TOLERANCES = {"float32": dict(atol=1e-5, rtol=1e-5),
+              "bfloat16": dict(atol=2e-2, rtol=0)}
+
+
+def _qkv(rng, R, L, D):
+    return (rng.standard_normal((R, L, 3 * D)) * 0.1).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,G,causal", ATTENTION_CASES)
+def test_packed_attention_matches_jax(S, G, causal, dtype):
+    rng = np.random.default_rng(0)
+    R, H, hd = 3, 4, 16
+    qkv = _qkv(rng, R, G * S, H * hd)
+    jq = jnp.asarray(qkv, jnp.dtype(dtype))
+    kernel = np.asarray(jpa.packed_attention(jq, H, S, causal, interpret=True),
+                        np.float32)
+    ref = np.asarray(jpa._reference(jq, H, S, causal), np.float32)
+    out = tpa.packed_attention(torch.from_numpy(qkv).to(getattr(torch, dtype)),
+                               H, S, causal).float().numpy()
+    np.testing.assert_allclose(out, kernel, **TOLERANCES[dtype])
+    np.testing.assert_allclose(out, ref, **TOLERANCES[dtype])
+
+
+def _block_params(rng, D):
+    p = {"ln_1": {"scale": 1 + 0.1 * rng.standard_normal(D),
+                  "bias": 0.1 * rng.standard_normal(D)},
+         "attn": {"qkv_w": 0.1 * rng.standard_normal((D, 3 * D)),
+                  "qkv_b": 0.1 * rng.standard_normal(3 * D),
+                  "out_w": 0.1 * rng.standard_normal((D, D)),
+                  "out_b": 0.1 * rng.standard_normal(D)}}
+    return jax.tree.map(lambda a: a.astype(np.float32), p)
+
+
+def _torch_tree(p, dtype=torch.float32):
+    return {"ln_1": {k: torch.from_numpy(v) for k, v in p["ln_1"].items()},
+            "attn": {k: torch.from_numpy(v).to(dtype)
+                     for k, v in p["attn"].items()}}
+
+
+@pytest.mark.parametrize("S,G,causal", [(16, 8, True), (13, 3, False),
+                                        (77, 1, True)])
+def test_fused_block_matches_jax(S, G, causal):
+    rng = np.random.default_rng(4)
+    R, H, hd = 4, 4, 16
+    D = H * hd
+    x = (rng.standard_normal((R, G * S, D)) * 0.1).astype(np.float32)
+    p = _block_params(rng, D)
+    jp = jax.tree.map(jnp.asarray, p)
+    kernel = np.asarray(jpa.fused_attention_block(
+        jp, jnp.asarray(x), H, S, causal, 1e-5, interpret=True))
+    ref = np.asarray(jpa._block_reference(jp, jnp.asarray(x), H, S, causal,
+                                          1e-5))
+    out = tpa.fused_attention_block(_torch_tree(p), torch.from_numpy(x), H, S,
+                                    causal, 1e-5).numpy()
+    np.testing.assert_allclose(out, kernel, atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-4)
+
+
+def test_cpu_tensors_take_the_plain_path(monkeypatch):
+    """A CPU tensor never reaches the kernel library and counts no launch."""
+    def no_library():
+        raise AssertionError("kernel library used for a CPU tensor")
+
+    monkeypatch.setattr(build, "library", no_library)
+    monkeypatch.setattr(tpa.packed_attention, "launches", 0)
+    monkeypatch.setattr(tpa.fused_attention_block, "launches", 0)
+    rng = np.random.default_rng(1)
+    qkv = torch.from_numpy(_qkv(rng, 2, 32, 32))
+    assert torch.equal(tpa.packed_attention(qkv, 2, 16, True),
+                       tpa._reference(qkv, 2, 16, True))
+    x = torch.from_numpy((rng.standard_normal((2, 32, 32)) * 0.1)
+                         .astype(np.float32))
+    p = _torch_tree(_block_params(rng, 32))
+    assert torch.equal(tpa.fused_attention_block(p, x, 2, 16, True),
+                       tpa._block_reference(p, x, 2, 16, True, 1e-5))
+    assert tpa.packed_attention.launches == 0
+    assert tpa.fused_attention_block.launches == 0
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    rng = np.random.default_rng(2)
+    qkv = torch.from_numpy(_qkv(rng, 2, 16, 32))
+    with pytest.raises(TypeError, match="dtype"):
+        tpa.packed_attention(qkv.half(), 2, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpa.packed_attention(qkv.transpose(0, 1), 2, 16)
+    with pytest.raises(ValueError, match="heads"):
+        tpa.packed_attention(qkv, 3, 16)
+    with pytest.raises(ValueError, match="3-D"):
+        tpa.packed_attention(qkv[0], 2, 16)
+    x = torch.zeros(2, 16, 32)
+    p = _torch_tree(_block_params(rng, 32))
+    with pytest.raises(TypeError, match="attn.qkv_w"):
+        tpa.fused_attention_block(_torch_tree(_block_params(rng, 32),
+                                              torch.bfloat16), x, 2, 16)
+    p["ln_1"]["scale"] = p["ln_1"]["scale"].bfloat16()
+    with pytest.raises(TypeError, match="ln_1.scale"):
+        tpa.fused_attention_block(p, x.bfloat16(), 2, 16)
+    p = _torch_tree(_block_params(rng, 32))
+    p["attn"]["out_w"] = p["attn"]["out_w"][:, :16]
+    with pytest.raises(ValueError, match="attn.out_w"):
+        tpa.fused_attention_block(p, x, 2, 16)
+
+
+def test_backward_recomputes_through_plain_version(monkeypatch):
+    """The autograd wrappers' gradients equal the JAX custom_vjp's; the
+    kernel launch is stood in for by the plain version so that the
+    wrappers run on the CPU."""
+    monkeypatch.setattr(tpa, "_launch_packed_attention",
+                        lambda qkv, h, g, c: tpa._reference(qkv, h, g, c))
+    rng = np.random.default_rng(3)
+    qkv = _qkv(rng, 2, 32, 32)
+    t = torch.from_numpy(qkv).requires_grad_()
+    tpa._PackedAttention.apply(t, 2, 8, True).sin().sum().backward()
+    want = jax.grad(lambda a: jnp.sum(jnp.sin(
+        jpa.packed_attention(a, 2, 8, True, interpret=True))))(jnp.asarray(qkv))
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(want),
+                               atol=1e-5, rtol=1e-5)
+
+    monkeypatch.setattr(tpa, "_launch_fused_block",
+                        lambda x, s, b, qw, qb, ow, ob, h, g, c, eps:
+                        tpa._block_reference(
+                            {"ln_1": {"scale": s, "bias": b},
+                             "attn": {"qkv_w": qw, "qkv_b": qb, "out_w": ow,
+                                      "out_b": ob}}, x, h, g, c, eps))
+    D = 16
+    x = (rng.standard_normal((2, 32, D)) * 0.1).astype(np.float32)
+    p = _block_params(rng, D)
+    tx = torch.from_numpy(x).requires_grad_()
+    tp = _torch_tree(p)
+    leaves = [tp[g][k] for g, k in tpa._BLOCK_KEYS]
+    for leaf in leaves:
+        leaf.requires_grad_()
+    tpa._FusedAttentionBlock.apply(tx, *leaves, 2, 8, True, 1e-5) \
+        .sin().sum().backward()
+    gp, gx = jax.grad(lambda p_, x_: jnp.sum(jnp.sin(jpa.fused_attention_block(
+        p_, x_, 2, 8, True, 1e-5, interpret=True))), argnums=(0, 1))(
+        jax.tree.map(jnp.asarray, p), jnp.asarray(x))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx),
+                               atol=1e-5, rtol=1e-4)
+    for (g, k), leaf in zip(tpa._BLOCK_KEYS, leaves):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(gp[g][k]),
+                                   atol=1e-5, rtol=1e-4)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build, "DEFAULT_CUDA_HOME", str(tmp_path / "none"))
+    with pytest.raises(build.KernelBuildError, match="nvcc not found"):
+        build.find_nvcc()
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(build, "LIBRARY", str(tmp_path / "build" / "lib.so"))
+    build.library.cache_clear()
+    with pytest.raises(build.KernelBuildError, match="nvcc not found"):
+        build.library()
+
+
+def test_build_failure_raises_with_compiler_output(monkeypatch, tmp_path):
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'fatal: no sm_90a here' >&2\nexit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(build, "LIBRARY", str(tmp_path / "build" / "lib.so"))
+    build.library.cache_clear()
+    with pytest.raises(build.KernelBuildError, match="no sm_90a here"):
+        build.library()
+    assert not list((tmp_path / "build").iterdir())
