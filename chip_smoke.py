@@ -6,18 +6,36 @@ Phases, each printing its own lines:
   (a) the card: `nvidia-smi` name and power limit, torch's device name;
   (b) build the CUDA kernels from `leaf_tpu_torch/ops/csrc/`, timed;
   (c) each kernel against its plain PyTorch version on the card at the
-      serving shapes (fp32: max abs <= 1e-4; bf16: max abs <= 2e-2), with
-      CUDA-event times taken in turns (plain, kernel, kernel, plain);
+      shapes the serving and training paths give it (fp32: max abs <=
+      1e-4; bf16: max abs <= 2e-2, or two bf16 rounding steps, 2^-6 of
+      the value, where that is more), with CUDA-event times taken in turns
+      (plain, kernel, library, kernel, plain), the time of the one PyTorch
+      call that computes the same function where there is one
+      (`scaled_dot_product_attention`; used nowhere in the package), and
+      the least time the card could take for the same bytes and
+      operations;
   (d) `leaf_tpu_torch.serve.main` on ViT-L-14-quickgelu (seed 0, bf16):
-      8192 short captions (bucket 16, 8 per 128-token row), then 4096 long
+      4096 short captions (bucket 16, 8 per 128-token row), then 2048 long
       ones (bucket 77, one per row), batch 256, so that serve's timed
-      window holds 32 and 16 batches;
+      window holds 16 and 8 batches;
   (e) `encode_image` on 256 seeded 224x224 images, batch 128;
   (f) parity: a CPU fp32 copy of the same seed, plain path, against the
       card's bf16 features (cosine >= 0.99 per row) and the card's fp32
       features with TF32 off (max abs <= 1e-3);
-  (g) both kernels' launch counters, zeroed just before (d), grew during
-      (d) and (e) by at least layers x batches.
+  (g) both packed kernels' launch counters, zeroed just before (d), grew
+      during (d) and (e) by at least layers x batches;
+  (h) `flash_attention`, the opt-in op no tower calls, driven directly:
+      `mha_with_flash` on a ViT-L vision batch, once per vision layer,
+      its counter zeroed just before, and held against the plain version
+      on a slice of that batch;
+  (i) train-step parity at ViT-tiny-test, fp32, TF32 off: gradients and
+      two train steps on the card (kernels forward, recompute backward)
+      against the same on the CPU (plain versions);
+  (j) the trainer: `leaf_tpu_torch.train.driver.main` on ViT-L-14-quickgelu
+      (bf16 compute on fp32 master weights, batch 128, rho 50, k 1, 8
+      steps on the synthetic caption), then 4 more steps of the same loop
+      on seeded captions of 3 to 58 words whose batches need buckets 16,
+      32, 48 and 64; counters zeroed just before, read just after.
 Any failure raises.  The line before the last is the kernels' JSON
 report; the last is {"ok": true, "device": {...}}.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -37,13 +55,15 @@ import time
 import numpy as np
 
 MODEL = "ViT-L-14-quickgelu"
-# (name, R, L, group_len, causal, D, heads, dtype name), each a batch of
-# 256 captions or 128 images: text bucket 16 (8 captions per 128-token
-# row), bucket 48 (2 per 96-token row, groups that straddle the kernel's
-# 64-query tiles), bucket 77 (one per row), vision (257 tokens, one image
-# per row)
+# (name, R, L, group_len, causal, D, heads, dtype name).  Serving, each a
+# batch of 256 captions or 128 images: text bucket 16 (8 captions per
+# 128-token row), bucket 48 (2 per 96-token row, groups that straddle the
+# kernel's 64-query tiles), bucket 77 (one per row), vision (257 tokens,
+# one image per row).  Training: one scoring encode of batch 128 x rho 50
+# = 6400 candidates at bucket 16 (800 rows)
 SHAPES = [
     ("text_s16_bf16", 32, 128, 16, True, 768, 12, "bfloat16"),
+    ("train_s16_bf16", 800, 128, 16, True, 768, 12, "bfloat16"),
     ("text_s48_bf16", 128, 96, 48, True, 768, 12, "bfloat16"),
     ("text_s77_bf16", 256, 77, 77, True, 768, 12, "bfloat16"),
     ("vision_bf16", 128, 257, 257, False, 1024, 16, "bfloat16"),
@@ -51,6 +71,21 @@ SHAPES = [
     ("text_s77_fp32", 256, 77, 77, True, 768, 12, "float32"),
 ]
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
+REL_TOLERANCE = {"float32": 0.0, "bfloat16": 2.0 ** -6}
+# flash_attention on [B, H, S, d]: (name, B, H, S, d, causal): the ViT-L
+# vision shape, the text tower's at buckets 77 and 16, and one with S a
+# multiple of no tile and heads of 80
+FLASH_SHAPES = [
+    ("vision", 128, 16, 257, 64, False),
+    ("text_s77", 256, 12, 77, 64, True),
+    ("text_s16", 64, 12, 16, 64, True),
+    ("s130_d80_causal", 8, 16, 130, 80, True),
+    ("s130_d80", 8, 16, 130, 80, False),
+]
+# published peaks of one H100 SXM (dense, at a 700 W limit): device memory
+# rate, tensor-core bf16 rate, fp32 rate outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 WORDS = ("a photo of the small large red blue green dog cat man woman child "
          "car street house tree river beach city park field table chair "
          "bird horse boat train plane sitting standing running near on "
@@ -113,30 +148,86 @@ def _time_ms(fn, n: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
-def _compare(kernel, plain, dtype_name: str):
-    """max |kernel - plain| and (kernel ms, plain ms), timed in turns
-    plain, kernel, kernel, plain after a warm-up."""
+def _compare(kernel, plain, dtype_name: str, library=None):
+    """max |kernel - plain| and (kernel ms, plain ms, library ms), timed
+    in turns plain, kernel, library, kernel, plain after a warm-up.
+    `library` is one PyTorch call that computes the same function; it is
+    timed here and used nowhere in the package."""
     import torch
     out_k = kernel()
     out_p = plain()
     torch.cuda.synchronize()
+    require(out_k.shape == out_p.shape and out_k.dtype == out_p.dtype,
+            f"kernel gives {out_k.shape} {out_k.dtype}, plain {out_p.shape} "
+            f"{out_p.dtype}")
     require(bool(torch.isfinite(out_k).all()), "kernel output not finite")
-    err = (out_k.float() - out_p.float()).abs().max().item()
-    require(err <= TOLERANCE[dtype_name],
-            f"max abs err {err} > {TOLERANCE[dtype_name]}")
+    diff = (out_k.float() - out_p.float()).abs()
+    err = diff.max().item()
+    # bf16 keeps 8 bits: from |value| = 2 on, two rounding steps are
+    # 0.03125, more than the absolute tolerance (the fused block rounds
+    # qkv, the attention output and the sum, and among the 79 million
+    # outputs of a training batch a few land two steps apart), so large
+    # values are held to two steps (2^-6 of the value) instead
+    allowed = torch.clamp(out_p.float().abs() * REL_TOLERANCE[dtype_name],
+                          min=TOLERANCE[dtype_name])
+    require(bool((diff <= allowed).all()),
+            f"max abs err {err} > {TOLERANCE[dtype_name]} (and more than "
+            f"{REL_TOLERANCE[dtype_name]} of the value)")
+    lib_ms = None
+    if library is not None:
+        lib_err = (library().float() - out_p.float()).abs().max().item()
+        require(lib_err <= 5e-2,
+                f"the library call computes another function: {lib_err}")
     for fn in (kernel, plain):
         fn()
-    p1, k1, k2, p2 = (_time_ms(f) for f in (plain, kernel, kernel, plain))
-    return err, (k1 + k2) / 2, (p1 + p2) / 2
+    p1, k1 = _time_ms(plain), _time_ms(kernel)
+    if library is not None:
+        lib_ms = _time_ms(library)
+    k2, p2 = _time_ms(kernel), _time_ms(plain)
+    return err, (k1 + k2) / 2, (p1 + p2) / 2, lib_ms
+
+
+def _bound(n_bytes: float, flops: float, dtype_name: str):
+    """The least time (ms) the card could take: the bytes the function
+    must move (inputs read once, outputs written once) over the memory
+    rate, or its operations over the peak rate for the inputs' type,
+    whichever is larger, and which of the two it is."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _visible_pairs(L: int, group_len: int, causal: bool) -> int:
+    """(query, key) pairs of one row of L tokens that attention computes."""
+    pairs = 0
+    for g0 in range(0, L, group_len):
+        n = min(group_len, L - g0)
+        pairs += n * (n + 1) // 2 if causal else n * n
+    return pairs
+
+
+def _row(name, shape, dt, err, ms, pms, lib_ms, n_bytes, flops, **extra):
+    bound_ms, bound_by = _bound(n_bytes, flops, dt)
+    say(f"(c) {name} {shape} {dt}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, "
+        f"plain {pms:.4f} ms, library "
+        f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+        f"{bound_ms:.4f} ms by {bound_by}")
+    return {"shape": shape, "dtype": dt, "max_abs_err": err, "ms": ms,
+            "plain_ms": pms, "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": n_bytes, "flops": flops, **extra}
 
 
 def phase_kernels():
     import torch
+    from torch.nn import functional as F
+    from leaf_tpu_torch.ops import flash_attention as fa
     from leaf_tpu_torch.ops import packed_attention as pa
-    rows = {"packed_attention": [], "fused_attention_block": []}
+    rows = {"packed_attention": [], "fused_attention_block": [],
+            "flash_attention": []}
     with torch.inference_mode():
         for name, R, L, S, causal, D, H, dt in SHAPES:
             dtype = getattr(torch, dt)
+            esize = 2 if dt == "bfloat16" else 4
             rng = np.random.default_rng(0)
 
             def dev(a, scale=1.0, dtype=dtype):
@@ -146,15 +237,24 @@ def phase_kernels():
             # q and k unit normal (softmax logits of std ~1), v at 0.5
             qkv = dev(rng.standard_normal((R, L, 3 * D))
                       * np.repeat([1.0, 1.0, 0.5], D))
-            err, ms, pms = _compare(
+            mask = pa.block_mask(L, S, causal, "cuda")
+
+            def sdpa(qkv=qkv, mask=mask):
+                # the library's attention on the same fused qkv, with the
+                # block-diagonal pattern as a boolean mask
+                q, k, v = (t.reshape(R, L, H, D // H).transpose(1, 2)
+                           for t in qkv.split(D, dim=-1))
+                out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+                return out.transpose(1, 2).reshape(R, L, D)
+
+            attn_flops = 4.0 * (D // H) * _visible_pairs(L, S, causal) * H * R
+            err, ms, pms, lib = _compare(
                 lambda: pa.packed_attention(qkv, H, S, causal),
-                lambda: pa._reference(qkv, H, S, causal), dt)
-            rows["packed_attention"].append(
-                {"shape": name, "R": R, "L": L, "group_len": S,
-                 "causal": causal, "D": D, "heads": H, "dtype": dt,
-                 "max_abs_err": err, "ms": ms, "plain_ms": pms})
-            say(f"(c) packed_attention {name}: max_abs_err {err:.3g}, "
-                f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+                lambda: pa._reference(qkv, H, S, causal), dt, sdpa)
+            rows["packed_attention"].append(_row(
+                "packed_attention", name, dt, err, ms, pms, lib,
+                4.0 * R * L * D * esize, attn_flops, R=R, L=L, group_len=S,
+                causal=causal, D=D, heads=H))
 
             x = dev(rng.standard_normal((R, L, D)), 0.5)
             p = {"ln_1": {"scale": dev(1 + 0.1 * rng.standard_normal(D),
@@ -166,15 +266,46 @@ def phase_kernels():
                           "qkv_b": dev(rng.standard_normal(3 * D), 0.1),
                           "out_w": dev(rng.standard_normal((D, D)), D ** -0.5),
                           "out_b": dev(rng.standard_normal(D), 0.1)}}
-            err, ms, pms = _compare(
+            err, ms, pms, lib = _compare(
                 lambda: pa.fused_attention_block(p, x, H, S, causal),
                 lambda: pa._block_reference(p, x, H, S, causal, 1e-5), dt)
-            rows["fused_attention_block"].append(
-                {"shape": name, "R": R, "L": L, "group_len": S,
-                 "causal": causal, "D": D, "heads": H, "dtype": dt,
-                 "max_abs_err": err, "ms": ms, "plain_ms": pms})
-            say(f"(c) fused_attention_block {name}: max_abs_err {err:.3g}, "
-                f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+            rows["fused_attention_block"].append(_row(
+                "fused_attention_block", name, dt, err, ms, pms, lib,
+                (2.0 * R * L * D + 4 * D * D + 4 * D) * esize + 2 * D * 4,
+                2.0 * R * L * D * 4 * D + attn_flops, R=R, L=L, group_len=S,
+                causal=causal, D=D, heads=H))
+
+        for name, B, H, S, d, causal in FLASH_SHAPES:
+            for dt in ("bfloat16", "float32"):
+                dtype = getattr(torch, dt)
+                esize = 2 if dt == "bfloat16" else 4
+                rng = np.random.default_rng(0)
+                q, k, v = (torch.from_numpy(
+                    (s * rng.standard_normal((B, H, S, d))).astype(np.float32)
+                ).to("cuda", dtype) for s in (1.0, 1.0, 0.5))
+                err, ms, pms, lib = _compare(
+                    lambda: fa.flash_attention(q, k, v, causal=causal),
+                    lambda: fa._reference(q, k, v, d ** -0.5, causal), dt,
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal))
+                rows["flash_attention"].append(_row(
+                    "flash_attention", name, dt, err, ms, pms, lib,
+                    4.0 * B * H * S * d * esize,
+                    4.0 * d * _visible_pairs(S, S, causal) * B * H,
+                    B=B, heads=H, S=S, d=d, causal=causal))
+
+        # the fused-qkv wrapper, at the vision shape
+        B, H, S, d = FLASH_SHAPES[0][1:5]
+        qkv = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (B, S, 3 * H * d)).astype(np.float32)).to("cuda", torch.bfloat16)
+        out = fa.mha_with_flash(qkv, H)
+        ref = pa._reference(qkv, H, S, False)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        require(out.shape == (B, S, H * d) and err <= TOLERANCE["bfloat16"],
+                f"mha_with_flash: shape {tuple(out.shape)}, max abs err {err}")
+        say(f"(c) mha_with_flash vision bfloat16 against the packed plain "
+            f"version: max_abs_err {err:.3g}")
     return rows
 
 
@@ -205,8 +336,8 @@ def phase_serve(workdir: str):
     from leaf_tpu_torch.models.factory import get_tokenizer
 
     rng = np.random.default_rng(0)
-    sets = {"s16": _captions(rng, 8192, 3, 10),
-            "s77": _captions(rng, 4096, 80, 90)}
+    sets = {"s16": _captions(rng, 4096, 3, 10),
+            "s77": _captions(rng, 2048, 80, 90)}
     tok = get_tokenizer(MODEL)
     handler = _Rates()
     log = logging.getLogger("leaf_tpu_torch.serve")
@@ -301,6 +432,283 @@ def phase_parity(card_bf16, sets, images):
 
 
 # ---------------------------------------------------------------------------
+# (h) flash attention, driven directly
+# ---------------------------------------------------------------------------
+
+def phase_flash(layers: int):
+    """The opt-in op as a user would call it: `mha_with_flash` on the
+    fused qkv of a ViT-L vision batch, once per vision layer."""
+    import torch
+    from leaf_tpu_torch.ops import flash_attention as fa
+    from leaf_tpu_torch.ops import packed_attention as pa
+    _, B, H, S, d, _ = FLASH_SHAPES[0]
+    rng = np.random.default_rng(2)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (B, S, 3 * H * d)).astype(np.float32)).to("cuda", torch.bfloat16)
+    fa.flash_attention.launches = 0
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(layers):
+            out = fa.mha_with_flash(qkv, H)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = fa.flash_attention.launches
+        ref = pa._reference(qkv[:4], H, S, False)
+    require(out.shape == (B, S, H * d) and out.dtype == torch.bfloat16,
+            f"mha_with_flash gives {tuple(out.shape)} {out.dtype}")
+    require(bool(torch.isfinite(out).all()), "mha_with_flash: not finite")
+    err = (out[:4].float() - ref.float()).abs().max().item()
+    require(err <= TOLERANCE["bfloat16"], f"mha_with_flash: max abs err {err}")
+    require(launches == layers, f"flash_attention: {launches} launches, "
+            f"{layers} calls")
+    say(f"(h) mha_with_flash: {layers} calls on [{B}, {S}, {3 * H * d}] bf16 "
+        f"in {dt * 1e3:.2f} ms (head split and merge included), max_abs_err "
+        f"{err:.3g} on 4 images, {launches} launches")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# (i) train-step parity, card against CPU
+# ---------------------------------------------------------------------------
+
+def _tiny_tokens(rng, B: int, S: int) -> np.ndarray:
+    toks = np.zeros((B, S), np.int64)
+    for row in toks:
+        e = int(rng.integers(2, S))
+        row[0] = 49406
+        row[1:e] = rng.integers(1, 49400, size=e - 1)
+        row[e] = 49407
+    return toks
+
+
+def phase_train_parity():
+    import copy
+    import torch
+    from leaf_tpu_torch.models.factory import create_model
+    from leaf_tpu_torch.train import optim, schedules, step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(3)
+    clean, adv1, adv2 = (_tiny_tokens(rng, 32, 16) for _ in range(3))
+    runs = {}
+    for device in ("cpu", "cuda"):
+        text = create_model("ViT-tiny-test", precision="fp32", seed=0,
+                            device=device).module.text
+        frozen = copy.deepcopy(text).requires_grad_(False)
+        put = lambda a: torch.from_numpy(a).to(device)   # noqa: E731
+        anchors = step.make_anchor_encode()(frozen, put(clean))
+        step.textfare_loss(text, put(adv1), anchors).backward()
+        grads = {n: p.grad.detach().cpu().clone()
+                 for n, p in text.named_parameters()}
+        text.zero_grad(set_to_none=True)
+        # lr 1e-4: Adam's g / (|g| + 1e-6) turns the rounding noise of the
+        # near-zero gradients into differences of up to lr per step
+        opt = optim.make_optimizer(text.named_parameters(),
+                                   schedules.const_lr(1e-4, 0, 2),
+                                   weight_decay=1e-4, grad_clip_norm=1.0)
+        state = step.TrainState.create(text, opt)
+        train = step.make_train_step()
+        metrics = []
+        for adv in (adv1, adv2):
+            state, m = train(state, put(adv), anchors)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[device] = (metrics, grads,
+                        {n: p.detach().cpu() for n, p in
+                         text.named_parameters()})
+    (cm, cg, cp), (gm, gg, gp) = runs["cpu"], runs["cuda"]
+    for (cl, cn), (gl, gn) in zip(cm, gm):
+        require(abs(gl - cl) <= 1e-4 * abs(cl), f"loss {gl} vs CPU {cl}")
+        require(abs(gn - cn) <= 1e-3 * abs(cn), f"grad norm {gn} vs CPU {cn}")
+    scale = max(float(g.abs().max()) for g in cg.values())
+    grad_err = max(float((gg[n] - cg[n]).abs().max()) for n in cg)
+    param_err = max(float((gp[n] - cp[n]).abs().max()) for n in cp)
+    require(grad_err <= 1e-4 * scale,
+            f"gradients differ by {grad_err} (largest gradient {scale})")
+    require(param_err <= 1e-4, f"parameters differ by {param_err}")
+    say(f"(i) train-step parity, ViT-tiny-test fp32, TF32 off: losses card "
+        f"{[m[0] for m in gm]} vs CPU {[m[0] for m in cm]}, gradient max abs "
+        f"diff {grad_err:.3g} (largest gradient {scale:.3g}), parameters "
+        f"after 2 steps max abs diff {param_err:.3g}")
+    return grad_err, param_err
+
+
+# ---------------------------------------------------------------------------
+# (j) the trainer
+# ---------------------------------------------------------------------------
+
+TRAIN_FLAGS = ["--model", MODEL, "--precision", "bf16", "--dataset-type",
+               "synthetic", "--batch-size", "128", "--rho", "50", "--k_adv",
+               "1", "--lr", "1e-5", "--wd", "1e-4", "--warmup", "2",
+               "--zeroshot-frequency", "0", "--epochs", "1",
+               "--train-num-samples", "1024", "--log-every-n-steps", "1",
+               "--device", "cuda"]
+
+
+class _Steps(logging.Handler):
+    """Keeps the arguments of the loop's per-step log lines: (epoch, seen,
+    samples, percent, data s, batch s, samples/s, attack s, loss, mean)."""
+
+    def __init__(self):
+        super().__init__()
+        self.steps = []
+
+    def emit(self, record):
+        if str(record.msg).startswith("Train Epoch"):
+            self.steps.append(record.args)
+
+
+class _CaptionBatches:
+    """Batches of seeded captions, one range of lengths per batch.  The
+    loop comes back for the next batch between two steps: `marks` keeps
+    what `seconds` (the attack's running host/device totals) held then."""
+
+    def __init__(self, batches, seconds):
+        self.batches = batches
+        self.seconds = seconds
+        self.marks = []
+
+    def __iter__(self):
+        for texts in self.batches:
+            self.marks.append(dict(self.seconds))
+            yield None, texts
+
+
+def _report_steps(tag, steps, seconds, batch, rho, k):
+    """Print rates and the host/device split of `steps` (log-line tuples)
+    whose attacks took `seconds` in all; every mean is over all steps."""
+    losses = [a[8] for a in steps]
+    require(all(np.isfinite(v) and v > 0 for v in losses),
+            f"{tag}: losses {losses}")
+    n = len(steps)
+    step_s = float(np.mean([a[5] for a in steps]))
+    attack_s = float(np.mean([a[7] for a in steps]))
+    host_s, dev_s = seconds["host"] / n, seconds["device"] / n
+    say(f"(j) {tag}: {n} steps, losses {[round(v, 4) for v in losses]}")
+    say(f"(j) {tag}: {step_s:.3f} s per step (the first {steps[0][5]:.3f}), "
+        f"{batch / step_s:.1f} samples/s, "
+        f"{2 * k * batch * rho / step_s:.0f} candidates/s; attack "
+        f"{attack_s:.3f} s per step = host (edit + tokenize) {host_s:.3f} s "
+        f"+ device (scoring, waited for) {dev_s:.3f} s; rest of the step "
+        f"(anchors, tokenizing, train step) {step_s - attack_s:.3f} s; host "
+        f"share of a step {host_s / step_s:.2f}")
+    return {"steps": n, "step_s": step_s, "samples_per_s": batch / step_s,
+            "candidates_per_s": 2 * k * batch * rho / step_s,
+            "attack_s": attack_s, "host_s": host_s, "device_s": dev_s}
+
+
+def phase_train(workdir: str):
+    import csv
+    import torch
+    from leaf_tpu_torch.attacks import edits
+    from leaf_tpu_torch.attacks.engine import CandidateScorer, bucket_need
+    from leaf_tpu_torch.data.common import DataInfo
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+    from leaf_tpu_torch.ops import packed_attention as pa
+    from leaf_tpu_torch.train import driver, loop, params, step
+
+    batch, rho, k, n_steps = 128, 50, 1, 8
+    handler = _Steps()
+    log = logging.getLogger("leaf_tpu_torch.train.loop")
+    log.addHandler(handler)
+    pa.packed_attention.launches = 0
+    pa.fused_attention_block.launches = 0
+    try:
+        out = driver.main(TRAIN_FLAGS + ["--logs", workdir, "--name", "leaf"])
+        torch.cuda.synchronize()
+        first = _report_steps("train.driver, caption 'Dummy caption' (bucket 16)",
+                              handler.steps, out["attack_seconds"], batch,
+                              rho, k)
+        require(first["steps"] == n_steps, f"{first['steps']} steps logged")
+        cfg = out["cfg"]
+        # every encode of a step runs each text layer's fused block once,
+        # in one chunk: the frozen tower's anchor encode, 2 scoring encodes
+        # per attack round, the train forward (its backward recomputes
+        # through the plain version and launches nothing)
+        per_step = cfg.text.layers * (1 + 2 * k + 1)
+        launches = {"packed_attention": pa.packed_attention.launches,
+                    "fused_attention_block": pa.fused_attention_block.launches}
+        say(f"(j) launches over train.driver's {n_steps} steps: {launches}; "
+            f"{n_steps} x {per_step} = {n_steps * per_step} expected "
+            f"({cfg.text.layers} layers x (anchor + {2 * k} scoring + train "
+            f"forward))")
+        for name, count in launches.items():
+            require(count == n_steps * per_step,
+                    f"{name}: {count} launches, {n_steps * per_step} expected")
+
+        with open(os.path.join(out["out_dir"], "results.csv"), newline="") as f:
+            rows = list(csv.DictReader(f))
+        require([r["epoch"] for r in rows] == ["0", "1"]
+                and float(rows[0]["train_loss"]) == -1.0
+                and float(rows[1]["train_loss"]) > 0, f"results.csv: {rows}")
+        with open(os.path.join(out["out_dir"], "times_False.csv")) as f:
+            times = f.read().split()
+        require(times[0] == "0" and len(times) == 1 + n_steps
+                and all(float(t) > 0 for t in times[1:]),
+                f"times_False.csv: {times}")
+
+        # the frozen copy still holds the seed's weights bit for bit; the
+        # trainable tower has moved, in fp32
+        fresh = create_model(MODEL, precision="bf16", seed=0, device="cuda",
+                             master_weights=True).module.text.state_dict()
+        frozen = out["frozen_text"].state_dict()
+        trained = out["state"].text.state_dict()
+        require(all(torch.equal(frozen[n], fresh[n]) for n in fresh),
+                "the frozen anchor tower changed")
+        moved = max(float((trained[n] - fresh[n]).abs().max()) for n in fresh)
+        require(moved > 0 and all(t.dtype == torch.float32
+                                  for t in trained.values()),
+                f"the trainable tower moved by {moved}")
+        say(f"(j) frozen tower unchanged bit for bit; trainable tower (fp32 "
+            f"master weights) moved by at most {moved:.3g}")
+        del fresh
+
+        # the same loop on captions of 3-58 words (about one token a word):
+        # batches whose longest caption needs bucket 16, 32, 48, 64
+        rng = np.random.default_rng(4)
+        tok = get_tokenizer(MODEL)
+        ranges = [(3, 8), (18, 26), (34, 42), (50, 58)]
+        batches = [_captions(rng, batch, lo, hi) for lo, hi in ranges]
+        needs = [bucket_need(tok(b)) for b in batches]
+        say(f"(j) caption batches of {ranges} words need context {needs}")
+        require([min(b for b in (16, 32, 48, 64, 77) if n <= b)
+                 for n in needs] == [16, 32, 48, 64], f"buckets of {needs}")
+        args = params.parse_args(TRAIN_FLAGS)
+        handler.steps.clear()
+        pa.packed_attention.launches = 0
+        pa.fused_attention_block.launches = 0
+        seconds = {"host": 0.0, "device": 0.0}
+        loader = _CaptionBatches(batches, seconds)
+        data = {"train": DataInfo(loader, num_batches=len(batches),
+                                  num_samples=batch * len(batches))}
+        loop.train_one_epoch_text_only(
+            out["state"], out["frozen_text"], CandidateScorer(cfg, "cuda"),
+            step.make_anchor_encode(), step.make_train_step(), tok,
+            edits.DEFAULT_VOCAB, data, 1, args,
+            rng=np.random.default_rng(5), seconds=seconds)
+        torch.cuda.synchronize()
+        marks = loader.marks + [dict(seconds)]
+        for i, (bucket, a) in enumerate(zip((16, 32, 48, 64), handler.steps)):
+            host, dev = (marks[i + 1][key] - marks[i][key]
+                         for key in ("host", "device"))
+            say(f"(j) bucket {bucket}: step {a[5]:.3f} s, attack {a[7]:.3f} s "
+                f"= host {host:.3f} s + device {dev:.3f} s, loss {a[8]:.4f}")
+        second = _report_steps("loop, captions of 3-58 words (buckets 16-64)",
+                               handler.steps, seconds, batch, rho, k)
+        more = {"packed_attention": pa.packed_attention.launches,
+                "fused_attention_block": pa.fused_attention_block.launches}
+        for name, count in more.items():
+            require(count == len(batches) * per_step,
+                    f"{name}: {count} launches, {len(batches) * per_step} "
+                    "expected")
+            launches[name] += count
+    finally:
+        log.removeHandler(handler)
+    return launches, first, second
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -324,35 +732,62 @@ def main() -> int:
         card_bf16 = create_model(MODEL, precision="bf16", seed=0,
                                  device="cuda")
         img_rate, img_batches = phase_images(card_bf16, images)
-        launches = {"packed_attention": pa.packed_attention.launches,
-                    "fused_attention_block": pa.fused_attention_block.launches}
+        serve_launches = {
+            "packed_attention": pa.packed_attention.launches,
+            "fused_attention_block": pa.fused_attention_block.launches}
         cfg = card_bf16.cfg
         need = cfg.text.layers * text_batches + cfg.vision.layers * img_batches
-        say(f"(g) launches during (d)+(e): {launches}; at least {need} "
+        say(f"(g) launches during (d)+(e): {serve_launches}; at least {need} "
             f"expected ({cfg.text.layers} x {text_batches} text batches + "
             f"{cfg.vision.layers} x {img_batches} image batches)")
-        for name, n in launches.items():
-            if n < need:
-                raise AssertionError(f"{name}: {n} launches < {need}")
+        for name, n in serve_launches.items():
+            require(n >= need, f"{name}: {n} launches < {need}")
         phase_parity(card_bf16, sets, images)
+        del card_bf16, images
+        torch.cuda.empty_cache()
+
+        flash_launches = phase_flash(cfg.vision.layers)
+        phase_train_parity()
+        train_launches, _, _ = phase_train(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     say(f"(d) text encodes/s: bucket 16 {rates['s16']:.1f}, "
         f"bucket 77 {rates['s77']:.1f}; (e) images/s {img_rate:.1f}")
     sources = {"packed_attention": "leaf_tpu_torch/ops/csrc/packed_attention.cu",
-               "fused_attention_block": "leaf_tpu_torch/ops/csrc/fused_block.cu"}
+               "fused_attention_block": "leaf_tpu_torch/ops/csrc/fused_block.cu",
+               "flash_attention": "leaf_tpu_torch/ops/csrc/flash_attention.cu"}
     replaces = {"packed_attention": "leaf_tpu/ops/packed_attention.py:96",
-                "fused_attention_block": "leaf_tpu/ops/packed_attention.py:208"}
+                "fused_attention_block": "leaf_tpu/ops/packed_attention.py:208",
+                "flash_attention": "leaf_tpu/ops/flash_attention.py:44"}
+    by_path = {
+        "packed_attention": {"serve": serve_launches["packed_attention"],
+                             "train": train_launches["packed_attention"]},
+        "fused_attention_block": {
+            "serve": serve_launches["fused_attention_block"],
+            "train": train_launches["fused_attention_block"]},
+        "flash_attention": {"op": flash_launches}}
     report = []
     for name, by_shape in rows.items():
-        main_shape = by_shape[0]     # text bucket 16, bf16
+        for path, count in by_path[name].items():
+            require(count > 0, f"{name}: no launch on the {path} path")
+        # the shape the main path runs most: the trainer's scoring encode
+        # (bucket 16, 800 rows) for the packed kernels, the vision shape
+        # for flash attention; every shape is under "by_shape"
+        main_shape = next((r for r in by_shape
+                           if r["shape"] == "train_s16_bf16"), by_shape[0])
         report.append({
             "name": name, "route": "cuda", "source": sources[name],
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name],
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
             "max_abs_err": max(r["max_abs_err"] for r in by_shape),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-            "shape": main_shape["shape"], "by_shape": by_shape})
+            "bound_ms": main_shape["bound_ms"],
+            "bound_by": main_shape["bound_by"],
+            "library_ms": main_shape["library_ms"],
+            "shape": main_shape["shape"], "dtype": main_shape["dtype"],
+            "by_shape": by_shape})
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

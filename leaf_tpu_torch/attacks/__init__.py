@@ -1,2 +1,2 @@
-"""Attack-side helpers of the port.  Only the context bucketing that the
-serving path shares with candidate scoring is ported so far."""
+"""Attack side of the port: sentence edits, the candidate scoring engine
+and the LEAF training attack."""

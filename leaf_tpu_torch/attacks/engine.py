@@ -1,15 +1,43 @@
-"""Context-length bucketing of token buffers (port of the numpy helpers
-in `leaf_tpu/attacks/engine.py`).
+"""Device-side candidate scoring engine (port of
+`leaf_tpu/attacks/engine.py`).
 
-With a causal mask and argmax-EOT pooling, tokens after the EOT position
-cannot influence the pooled feature, so slicing the [., 77] buffer down
-to the smallest bucket >= max(EOT)+1 is exact: same features, a fraction
-of the work.  The candidate scoring engine comes with a later slice.
+Every scoring call is one computation over a fixed-shape [B, N, C]
+candidate token buffer:
+
+    encode B*N candidates (one batch of packed rows)
+      -> objective vs anchors -> per-row argmax -> best features
+
+Padded slots are masked to -inf before the argmax, so selection matches
+the reference exactly.  Only the winning indices return to the host
+between rounds.  Scoring runs under `torch.no_grad()`.
+
+Objectives:
+  l2      maximise ||f - a||^2          (unnormalised features)
+  negl2   minimise ||f - a||^2
+  sim     maximise <f^, a^>             (normalised)
+  dissim  minimise <f^, a^>
+
+Context-length bucketing: with a causal mask and argmax-EOT pooling,
+tokens after the EOT position cannot influence the pooled feature, so
+slicing the [., 77] buffer down to the smallest bucket >= max(EOT)+1 is
+exact: same features, a fraction of the work.
+
+Not carried over from the JAX package: the mesh plumbing (`host_local`,
+`_put*`, `_get`, `bucket_tokens_coordinated`), which belongs to the
+multi-GPU slice.  Where the JAX scorer takes a parameter pytree, this one
+takes the tower itself: a `models.clip.TextTower`.
 """
 from __future__ import annotations
 
-import numpy as np
+from typing import Optional, Tuple
 
+import numpy as np
+import torch
+
+from leaf_tpu_torch.models.clip import TextTower
+from leaf_tpu_torch.models.config import CLIPConfig
+
+OBJECTIVES = ("l2", "negl2", "sim", "dissim")
 CONTEXT_BUCKETS = (16, 32, 48, 64, 77)
 
 
@@ -35,3 +63,168 @@ def can_bucket(cfg) -> bool:
     """Bucketing is feature-invariant only for causal towers with
     argmax-EOT pooling.  `cfg` is a CLIPConfig."""
     return (not cfg.text.no_causal_mask) and cfg.text.pool_type == "argmax"
+
+
+def objective_loss(feats: torch.Tensor, anchors: torch.Tensor,
+                   objective: str) -> torch.Tensor:
+    """feats [..., N, D], anchors [..., D] -> loss [..., N]."""
+    a = anchors[..., None, :]
+    if objective == "l2":
+        return (feats - a).square().sum(dim=-1)
+    if objective == "negl2":
+        return -(feats - a).square().sum(dim=-1)
+    if objective == "sim":
+        return (feats * a).sum(dim=-1)
+    if objective == "dissim":
+        return -(feats * a).sum(dim=-1)
+    raise ValueError(f"unknown objective {objective!r}")
+
+
+def margin_loss(logits: torch.Tensor, label) -> torch.Tensor:
+    """max_{j != y} logits_j - logits_y."""
+    label = torch.as_tensor(label, device=logits.device).long()
+    is_true = torch.nn.functional.one_hot(label, logits.shape[-1]).bool()
+    other = logits.masked_fill(is_true, float("-inf")).amax(dim=-1)
+    return other - logits.gather(-1, label[..., None])[..., 0]
+
+
+class CandidateScorer:
+    """Batched text-candidate scorer for one model config on one device.
+
+    All methods take numpy (or tensor) token buffers and anchor features;
+    the tower is passed per call so the same scorer serves trainable and
+    frozen towers (or two different models, as in the dual-encoder mode).
+    Features come out in the tower's compute dtype; losses are fp32.
+    """
+
+    def __init__(self, cfg: CLIPConfig, device, bucket: int = 256):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.bucket = bucket
+        self._can_bucket = can_bucket(cfg)
+
+    def _bucket(self, tokens):
+        return bucket_tokens(tokens) if self._can_bucket else np.asarray(tokens)
+
+    def _put(self, x, dtype=None) -> torch.Tensor:
+        """Host array or tensor -> this scorer's device."""
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
+            if not (x.flags.writeable and x.flags.c_contiguous):
+                x = np.array(x, order="C")   # torch wants a writable array
+            x = torch.from_numpy(x)
+        return x.to(self.device, dtype)
+
+    def _features(self, text: TextTower, tokens: torch.Tensor,
+                  normalize: bool) -> torch.Tensor:
+        return text.encode_text(tokens, normalize).float()
+
+    # -- raw text encode ---------------------------------------------------
+
+    @torch.no_grad()
+    def encode_text(self, text: TextTower, tokens,
+                    normalize: bool = False) -> torch.Tensor:
+        return text.encode_text(self._put(self._bucket(tokens)), normalize)
+
+    # -- batch-parallel scoring (LEAF training attack) ---------------------
+
+    @torch.no_grad()
+    def score_rows(self, text: TextTower, tokens: np.ndarray, anchors,
+                   objective: str, mask: Optional[np.ndarray] = None
+                   ) -> Tuple[np.ndarray, torch.Tensor, torch.Tensor]:
+        """tokens [B, N, C], anchors [B, D] -> (best_idx [B] numpy,
+        best_feats [B, D] on the device, loss [B, N] on the device).
+
+        If `objective` normalises features, anchors must already be
+        normalised (the attacks do this once up front)."""
+        tokens = self._put(self._bucket(tokens))
+        B, N, C = tokens.shape
+        normalize = objective in ("sim", "dissim")
+        feats = text.encode_text(tokens.reshape(B * N, C), normalize)
+        feats = feats.reshape(B, N, -1)
+        loss = objective_loss(feats.float(),
+                              self._put(anchors, torch.float32), objective)
+        if mask is not None:
+            loss = loss.masked_fill(~self._put(np.asarray(mask, bool)),
+                                    float("-inf"))
+        best = loss.argmax(dim=-1)
+        best_feats = feats[torch.arange(B, device=self.device), best]
+        return best.cpu().numpy(), best_feats, loss
+
+    # -- single-sentence scoring with bucketing (Charmer/bruteforce) -------
+
+    def _pad(self, tokens: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        n = tokens.shape[0]
+        padded_n = max(self.bucket, int(np.ceil(n / self.bucket)) * self.bucket)
+        if padded_n != n:
+            pad = np.broadcast_to(tokens[0], (padded_n - n,) + tokens.shape[1:])
+            tokens = np.concatenate([tokens, pad], axis=0)
+        mask = np.zeros(padded_n, dtype=bool)
+        mask[:n] = True
+        return tokens, mask
+
+    def _score_flat(self, text: TextTower, tokens: torch.Tensor, anchor,
+                    objective: str) -> torch.Tensor:
+        # the "_normfeat" suffix scores l2/negl2 on NORMALIZED candidate
+        # features against the raw anchor: the reference's
+        # constrained-retrieval phase-1 quirk
+        base = objective.replace("_normfeat", "")
+        normalize = objective != base or base in ("sim", "dissim")
+        feats = self._features(text, tokens, normalize)
+        return objective_loss(feats[None],
+                              self._put(anchor, torch.float32)[None], base)[0]
+
+    @torch.no_grad()
+    def score_flat(self, text: TextTower, tokens: np.ndarray, anchor,
+                   objective: str, anchor2=None,
+                   text2: Optional[TextTower] = None,
+                   scorer2: Optional["CandidateScorer"] = None) -> np.ndarray:
+        """tokens [N, C], anchor [D] -> loss [N] (numpy).
+
+        Supports the dual-encoder mode (average of two models' losses)
+        via (text2, anchor2).  When the second model's architecture
+        differs, pass its own `scorer2`."""
+        n = tokens.shape[0]
+        padded, _ = self._pad(self._bucket(tokens))
+        padded = self._put(padded)
+        loss = self._score_flat(text, padded, anchor, objective)
+        if text2 is not None:
+            s2 = scorer2 or self
+            loss2 = s2._score_flat(text2, padded, anchor2, objective)
+            loss = (loss + loss2) / 2
+        return loss.cpu().numpy()[:n]
+
+    # -- classification scoring (margin loss vs class anchors) -------------
+
+    @torch.no_grad()
+    def score_classification_rows(self, text: TextTower, tokens: np.ndarray,
+                                  class_feats, labels,
+                                  mask: Optional[np.ndarray] = None
+                                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """tokens [B, N, C], labels [B] -> (margin loss [B, N] with -inf
+        on masked slots, predictions [B, N]), both numpy."""
+        tokens = self._put(self._bucket(tokens))
+        B, N, C = tokens.shape
+        feats = self._features(text, tokens.reshape(B * N, C), True)
+        logits = (feats @ self._put(class_feats, torch.float32).T) \
+            .reshape(B, N, -1)
+        labels = self._put(np.asarray(labels)).long()
+        loss = margin_loss(logits, labels[:, None].expand(B, N))
+        if mask is not None:
+            loss = loss.masked_fill(~self._put(np.asarray(mask, bool)),
+                                    float("-inf"))
+        return loss.cpu().numpy(), logits.argmax(dim=-1).cpu().numpy()
+
+    @torch.no_grad()
+    def score_classification(self, text: TextTower, tokens: np.ndarray,
+                             class_feats, label: int
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+        """tokens [N, C], class_feats [K, D] (normalised) -> (margin loss
+        [N], predictions [N]), both numpy."""
+        n = tokens.shape[0]
+        padded, _ = self._pad(self._bucket(tokens))
+        feats = self._features(text, self._put(padded), True)
+        logits = feats @ self._put(class_feats, torch.float32).T
+        loss = margin_loss(logits, torch.full((len(padded),), int(label)))
+        return (loss.cpu().numpy()[:n],
+                logits.argmax(dim=-1).cpu().numpy()[:n])

@@ -3,8 +3,11 @@
 The towers are `nn.Module`s whose parameter names follow the JAX pytree
 (`text.token_embedding`, `text.blocks.<i>.attn.qkv_w`,
 `visual.patch_embedding`, ...).  A tower's working dtype is the dtype of
-its embedding weights: the factory casts matrix weights and embeddings
-once, and LayerNorm parameters stay fp32.
+its embedding weights: for serving the factory casts matrix weights and
+embeddings once, and LayerNorm parameters stay fp32.  For training the
+text tower keeps fp32 master weights and is given a `compute_dtype`:
+embeddings, block weights and the projection are then cast where they
+are used, and the gradient flows back through the cast.
 
 Text: short sequences are packed G per row (`_pack_groups`, target 128
 tokens as in the JAX package) under a block-diagonal causal pattern;
@@ -21,6 +24,7 @@ projection biases and CLIPA's pool-then-LN ordering.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -106,6 +110,13 @@ class TextTower(nn.Module):
                                          _act(quick_gelu), cfg.ln_eps)
         self.ln_final = layers.LayerNorm(w, cfg.ln_eps)
         self.text_projection = nn.Parameter(torch.zeros(w, cfg.output_dim))
+        # None: compute in the stored weights' dtype
+        self.compute_dtype: Optional[torch.dtype] = None
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dtype of activations and features."""
+        return self.compute_dtype or self.token_embedding.dtype
 
     def init_weights(self, generator: torch.Generator) -> None:
         layers.normal_(self.token_embedding, 0.02, generator)
@@ -119,16 +130,17 @@ class TextTower(nn.Module):
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """Token ids [B, S] -> embeddings [B, S, D] (the PEZ hook)."""
-        return self.token_embedding[tokens.long()]
+        return self.token_embedding[tokens.long()].to(self.dtype)
 
     def encode_text_embedding(self, embeds: torch.Tensor,
                               tokens: torch.Tensor,
-                              normalize: bool = False) -> torch.Tensor:
+                              normalize: bool = False,
+                              remat: bool = False) -> torch.Tensor:
         """Text forward from embeddings [B, S, D], one sequence per row
         (tokens only drive the EOT pool)."""
         S = embeds.shape[1]
-        x = embeds + self.positional_embedding[:S]
-        x = self.blocks(x, packed=self._packed(S))
+        x = embeds + self.positional_embedding[:S].to(embeds.dtype)
+        x = self.blocks(x, packed=self._packed(S), remat=remat)
         return self._text_tail(x, tokens, normalize)
 
     def _text_tail(self, x: torch.Tensor, tokens: torch.Tensor,
@@ -139,23 +151,25 @@ class TextTower(nn.Module):
         if x.shape[0] != tokens.shape[0]:
             x = x.reshape(tokens.shape[0], tokens.shape[1], x.shape[-1])
         pooled = text_pool(x, tokens, self.cfg.pool_type)
-        pooled = pooled @ self.text_projection
+        pooled = pooled @ self.text_projection.to(pooled.dtype)
         return l2_normalize(pooled) if normalize else pooled
 
     def encode_text(self, tokens: torch.Tensor, normalize: bool = False,
-                    pack: bool = True) -> torch.Tensor:
+                    pack: bool = True, remat: bool = False) -> torch.Tensor:
         """Token ids [B, S] -> text features [B, output_dim].
 
         Short sequences are packed G per row (`_pack_groups`); the packed
-        block-diagonal computation equals the unpacked one."""
+        block-diagonal computation equals the unpacked one.  `remat`
+        recomputes each block in the backward pass."""
         B, S = tokens.shape
         G = _pack_groups(B, S) if (pack and S < 128) else 1
         if G <= 1:
             return self.encode_text_embedding(self.embed_tokens(tokens),
-                                              tokens, normalize)
-        x = self.embed_tokens(tokens) + self.positional_embedding[:S]
+                                              tokens, normalize, remat)
+        x = self.embed_tokens(tokens)
+        x = x + self.positional_embedding[:S].to(x.dtype)
         x = x.reshape(B // G, G * S, x.shape[-1])
-        x = self.blocks(x, packed=self._packed(S))
+        x = self.blocks(x, packed=self._packed(S), remat=remat)
         return self._text_tail(x, tokens, normalize)
 
 

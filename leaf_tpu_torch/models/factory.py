@@ -6,7 +6,10 @@ Weights are made on the CPU, from the given checkpoint or from a seeded
 to the requested device, so a CPU copy and a CUDA copy of one seed hold
 identical weights.  Precision then casts the matrix weights and
 embeddings to the working dtype once; LayerNorm parameters (and the
-logit scale) stay fp32, as the JAX package casts at each use.
+logit scale) stay fp32, as the JAX package casts at each use.  That one
+rounding is right for serving and wrong for an optimizer whose updates
+are smaller than a bf16 step: with `master_weights` the text tower keeps
+its fp32 weights and casts them where it uses them.
 """
 from __future__ import annotations
 
@@ -47,8 +50,9 @@ class CLIPModel:
 
 
 def _cast_weights(module: torch.nn.Module, dtype: torch.dtype) -> None:
-    """Matrix weights, biases and embeddings to `dtype`; LayerNorm
-    parameters and the CLIP-level scalars stay fp32."""
+    """Matrix weights, biases and embeddings of `module` and its
+    submodules to `dtype`; LayerNorm parameters and the CLIP-level
+    scalars stay fp32."""
     for m in module.modules():
         if isinstance(m, (LayerNorm, CLIP)):
             continue
@@ -58,10 +62,14 @@ def _cast_weights(module: torch.nn.Module, dtype: torch.dtype) -> None:
 
 def create_model(model_name: str, pretrained: Optional[str] = None,
                  precision: str = "fp32", seed: int = 0, *,
-                 device) -> CLIPModel:
+                 device, master_weights: bool = False) -> CLIPModel:
     """Build a CLIP model by registry name on `device` ('cuda', 'cpu',
     ...).  `pretrained` is a local OpenCLIP checkpoint file or snapshot
-    directory; without it the weights are a seeded random init."""
+    directory; without it the weights are a seeded random init.
+
+    `master_weights` is for training the text tower: its weights stay
+    fp32 and it computes in `precision` (`TextTower.compute_dtype`); the
+    vision tower is cast as for serving."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not "
@@ -78,7 +86,11 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
         module.init_weights(torch.Generator().manual_seed(seed))
     module.to(device)
     dtype = PRECISIONS[precision]
-    _cast_weights(module, dtype)
+    if master_weights:
+        _cast_weights(module.visual, dtype)
+        module.text.compute_dtype = dtype
+    else:
+        _cast_weights(module, dtype)
     module.eval()
     return CLIPModel(cfg=cfg, module=module, dtype=dtype, device=device)
 

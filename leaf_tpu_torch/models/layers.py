@@ -9,8 +9,12 @@ so converting a JAX pytree is a matter of un-stacking the layer axis
 
 Numerics match the JAX package: LayerNorm in fp32 with fp32 parameters
 and the result cast back, attention softmax in fp32, QuickGELU as
-`x * sigmoid(1.702 x)`.  Matrix weights are expected in the working
-dtype (the factory casts them once); LayerNorm parameters stay fp32.
+`x * sigmoid(1.702 x)`.  LayerNorm parameters stay fp32.  Matrix weights
+are cast to the activations' dtype where a block uses them, once per
+forward, as the JAX package's `.astype(x.dtype)` does: for serving the
+factory stores them in the working dtype and the cast is the identity;
+for training they stay fp32 master weights, the forward computes in
+bf16, and the gradient flows back through the cast.
 
 Dispatch of the packed attention sub-block is by device only: with
 `packed` set, `ResidualBlock` always calls `ops.fused_attention_block`
@@ -26,6 +30,7 @@ from typing import Mapping, Optional, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from leaf_tpu_torch.ops.packed_attention import (fused_attention_block,
                                                  layer_norm, packed_attention)
@@ -110,8 +115,11 @@ class Mlp(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.act(x @ self.fc_w + self.fc_b)
-        return h @ self.proj_w + self.proj_b
+        fc_w, fc_b, proj_w, proj_b = (
+            t.to(x.dtype)
+            for t in (self.fc_w, self.fc_b, self.proj_w, self.proj_b))
+        h = self.act(x @ fc_w + fc_b)
+        return h @ proj_w + proj_b
 
 
 class ResidualBlock(nn.Module):
@@ -145,13 +153,14 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 packed: Packed = None) -> torch.Tensor:
+        attn = {k: v.to(x.dtype) for k, v in self.attn.items()}
         if packed is not None:
             p = {"ln_1": {"scale": self.ln_1.scale, "bias": self.ln_1.bias},
-                 "attn": self.attn}
+                 "attn": attn}
             x = fused_attention_block(p, x, self.n_heads, packed[0],
                                       packed[1], self.ln_eps)
         else:
-            x = x + attention(self.attn, self.ln_1(x), mask, self.n_heads)
+            x = x + attention(attn, self.ln_1(x), mask, self.n_heads)
         return x + self.mlp(self.ln_2(x))
 
 
@@ -169,7 +178,13 @@ class Transformer(nn.ModuleList):
             block.init_weights(generator, len(self))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                packed: Packed = None) -> torch.Tensor:
+                packed: Packed = None, remat: bool = False) -> torch.Tensor:
+        """`remat` keeps only each block's input for the backward pass and
+        recomputes the block there (`jax.checkpoint` per block in the JAX
+        package)."""
         for block in self:
-            x = block(x, mask, packed)
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, mask, packed, use_reentrant=False)
+            else:
+                x = block(x, mask, packed)
         return x

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-`library()` compiles every `csrc/*.cu` with nvcc into one shared library
-with a plain C interface, under the git-ignored `build/` directory next
-to this file, and loads it with `ctypes`.  It builds at first use, and
-again when a source is newer than the library; the compiler writes to a
-unique temporary name that is renamed into place, so a concurrent process
-never loads a partial file.  Nothing is built at import.
+`library()` compiles every `csrc/*.cu` with nvcc (one compiler process
+per source, all started together) and links the objects into one shared
+library with a plain C interface, under the git-ignored `build/`
+directory next to this file, and loads it with `ctypes`.  It builds at
+first use, and again when a source is newer than the library; the
+compiler writes to unique temporary names and the library is renamed
+into place, so a concurrent process never loads a partial file.  Nothing
+is built at import.
 
 There is no fallback: a missing nvcc or a failed build raises, with the
 compiler's output in the message.
@@ -24,8 +26,10 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 LIBRARY = os.path.join(BUILD_DIR, "libleaf_kernels.so")
 # where the CUDA toolkit installs by default, tried after $CUDA_HOME and PATH
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c"]
+LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
 
 
 class KernelBuildError(RuntimeError):
@@ -67,17 +71,36 @@ def compile_library() -> str:
     (registers, shared memory and spills of every kernel)."""
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return proc.stdout + proc.stderr
+    tag = f"{os.getpid()}.tmp"
+    objects = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+               for src in sources()]
+    tmp = f"{LIBRARY}.{tag}"
+    commands = [[nvcc, *COMPILE_FLAGS, "-o", obj, src]
+                for src, obj in zip(sources(), objects)]
+    report = []
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in commands]
+        outputs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, output in zip(commands, procs, outputs):
+            if proc.returncode != 0:
+                raise KernelBuildError(
+                    f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                    f"{output}")
+            report.append(output)
+        link = [nvcc, *LINK_FLAGS, "-o", tmp, *objects]
+        linked = subprocess.run(link, capture_output=True, text=True)
+        if linked.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed (exit {linked.returncode}): {' '.join(link)}\n"
+                f"{linked.stdout}{linked.stderr}")
+        os.replace(tmp, LIBRARY)
+    finally:
+        for path in (*objects, tmp):
+            if os.path.exists(path):
+                os.remove(path)
+    return "".join(report)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -90,6 +113,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.leaf_layer_norm.restype = i
     lib.leaf_gemm_bias.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.leaf_gemm_bias.restype = i
+    lib.leaf_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, i, p]
+    lib.leaf_flash_attention.restype = i
     lib.leaf_error_string.argtypes = [i]
     lib.leaf_error_string.restype = ctypes.c_char_p
 

@@ -1,0 +1,166 @@
+"""LEAF training epoch loop (port of `leaf_tpu/train/loop.py`, its
+unfused branch).
+
+Per batch:
+
+  1. frozen-tower anchor encode of the clean captions (device),
+  2. inner max: LEAF batch attack against the *trainable* tower,
+     anchored to the frozen features,
+  3. one train step: TextFARE MSE + AdamW update,
+  4. meters, attack-timing ledger.
+
+The attack wall-time CSV (`times_{use_charmer}.csv`) is the trainer's
+own throughput record and is kept.  The JAX package's default step fuses
+2-4 into two dispatches (`train/fused.py`), and its `--use_charmer`
+branch runs the batched charmer; neither is ported yet.
+"""
+from __future__ import annotations
+
+import logging
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from leaf_tpu_torch.attacks.engine import (CandidateScorer, bucket_tokens,
+                                           can_bucket)
+from leaf_tpu_torch.attacks.text import attack_text_leaf
+from leaf_tpu_torch.models.clip import TextTower
+from leaf_tpu_torch.train.step import TrainState
+from leaf_tpu_torch.utils.meters import AverageMeter
+from leaf_tpu_torch.utils.results import TimingLedger
+
+LOG = logging.getLogger(__name__)
+
+
+def run_attack(scorer: CandidateScorer, text: TextTower, tokenizer, texts,
+               anchors, args, vocab, constraint, rng,
+               seconds: Optional[dict] = None):
+    """Training-time inner maximisation: the LEAF attack."""
+    if args.use_charmer:
+        raise NotImplementedError(
+            "--use_charmer (the batched charmer attack) is not ported yet: "
+            "ROADMAP Queue 1 item 8")
+    objective = getattr(args, "attack_objective", "l2")
+    _, adv_texts = attack_text_leaf(
+        scorer, text, tokenizer, list(texts), anchors,
+        objective=objective, n=args.rho, k=args.k_adv, vocab=vocab,
+        constraint=constraint, rng=rng, seconds=seconds)
+    return adv_texts
+
+
+def train_one_epoch_text_only(
+    state: TrainState,
+    frozen_text: TextTower,
+    scorer: CandidateScorer,
+    anchor_encode,
+    train_step,
+    tokenizer,
+    vocab,
+    data: Dict,
+    epoch: int,
+    args,
+    constraint=None,
+    timing: Optional[TimingLedger] = None,
+    rng: Optional[np.random.Generator] = None,
+    seconds: Optional[dict] = None,
+):
+    """Run one epoch; returns (state, log_data).
+
+    `seconds`, if given, collects the attack's wall seconds on the host
+    (string edits and tokenizing) and in device scoring calls, summed over
+    the epoch (see `attack_text_leaf`)."""
+    if args.accum_freq != 1:
+        raise NotImplementedError(
+            "--accum-freq > 1 is not ported yet: ROADMAP 'Next, in order' "
+            "item 3")
+    rng = rng or np.random.default_rng(args.seed + 1000 * epoch)
+    _bucket = bucket_tokens if can_bucket(scorer.cfg) else np.asarray
+    device = scorer.device
+    info = data["train"]
+    info.set_epoch(epoch)
+    num_batches_per_epoch = info.num_batches // args.accum_freq
+
+    losses_m = AverageMeter()
+    batch_time_m = AverageMeter()
+    data_time_m = AverageMeter()
+    end = time.time()
+
+    log_data: Dict[str, float] = {}
+    # deferred logging: a logged step's loss stays a device tensor until
+    # the next logging point (or the epoch's end), so that reading it
+    # does not make the host wait for the step it has just dispatched.
+    # Content and order of the emitted lines are the JAX package's.
+    pending_log: Optional[Dict] = None
+
+    def _flush(rec: Optional[Dict]):
+        nonlocal log_data
+        if rec is None:
+            return
+        loss_val = float(rec["loss_arr"])
+        losses_m.update(loss_val, rec["n_texts"])
+        LOG.info(
+            "Train Epoch: %d [%d/%d (%.0f%%)] "
+            "Data (t): %.3f Batch (t): %.3f, %.1f/s "
+            "Attack (t): %.3f Loss: %.5g (%.5g)",
+            epoch, rec["seen"], info.num_samples, rec["pct"],
+            rec["data_time"], rec["batch_time"], rec["sps"],
+            rec["attack_seconds"], loss_val, losses_m.avg)
+        log_data = {
+            "train/loss": loss_val,
+            "train/data_time": rec["data_time_val"],
+            "train/batch_time": rec["batch_time_val"],
+            "train/samples_per_second": rec["sps"],
+            "train/attack_seconds": rec["attack_seconds"],
+            "train/step": rec["step"],
+        }
+
+    def put(tokens) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(tokens)).to(device)
+
+    for i, (images, texts) in enumerate(info.loader):
+        del images  # the text-only objective ignores images
+        step = num_batches_per_epoch * epoch + i
+        data_time_m.update(time.time() - end)
+
+        tokens = put(_bucket(tokenizer(texts)))
+        anchors = anchor_encode(frozen_text, tokens)
+
+        t0 = time.time()
+        adv_texts = run_attack(scorer, state.text, tokenizer, texts, anchors,
+                               args, vocab, constraint, rng, seconds)
+        attack_seconds = time.time() - t0
+        if timing is not None:
+            timing.append(attack_seconds)
+
+        adv_tokens = put(_bucket(tokenizer(adv_texts)))
+        state, metrics = train_step(state, adv_tokens, anchors)
+
+        batch_time_m.update(time.time() - end)
+        end = time.time()
+        batch_count = i + 1
+
+        if (batch_count % args.log_every_n_steps == 0
+                or batch_count == num_batches_per_epoch):
+            rec = {
+                "loss_arr": metrics["loss"],
+                "n_texts": len(texts),
+                "seen": batch_count * args.batch_size,
+                "pct": 100.0 * batch_count / max(num_batches_per_epoch, 1),
+                "data_time": data_time_m.avg,
+                "batch_time": batch_time_m.avg,
+                "data_time_val": data_time_m.val,
+                "batch_time_val": batch_time_m.val,
+                "sps": args.batch_size / batch_time_m.val,
+                "attack_seconds": attack_seconds,
+                "step": step,
+            }
+            _flush(pending_log)
+            pending_log = rec
+            batch_time_m.reset()
+            data_time_m.reset()
+
+    _flush(pending_log)
+    log_data.setdefault("train/loss", losses_m.avg if losses_m.count else 0.0)
+    return state, log_data

@@ -1,0 +1,21 @@
+"""Running-average meters (copy of `leaf_tpu/utils/meters.py`)."""
+from __future__ import annotations
+
+
+class AverageMeter:
+    """Tracks current value, sum, count and average."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val: float, n: int = 1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / self.count
