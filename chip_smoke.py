@@ -13,7 +13,10 @@ Phases, each printing its own lines:
       call that computes the same function where there is one
       (`scaled_dot_product_attention`; used nowhere in the package), and
       the least time the card could take for the same bytes and
-      operations;
+      operations; then, untimed, both bf16 kernels over a sweep of ragged
+      shapes (groups of 13 to 257 tokens, heads of 8 to 128, sequences of
+      1 to 257) and the gradients of one shape of each (kernel forward,
+      recompute backward) against the plain version's;
   (d) `leaf_tpu_torch.serve.main` on ViT-L-14-quickgelu (seed 0, bf16):
       4096 short captions (bucket 16, 8 per 128-token row), then 2048 long
       ones (bucket 77, one per row), batch 256, so that serve's timed
@@ -148,31 +151,37 @@ def _time_ms(fn, n: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
-def _compare(kernel, plain, dtype_name: str, library=None):
-    """max |kernel - plain| and (kernel ms, plain ms, library ms), timed
-    in turns plain, kernel, library, kernel, plain after a warm-up.
-    `library` is one PyTorch call that computes the same function; it is
-    timed here and used nowhere in the package."""
+def _close(out, ref, what: str, dtype_name: str = "bfloat16") -> float:
+    """Hold a result to the plain version's, within the dtype's tolerance;
+    returns the largest difference."""
     import torch
-    out_k = kernel()
-    out_p = plain()
     torch.cuda.synchronize()
-    require(out_k.shape == out_p.shape and out_k.dtype == out_p.dtype,
-            f"kernel gives {out_k.shape} {out_k.dtype}, plain {out_p.shape} "
-            f"{out_p.dtype}")
-    require(bool(torch.isfinite(out_k).all()), "kernel output not finite")
-    diff = (out_k.float() - out_p.float()).abs()
-    err = diff.max().item()
+    require(out.shape == ref.shape and out.dtype == ref.dtype,
+            f"{what}: {tuple(out.shape)} {out.dtype} against "
+            f"{tuple(ref.shape)} {ref.dtype}")
+    require(bool(torch.isfinite(out).all()), f"{what}: not finite")
+    diff = (out.float() - ref.float()).abs()
     # bf16 keeps 8 bits: from |value| = 2 on, two rounding steps are
     # 0.03125, more than the absolute tolerance (the fused block rounds
     # qkv, the attention output and the sum, and among the 79 million
     # outputs of a training batch a few land two steps apart), so large
     # values are held to two steps (2^-6 of the value) instead
-    allowed = torch.clamp(out_p.float().abs() * REL_TOLERANCE[dtype_name],
+    allowed = torch.clamp(ref.float().abs() * REL_TOLERANCE[dtype_name],
                           min=TOLERANCE[dtype_name])
     require(bool((diff <= allowed).all()),
-            f"max abs err {err} > {TOLERANCE[dtype_name]} (and more than "
+            f"{what}: max abs err {diff.max().item()} > "
+            f"{TOLERANCE[dtype_name]} (and more than "
             f"{REL_TOLERANCE[dtype_name]} of the value)")
+    return diff.max().item()
+
+
+def _compare(kernel, plain, dtype_name: str, library=None):
+    """max |kernel - plain| and (kernel ms, plain ms, library ms), timed
+    in turns plain, kernel, library, kernel, plain after a warm-up.
+    `library` is one PyTorch call that computes the same function; it is
+    timed here and used nowhere in the package."""
+    out_p = plain()
+    err = _close(kernel(), out_p, "kernel", dtype_name)
     lib_ms = None
     if library is not None:
         lib_err = (library().float() - out_p.float()).abs().max().item()
@@ -206,12 +215,39 @@ def _visible_pairs(L: int, group_len: int, causal: bool) -> int:
     return pairs
 
 
-def _row(name, shape, dt, err, ms, pms, lib_ms, n_bytes, flops, **extra):
+def _schedule(L: int, group_len: int, causal: bool, allow_exact: bool = True):
+    """The bf16 kernel's schedule for a row, from the built library, after
+    holding the package's Python mirror of it equal."""
+    from leaf_tpu_torch.ops import packed_attention as pa
+    args = (L, group_len, causal, allow_exact)
+    built, mirror = pa.kernel_schedule(*args), pa.tile_schedule(*args)
+    require(built == mirror, f"tile_schedule{args} is not the library's "
+            f"schedule: {mirror[0]} against {built[0]}")
+    return built
+
+
+def _visible_share(L: int, group_len: int, causal: bool,
+                   allow_exact: bool = True) -> float:
+    """Share of the logits the bf16 kernel computes (16 queries x the key
+    steps of every tile, by the library's own schedule) that attention
+    needs.  Derived from the shape, not measured: it goes into the phase's
+    printed line and not into the kernels' report."""
+    from leaf_tpu_torch.ops.packed_attention import TILE
+    _, tiles = _schedule(L, group_len, causal, allow_exact)
+    computed = sum(TILE * (hi - lo)
+                   for _, _, spans in tiles for lo, hi in spans)
+    return _visible_pairs(L, group_len, causal) / computed
+
+
+def _row(name, shape, dt, err, ms, pms, lib_ms, n_bytes, flops,
+         visible_share=None, **extra):
     bound_ms, bound_by = _bound(n_bytes, flops, dt)
     say(f"(c) {name} {shape} {dt}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, "
         f"plain {pms:.4f} ms, library "
         f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-        f"{bound_ms:.4f} ms by {bound_by}")
+        f"{bound_ms:.4f} ms by {bound_by}"
+        + ("" if visible_share is None else
+           f", {visible_share:.2f} of the computed logits visible"))
     return {"shape": shape, "dtype": dt, "max_abs_err": err, "ms": ms,
             "plain_ms": pms, "library_ms": lib_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "bytes": n_bytes, "flops": flops, **extra}
@@ -254,7 +290,9 @@ def phase_kernels():
             rows["packed_attention"].append(_row(
                 "packed_attention", name, dt, err, ms, pms, lib,
                 4.0 * R * L * D * esize, attn_flops, R=R, L=L, group_len=S,
-                causal=causal, D=D, heads=H))
+                causal=causal, D=D, heads=H,
+                visible_share=(_visible_share(L, S, causal)
+                               if dt == "bfloat16" else None)))
 
             x = dev(rng.standard_normal((R, L, D)), 0.5)
             p = {"ln_1": {"scale": dev(1 + 0.1 * rng.standard_normal(D),
@@ -292,7 +330,9 @@ def phase_kernels():
                     "flash_attention", name, dt, err, ms, pms, lib,
                     4.0 * B * H * S * d * esize,
                     4.0 * d * _visible_pairs(S, S, causal) * B * H,
-                    B=B, heads=H, S=S, d=d, causal=causal))
+                    B=B, heads=H, S=S, d=d, causal=causal,
+                    visible_share=(_visible_share(S, S, causal, False)
+                                   if dt == "bfloat16" else None)))
 
         # the fused-qkv wrapper, at the vision shape
         B, H, S, d = FLASH_SHAPES[0][1:5]
@@ -306,7 +346,102 @@ def phase_kernels():
                 f"mha_with_flash: shape {tuple(out.shape)}, max abs err {err}")
         say(f"(c) mha_with_flash vision bfloat16 against the packed plain "
             f"version: max_abs_err {err:.3g}")
+    phase_sweep()
     return rows
+
+
+# (group_len, groups per row, causal): groups that straddle the 16-query
+# tiles, every text bucket, the vision tower's 257 = 16 x 16 + 1 tokens, and
+# rows too long to stage whole (the ring of 64-key stages)
+PACKED_SWEEP = [(13, 3, False), (13, 3, True), (16, 8, True), (24, 5, True),
+                (32, 4, True), (48, 2, True), (64, 2, True), (77, 1, True),
+                (80, 1, False), (257, 1, False), (200, 3, False),
+                (401, 1, True)]
+FLASH_SWEEP_S = (1, 15, 16, 17, 63, 65, 130, 257, 600)
+FLASH_SWEEP_D = (8, 40, 64, 80, 128)
+
+
+def phase_sweep():
+    """Correctness only, bf16: ragged shapes through both tensor-core
+    kernels, then the gradients of one shape of each."""
+    import torch
+    from leaf_tpu_torch.ops import flash_attention as fa
+    from leaf_tpu_torch.ops import packed_attention as pa
+
+    def normal(rng, *shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to("cuda", torch.bfloat16)
+
+    rng = np.random.default_rng(6)
+    worst, cases = 0.0, 0
+    with torch.inference_mode():
+        for S, G, causal in PACKED_SWEEP:
+            for hd in (64, 80):
+                R, H = 3, 3
+                _schedule(G * S, S, causal)
+                qkv = normal(rng, R, G * S, 3 * H * hd)
+                worst = max(worst, _close(
+                    pa.packed_attention(qkv, H, S, causal),
+                    pa._reference(qkv, H, S, causal),
+                    f"packed_attention S={S} G={G} causal={causal} hd={hd}"))
+                cases += 1
+        say(f"(c) sweep packed_attention bf16: {cases} shapes "
+            f"(group_len, groups, causal) in {PACKED_SWEEP} x head widths "
+            f"(64, 80), max_abs_err {worst:.3g}")
+        worst, cases = 0.0, 0
+        for S in FLASH_SWEEP_S:
+            for d in FLASH_SWEEP_D:
+                for causal in (False, True):
+                    _schedule(S, S, causal, False)
+                    q, k, v = (normal(rng, 2, 3, S, d) for _ in range(3))
+                    worst = max(worst, _close(
+                        fa.flash_attention(q, k, v, causal=causal),
+                        fa._reference(q, k, v, d ** -0.5, causal),
+                        f"flash_attention S={S} d={d} causal={causal}"))
+                    cases += 1
+        # head views of a token-major qkv, read in place
+        qkv = normal(rng, 3, 130, 3 * 4 * 40)
+        _close(fa.mha_with_flash(qkv, 4, True),
+               pa._reference(qkv, 4, 130, True), "mha_with_flash S=130 d=40")
+        say(f"(c) sweep flash_attention bf16: {cases} shapes, S in "
+            f"{FLASH_SWEEP_S} x d in {FLASH_SWEEP_D} x causal or not, and "
+            f"mha_with_flash on strided views, max_abs_err {worst:.3g}")
+        say("(c) schedule: the Python mirror (tile_schedule) equals the "
+            "library's make_plan and passes at every timed and swept shape")
+
+    # gradients: kernel forward with the recompute backward, against autograd
+    # through the plain version; held to 2e-2 of the largest gradient.  Both
+    # backwards recompute through the plain version, so the two sides differ
+    # only by the forward's output, which the comparisons above already
+    # hold: this cannot fail where they pass on values.  What it guards is
+    # the way through autograd: the saved (strided) inputs, the kernel's
+    # output as the head of a graph, and one launch per forward.
+    def grads(fn, *leaves):
+        ts = [t.detach().clone().requires_grad_() for t in leaves]
+        fn(*ts).float().sin().sum().backward()
+        return [t.grad.float() for t in ts]
+
+    qkv = normal(rng, 4, 96, 3 * 12 * 64)
+    q, k, v = (normal(rng, 2, 4, 130, 64) for _ in range(3))
+    for name, kernel, plain, leaves in (
+            ("packed_attention (4, 96, 2304) S=48 causal",
+             lambda t: pa.packed_attention(t, 12, 48, True),
+             lambda t: pa._reference(t, 12, 48, True), (qkv,)),
+            ("flash_attention (2, 4, 130, 64) causal",
+             lambda *t: fa.flash_attention(*t, causal=True),
+             lambda *t: fa._reference(*t, 64 ** -0.5, True), (q, k, v))):
+        before = pa.packed_attention.launches + fa.flash_attention.launches
+        got, want = grads(kernel, *leaves), grads(plain, *leaves)
+        torch.cuda.synchronize()
+        require(pa.packed_attention.launches + fa.flash_attention.launches
+                == before + 1, f"{name}: the forward did not launch the kernel")
+        scale = max(w.abs().max().item() for w in want)
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        require(all(bool(torch.isfinite(g).all()) for g in got)
+                and err <= 2e-2 * scale,
+                f"{name}: gradients differ by {err} (largest {scale})")
+        say(f"(c) gradient {name} bf16: max abs diff {err:.3g} (largest "
+            f"gradient {scale:.3g})")
 
 
 # ---------------------------------------------------------------------------

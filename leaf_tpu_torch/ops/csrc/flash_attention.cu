@@ -3,43 +3,48 @@
 // Replaces: leaf_tpu/ops/flash_attention.py::flash_attention (Pallas kernel
 // `_attn_kernel`, called from `_flash_forward`), and through it `mha_with_flash`.
 //
-// Computes, for q, k, v [B*H, S, d] (one contiguous [S, d] matrix per batch and
-// head) and out of the same shape:
-//   out_i = sum_j p_ij v_j,  p_ij = softmax_j((q_i * scale) . k_j)
-// over keys j < S (and j <= i if causal).  Numerics follow the JAX kernel: q is
-// scaled in fp32, logits, the running max m, the running sum l and the output
-// accumulator stay fp32, the probabilities enter the PV product in fp32 (they
-// are not rounded to the input dtype, unlike the packed kernel's), masked
-// logits are the finite -1e30, and the result acc / max(l, 1e-30) is rounded
-// once to the input dtype.
+// Computes, for q, k, v and out [B, H, S, d], each given with its strides for
+// batch, head and token (the head width is dense), so that views of a fused
+// token-major qkv are read in place:
+//   out_i = sum_j p_ij v_j,  p_ij = softmax_j(q_i . k_j * scale)
+// over keys j < S (and j <= i if causal): logits, the running max m, the
+// running sum l and the output accumulator stay fp32, key tiles past the
+// causal diagonal are skipped, and acc / max(l, 1e-30) is rounded once.
 //
 // What bounds it on the H100: one (batch, head) pair at the ViT-L vision shape
-// (S = 257, d = 64) is 4 * 257 * 257 * 64 ~ 17 MFLOP over 4 * 257 * 64 * 2 ~
-// 130 KB of q, k, v and out: ~130 operations per byte, below the bf16 tensor
-// cores' ratio (~295), so the card's bound is the bytes.  This kernel does its
-// products with fp32 FMAs outside the tensor cores and is bound by those
-// (67 TFLOP/s at best) and by the shared-memory reads that feed them.
+// (S = 257, d = 64) is 17 MFLOP over 130 KB of q, k, v and out: ~130
+// operations per byte, below the bf16 tensor cores' ratio (~295), so the card's
+// bound is the bytes.
 //
-// Design: one block of 256 threads per (batch*head, tile of 64 queries), where
-// the TPU kernel pads S to 128 lanes and keeps a whole padded K/V in VMEM.  The
-// block loops over tiles of 64 keys, staging K and V in shared memory as fp32
-// (tails past S are zero-filled and masked, never padded in device memory) and
-// skipping the key tiles a causal query tile cannot see.  Threads form a 16 x 16
-// grid: thread (ty, tx) owns query rows 4*ty .. 4*ty+3; for QK^T it owns keys
-// tx, tx+16, tx+32, tx+48 of the tile (a 4 x 4 register tile, operands read as
-// float4 along d; K rows are padded by 4 floats so a quarter-warp's float4 reads
-// hit distinct banks), and for PV the float4 output columns tx and tx+16 of the
-// same rows.  Row maxima and sums are reduced over the 16 lanes that share a
-// row with shuffles, so m and l live in registers; the probabilities cross from
-// the QK^T layout to the PV layout through a 64 x 64 fp32 tile in shared memory.
-// No logits, probabilities or padded copies reach device memory.
+// bf16: the tensor-core kernel of attention_mma.cuh in its online schedule
+// (one group of S keys, chunks of 64 keys, double buffered).  One deviation
+// from the JAX kernel, forced by the tensor cores: the JAX kernel widens q, k
+// and v to fp32, scales q and keeps the probabilities fp32 into PV; here q and
+// k enter the product as bf16, the scale multiplies the fp32 logits after it (a
+// head of 80 has a scale that is no power of two), and the probabilities are
+// rounded to bf16 for PV, which is what the plain version beside the wrapper
+// does.
+//
+// fp32: tensor cores would compute in TF32 (about three decimal digits), so
+// fp32 keeps the JAX kernel's arithmetic (q scaled first, fp32 probabilities
+// into PV, the finite mask value -1e30) in scalar FMAs, and is bound by their
+// rate (67 TFLOP/s at best) and the shared-memory reads that feed them.  One
+// block of 256 threads per (batch, head, tile of 64 queries) loops over tiles
+// of 64 keys staged in shared memory (tails past S zero-filled and masked).
+// Threads form a 16 x 16 grid: thread (ty, tx) owns query rows 4*ty .. 4*ty+3;
+// for QK^T it owns keys tx, tx+16, tx+32, tx+48 of the tile (a 4 x 4 register
+// tile, float4 reads along d; K rows padded by 4 floats against bank
+// conflicts), for PV the float4 output columns tx and tx+16 of the same rows.
+// Row maxima and sums cross the 16 lanes of a row by shuffle; the
+// probabilities go from the QK^T layout to the PV layout through a 64 x 64
+// tile in shared memory.  No logits or padded copies reach device memory.
 #include <math.h>
 
-#include "common.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
-using leaf::Word;
+struct FlashTag {};  // this file's instantiations of the bf16 kernel
 
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;              // queries per block
@@ -51,28 +56,9 @@ constexpr int kMaxVec = kMaxHeadDim / 4 / 16;  // float4 output columns per thre
 constexpr int kPStride = kBK + 4;    // row stride of the probability tile
 constexpr float kNegInf = -1e30f;    // the JAX kernel's finite mask value
 
-template <typename T> __device__ __forceinline__ void load4(const T* p, float* f);
-template <> __device__ __forceinline__ void load4<float>(const float* p, float* f) {
+__device__ __forceinline__ void load4(const float* p, float* f) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-}
-template <> __device__ __forceinline__ void load4<__nv_bfloat16>(const __nv_bfloat16* p,
-                                                                 float* f) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  Word<__nv_bfloat16>::unpack(v.x, f);
-  Word<__nv_bfloat16>::unpack(v.y, f + 2);
-}
-
-template <typename T> __device__ __forceinline__ void store4(T* p, const float* f);
-template <> __device__ __forceinline__ void store4<float>(float* p, const float* f) {
-  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-}
-template <> __device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p,
-                                                                  const float* f) {
-  uint2 v;
-  v.x = Word<__nv_bfloat16>::pack(f);
-  v.y = Word<__nv_bfloat16>::pack(f + 2);
-  *reinterpret_cast<uint2*>(p) = v;
 }
 
 // reductions over the 16 consecutive lanes that share a query row
@@ -87,26 +73,31 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// rows [r0, r0 + rows) of a [S, d] matrix -> fp32 shared memory with row stride
-// `stride`, times `scale`; rows past S are zero
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ src, float* dst, int r0,
-                                      int rows, int S, int d, int stride, float scale) {
+// rows [r0, r0 + rows) of an [S, d] matrix whose rows lie `ld` floats apart ->
+// shared memory with row stride `stride`, times `scale`; rows past S are zero
+__device__ __forceinline__ void stage(const float* __restrict__ src, long long ld,
+                                      float* dst, int r0, int rows, int S, int d,
+                                      int stride, float scale) {
   const int vecs = d / 4;
   for (int idx = threadIdx.x; idx < rows * vecs; idx += kThreads) {
     const int r = idx / vecs, c = (idx - r * vecs) * 4;
     float f[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r0 + r < S) load4<T>(src + (size_t)(r0 + r) * d + c, f);
+    if (r0 + r < S) load4(src + (r0 + r) * ld + c, f);
     *reinterpret_cast<float4*>(dst + r * stride + c) =
         make_float4(f[0] * scale, f[1] * scale, f[2] * scale, f[3] * scale);
   }
 }
 
-template <typename T>
+// strides: (batch, head, token) of q, k, v and out, in floats
+struct Strides {
+  long long q[3], k[3], v[3], o[3];
+};
+
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int S, int d,
-                       int causal, float scale) {
+flash_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ out,
+                            const Strides st, int H, int S, int d, int causal,
+                            float scale) {
   extern __shared__ __align__(16) float smem[];
   const int kstride = d + 4;
   float* Qs = smem;                // [kBQ][d], scaled
@@ -116,10 +107,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int q0 = blockIdx.y * kBQ;
-  const size_t base = (size_t)blockIdx.x * S * d;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  q += b * st.q[0] + h * st.q[1];
+  k += b * st.k[0] + h * st.k[1];
+  v += b * st.v[0] + h * st.v[1];
+  out += b * st.o[0] + h * st.o[1];
   const int vecs = d / 4;
 
-  stage<T>(q + base, Qs, q0, kBQ, S, d, d, scale);
+  stage(q, st.q[2], Qs, q0, kBQ, S, d, d, scale);
 
   float m[kRows], l[kRows], acc[kRows][kMaxVec][4];
 #pragma unroll
@@ -136,8 +131,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_end = causal ? min(S, q0 + kBQ) : S;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's reads of Ks, Vs and Ps are done
-    stage<T>(k + base, Ks, k0, kBK, S, d, kstride, 1.f);
-    stage<T>(v + base, Vs, k0, kBK, S, d, d, 1.f);
+    stage(k, st.k[2], Ks, k0, kBK, S, d, kstride, 1.f);
+    stage(v, st.v[2], Vs, k0, kBK, S, d, d, 1.f);
     __syncthreads();
 
     // logits of this thread's 4 rows x 4 keys
@@ -234,45 +229,85 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float o[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[e] = acc[i][jj][e] / denom;
-        store4<T>(out + base + (size_t)qg * d + c4 * 4, o);
+        *reinterpret_cast<float4*>(out + qg * st.o[2] + c4 * 4) =
+            make_float4(o[0], o[1], o[2], o[3]);
       }
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int BH,
-                   int S, int d, int causal, float scale, cudaStream_t stream) {
-  if (BH <= 0 || S <= 0 || d <= 0 || d > kMaxHeadDim || d % 8 != 0)
+cudaError_t launch_fp32(const float* q, const float* k, const float* v, float* out,
+                        const Strides& st, int B, int H, int S, int d, int causal,
+                        float scale, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || d <= 0 || d > kMaxHeadDim || d % 8 != 0)
     return cudaErrorInvalidValue;
   const int q_tiles = (S + kBQ - 1) / kBQ;
   if (q_tiles > 65535) return cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * ((size_t)kBQ * d + (size_t)kBK * (d + 4) + (size_t)kBK * d +
                        (size_t)kBQ * kPStride);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_attention_fp32_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, q_tiles);
-  flash_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, d, causal, scale);
+  const dim3 grid(B * H, q_tiles);
+  flash_attention_fp32_kernel<<<grid, kThreads, smem, stream>>>(q, k, v, out, st, H, S,
+                                                                d, causal, scale);
   return cudaGetLastError();
+}
+
+cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                        const __nv_bfloat16* v, __nv_bfloat16* out, const Strides& st,
+                        int B, int H, int S, int d, int causal, float scale,
+                        cudaStream_t stream) {
+  leaf::mma::Params p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out = out;
+  for (int i = 0; i < 3; ++i) {
+    p.qs[i] = st.q[i];
+    p.ks[i] = st.k[i];
+    p.vs[i] = st.v[i];
+    p.os[i] = st.o[i];
+  }
+  p.B = B;
+  p.H = H;
+  p.L = S;
+  p.d = d;
+  p.group_len = S;  // one group: ordinary attention
+  p.causal = causal;
+  return leaf::mma::launch<FlashTag, /*kAllowExact=*/false>(p, scale, stream);
 }
 
 }  // namespace
 
+// strides: 12 element strides, (batch, head, token) of q, then k, v, out
 extern "C" int leaf_flash_attention(const void* q, const void* k, const void* v,
-                                    void* out, int dtype, int BH, int S, int d,
-                                    int causal, float scale, int device, void* stream) {
+                                    void* out, const long long* strides, int dtype,
+                                    int B, int H, int S, int d, int causal,
+                                    float scale, int device, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Strides st;
+  for (int i = 0; i < 3; ++i) {
+    st.q[i] = strides[i];
+    st.k[i] = strides[3 + i];
+    st.v[i] = strides[6 + i];
+    st.o[i] = strides[9 + i];
+  }
   switch (dtype) {
     case leaf::kFloat32:
-      return launch<float>(q, k, v, out, BH, S, d, causal, scale, s);
+      return launch_fp32(static_cast<const float*>(q), static_cast<const float*>(k),
+                         static_cast<const float*>(v), static_cast<float*>(out), st, B,
+                         H, S, d, causal, scale, s);
     case leaf::kBFloat16:
-      return launch<__nv_bfloat16>(q, k, v, out, BH, S, d, causal, scale, s);
+      return launch_bf16(static_cast<const __nv_bfloat16*>(q),
+                         static_cast<const __nv_bfloat16*>(k),
+                         static_cast<const __nv_bfloat16*>(v),
+                         static_cast<__nv_bfloat16*>(out), st, B, H, S, d, causal,
+                         scale, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -11,75 +11,70 @@
 // Numerics follow the JAX kernel: fp32 logits and softmax, the probabilities
 // rounded to the input dtype before the PV product, PV accumulated in fp32 and
 // rounded once.  Masked keys (weight exp(-1e30 - m) = 0 in the JAX kernel) are
-// skipped; a query always sees itself, so no row is empty.
+// skipped; a query always sees itself, so no row is empty.  Neither logits nor
+// a head-major copy of q, k, v ever reach device memory.
 //
 // What bounds it on the H100: at the serving shapes (L <= 257, head_dim 64) one
-// (row, head) pair is at most 2 * 257 * 257 * 64 * 2 ~ 17 MFLOP over 100 KB of
-// qkv, far below the tensor cores' ratio of operations to bytes: the kernel is
-// bound by latency and by memory traffic, not by arithmetic.
+// (row, head) pair is at most 17 MFLOP over 130 KB of qkv and out, below the
+// tensor cores' ratio of operations to bytes: the card's bound is the bytes.
 //
-// Design: one block of 8 warps per (tile of 64 queries, head, row).  The block
-// stages in shared memory the K and V rows its queries can see (each row padded
-// by one 32-bit word, so that lanes reading different keys hit different banks).
-// Each warp then takes one query at a time: pass 1 puts its logits in shared
-// memory, one key per lane, and reduces the max and the sum over the warp;
-// pass 2 turns them into probabilities rounded to the dtype; the PV loop gives
-// each lane its own 32-bit columns of V.  The two passes keep the JAX kernel's
-// rounding points, which an online softmax would move.  Neither logits nor a
-// head-major copy of q, k, v ever reach device memory.
+// bf16: the tensor-core kernel of attention_mma.cuh, given q, k and v as three
+// strided views of the token-major qkv.  Rows whose tiles see at most 80 keys
+// (every text bucket) take its exact schedule, which keeps the JAX kernel's
+// rounding points (probabilities normalised, then rounded); longer rows (the
+// vision tower's 257 tokens) take the online schedule over 64-key chunks,
+// because a thread would need ~135 registers for its two full logit rows: there
+// the probabilities are rounded before the division by the row sum, which
+// moves the result by less than one bf16 step.
+//
+// fp32: tensor cores would compute in TF32 (about three decimal digits), so
+// fp32 keeps scalar FMAs: one block of 8 warps per (tile of 64 queries, head,
+// row) stages the visible K and V rows in shared memory (rows padded by one
+// word against bank conflicts); each warp takes one query at a time, logits
+// through shared memory with one key per lane, the exact two-pass softmax,
+// then PV with each lane on its own columns.  It is bound by the fp32 FMA rate
+// and the shared-memory reads that feed it.
 #include <math.h>
 
-#include "common.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
-using leaf::Word;
+using leaf::mma::key_range;
+
+struct PackedTag {};  // this file's instantiations of the bf16 kernel
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kQueryTile = 64;
 constexpr int kMaxHeadDim = 128;
 
-// keys [k0, k1) that queries [q0, q1) of one row may attend to
-__host__ __device__ inline void key_range(int q0, int q1, int L, int group_len,
-                                          int causal, int* k0, int* k1) {
-  *k0 = (q0 / group_len) * group_len;
-  int end = ((q1 - 1) / group_len + 1) * group_len;
-  end = end < L ? end : L;
-  if (causal && q1 < end) end = q1;
-  *k1 = end;
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-packed_attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L,
-                        int n_heads, int head_dim, int group_len, int causal,
-                        int key_cap, float scale) {
-  using W = Word<T>;
-  constexpr int E = W::kElems;
-  constexpr int kLaneWords = kMaxHeadDim / E / 32;  // PV columns per lane, at most
+packed_attention_fp32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
+                             int L, int n_heads, int head_dim, int group_len,
+                             int causal, int key_cap, float scale) {
+  constexpr int kLaneCols = kMaxHeadDim / 32;  // PV columns per lane, at most
 
-  extern __shared__ uint32_t smem[];
-  const int words = head_dim / E;  // 32-bit words in one head's row
-  const int stride = words + 1;    // padded row
-  uint32_t* ks = smem;
-  uint32_t* vs = ks + key_cap * stride;
-  float* scratch = reinterpret_cast<float*>(vs + key_cap * stride);
+  extern __shared__ float smem[];
+  const int stride = head_dim + 1;  // padded row
+  float* ks = smem;
+  float* vs = ks + key_cap * stride;
+  float* scratch = vs + key_cap * stride;
 
   const int row = blockIdx.z, head = blockIdx.y;
   const int q0 = blockIdx.x * kQueryTile;
   const int q1 = min(q0 + kQueryTile, L);
   const int D = n_heads * head_dim;
-  const size_t ld = (size_t)3 * D / E;  // words per token in qkv
-  const uint32_t* base = reinterpret_cast<const uint32_t*>(qkv) + (size_t)row * L * ld;
+  const size_t ld = (size_t)3 * D;  // floats per token in qkv
+  const float* base = qkv + (size_t)row * L * ld;
   int k0, k1;
   key_range(q0, q1, L, group_len, causal, &k0, &k1);
 
-  const int qcol = head * head_dim / E;
-  const int kcol = qcol + D / E, vcol = qcol + 2 * D / E;
-  for (int idx = threadIdx.x; idx < (k1 - k0) * words; idx += kThreads) {
-    const int j = idx / words, w = idx - j * words;
-    const uint32_t* src = base + (size_t)(k0 + j) * ld;
+  const int qcol = head * head_dim;
+  const int kcol = qcol + D, vcol = qcol + 2 * D;
+  for (int idx = threadIdx.x; idx < (k1 - k0) * head_dim; idx += kThreads) {
+    const int j = idx / head_dim, w = idx - j * head_dim;
+    const float* src = base + (size_t)(k0 + j) * ld;
     ks[j * stride + w] = src[kcol + w];
     vs[j * stride + w] = src[vcol + w];
   }
@@ -88,10 +83,9 @@ packed_attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* qf = scratch + warp * (head_dim + key_cap);  // this warp's query, fp32
   float* sf = qf + head_dim;                          // its logits, then probs
-  uint32_t* out_words = reinterpret_cast<uint32_t*>(out);
   for (int q = q0 + warp; q < q1; q += kWarps) {
-    const uint32_t* qrow = base + (size_t)q * ld + qcol;
-    for (int w = lane; w < words; w += 32) W::unpack(qrow[w], qf + w * E);
+    const float* qrow = base + (size_t)q * ld + qcol;
+    for (int w = lane; w < head_dim; w += 32) qf[w] = qrow[w];
     __syncwarp();
 
     const int gs = (q / group_len) * group_len;
@@ -100,14 +94,9 @@ packed_attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L,
 
     float m = -INFINITY;
     for (int j = js + lane; j < je; j += 32) {
-      const uint32_t* kr = ks + j * stride;
+      const float* kr = ks + j * stride;
       float dot = 0.f;
-      for (int w = 0; w < words; ++w) {
-        float kf[E];
-        W::unpack(kr[w], kf);
-#pragma unroll
-        for (int e = 0; e < E; ++e) dot += qf[w * E + e] * kf[e];
-      }
+      for (int w = 0; w < head_dim; ++w) dot += qf[w] * kr[w];
       const float s = dot * scale;
       sf[j] = s;
       m = fmaxf(m, s);
@@ -117,46 +106,36 @@ packed_attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int L,
     for (int j = js + lane; j < je; j += 32) l += expf(sf[j] - m);
     l = leaf::warp_sum(l);
     for (int j = js + lane; j < je; j += 32)
-      sf[j] = leaf::round_to<T>(expf(sf[j] - m) / l);
+      sf[j] = expf(sf[j] - m) / l;
     __syncwarp();
 
-    float acc[kLaneWords][E];
+    float acc[kLaneCols];
 #pragma unroll
-    for (int i = 0; i < kLaneWords; ++i)
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[i][e] = 0.f;
+    for (int i = 0; i < kLaneCols; ++i) acc[i] = 0.f;
     for (int j = js; j < je; ++j) {
       const float p = sf[j];
-      const uint32_t* vr = vs + j * stride;
+      const float* vr = vs + j * stride;
 #pragma unroll
-      for (int i = 0; i < kLaneWords; ++i) {
+      for (int i = 0; i < kLaneCols; ++i) {
         const int w = lane + 32 * i;
-        if (w < words) {
-          float vf[E];
-          W::unpack(vr[w], vf);
-#pragma unroll
-          for (int e = 0; e < E; ++e) acc[i][e] += p * vf[e];
-        }
+        if (w < head_dim) acc[i] += p * vr[w];
       }
     }
-    uint32_t* orow = out_words + ((size_t)row * L + q) * (D / E) + qcol;
+    float* orow = out + ((size_t)row * L + q) * D + qcol;
 #pragma unroll
-    for (int i = 0; i < kLaneWords; ++i) {
+    for (int i = 0; i < kLaneCols; ++i) {
       const int w = lane + 32 * i;
-      if (w < words) orow[w] = W::pack(acc[i]);
+      if (w < head_dim) orow[w] = acc[i];
     }
     __syncwarp();  // qf and sf are rewritten for the next query
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* qkv, void* out, int R, int L, int n_heads,
-                   int head_dim, int group_len, int causal, float scale,
-                   cudaStream_t stream) {
-  constexpr int E = Word<T>::kElems;
+cudaError_t launch_fp32(const float* qkv, float* out, int R, int L, int n_heads,
+                        int head_dim, int group_len, int causal, float scale,
+                        cudaStream_t stream) {
   if (R <= 0 || R > 65535 || L <= 0 || n_heads <= 0 || n_heads > 65535 ||
-      head_dim <= 0 || head_dim > kMaxHeadDim || head_dim % E != 0 ||
-      group_len <= 0)
+      head_dim <= 0 || head_dim > kMaxHeadDim || group_len <= 0)
     return cudaErrorInvalidValue;
   int key_cap = 0;
   for (int q0 = 0; q0 < L; q0 += kQueryTile) {
@@ -165,17 +144,41 @@ cudaError_t launch(const void* qkv, void* out, int R, int L, int n_heads,
     key_range(q0, q1, L, group_len, causal, &k0, &k1);
     key_cap = k1 - k0 > key_cap ? k1 - k0 : key_cap;
   }
-  const size_t stride = head_dim / E + 1;
-  const size_t smem = 2 * key_cap * stride * sizeof(uint32_t) +
-                      (size_t)kWarps * (head_dim + key_cap) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      packed_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t stride = head_dim + 1;
+  const size_t smem = sizeof(float) * (2 * key_cap * stride +
+                                       (size_t)kWarps * (head_dim + key_cap));
+  cudaError_t err =
+      cudaFuncSetAttribute(packed_attention_fp32_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + kQueryTile - 1) / kQueryTile, n_heads, R);
-  packed_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), L, n_heads, head_dim,
-      group_len, causal, key_cap, scale);
+  packed_attention_fp32_kernel<<<grid, kThreads, smem, stream>>>(
+      qkv, out, L, n_heads, head_dim, group_len, causal, key_cap, scale);
   return cudaGetLastError();
+}
+
+// q, k and v are views of qkv: token stride 3D, head stride head_dim
+cudaError_t launch_bf16(const __nv_bfloat16* qkv, __nv_bfloat16* out, int R, int L,
+                        int n_heads, int head_dim, int group_len, int causal,
+                        float scale, cudaStream_t stream) {
+  const long long D = (long long)n_heads * head_dim;
+  leaf::mma::Params p = {};
+  p.q = qkv;
+  p.k = qkv + D;
+  p.v = qkv + 2 * D;
+  p.out = out;
+  const long long in[3] = {L * 3 * D, head_dim, 3 * D}, to[3] = {L * D, head_dim, D};
+  for (int i = 0; i < 3; ++i) {
+    p.qs[i] = p.ks[i] = p.vs[i] = in[i];
+    p.os[i] = to[i];
+  }
+  p.B = R;
+  p.H = n_heads;
+  p.L = L;
+  p.d = head_dim;
+  p.group_len = group_len;
+  p.causal = causal;
+  return leaf::mma::launch<PackedTag, /*kAllowExact=*/true>(p, scale, stream);
 }
 
 }  // namespace
@@ -188,13 +191,28 @@ extern "C" int leaf_packed_attention(const void* qkv, void* out, int dtype, int 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case leaf::kFloat32:
-      return launch<float>(qkv, out, R, L, n_heads, head_dim, group_len, causal, scale, s);
+      return launch_fp32(static_cast<const float*>(qkv), static_cast<float*>(out), R, L,
+                         n_heads, head_dim, group_len, causal, scale, s);
     case leaf::kBFloat16:
-      return launch<__nv_bfloat16>(qkv, out, R, L, n_heads, head_dim, group_len, causal,
-                                   scale, s);
+      return launch_bf16(static_cast<const __nv_bfloat16*>(qkv),
+                         static_cast<__nv_bfloat16*>(out), R, L, n_heads, head_dim,
+                         group_len, causal, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The schedule of the bf16 attention kernels for one row of L tokens, computed
+// on the host and launching nothing: plan = {warps, blocks, chunk, stages, nt,
+// exact} of `make_plan`, passes = `list_passes` triples; returns the number of
+// passes, or -1 if there are more than `cap`.
+extern "C" int leaf_attention_schedule(int L, int group_len, int causal, int allow_exact,
+                                       int* plan, int* passes, int cap) {
+  if (L <= 0 || group_len <= 0) return -1;
+  const leaf::mma::Plan pl = leaf::mma::make_plan(L, group_len, causal, allow_exact != 0);
+  const int fields[6] = {pl.warps, pl.blocks, pl.chunk, pl.stages, pl.nt, pl.exact};
+  for (int i = 0; i < 6; ++i) plan[i] = fields[i];
+  return leaf::mma::list_passes(L, group_len, causal, pl, passes, cap);
 }
 
 extern "C" const char* leaf_error_string(int code) {

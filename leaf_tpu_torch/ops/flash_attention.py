@@ -8,7 +8,10 @@ nothing in the package calls this one.
 
 The hand-written CUDA kernel is `csrc/flash_attention.cu`: an online
 softmax over tiles of keys that writes only the `[S, d]` output of each
-(batch, head).  The plain PyTorch version beside it, `_reference`,
+(batch, head); in bfloat16 its products run on the tensor cores
+(`csrc/attention_mma.cuh`, shared with packed attention).  It reads q, k
+and v through their strides, so the head views of a fused qkv are not
+copied.  The plain PyTorch version beside it, `_reference`,
 materialises the fp32 logits (the JAX package's `_reference_attention`).
 Dispatch is by the tensors' device and nothing else: CPU tensors take
 the plain version, CUDA tensors launch the kernel or raise.  The kernel
@@ -22,6 +25,7 @@ and backward), like the JAX `custom_vjp`.  The TPU tuning arguments
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -66,17 +70,34 @@ def _check(q, k, v) -> None:
         raise ValueError(f"empty input {tuple(q.shape)}")
 
 
+def _kernel_view(t: torch.Tensor) -> torch.Tensor:
+    """t itself if the kernel can read it in place: dense head width,
+    rows of every (batch, head, token) on 16-byte boundaries; else a
+    contiguous copy."""
+    sb, sh, ss, sd = t.stride()
+    if sd != 1 or (sb | sh | ss) * t.element_size() % 16:
+        t = t.contiguous()
+    if t.data_ptr() % 16:
+        raise ValueError("q, k, v: data must be 16-byte aligned")
+    return t
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             sm_scale: float, causal: bool) -> torch.Tensor:
     B, H, S, d = q.shape
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: data must be 16-byte aligned")
-    out = torch.empty_like(q)
+    q, k, v = (_kernel_view(t) for t in (q, k, v))
+    # the output takes q's order of heads and tokens, so that the head
+    # views of a token-major qkv give a token-major output
+    if q.stride(2) > q.stride(1):
+        out = torch.empty((B, S, H, d), dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
+    else:
+        out = torch.empty((B, H, S, d), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     build.check(build.library().leaf_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODES[q.dtype], B * H, S, d, int(causal), sm_scale,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        _DTYPE_CODES[q.dtype], B, H, S, d, int(causal), sm_scale,
         q.device.index, _stream(q)), "flash_attention kernel")
     flash_attention.launches += 1
     return out

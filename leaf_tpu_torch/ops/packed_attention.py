@@ -16,6 +16,12 @@ PyTorch version:
     packed-attention kernel, launched in order on the current stream;
     plain version: `_block_reference`.
 
+The packed-attention kernel has two bodies: bf16 runs on the tensor cores
+(`csrc/attention_mma.cuh`, shared with flash attention; `tile_schedule`
+below mirrors its schedule in Python for the CPU tests, `kernel_schedule`
+asks the built library for it), float32 keeps scalar FMAs, since
+the tensor cores would round it to TF32.
+
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel or raises.  There
 is no size gate and no fallback.  Each op counts its kernel launches in
@@ -52,6 +58,89 @@ def block_mask(L: int, group_len: int, causal: bool,
     if causal:
         mask &= ids[None, :] <= ids[:, None]
     return mask
+
+
+def _key_range(q0: int, q1: int, L: int, group_len: int, causal: bool):
+    """Keys [k0, k1) that queries [q0, q1) of one row may attend to."""
+    k0 = q0 // group_len * group_len
+    k1 = min(((q1 - 1) // group_len + 1) * group_len, L)
+    return k0, min(k1, q1) if causal else k1
+
+
+TILE = 16             # queries a warp owns
+MAX_WARPS = 8         # warps (query tiles) per block
+ONLINE_CHUNK = 64     # keys per pass of the online softmax, and per ring stage
+MAX_WHOLE_CHUNK = 352  # most rows a block stages at once
+
+
+def tile_schedule(L: int, group_len: int, causal: bool,
+                  allow_exact: bool = True):
+    """The bf16 kernel's schedule for one row of L tokens, as
+    `csrc/attention_mma.cuh` computes it (`make_plan` on the host, the
+    key passes in `attention_kernel`).
+
+    Returns `(plan, tiles)`.  `plan`: warps (16-query tiles) per block,
+    blocks per (row, head), keys per staged chunk, stages (1: a block
+    copies its whole key range at once; 2: a ring of 64-key stages), and
+    whether the exact two-pass softmax runs (every tile's keys fit in
+    `nt` * 8 logit columns; flash attention passes `allow_exact=False`)
+    or the online one.  `tiles`: for each 16-query tile `(q0, q1, spans)`,
+    `spans` the `[lo, hi)` key ranges, in steps of 16 keys and at most
+    `nt` * 8 wide, that the tile's warp computes logits for, one per
+    pass."""
+    n_tiles = -(-L // TILE)
+    blocks = -(-n_tiles // MAX_WARPS)
+    warps = -(-n_tiles // blocks)
+    ranges = []      # (block key range, tile, tile key range)
+    for bq0 in range(0, L, warps * TILE):
+        bq1 = min(bq0 + warps * TILE, L)
+        bk = _key_range(bq0, bq1, L, group_len, causal)
+        for wq0 in range(bq0, bq1, TILE):
+            wq1 = min(wq0 + TILE, bq1)
+            ranges.append((bk, (wq0, wq1),
+                           _key_range(wq0, wq1, L, group_len, causal)))
+    span = max(bk1 - bk0 for (bk0, bk1), _, _ in ranges)
+    steps = max(-(-(wk1 - bk0 - ((wk0 - bk0) & ~15)) // 16)
+                for (bk0, _), _, (wk0, wk1) in ranges)
+    whole = (span + 15) & ~15
+    stages = 1 if whole <= MAX_WHOLE_CHUNK else 2
+    chunk = whole if stages == 1 else ONLINE_CHUNK
+    exact = allow_exact and steps <= 5 and stages == 1
+    nt = (2 if steps <= 1 else 10) if exact else ONLINE_CHUNK // 8
+    plan = {"warps": warps, "blocks": blocks, "chunk": chunk,
+            "stages": stages, "exact": exact, "nt": nt}
+    tiles = []
+    for (bk0, bk1), (wq0, wq1), (wk0, wk1) in ranges:
+        spans = []
+        for cs in range(bk0, bk1, chunk):
+            lo, hi = max(wk0, cs) - cs, min(wk1, cs + chunk) - cs
+            for k in range(lo & ~15, hi, 8 * nt):
+                k_end = min(hi, k + 8 * nt)
+                spans.append((cs + k, cs + k + 16 * -(-(k_end - k) // 16)))
+        tiles.append((wq0, wq1, spans))
+    return plan, tiles
+
+
+def kernel_schedule(L: int, group_len: int, causal: bool,
+                    allow_exact: bool = True):
+    """What `tile_schedule` mirrors, from the built library itself
+    (`leaf_attention_schedule`: `make_plan` and `list_passes` of
+    `csrc/attention_mma.cuh`, run on the host), in the same form.  Needs
+    the CUDA toolkit, not a card; `chip_smoke.py` holds the two equal."""
+    import ctypes
+    cap = 4 * (-(-L // TILE)) * (-(-L // TILE) + 1)
+    plan, passes = (ctypes.c_int * 6)(), (ctypes.c_int * (3 * cap))()
+    n = build.library().leaf_attention_schedule(
+        L, group_len, int(causal), int(allow_exact), plan, passes, cap)
+    if n < 0:
+        raise RuntimeError(f"leaf_attention_schedule({L}, {group_len}, "
+                           f"{causal}, {allow_exact}) returned {n}")
+    warps, blocks, chunk, stages, nt, exact = plan
+    tiles = [(q0, min(q0 + TILE, L), []) for q0 in range(0, L, TILE)]
+    for t, lo, hi in zip(*(passes[i:3 * n:3] for i in range(3))):
+        tiles[t][2].append((lo, hi))
+    return ({"warps": warps, "blocks": blocks, "chunk": chunk,
+             "stages": stages, "exact": bool(exact), "nt": nt}, tiles)
 
 
 def _reference(qkv: torch.Tensor, n_heads: int, group_len: int,
@@ -133,6 +222,11 @@ def _check_activation(name: str, t, width_factor: int, n_heads: int,
                          f"{width_factor} x {n_heads} heads")
     if group_len < 1:
         raise ValueError(f"group_len must be >= 1, got {group_len}")
+    head_dim = t.shape[-1] // width_factor // n_heads
+    if t.dtype == torch.bfloat16 and head_dim % 8:
+        raise ValueError(f"{name}: head width {head_dim}; the bfloat16 kernel "
+                         "copies rows in 16-byte pieces and takes a multiple "
+                         "of 8")
     _check_tensor(name, t, t.dtype, t.shape, t.device)
 
 

@@ -38,7 +38,7 @@ SOT, EOT = 49406, 49407
 # unprofiled batches timed per cell (fewer of the much longer image batches)
 TEXT_BATCHES, IMAGE_BATCHES = 20, 5
 # kernel families, by a substring of the kernel's name; the first match wins
-FAMILIES = (("attention kernel", ("packed_attention_kernel",)),
+FAMILIES = (("attention kernel", ("attention_kernel", "attention_fp32_kernel")),
             ("hand GEMMs", ("gemm_bias_",)),
             ("LayerNorm kernel", ("layer_norm_kernel",)),
             ("cuBLAS", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),

@@ -134,6 +134,102 @@ def test_flash_rejects_what_the_kernel_does_not_take():
         tfa.mha_with_flash(torch.zeros(2, 16, 96), 5)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 63, 65, 130, 257, 600])
+def test_flash_tile_schedule_visits_what_the_mask_shows(S, causal):
+    """Flash attention runs the online softmax (one group of S keys, passes
+    of 64 keys): every visible pair is visited, no visited step is hidden."""
+    plan, tiles = tpa.tile_schedule(S, S, causal, allow_exact=False)
+    assert not plan["exact"] and plan["nt"] == 8
+    assert plan["stages"] == (1 if S <= 352 else 2)
+    mask = tpa.block_mask(S, S, causal)
+    visited = torch.zeros(S, S, dtype=torch.bool)
+    for q0, q1, spans in tiles:
+        for lo, hi in spans:
+            assert (hi - lo) % 16 == 0 and 0 < hi - lo <= 64
+            visited[q0:q1, lo:hi] = True
+            for k in range(lo, hi, 16):
+                assert mask[q0:q1, k:k + 16].any(), (q0, k)
+    assert not (mask & ~visited).any()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_mha_with_flash_hands_on_views(causal, monkeypatch):
+    """The head views of the fused qkv reach the plain version as they are
+    (no copy), and the result still matches the JAX package's (1e-5: fp32,
+    the same arithmetic in another order)."""
+    rng = np.random.default_rng(6)
+    qkv = (rng.standard_normal((2, 24, 3 * 32)) * 0.5).astype(np.float32)
+    t = torch.from_numpy(qkv)
+    seen = []
+    plain = tfa._reference
+
+    def spy(q, k, v, scale, c):
+        seen.extend((q, k, v))
+        return plain(q, k, v, scale, c)
+
+    monkeypatch.setattr(tfa, "_reference", spy)
+    out = tfa.mha_with_flash(t, 4, causal)
+    assert len(seen) == 3
+    for i, view in enumerate(seen):
+        assert view.shape == (2, 4, 24, 8)
+        assert view.stride() == (24 * 96, 8, 96, 1)
+        assert view.data_ptr() == t.data_ptr() + 4 * 32 * i
+    want = np.asarray(jfa.mha_with_flash(jnp.asarray(qkv), 4, causal,
+                                         interpret=True))
+    np.testing.assert_allclose(out.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+class _FakeLibrary:
+    """Stands in for the kernel library: keeps the launcher's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def leaf_flash_attention(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_launch_passes_strides(dtype, monkeypatch):
+    """What the launcher hands to the kernel: views of a token-major qkv go
+    in place with their strides and give a token-major output (so that
+    `mha_with_flash` merges the heads without a copy); contiguous inputs
+    give a contiguous output; rows off a 16-byte boundary are copied."""
+    fake = _FakeLibrary()
+    monkeypatch.setattr(build, "library", lambda: fake)
+    monkeypatch.setattr(tfa, "_stream", lambda t: 0)
+    monkeypatch.setattr(tfa.flash_attention, "launches", 0)
+    B, S, H, d = 2, 10, 3, 8
+    D = H * d
+    qkv = torch.zeros(B, S, 3 * D, dtype=dtype)
+    q, k, v = (t.reshape(B, S, H, d).transpose(1, 2)
+               for t in qkv.split(D, dim=-1))
+    out = tfa._launch(q, k, v, 0.5, True)
+    args = fake.calls[-1]
+    esize = qkv.element_size()
+    assert args[:3] == (qkv.data_ptr(), qkv.data_ptr() + D * esize,
+                        qkv.data_ptr() + 2 * D * esize)
+    assert list(args[4]) == [S * 3 * D, d, 3 * D] * 3 + [S * D, d, D]
+    assert args[5:12] == (tfa._DTYPE_CODES[dtype], B, H, S, d, 1, 0.5)
+    assert out.shape == (B, H, S, d)
+    assert out.transpose(1, 2).is_contiguous()
+
+    dense = torch.zeros(B, H, S, d, dtype=dtype)
+    out = tfa._launch(dense, dense, dense, 0.5, False)
+    assert list(fake.calls[-1][4]) == [H * S * d, S * d, d] * 4
+    assert out.is_contiguous()
+
+    # rows that start off a 16-byte boundary cannot be read in place
+    odd = torch.zeros(B, H, S, d + 2, dtype=dtype)[..., :d]
+    tfa._launch(odd, dense, dense, 0.5, False)
+    args = fake.calls[-1]
+    assert args[0] != odd.data_ptr()
+    assert list(args[4])[:3] == [H * S * d, S * d, d]
+    assert tfa.flash_attention.launches == 3
+
+
 # ---------------------------------------------------------------------------
 # Gradients of the packed ops (autograd wrappers on the CPU, their launches
 # stood in for by the plain versions) against jax.grad of the JAX ops in

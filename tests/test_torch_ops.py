@@ -55,6 +55,82 @@ def test_packed_attention_matches_jax(S, G, causal, dtype):
     np.testing.assert_allclose(out, ref, **TOLERANCES[dtype])
 
 
+# (group_len, groups per row, causal): the shapes `chip_smoke.py` sweeps on
+# the card, and the non-causal bucket
+SCHEDULE_CASES = [(13, 3, False), (13, 3, True), (16, 8, True), (16, 8, False),
+                  (24, 5, True), (32, 4, True), (48, 2, True), (64, 2, True),
+                  (77, 1, True), (80, 1, False), (257, 1, False),
+                  (257, 1, True), (100, 4, False), (200, 3, False),
+                  (401, 1, True)]
+
+
+@pytest.mark.parametrize("S,G,causal", SCHEDULE_CASES)
+def test_tile_schedule_visits_what_the_mask_shows(S, G, causal):
+    """The Python mirror of the bf16 kernel's schedule against `block_mask`:
+    the 16-query tiles partition the row, every visible (query, key) pair
+    lies in a key span its tile visits, no visited 16-key step is wholly
+    hidden, and a pass holds at most `nt` * 8 logit columns."""
+    L = S * G
+    plan, tiles = tpa.tile_schedule(L, S, causal)
+    mask = tpa.block_mask(L, S, causal)
+    assert [(q0, q1) for q0, q1, _ in tiles] == [
+        (q0, min(q0 + 16, L)) for q0 in range(0, L, 16)]
+    assert plan["warps"] <= tpa.MAX_WARPS
+    assert plan["warps"] * plan["blocks"] >= len(tiles)
+    visited = torch.zeros(L, L, dtype=torch.bool)
+    for q0, q1, spans in tiles:
+        assert len(spans) == 1 or not plan["exact"]
+        for lo, hi in spans:
+            assert (hi - lo) % 16 == 0 and 0 < hi - lo <= 8 * plan["nt"]
+            visited[q0:q1, lo:hi] = True
+            for k in range(lo, hi, 16):
+                assert mask[q0:q1, k:k + 16].any(), (q0, k)
+    assert not (mask & ~visited).any()
+    # text rows take the exact softmax, longer ones the online one; a block
+    # stages the whole key range of its queries while that is at most 352 rows
+    assert plan["exact"] == (S <= 80)
+    block_q = 16 * plan["warps"]
+    span = max(int(keys[-1] - keys[0]) + 1 for keys in (
+        mask[q0:q0 + block_q].any(0).nonzero().flatten()
+        for q0 in range(0, L, block_q)))
+    assert plan["stages"] == (1 if span <= tpa.MAX_WHOLE_CHUNK else 2)
+    assert plan["chunk"] == ((span + 15) // 16 * 16 if plan["stages"] == 1
+                             else 64)
+
+
+@pytest.mark.parametrize("S,G,causal", [(13, 3, True), (77, 1, True),
+                                        (257, 1, False), (200, 3, False)])
+def test_kernel_schedule_unpacks_what_the_library_writes(S, G, causal,
+                                                         monkeypatch):
+    """`kernel_schedule` asks the built library for the schedule; here a
+    stand-in writes the mirror's answer the way the C entry does (six plan
+    fields, then (tile, lo, hi) triples), and the wrapper must hand back
+    `tile_schedule`'s form.  The real entry is held to the mirror on the
+    card by `chip_smoke.py`."""
+    L = S * G
+    plan, tiles = tpa.tile_schedule(L, S, causal)
+
+    class Library:
+        @staticmethod
+        def leaf_attention_schedule(L_, group_len, c, allow_exact, plan_out,
+                                    passes, cap):
+            assert (L_, group_len, c, allow_exact) == (L, S, int(causal), 1)
+            fields = ("warps", "blocks", "chunk", "stages", "nt", "exact")
+            plan_out[:] = [int(plan[f]) for f in fields]
+            flat = [x for t, (_, _, spans) in enumerate(tiles)
+                    for lo, hi in spans for x in (t, lo, hi)]
+            assert len(flat) // 3 <= cap
+            passes[:len(flat)] = flat
+            return len(flat) // 3
+
+    monkeypatch.setattr(build, "library", Library)
+    assert tpa.kernel_schedule(L, S, causal) == (plan, tiles)
+    monkeypatch.setattr(Library, "leaf_attention_schedule",
+                        staticmethod(lambda *a: -1))
+    with pytest.raises(RuntimeError, match="leaf_attention_schedule"):
+        tpa.kernel_schedule(L, S, causal)
+
+
 def _block_params(rng, D):
     p = {"ln_1": {"scale": 1 + 0.1 * rng.standard_normal(D),
                   "bias": 0.1 * rng.standard_normal(D)},
@@ -122,6 +198,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         tpa.packed_attention(qkv, 3, 16)
     with pytest.raises(ValueError, match="3-D"):
         tpa.packed_attention(qkv[0], 2, 16)
+    # bf16 rows are copied in 16-byte pieces: heads of 4 or 12 are refused,
+    # in float32 they pass
+    for n_heads, width in ((8, 32), (2, 24)):
+        narrow = torch.zeros(2, 16, 3 * width)
+        with pytest.raises(ValueError, match="head width"):
+            tpa.packed_attention(narrow.bfloat16(), n_heads, 16)
+        assert tpa.packed_attention(narrow, n_heads, 16).shape == (2, 16, width)
+    with pytest.raises(ValueError, match="head width"):
+        tpa.fused_attention_block({}, torch.zeros(2, 16, 32).bfloat16(), 8, 16)
     x = torch.zeros(2, 16, 32)
     p = _torch_tree(_block_params(rng, 32))
     with pytest.raises(TypeError, match="attn.qkv_w"):
