@@ -13,10 +13,19 @@ Phases, each printing its own lines:
       call that computes the same function where there is one
       (`scaled_dot_product_attention`; used nowhere in the package), and
       the least time the card could take for the same bytes and
-      operations; then, untimed, both bf16 kernels over a sweep of ragged
+      operations (these times include each wrapper's host time; the fused
+      block and its parts are also timed on the device alone, 20 calls
+      replayed from one CUDA graph); then, untimed, both bf16 kernels over a sweep of ragged
       shapes (groups of 13 to 257 tokens, heads of 8 to 128, sequences of
       1 to 257) and the gradients of one shape of each (kernel forward,
-      recompute backward) against the plain version's;
+      recompute backward) against the plain version's; and the fused
+      block's parts alone, bf16: the GEMM + bias kernel at the block's qkv
+      and out-projection shapes (text buckets 16 and 77, vision, training;
+      the out-projections also with their residual) and at three ragged
+      shapes in every tile width, with `torch.addmm` as its library call
+      and its operations bound; the LayerNorm op at the five bf16 shapes
+      and one fp32, with `F.layer_norm` and its bytes bound, and its
+      gradients;
   (d) `leaf_tpu_torch.serve.main` on ViT-L-14-quickgelu (seed 0, bf16):
       4096 short captions (bucket 16, 8 per 128-token row), then 2048 long
       ones (bucket 77, one per row), batch 256, so that serve's timed
@@ -26,7 +35,9 @@ Phases, each printing its own lines:
       card's bf16 features (cosine >= 0.99 per row) and the card's fp32
       features with TF32 off (max abs <= 1e-3);
   (g) both packed kernels' launch counters, zeroed just before (d), grew
-      during (d) and (e) by at least layers x batches;
+      during (d) and (e) by at least layers x batches, and the LayerNorm
+      op's by (layers + 1) x text batches + (layers + 2) x image batches
+      (`ln_2` of every block, `ln_final`; `ln_pre`, `ln_post`);
   (h) `flash_attention`, the opt-in op no tower calls, driven directly:
       `mha_with_flash` on a ViT-L vision batch, once per vision layer,
       its counter zeroed just before, and held against the plain version
@@ -73,6 +84,20 @@ SHAPES = [
     ("text_s16_fp32", 32, 128, 16, True, 768, 12, "float32"),
     ("text_s77_fp32", 256, 77, 77, True, 768, 12, "float32"),
 ]
+# (name, M, K, N) of the fused block's two GEMMs on the main path; the
+# out-projections run again with their residual
+GEMM_SHAPES = [("s16 qkv", 32 * 128, 768, 2304), ("s16 out", 32 * 128, 768, 768),
+               ("s77 qkv", 256 * 77, 768, 2304), ("s77 out", 256 * 77, 768, 768),
+               ("vision qkv", 128 * 257, 1024, 3072),
+               ("vision out", 128 * 257, 1024, 1024),
+               ("train qkv", 800 * 128, 768, 2304),
+               ("train out", 800 * 128, 768, 768)]
+# M = 3 rows of 77 tokens; N and K multiples of 8 and of no tile (64 k, 128
+# to 256 columns), one of them narrower than a single TMA box
+RAGGED_GEMM_SHAPES = [("ragged 231x72x200", 231, 72, 200),
+                      ("ragged 231x776x1096", 231, 776, 1096),
+                      ("ragged 231x8x40", 231, 8, 40)]
+GEMM_TILES = (256, 192, 128)
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
 REL_TOLERANCE = {"float32": 0.0, "bfloat16": 2.0 ** -6}
 # flash_attention on [B, H, S, d]: (name, B, H, S, d, causal): the ViT-L
@@ -151,6 +176,21 @@ def _time_ms(fn, n: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
+def _graph_ms(fn, n: int = 20, replays: int = 5) -> float:
+    """Device time of one call: `n` calls captured in one CUDA graph and
+    replayed, so that the wrapper's host time, which exceeds a small
+    kernel's, is not in it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    return _time_ms(graph.replay, replays) / n
+
+
 def _close(out, ref, what: str, dtype_name: str = "bfloat16") -> float:
     """Hold a result to the plain version's, within the dtype's tolerance;
     returns the largest difference."""
@@ -177,9 +217,10 @@ def _close(out, ref, what: str, dtype_name: str = "bfloat16") -> float:
 
 def _compare(kernel, plain, dtype_name: str, library=None):
     """max |kernel - plain| and (kernel ms, plain ms, library ms), timed
-    in turns plain, kernel, library, kernel, plain after a warm-up.
-    `library` is one PyTorch call that computes the same function; it is
-    timed here and used nowhere in the package."""
+    in turns plain, kernel, library, kernel, plain after a warm-up, each
+    call through its Python wrapper.  `library` is one PyTorch call that
+    computes the same function; it is timed here and used nowhere in the
+    package."""
     out_p = plain()
     err = _close(kernel(), out_p, "kernel", dtype_name)
     lib_ms = None
@@ -242,8 +283,10 @@ def _visible_share(L: int, group_len: int, causal: bool,
 def _row(name, shape, dt, err, ms, pms, lib_ms, n_bytes, flops,
          visible_share=None, **extra):
     bound_ms, bound_by = _bound(n_bytes, flops, dt)
-    say(f"(c) {name} {shape} {dt}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, "
-        f"plain {pms:.4f} ms, library "
+    device = ("" if "device_ms" not in extra else
+              f" ({extra['device_ms']:.4f} on the device, from a CUDA graph)")
+    say(f"(c) {name} {shape} {dt}: max_abs_err {err:.3g}, kernel {ms:.4f} ms"
+        f"{device}, plain {pms:.4f} ms, library "
         f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
         f"{bound_ms:.4f} ms by {bound_by}"
         + ("" if visible_share is None else
@@ -311,7 +354,8 @@ def phase_kernels():
                 "fused_attention_block", name, dt, err, ms, pms, lib,
                 (2.0 * R * L * D + 4 * D * D + 4 * D) * esize + 2 * D * 4,
                 2.0 * R * L * D * 4 * D + attn_flops, R=R, L=L, group_len=S,
-                causal=causal, D=D, heads=H))
+                causal=causal, D=D, heads=H, device_ms=_graph_ms(
+                    lambda: pa.fused_attention_block(p, x, H, S, causal))))
 
         for name, B, H, S, d, causal in FLASH_SHAPES:
             for dt in ("bfloat16", "float32"):
@@ -346,8 +390,69 @@ def phase_kernels():
                 f"mha_with_flash: shape {tuple(out.shape)}, max abs err {err}")
         say(f"(c) mha_with_flash vision bfloat16 against the packed plain "
             f"version: max_abs_err {err:.3g}")
+        parts = phase_parts()
     phase_sweep()
-    return rows
+    return rows, parts
+
+
+def phase_parts():
+    """The fused block's GEMM and LayerNorm kernels alone (called inside
+    `inference_mode`); the LayerNorm op's gradients are in the sweep."""
+    import torch
+    from torch.nn import functional as F
+    from leaf_tpu_torch.ops import packed_attention as pa
+    parts = {"gemm_bias": [], "layer_norm": []}
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def normal(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, device="cuda", generator=g) * scale).to(dtype)
+
+    say("(c) torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32} (the plain GEMM is fp32)")
+    for name, M, K, N in GEMM_SHAPES + RAGGED_GEMM_SHAPES:
+        a, w, b = normal(M, K), normal(K, N, scale=K ** -0.5), normal(N)
+        ragged = (name, M, K, N) in RAGGED_GEMM_SHAPES
+        residuals = [None]
+        if ragged or name.endswith("out"):
+            residuals.append(normal(M, N))
+        for res in residuals:
+            if ragged:   # every tile width, untimed
+                want = pa._gemm_bias_reference(a, w, b, res)
+                for tile_n in GEMM_TILES:
+                    _close(pa._launch_gemm_bias(a, w, b, res, tile_n), want,
+                           f"gemm_bias {name} tile {tile_n}")
+            err, ms, pms, lib = _compare(
+                lambda: pa._launch_gemm_bias(a, w, b, res),
+                lambda: pa._gemm_bias_reference(a, w, b, res), "bfloat16",
+                None if res is not None else lambda: torch.addmm(b, a, w))
+            n_bytes = 2.0 * (M * K + K * N + N + M * N * (1 if res is None else 2))
+            parts["gemm_bias"].append(_row(
+                "gemm_bias", name + ("" if res is None else " + residual"),
+                "bfloat16", err, ms, pms, lib, n_bytes, 2.0 * M * N * K,
+                M=M, K=K, N=N, residual=res is not None,
+                tflops=2.0 * M * N * K / ms / 1e9, device_ms=_graph_ms(
+                    lambda: pa._launch_gemm_bias(a, w, b, res))))
+    say(f"(c) gemm_bias: the ragged shapes also agree in every tile width "
+        f"{GEMM_TILES}")
+
+    for name, R, L, _, _, D, _, dt in SHAPES[:5] + SHAPES[6:]:
+        dtype = getattr(torch, dt)
+        M = R * L
+        x = normal(M, D, scale=2.0, dtype=dtype) + 0.5
+        # fp32 parameters that bf16 holds exactly, so that the library
+        # call, which wants them in x's dtype, computes the same function
+        scale = (1 + normal(D, scale=0.1)).float()
+        bias = normal(D, scale=0.1).float()
+        scale_t, bias_t = scale.to(dtype), bias.to(dtype)
+        err, ms, pms, lib = _compare(
+            lambda: pa.layer_norm(x, scale, bias, 1e-5),
+            lambda: pa._layer_norm_reference(x, scale, bias, 1e-5), dt,
+            lambda: F.layer_norm(x, (D,), scale_t, bias_t, 1e-5))
+        parts["layer_norm"].append(_row(
+            "layer_norm", name, dt, err, ms, pms, lib,
+            2.0 * M * D * x.element_size() + 8 * D, 8.0 * M * D, M=M, D=D,
+            device_ms=_graph_ms(lambda: pa.layer_norm(x, scale, bias, 1e-5))))
+    return parts
 
 
 # (group_len, groups per row, causal): groups that straddle the 16-query
@@ -423,18 +528,28 @@ def phase_sweep():
 
     qkv = normal(rng, 4, 96, 3 * 12 * 64)
     q, k, v = (normal(rng, 2, 4, 130, 64) for _ in range(3))
+    x = normal(rng, 4, 77, 768)
+    ln_scale, ln_bias = (normal(rng, 768).float() * 0.1 + i for i in (1, 0))
     for name, kernel, plain, leaves in (
+            ("layer_norm (4, 77, 768)",
+             lambda *t: pa.layer_norm(*t, 1e-5),
+             lambda *t: pa._layer_norm_reference(*t, 1e-5),
+             (x, ln_scale, ln_bias)),
             ("packed_attention (4, 96, 2304) S=48 causal",
              lambda t: pa.packed_attention(t, 12, 48, True),
              lambda t: pa._reference(t, 12, 48, True), (qkv,)),
             ("flash_attention (2, 4, 130, 64) causal",
              lambda *t: fa.flash_attention(*t, causal=True),
              lambda *t: fa._reference(*t, 64 ** -0.5, True), (q, k, v))):
-        before = pa.packed_attention.launches + fa.flash_attention.launches
+        def launches():
+            return (pa.packed_attention.launches + fa.flash_attention.launches
+                    + pa.layer_norm.launches)
+
+        before = launches()
         got, want = grads(kernel, *leaves), grads(plain, *leaves)
         torch.cuda.synchronize()
-        require(pa.packed_attention.launches + fa.flash_attention.launches
-                == before + 1, f"{name}: the forward did not launch the kernel")
+        require(launches() == before + 1,
+                f"{name}: the forward did not launch the kernel")
         scale = max(w.abs().max().item() for w in want)
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
         require(all(bool(torch.isfinite(g).all()) for g in got)
@@ -749,6 +864,7 @@ def phase_train(workdir: str):
     log.addHandler(handler)
     pa.packed_attention.launches = 0
     pa.fused_attention_block.launches = 0
+    pa.layer_norm.launches = 0
     try:
         out = driver.main(TRAIN_FLAGS + ["--logs", workdir, "--name", "leaf"])
         torch.cuda.synchronize()
@@ -771,6 +887,14 @@ def phase_train(workdir: str):
         for name, count in launches.items():
             require(count == n_steps * per_step,
                     f"{name}: {count} launches, {n_steps * per_step} expected")
+        # the LayerNorm op: ln_2 of every layer and ln_final, in each of
+        # those encodes
+        ln_per_step = (cfg.text.layers + 1) * (1 + 2 * k + 1)
+        launches["layer_norm"] = pa.layer_norm.launches
+        say(f"(j) layer_norm launches: {launches['layer_norm']}; {n_steps} x "
+            f"{ln_per_step} = {n_steps * ln_per_step} expected")
+        require(launches["layer_norm"] == n_steps * ln_per_step,
+                f"layer_norm: {launches['layer_norm']} launches")
 
         with open(os.path.join(out["out_dir"], "results.csv"), newline="") as f:
             rows = list(csv.DictReader(f))
@@ -813,6 +937,7 @@ def phase_train(workdir: str):
         handler.steps.clear()
         pa.packed_attention.launches = 0
         pa.fused_attention_block.launches = 0
+        pa.layer_norm.launches = 0
         seconds = {"host": 0.0, "device": 0.0}
         loader = _CaptionBatches(batches, seconds)
         data = {"train": DataInfo(loader, num_batches=len(batches),
@@ -831,11 +956,13 @@ def phase_train(workdir: str):
                 f"= host {host:.3f} s + device {dev:.3f} s, loss {a[8]:.4f}")
         second = _report_steps("loop, captions of 3-58 words (buckets 16-64)",
                                handler.steps, seconds, batch, rho, k)
-        more = {"packed_attention": pa.packed_attention.launches,
-                "fused_attention_block": pa.fused_attention_block.launches}
-        for name, count in more.items():
-            require(count == len(batches) * per_step,
-                    f"{name}: {count} launches, {len(batches) * per_step} "
+        more = {"packed_attention": (pa.packed_attention.launches, per_step),
+                "fused_attention_block": (pa.fused_attention_block.launches,
+                                          per_step),
+                "layer_norm": (pa.layer_norm.launches, ln_per_step)}
+        for name, (count, each) in more.items():
+            require(count == len(batches) * each,
+                    f"{name}: {count} launches, {len(batches) * each} "
                     "expected")
             launches[name] += count
     finally:
@@ -855,7 +982,7 @@ def main() -> int:
 
     phase_card()
     phase_build()
-    rows = phase_kernels()
+    rows, parts = phase_kernels()
 
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -863,6 +990,7 @@ def main() -> int:
             (256, 224, 224, 3)).astype(np.float32)
         pa.packed_attention.launches = 0
         pa.fused_attention_block.launches = 0
+        pa.layer_norm.launches = 0
         rates, text_batches, sets = phase_serve(workdir)
         card_bf16 = create_model(MODEL, precision="bf16", seed=0,
                                  device="cuda")
@@ -877,6 +1005,14 @@ def main() -> int:
             f"{cfg.vision.layers} x {img_batches} image batches)")
         for name, n in serve_launches.items():
             require(n >= need, f"{name}: {n} launches < {need}")
+        ln_serve = pa.layer_norm.launches
+        ln_need = ((cfg.text.layers + 1) * text_batches
+                   + (cfg.vision.layers + 2) * img_batches)
+        say(f"(g) layer_norm launches during (d)+(e): {ln_serve}; at least "
+            f"{ln_need} expected (({cfg.text.layers} + 1) x {text_batches} "
+            f"text batches + ({cfg.vision.layers} + 2) x {img_batches} image "
+            f"batches)")
+        require(ln_serve >= ln_need, f"layer_norm: {ln_serve} launches < {ln_need}")
         phase_parity(card_bf16, sets, images)
         del card_bf16, images
         torch.cuda.empty_cache()
@@ -923,6 +1059,18 @@ def main() -> int:
             "library_ms": main_shape["library_ms"],
             "shape": main_shape["shape"], "dtype": main_shape["dtype"],
             "by_shape": by_shape})
+    # the fused block's parts alone: rows by shape with ms, library_ms,
+    # bound_ms, bound_by and max_abs_err, and the LayerNorm op's launches
+    # outside the block
+    ln_launches = {"serve": ln_serve, "train": train_launches["layer_norm"]}
+    for path, count in ln_launches.items():
+        require(count > 0, f"layer_norm: no launch on the {path} path")
+    report[1]["parts"] = {
+        "gemm_bias": {"by_shape": parts["gemm_bias"]},
+        "layer_norm": {"launches": sum(ln_launches.values()),
+                       "launches_by_path": ln_launches,
+                       "by_shape": parts["layer_norm"]}}
+    require(report[1]["name"] == "fused_attention_block", "report order")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

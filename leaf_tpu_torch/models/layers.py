@@ -20,8 +20,13 @@ Dispatch of the packed attention sub-block is by device only: with
 `packed` set, `ResidualBlock` always calls `ops.fused_attention_block`
 and `attention` always calls `ops.packed_attention`, which launch their
 CUDA kernels for CUDA tensors and run their plain versions for CPU
-tensors.  The MLP's two GEMMs stay `torch.matmul`, as the JAX package
-leaves them to XLA.
+tensors.  `LayerNorm` is the `ops.packed_attention.layer_norm` op, with
+the same dispatch: on a card `ln_2` of every block and the towers'
+`ln_final`, `ln_pre` and `ln_post` run the fused block's LayerNorm
+kernel (one read and one write of the activation, which is all that
+bounds it), never the plain elementwise version.  The MLP's two GEMMs
+with their bias adds and the activation stay `torch.matmul` and plain
+PyTorch, as the JAX package leaves them to XLA.
 """
 from __future__ import annotations
 

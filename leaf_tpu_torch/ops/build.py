@@ -9,6 +9,12 @@ compiler writes to unique temporary names and the library is renamed
 into place, so a concurrent process never loads a partial file.  Nothing
 is built at import.
 
+The library links the CUDA runtime only (nvcc's default), not libcuda:
+the one CUDA driver-API call the kernels need, `cuTensorMapEncodeTiled`
+for the GEMM's TMA maps, is looked up at run time with
+`cudaGetDriverEntryPoint` (`csrc/fused_block.cu`), so the link line has no
+`-lcuda`.
+
 There is no fallback: a missing nvcc or a failed build raises, with the
 compiler's output in the message.
 """
@@ -113,6 +119,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.leaf_layer_norm.restype = i
     lib.leaf_gemm_bias.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.leaf_gemm_bias.restype = i
+    # the same with the bf16 tile width (256, 192, 128; 0: picked) before
+    # the device index
+    lib.leaf_gemm_bias_tile.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.leaf_gemm_bias_tile.restype = i
+    # x, LN scale and bias, qkv_w, qkv_b, out_w, out_b, then the scratch h,
+    # qkv, attn and the output; dtype, R, L, D, heads, group_len, causal,
+    # LN eps, attention scale
+    lib.leaf_fused_block.argtypes = [p] * 11 + [i] * 7 + [f, f, i, p]
+    lib.leaf_fused_block.restype = i
     lib.leaf_flash_attention.argtypes = [
         p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i, i, f, i, p]
     lib.leaf_flash_attention.restype = i

@@ -1,7 +1,7 @@
-"""Packed attention and the fused attention block (port of
+"""Packed attention, LayerNorm and the fused attention block (port of
 `leaf_tpu/ops/packed_attention.py`).
 
-Two ops, each a hand-written CUDA kernel (`csrc/`) beside its plain
+Three ops, each a hand-written CUDA kernel (`csrc/`) beside its plain
 PyTorch version:
 
   * `packed_attention(qkv, n_heads, group_len, causal)`: block-diagonal
@@ -11,10 +11,20 @@ PyTorch version:
     boundary.  Kernel: `csrc/packed_attention.cu`; plain version:
     `_reference`.
   * `fused_attention_block(p, x, n_heads, group_len, causal, ln_eps)`:
-    `x + out_proj(packed_attention(qkv_proj(ln_1(x))))`.  Kernels: the
-    LayerNorm and GEMM kernels of `csrc/fused_block.cu` around the
-    packed-attention kernel, launched in order on the current stream;
-    plain version: `_block_reference`.
+    `x + out_proj(packed_attention(qkv_proj(ln_1(x))))`, the Hopper
+    counterpart of the Pallas `_block_kernel`.  One C call
+    (`leaf_fused_block` of `csrc/fused_block.cu`) launches LayerNorm, the
+    qkv GEMM, the packed-attention kernel and the out-projection GEMM in
+    order on the current stream; the wrapper allocates the output and one
+    scratch buffer for the three intermediates.  The bf16 GEMMs are bound
+    by the tensor cores and run on `wgmma` fed by TMA (persistent
+    128 x {256, 192, 128} tiles picked from the shape); fp32 keeps scalar
+    FMAs.  Plain version: `_block_reference`.
+  * `layer_norm(x, scale, bias, eps)`: fp32-statistics LayerNorm over the
+    last dimension, the block's first stage on its own (`leaf_layer_norm`),
+    for every other LayerNorm of the towers (`layers.LayerNorm`).  Bound
+    by memory: a warp reads its row once in 16-byte pieces, keeps it in
+    registers and writes it once.  Plain version: `_layer_norm_reference`.
 
 The packed-attention kernel has two bodies: bf16 runs on the tensor cores
 (`csrc/attention_mma.cuh`, shared with flash attention; `tile_schedule`
@@ -25,9 +35,10 @@ the tensor cores would round it to TF32.
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel or raises.  There
 is no size gate and no fallback.  Each op counts its kernel launches in
-an integer attribute, `packed_attention.launches` and
-`fused_attention_block.launches`; the fused block's attention stage goes
-through the packed-attention launcher, so it counts there too.
+an integer attribute (`packed_attention.launches`,
+`fused_attention_block.launches`, `layer_norm.launches`); the fused
+block runs the packed-attention kernel, so it counts there too, and its
+own LayerNorm stage counts under the block, not under `layer_norm`.
 
 Each CUDA path is a `torch.autograd.Function` whose backward recomputes
 through the plain version, like the JAX `custom_vjp`s.  Serving never
@@ -35,7 +46,7 @@ differentiates; the backward is there for the training slices.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 
@@ -159,16 +170,25 @@ def _reference(qkv: torch.Tensor, n_heads: int, group_len: int,
     return o.to(qkv.dtype).reshape(R, L, D)
 
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
+def _layer_norm_reference(x: torch.Tensor, scale: torch.Tensor,
+                          bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm with fp32 statistics and parameters, cast back to x's
-    dtype (the numerics of the LayerNorm kernel; `layers.LayerNorm` uses
-    it too)."""
+    dtype (the numerics of the LayerNorm kernel)."""
     x32 = x.float()
     mu = x32.mean(dim=-1, keepdim=True)
     var = (x32 - mu).square().mean(dim=-1, keepdim=True)
     y = (x32 - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
     return y.to(x.dtype)
+
+
+def _gemm_bias_reference(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                         residual: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """`(residual +) a @ w + bias` at the GEMM kernel's rounding points:
+    the product and the bias summed in fp32 and rounded once, the residual
+    added as a sum of two values of the dtype."""
+    y = (a.float() @ w.float() + bias.float()).to(a.dtype)
+    return y if residual is None else residual + y
 
 
 def _block_reference(p: Mapping, x: torch.Tensor, n_heads: int,
@@ -183,7 +203,8 @@ def _block_reference(p: Mapping, x: torch.Tensor, n_heads: int,
         return torch.addmm(b.to(x.dtype), t.reshape(R * L, -1),
                            w.to(x.dtype)).reshape(R, L, -1)
 
-    h = layer_norm(x, p["ln_1"]["scale"], p["ln_1"]["bias"], ln_eps)
+    h = _layer_norm_reference(x, p["ln_1"]["scale"], p["ln_1"]["bias"],
+                              ln_eps)
     qkv = linear(h, a["qkv_w"], a["qkv_b"])
     o = _reference(qkv, n_heads, group_len, causal)
     return x + linear(o, a["out_w"], a["out_b"])
@@ -248,29 +269,61 @@ def _launch_packed_attention(qkv: torch.Tensor, n_heads: int, group_len: int,
     return out
 
 
+def _launch_gemm_bias(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                      residual: Optional[torch.Tensor] = None,
+                      tile_n: int = 0) -> torch.Tensor:
+    """The block's GEMM kernel alone, `(residual +) a @ w + bias` on CUDA
+    tensors `[M, K]`, `[K, N]`, `[N]` (`[M, N]`) of one dtype; `tile_n`
+    forces the bf16 tile width (256, 192 or 128; 0: picked from the
+    shape).  For `chip_smoke.py` and the profiler: the towers reach the
+    kernel through `fused_attention_block` only."""
+    (M, K), N = a.shape, w.shape[1]
+    _check_tensor("a", a, a.dtype, (M, K), a.device)
+    _check_tensor("w", w, a.dtype, (K, N), a.device)
+    _check_tensor("bias", bias, a.dtype, (N,), a.device)
+    if residual is not None:
+        _check_tensor("residual", residual, a.dtype, (M, N), a.device)
+    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    build.check(build.library().leaf_gemm_bias_tile(
+        a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+        None if residual is None else residual.data_ptr(), out.data_ptr(),
+        _DTYPE_CODES[a.dtype], M, N, K, tile_n, a.device.index, _stream(a)),
+        "GEMM + bias kernel")
+    return out
+
+
 def _launch_fused_block(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b,
                         n_heads: int, group_len: int, causal: bool,
                         ln_eps: float) -> torch.Tensor:
-    lib = build.library()
+    """One C call for the block's four kernels; `h`, `qkv` and `attn` are
+    views of one scratch allocation."""
     R, L, D = x.shape
-    M, code = R * L, _DTYPE_CODES[x.dtype]
-    dev, stream = x.device.index, _stream(x)
-    h = torch.empty_like(x)
-    build.check(lib.leaf_layer_norm(
-        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), h.data_ptr(),
-        code, M, D, ln_eps, dev, stream), "fused block: LayerNorm kernel")
-    qkv = torch.empty((R, L, 3 * D), dtype=x.dtype, device=x.device)
-    build.check(lib.leaf_gemm_bias(
-        h.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(), None,
-        qkv.data_ptr(), code, M, 3 * D, D, dev, stream),
-        "fused block: qkv GEMM kernel")
-    attn = _launch_packed_attention(qkv, n_heads, group_len, causal)
+    n = R * L * D
+    scratch = torch.empty(5 * n, dtype=x.dtype, device=x.device)
+    h, qkv, attn = scratch[:n], scratch[n:4 * n], scratch[4 * n:]
     out = torch.empty_like(x)
-    build.check(lib.leaf_gemm_bias(
-        attn.data_ptr(), out_w.data_ptr(), out_b.data_ptr(), x.data_ptr(),
-        out.data_ptr(), code, M, D, D, dev, stream),
-        "fused block: out-projection GEMM kernel")
+    build.check(build.library().leaf_fused_block(
+        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+        qkv_w.data_ptr(), qkv_b.data_ptr(), out_w.data_ptr(),
+        out_b.data_ptr(), h.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
+        out.data_ptr(), _DTYPE_CODES[x.dtype], R, L, D, n_heads, group_len,
+        int(causal), ln_eps, (D // n_heads) ** -0.5, x.device.index,
+        _stream(x)), "fused attention block kernels")
     fused_attention_block.launches += 1
+    packed_attention.launches += 1
+    return out
+
+
+def _launch_layer_norm(x: torch.Tensor, scale: torch.Tensor,
+                       bias: torch.Tensor, eps: float) -> torch.Tensor:
+    out = torch.empty_like(x)
+    D = x.shape[-1]
+    if x.numel():
+        build.check(build.library().leaf_layer_norm(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[x.dtype], x.numel() // D, D, eps, x.device.index,
+            _stream(x)), "LayerNorm kernel")
+        layer_norm.launches += 1
     return out
 
 
@@ -320,6 +373,29 @@ class _FusedAttentionBlock(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.eps = eps
+        return _launch_layer_norm(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            ts = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = _layer_norm_reference(*ts, ctx.eps)
+        return (*torch.autograd.grad(out, ts, g), None)
+
+
+def _needs_grad(*tensors) -> bool:
+    """Whether autograd would record an op on these inputs.  Where it would
+    not (serving, the attack's scoring encodes), the ops launch their
+    kernels directly: `Function.apply` costs more host time than a small
+    kernel takes."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 # ---------------------------------------------------------------------------
 # Public ops
 # ---------------------------------------------------------------------------
@@ -332,6 +408,8 @@ def packed_attention(qkv: torch.Tensor, n_heads: int, group_len: int,
     _check_activation("qkv", qkv, 3, n_heads, group_len)
     if qkv.device.type == "cpu":
         return _reference(qkv, n_heads, group_len, causal)
+    if not _needs_grad(qkv):
+        return _launch_packed_attention(qkv, n_heads, group_len, causal)
     return _PackedAttention.apply(qkv, n_heads, group_len, causal)
 
 
@@ -358,8 +436,35 @@ def fused_attention_block(p: Mapping, x: torch.Tensor, n_heads: int,
         _check_tensor(f"{group}.{key}", t, dtype, shape, x.device)
     if x.device.type == "cpu":
         return _block_reference(p, x, n_heads, group_len, causal, ln_eps)
+    if not _needs_grad(x, *ts):
+        return _launch_fused_block(x, *ts, n_heads, group_len, causal, ln_eps)
     return _FusedAttentionBlock.apply(x, *ts, n_heads, group_len, causal,
                                       ln_eps)
 
 
 fused_attention_block.launches = 0
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dimension with fp32 statistics, cast back
+    to x's dtype.  x: any leading shape, last dimension D, contiguous,
+    float32 or bfloat16; `scale` and `bias`: float32 `[D]`."""
+    if not isinstance(x, torch.Tensor) or x.dim() < 1:
+        raise ValueError("x: expected a tensor [..., D]")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"x: dtype {x.dtype}; the kernel takes float32 or "
+                        "bfloat16")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"x: unsupported device {x.device}")
+    _check_tensor("x", x, x.dtype, x.shape, x.device)
+    for name, t in (("scale", scale), ("bias", bias)):
+        _check_tensor(name, t, torch.float32, x.shape[-1:], x.device)
+    if x.device.type == "cpu":
+        return _layer_norm_reference(x, scale, bias, eps)
+    if not _needs_grad(x, scale, bias):
+        return _launch_layer_norm(x, scale, bias, eps)
+    return _LayerNorm.apply(x, scale, bias, eps)
+
+
+layer_norm.launches = 0

@@ -15,10 +15,11 @@ Two parts, each printing its lines and then one JSON object:
     family.  The idle share is given against both windows, the
     unprofiled one (what serve sees) and the profiled one (which the
     profiler's own host overhead stretches).
-  * gemm: the fused block's GEMM + bias kernel (`leaf_gemm_bias`) against
-    `torch.addmm` (cuBLAS, TF32 off) at the block's qkv and
-    out-projection shapes, timed with CUDA events in turns (cuBLAS,
-    kernel, kernel, cuBLAS).
+  * gemm: the fused block's GEMM + bias kernel (`leaf_gemm_bias`: bf16 on
+    `wgmma` fed by TMA, fp32 on scalar FMAs) against `torch.addmm` (cuBLAS,
+    TF32 off) at the block's qkv and out-projection shapes of the serving
+    batches and of a training step's scoring encode, timed with CUDA
+    events in turns (cuBLAS, kernel, kernel, cuBLAS).
 
 Token ids are synthetic (SOT, random ids, EOT): the tokenizer runs on
 the host before serve's timer and is not profiled here.
@@ -40,14 +41,18 @@ TEXT_BATCHES, IMAGE_BATCHES = 20, 5
 # kernel families, by a substring of the kernel's name; the first match wins
 FAMILIES = (("attention kernel", ("attention_kernel", "attention_fp32_kernel")),
             ("hand GEMMs", ("gemm_bias_",)),
-            ("LayerNorm kernel", ("layer_norm_kernel",)),
+            ("LayerNorm kernel", ("layer_norm_kernel", "layer_norm_rows_kernel")),
             ("cuBLAS", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
             ("copies", ("Memcpy", "Memset")))
-# (name, M tokens per batch, K, N) of the fused block's two GEMMs
+# (name, M tokens per batch, K, N) of the fused block's two GEMMs: a serving
+# batch at buckets 16 and 77 and of images, and one scoring encode of the
+# trainer (6,400 candidates at bucket 16)
 GEMM_SHAPES = [("s16 qkv", 32 * 128, 768, 2304), ("s16 out", 32 * 128, 768, 768),
                ("s77 qkv", 256 * 77, 768, 2304), ("s77 out", 256 * 77, 768, 768),
                ("vision qkv", 128 * 257, 1024, 3072),
-               ("vision out", 128 * 257, 1024, 1024)]
+               ("vision out", 128 * 257, 1024, 1024),
+               ("train qkv", 800 * 128, 768, 2304),
+               ("train out", 800 * 128, 768, 768)]
 
 
 def card() -> str:
@@ -180,6 +185,8 @@ def profile_gemm() -> list:
             out = torch.empty(M, N, device="cuda", dtype=dtype)
 
             def kernel():
+                # the C entry itself, into one output: at the small shapes
+                # a wrapper's checks and allocation would outlast the kernel
                 build.check(lib.leaf_gemm_bias(
                     a.data_ptr(), w.data_ptr(), b.data_ptr(), None,
                     out.data_ptr(), _DTYPE_CODES[dtype], M, N, K,

@@ -189,3 +189,32 @@ def test_create_model_is_seeded_and_casts_once():
                            "ln_pre.bias", "ln_post.bias")) or k == "logit_scale"
         assert t.dtype == (torch.float32 if fp32 else torch.bfloat16), k
         assert torch.equal(t, a[k].to(t.dtype)), k
+
+
+def test_every_layer_norm_goes_through_the_op(pair, monkeypatch):
+    """Each LayerNorm outside the fused block (`ln_2` of every layer,
+    `ln_final`; `ln_pre`, `ln_post`) calls the dispatching `layer_norm` op,
+    which launches the kernel on a card: layers + 1 calls per text encode,
+    layers + 2 per image encode, on contiguous activations with the fp32
+    parameters.  The block's own `ln_1` runs inside the fused block."""
+    from leaf_tpu_torch.models import layers as tlayers
+    jcfg, _, module = pair
+    seen = []
+    op = tlayers.layer_norm
+
+    def spy(x, scale, bias, eps=1e-5):
+        seen.append((x.is_contiguous(), scale.dtype, bias.dtype, eps))
+        return op(x, scale, bias, eps)
+
+    monkeypatch.setattr(tlayers, "layer_norm", spy)
+    rng = np.random.default_rng(11)
+    with torch.no_grad():
+        module.encode_text(torch.from_numpy(_tokens(rng, 16, 16)))
+        assert len(seen) == jcfg.text.layers + 1
+        del seen[:]
+        size = jcfg.vision.image_size
+        module.encode_image(torch.from_numpy(
+            rng.standard_normal((2, size, size, 3)).astype(np.float32)))
+        assert len(seen) == jcfg.vision.layers + 2
+    assert all(call == (True, torch.float32, torch.float32, jcfg.text.ln_eps)
+               for call in seen)

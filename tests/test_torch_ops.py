@@ -6,7 +6,10 @@ runs its Pallas kernels in interpret mode and its XLA references, as
 a seed and handed to both.  The CUDA kernels themselves are checked
 against these plain versions on the card by `chip_smoke.py`.
 """
+import glob
 import importlib
+import os
+import re
 
 import numpy as np
 import pytest
@@ -17,6 +20,9 @@ import jax.numpy as jnp
 
 from leaf_tpu_torch.ops import build
 from leaf_tpu_torch.ops import packed_attention as tpa
+
+from leaf_tpu.models import layers as jlayers
+from leaf_tpu_torch.models import layers as tlayers
 
 # `leaf_tpu.ops` re-exports the function under the module's name
 jpa = importlib.import_module("leaf_tpu.ops.packed_attention")
@@ -286,3 +292,243 @@ def test_build_failure_raises_with_compiler_output(monkeypatch, tmp_path):
     with pytest.raises(build.KernelBuildError, match="no sm_90a here"):
         build.library()
     assert not list((tmp_path / "build").iterdir())
+
+
+# ---------------------------------------------------------------------------
+# The LayerNorm op
+# ---------------------------------------------------------------------------
+
+def _ln_inputs(rng, shape):
+    D = shape[-1]
+    x = (rng.standard_normal(shape) * 2 + 0.5).astype(np.float32)
+    scale = (1 + 0.1 * rng.standard_normal(D)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(D)).astype(np.float32)
+    return x, scale, bias
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(5, 32), (2, 7, 48), (3, 4, 5, 24), (40,)])
+def test_layer_norm_matches_jax(shape, dtype):
+    """fp32 within 1e-6 of the value's size; bf16 within one rounding
+    step (2^-8 of the value): both sides round the same fp32 result."""
+    x, scale, bias = _ln_inputs(np.random.default_rng(7), shape)
+    want = np.asarray(jlayers.layer_norm(
+        {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)},
+        jnp.asarray(x, jnp.dtype(dtype)), 1e-5), np.float32)
+    got = tpa.layer_norm(torch.from_numpy(x).to(getattr(torch, dtype)),
+                         torch.from_numpy(scale), torch.from_numpy(bias), 1e-5)
+    assert got.dtype == getattr(torch, dtype) and got.shape == shape
+    tol = (dict(atol=1e-6, rtol=1e-6) if dtype == "float32"
+           else dict(atol=2.0 ** -9, rtol=2.0 ** -8))
+    np.testing.assert_allclose(got.float().numpy(), want, **tol)
+
+
+@pytest.mark.parametrize("shape", [(6, 32), (2, 5, 24)])
+def test_layer_norm_gradients_match_jax(shape, monkeypatch):
+    """The autograd wrapper (kernel launch stood in for by the plain
+    version) gives `jax.grad`'s gradients for x, scale and bias."""
+    monkeypatch.setattr(tpa, "_launch_layer_norm", tpa._layer_norm_reference)
+    x, scale, bias = _ln_inputs(np.random.default_rng(8), shape)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, scale, bias)]
+    tpa._LayerNorm.apply(*leaves, 1e-5).sin().sum().backward()
+    want = jax.grad(lambda x_, s_, b_: jnp.sum(jnp.sin(jlayers.layer_norm(
+        {"scale": s_, "bias": b_}, x_, 1e-5))), argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (x, scale, bias)))
+    for leaf, w in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
+                                   atol=1e-5, rtol=1e-4)
+
+
+def test_layer_norm_rejects_what_the_kernel_does_not_take():
+    x, scale, bias = (torch.from_numpy(a) for a in
+                      _ln_inputs(np.random.default_rng(9), (4, 6, 16)))
+    with pytest.raises(TypeError, match="dtype"):
+        tpa.layer_norm(x.half(), scale, bias)
+    with pytest.raises(TypeError, match="dtype"):
+        tpa.layer_norm(x.double(), scale, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpa.layer_norm(x.transpose(0, 1), scale, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpa.layer_norm(x[:, 0], scale, bias)
+    with pytest.raises(ValueError, match=r"\[\.\.\., D\]"):
+        tpa.layer_norm(torch.tensor(1.0), scale[:0], bias[:0])
+    with pytest.raises(TypeError, match="scale"):
+        tpa.layer_norm(x.bfloat16(), scale.bfloat16(), bias)
+    with pytest.raises(TypeError, match="bias"):
+        tpa.layer_norm(x, scale, bias.double())
+    with pytest.raises(ValueError, match="scale"):
+        tpa.layer_norm(x, scale[:8], bias)
+    with pytest.raises(ValueError, match="bias"):
+        tpa.layer_norm(x, scale, bias[None])
+    with pytest.raises(TypeError, match="scale"):
+        tpa.layer_norm(x, scale.numpy(), bias)
+    # an empty batch is no error, and bf16 takes fp32 parameters
+    assert tpa.layer_norm(x[:0], scale, bias).shape == (0, 6, 16)
+    assert tpa.layer_norm(x.bfloat16(), scale, bias).dtype == torch.bfloat16
+
+
+def test_layer_norm_cpu_tensors_take_the_plain_path(monkeypatch):
+    def no_library():
+        raise AssertionError("kernel library used for a CPU tensor")
+
+    monkeypatch.setattr(build, "library", no_library)
+    monkeypatch.setattr(tpa.layer_norm, "launches", 0)
+    x, scale, bias = (torch.from_numpy(a) for a in
+                      _ln_inputs(np.random.default_rng(10), (3, 8, 16)))
+    assert torch.equal(tpa.layer_norm(x, scale, bias, 1e-6),
+                       tpa._layer_norm_reference(x, scale, bias, 1e-6))
+    module = tlayers.LayerNorm(16, eps=1e-6)
+    with torch.no_grad():
+        module.scale.copy_(scale)
+        module.bias.copy_(bias)
+    assert torch.equal(module(x), tpa._layer_norm_reference(x, scale, bias, 1e-6))
+    assert tpa.layer_norm.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# What the launchers hand to the C entries, through a stand-in library
+# ---------------------------------------------------------------------------
+
+class _FakeLibrary:
+    """Stands in for the kernel library: keeps (entry, arguments) of every
+    call, in order."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("leaf_"):
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    fake = _FakeLibrary()
+    monkeypatch.setattr(build, "library", lambda: fake)
+    monkeypatch.setattr(tpa, "_stream", lambda t: 1234)
+    for op in (tpa.layer_norm, tpa.fused_attention_block, tpa.packed_attention):
+        monkeypatch.setattr(op, "launches", 0)
+    return fake
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_launch_passes_rows_and_width(dtype, fake_library):
+    """`LayerNorm.forward` on a card: the autograd wrapper hands the op's
+    tensors to `leaf_layer_norm` as they are, M = every leading dimension,
+    and counts one launch; an empty batch launches nothing."""
+    module = tlayers.LayerNorm(16, eps=1e-6)
+    x = torch.zeros(3, 5, 16, dtype=dtype)
+    out = tpa._LayerNorm.apply(x, module.scale, module.bias, module.eps)
+    assert out.shape == x.shape and out.dtype == dtype and out.is_contiguous()
+    (name, args), = fake_library.calls
+    assert name == "leaf_layer_norm"
+    assert args[:4] == (x.data_ptr(), module.scale.data_ptr(),
+                        module.bias.data_ptr(), out.data_ptr())
+    assert args[4:7] == (tpa._DTYPE_CODES[dtype], 15, 16)
+    assert args[7] == pytest.approx(1e-6) and args[8:] == (None, 1234)
+    assert tpa.layer_norm.launches == 1
+    assert out.requires_grad   # the parameters' gradients flow through it
+    tpa._launch_layer_norm(x[:0], module.scale, module.bias, 1e-6)
+    assert len(fake_library.calls) == 1 and tpa.layer_norm.launches == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_block_launch_is_one_call(dtype, fake_library):
+    """`fused_attention_block` on a card: one `leaf_fused_block` call with
+    x, the six parameters in `_BLOCK_KEYS` order, three scratch views of
+    one allocation (h [M, D], qkv [M, 3D], attn [M, D], back to back), the
+    output, then the sizes; both the block and the packed-attention kernel
+    it runs count a launch."""
+    R, L, D, H = 2, 12, 16, 2
+    x = torch.zeros(R, L, D, dtype=dtype)
+    p = _torch_tree(_block_params(np.random.default_rng(11), D), dtype)
+    ts = [p[g][k] for g, k in tpa._BLOCK_KEYS]
+    out = tpa._FusedAttentionBlock.apply(x, *ts, H, 6, True, 1e-5)
+    (name, args), = fake_library.calls
+    assert name == "leaf_fused_block"
+    assert args[:7] == (x.data_ptr(), *(t.data_ptr() for t in ts))
+    h, qkv, attn, o = args[7:11]
+    esize, M = x.element_size(), R * L
+    assert (qkv - h, attn - qkv) == (M * D * esize, 3 * M * D * esize)
+    assert o == out.data_ptr() and out.shape == x.shape and out.dtype == dtype
+    assert not (h <= o < attn + M * D * esize)   # the output is its own tensor
+    assert args[11:18] == (tpa._DTYPE_CODES[dtype], R, L, D, H, 6, 1)
+    assert args[18] == pytest.approx(1e-5)
+    assert args[19] == pytest.approx((D // H) ** -0.5)
+    assert args[20:] == (None, 1234)
+    assert tpa.fused_attention_block.launches == 1
+    assert tpa.packed_attention.launches == 1
+    assert tpa.layer_norm.launches == 0
+
+
+def test_gemm_bias_launch_passes_the_tile_and_the_residual(fake_library):
+    a, w = torch.zeros(10, 16).bfloat16(), torch.zeros(16, 24).bfloat16()
+    b, res = torch.zeros(24).bfloat16(), torch.zeros(10, 24).bfloat16()
+    out = tpa._launch_gemm_bias(a, w, b)
+    out_res = tpa._launch_gemm_bias(a, w, b, res, tile_n=192)
+    (n0, first), (n1, second) = fake_library.calls
+    assert n0 == n1 == "leaf_gemm_bias_tile"
+    assert first == (a.data_ptr(), w.data_ptr(), b.data_ptr(), None,
+                     out.data_ptr(), 1, 10, 24, 16, 0, None, 1234)
+    assert second[3:5] == (res.data_ptr(), out_res.data_ptr())
+    assert second[5:10] == (1, 10, 24, 16, 192)
+    assert out.shape == (10, 24) and out.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="w"):
+        tpa._launch_gemm_bias(a, w.t(), b)
+    with pytest.raises(TypeError, match="bias"):
+        tpa._launch_gemm_bias(a, w, b.float())
+    with pytest.raises(ValueError, match="residual"):
+        tpa._launch_gemm_bias(a, w, b, res[:5])
+
+
+@pytest.mark.parametrize("res", [False, True])
+def test_gemm_bias_reference_rounds_where_the_kernel_does(res):
+    """Product and bias summed in fp32 and rounded once; the residual added
+    as a sum of two bf16 values: what `_block_reference` does with
+    `torch.addmm` and `x + ...`."""
+    rng = np.random.default_rng(12)
+    a, w, b, r = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                  .bfloat16() for s in ((9, 16), (16, 8), (8,), (9, 8)))
+    got = tpa._gemm_bias_reference(a, w, b, r if res else None)
+    want = torch.addmm(b, a, w)
+    want = r + want if res else want
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               atol=0, rtol=2.0 ** -7)
+
+
+def test_declare_names_every_exported_entry():
+    """`build._declare` sets the argument types of every `extern "C"`
+    function that `csrc/*.cu` defines (an undeclared pointer argument would
+    be cut to 32 bits), and of nothing else."""
+    exported = set()
+    for src in glob.glob(os.path.join(build.CSRC_DIR, "*.cu")):
+        with open(src) as f:
+            exported |= set(re.findall(
+                r'^extern "C" [\w \*]+?\b(leaf_\w+)\(', f.read(), re.M))
+
+    class Entry:
+        argtypes = restype = None
+
+    class Library:
+        def __init__(self):
+            self.entries = {}
+
+        def __getattr__(self, name):
+            return self.entries.setdefault(name, Entry())
+
+    lib = Library()
+    build._declare(lib)
+    assert set(lib.entries) == exported
+    assert {"leaf_fused_block", "leaf_gemm_bias", "leaf_gemm_bias_tile",
+            "leaf_layer_norm", "leaf_packed_attention"} <= exported
+    for name, entry in lib.entries.items():
+        assert entry.argtypes and entry.restype is not None, name
+    assert len(lib.entries["leaf_fused_block"].argtypes) == 22
+    assert len(lib.entries["leaf_gemm_bias_tile"].argtypes) == \
+        len(lib.entries["leaf_gemm_bias"].argtypes) + 1
