@@ -4,11 +4,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each printing its own lines:
   (a) the card: `nvidia-smi` name and power limit, torch's device name;
-  (b) build the CUDA kernels from `leaf_tpu_torch/ops/csrc/`, timed;
+  (b) build the CUDA kernels from `leaf_tpu_torch/ops/csrc/`, timed, and
+      the native C++ tokenizer from `leaf_tpu_torch/tokenizer/native/` with
+      the host compiler;
   (c) each kernel against its plain PyTorch version on the card at the
-      shapes the serving and training paths give it (fp32: max abs <=
-      1e-4; bf16: max abs <= 2e-2, or two bf16 rounding steps, 2^-6 of
-      the value, where that is more), with CUDA-event times taken in turns
+      shapes the serving and training paths give it, the fused step's half
+      batches among them (fp32: max abs <= 1e-4; bf16: max abs <= 2e-2, or
+      two bf16 rounding steps, 2^-6 of the value, where that is more; for
+      the GEMM's rows with a residual, 2^-6 of the value's and the
+      residual's sizes together), with CUDA-event times taken in turns
       (plain, kernel, library, kernel, plain), the time of the one PyTorch
       call that computes the same function where there is one
       (`scaled_dot_product_attention`; used nowhere in the package), and
@@ -20,10 +24,11 @@ Phases, each printing its own lines:
       1 to 257) and the gradients of one shape of each (kernel forward,
       recompute backward) against the plain version's; and the fused
       block's parts alone, bf16: the GEMM + bias kernel at the block's qkv
-      and out-projection shapes (text buckets 16 and 77, vision, training;
-      the out-projections also with their residual) and at three ragged
+      and out-projection shapes (text buckets 16 and 77, vision, the fused
+      and the unfused train step's; the out-projections also with their
+      residual) and at three ragged
       shapes in every tile width, with `torch.addmm` as its library call
-      and its operations bound; the LayerNorm op at the five bf16 shapes
+      and its operations bound; the LayerNorm op at the bf16 shapes
       and one fp32, with `F.layer_norm` and its bytes bound, and its
       gradients;
   (d) `leaf_tpu_torch.serve.main` on ViT-L-14-quickgelu (seed 0, bf16):
@@ -44,12 +49,33 @@ Phases, each printing its own lines:
       on a slice of that batch;
   (i) train-step parity at ViT-tiny-test, fp32, TF32 off: gradients and
       two train steps on the card (kernels forward, recompute backward)
-      against the same on the CPU (plain versions);
-  (j) the trainer: `leaf_tpu_torch.train.driver.main` on ViT-L-14-quickgelu
-      (bf16 compute on fp32 master weights, batch 128, rho 50, k 1, 8
-      steps on the synthetic caption), then 4 more steps of the same loop
-      on seeded captions of 3 to 58 words whose batches need buckets 16,
-      32, 48 and 64; counters zeroed just before, read just after.
+      against the same on the CPU (plain versions); then the fused
+      attack+train step: on the card it picks the sentences of the unfused
+      attack + train step (free and constrained), and two fused steps are
+      within 1e-4 of the CPU's (same sentences, loss, parameters);
+  (j) the trainer on ViT-L-14-quickgelu (bf16 compute on fp32 master
+      weights, batch 128, rho 50, k 1), each cell with the kernels' counters
+      zeroed just before and held, just after, to the count its encodes
+      imply: `leaf_tpu_torch.train.driver.main` with the fused step on the
+      synthetic caption, 8 steps, unconstrained; the same with
+      `--constrain`, saved, then resumed by a second `main` call with
+      `--resume latest --epochs 2` (8 more steps), its `model_epoch_2`
+      export read back by `interop.load_pretrained` with equal features,
+      `times_False.csv` one row per step (every `main` call keeps the
+      recipe's sizes but not its schedule: `--lr-scheduler const` after 2
+      warm-up steps where the recipe has a cosine, because the cells below
+      go on from the first call's state past its 8 steps, where a cosine
+      over 8 steps has run out; the schedule is one multiplication on the
+      host and no part of a step's time); the unfused loop on the same
+      caption, 4 steps; then seeded captions of 3 to 58 words whose batches
+      need buckets 16, 32, 48 and 64: the fused loop unconstrained (two
+      passes: anchors missed, then hit) and constrained, the unfused loop,
+      4 steps each.  Every fused cell prints, per step, the host's
+      preparation seconds, the seconds it waited for the device, step
+      seconds, samples/s and candidates/s, and how many of its first
+      best-probe readbacks returned while the second half's phase 1 was
+      still running; the tokenizer's counters show that the candidate grids
+      went through the native library.
 Any failure raises.  The line before the last is the kernels' JSON
 report; the last is {"ok": true, "device": {...}}.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -73,10 +99,17 @@ MODEL = "ViT-L-14-quickgelu"
 # batch of 256 captions or 128 images: text bucket 16 (8 captions per
 # 128-token row), bucket 48 (2 per 96-token row, groups that straddle the
 # kernel's 64-query tiles), bucket 77 (one per row), vision (257 tokens,
-# one image per row).  Training: one scoring encode of batch 128 x rho 50
-# = 6400 candidates at bucket 16 (800 rows)
+# one image per row).  Training, batch 128 x rho 50: the fused step
+# (`train.driver.main`) scores half batches, 64 x 50 = 3200 candidates,
+# at bucket 16 in 400 rows and at bucket 64 (2 per row) in 1600, and
+# encodes 64 captions for a half's anchors and train forward (8 rows at
+# bucket 16); the unfused loop scores 6400 candidates at once (800 rows)
+FUSED_MAIN_SHAPE = "fused_s16_bf16"
 SHAPES = [
     ("text_s16_bf16", 32, 128, 16, True, 768, 12, "bfloat16"),
+    (FUSED_MAIN_SHAPE, 400, 128, 16, True, 768, 12, "bfloat16"),
+    ("fused_half_s16_bf16", 8, 128, 16, True, 768, 12, "bfloat16"),
+    ("fused_s64_bf16", 1600, 128, 64, True, 768, 12, "bfloat16"),
     ("train_s16_bf16", 800, 128, 16, True, 768, 12, "bfloat16"),
     ("text_s48_bf16", 128, 96, 48, True, 768, 12, "bfloat16"),
     ("text_s77_bf16", 256, 77, 77, True, 768, 12, "bfloat16"),
@@ -90,6 +123,12 @@ GEMM_SHAPES = [("s16 qkv", 32 * 128, 768, 2304), ("s16 out", 32 * 128, 768, 768)
                ("s77 qkv", 256 * 77, 768, 2304), ("s77 out", 256 * 77, 768, 768),
                ("vision qkv", 128 * 257, 1024, 3072),
                ("vision out", 128 * 257, 1024, 1024),
+               ("fused s16 qkv", 400 * 128, 768, 2304),
+               ("fused s16 out", 400 * 128, 768, 768),
+               ("fused half qkv", 8 * 128, 768, 2304),
+               ("fused half out", 8 * 128, 768, 768),
+               ("fused s64 qkv", 1600 * 128, 768, 2304),
+               ("fused s64 out", 1600 * 128, 768, 768),
                ("train qkv", 800 * 128, 768, 2304),
                ("train out", 800 * 128, 768, 768)]
 # M = 3 rows of 77 tokens; N and K multiples of 8 and of no tile (64 k, 128
@@ -157,6 +196,13 @@ def phase_build():
             say(f"(b) ptxas: {line.strip()}")
     say(f"(b) built {os.path.relpath(build.LIBRARY)} from "
         f"{len(build.sources())} sources in {dt:.1f} s")
+    from leaf_tpu_torch.tokenizer import native_binding
+    t0 = time.perf_counter()
+    native_binding.compile_library()
+    native_binding.library()
+    say(f"(b) built {os.path.relpath(native_binding.LIBRARY)} from "
+        f"{os.path.relpath(native_binding.SOURCE)} with "
+        f"{native_binding.COMPILER} in {time.perf_counter() - t0:.1f} s")
     return dt
 
 
@@ -191,9 +237,11 @@ def _graph_ms(fn, n: int = 20, replays: int = 5) -> float:
     return _time_ms(graph.replay, replays) / n
 
 
-def _close(out, ref, what: str, dtype_name: str = "bfloat16") -> float:
+def _close(out, ref, what: str, dtype_name: str = "bfloat16",
+           residual=None) -> float:
     """Hold a result to the plain version's, within the dtype's tolerance;
-    returns the largest difference."""
+    returns the largest difference.  `residual` is the tensor that both
+    sides added last to a value they had rounded before."""
     import torch
     torch.cuda.synchronize()
     require(out.shape == ref.shape and out.dtype == ref.dtype,
@@ -206,7 +254,14 @@ def _close(out, ref, what: str, dtype_name: str = "bfloat16") -> float:
     # qkv, the attention output and the sum, and among the 79 million
     # outputs of a training batch a few land two steps apart), so large
     # values are held to two steps (2^-6 of the value) instead
-    allowed = torch.clamp(ref.float().abs() * REL_TOLERANCE[dtype_name],
+    size = ref.float().abs()
+    if residual is not None:
+        # the rounded value y = ref - residual may differ by one step of
+        # its own (|y| / 128 at most, and |y| <= |ref| + |residual|), and
+        # where the residual cancels it that is more than two steps of the
+        # sum: of 79 million outputs a few have |y| > 4 and |ref| < 2
+        size = size + residual.float().abs()
+    allowed = torch.clamp(size * REL_TOLERANCE[dtype_name],
                           min=TOLERANCE[dtype_name])
     require(bool((diff <= allowed).all()),
             f"{what}: max abs err {diff.max().item()} > "
@@ -215,14 +270,14 @@ def _close(out, ref, what: str, dtype_name: str = "bfloat16") -> float:
     return diff.max().item()
 
 
-def _compare(kernel, plain, dtype_name: str, library=None):
+def _compare(kernel, plain, dtype_name: str, library=None, residual=None):
     """max |kernel - plain| and (kernel ms, plain ms, library ms), timed
     in turns plain, kernel, library, kernel, plain after a warm-up, each
     call through its Python wrapper.  `library` is one PyTorch call that
     computes the same function; it is timed here and used nowhere in the
     package."""
     out_p = plain()
-    err = _close(kernel(), out_p, "kernel", dtype_name)
+    err = _close(kernel(), out_p, "kernel", dtype_name, residual)
     lib_ms = None
     if library is not None:
         lib_err = (library().float() - out_p.float()).abs().max().item()
@@ -420,11 +475,12 @@ def phase_parts():
                 want = pa._gemm_bias_reference(a, w, b, res)
                 for tile_n in GEMM_TILES:
                     _close(pa._launch_gemm_bias(a, w, b, res, tile_n), want,
-                           f"gemm_bias {name} tile {tile_n}")
+                           f"gemm_bias {name} tile {tile_n}", residual=res)
             err, ms, pms, lib = _compare(
                 lambda: pa._launch_gemm_bias(a, w, b, res),
                 lambda: pa._gemm_bias_reference(a, w, b, res), "bfloat16",
-                None if res is not None else lambda: torch.addmm(b, a, w))
+                None if res is not None else lambda: torch.addmm(b, a, w),
+                residual=res)
             n_bytes = 2.0 * (M * K + K * N + N + M * N * (1 if res is None else 2))
             parts["gemm_bias"].append(_row(
                 "gemm_bias", name + ("" if res is None else " + residual"),
@@ -435,7 +491,9 @@ def phase_parts():
     say(f"(c) gemm_bias: the ragged shapes also agree in every tile width "
         f"{GEMM_TILES}")
 
-    for name, R, L, _, _, D, _, dt in SHAPES[:5] + SHAPES[6:]:
+    for name, R, L, _, _, D, _, dt in SHAPES:
+        if name == "text_s16_fp32":   # fp32 is held at bucket 77 alone
+            continue
         dtype = getattr(torch, dt)
         M = R * L
         x = normal(M, D, scale=2.0, dtype=dtype) + 0.5
@@ -784,6 +842,91 @@ def phase_train_parity():
     return grad_err, param_err
 
 
+def phase_fused_parity():
+    """The fused attack+train step at ViT-tiny-test, fp32, TF32 off: on
+    the card it picks the unfused path's sentences (free and constrained),
+    and two fused steps on the card are within 1e-4 of the CPU's."""
+    import copy
+    import torch
+    from leaf_tpu_torch.attacks.constraint import WordConstraint
+    from leaf_tpu_torch.attacks.engine import CandidateScorer, bucket_tokens
+    from leaf_tpu_torch.attacks.text import attack_text_leaf
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+    from leaf_tpu_torch.train import fused, optim, schedules, step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(8)
+    batches = [_captions(rng, 32, 3, 10) for _ in range(2)]
+    tok = get_tokenizer("ViT-tiny-test")
+    rho = 8
+
+    def fresh(device):
+        model = create_model("ViT-tiny-test", precision="fp32", seed=0,
+                             device=device)
+        text = model.module.text
+        frozen = copy.deepcopy(text).requires_grad_(False)
+        opt = optim.make_optimizer(text.named_parameters(),
+                                   schedules.const_lr(1e-4, 0, 2),
+                                   weight_decay=1e-4)
+        return model.cfg, step.TrainState.create(text, opt), frozen
+
+    # fused against unfused, on the card
+    for constrained in (False, True):
+        wc = WordConstraint() if constrained else None
+        cfg, state, frozen = fresh("cuda")
+        clean = torch.from_numpy(bucket_tokens(tok(batches[0]))).cuda()
+        anchors = step.make_anchor_encode()(frozen, clean)
+        _, want = attack_text_leaf(CandidateScorer(cfg, "cuda"), state.text,
+                                   tok, batches[0], anchors, n=rho,
+                                   constraint=wc,
+                                   rng=np.random.default_rng(9))
+        adv = torch.from_numpy(bucket_tokens(tok(want))).cuda()
+        state, m_unfused = step.make_train_step()(state, adv, anchors)
+        for pipeline in (False, True):
+            cfg, state_f, frozen_f = fresh("cuda")
+            fs = fused.FusedLeafStep(cfg, tok, rho, constraint=wc,
+                                     pipeline=pipeline, device="cuda")
+            state_f, info = fs(state_f, frozen_f, batches[0],
+                               np.random.default_rng(9))
+            got = fs.adv_sentences(batches[0], info)
+            require(got == want, f"fused (pipeline={pipeline}, constrained="
+                    f"{constrained}) and unfused pick different sentences")
+            lf, lu = float(info["metrics"]["loss"]), float(m_unfused["loss"])
+            require(abs(lf - lu) <= 1e-4 * abs(lu),
+                    f"fused loss {lf} vs unfused {lu}")
+        changed = sum(a != b for a, b in zip(want, batches[0]))
+        say(f"(i) fused = unfused on the card, ViT-tiny-test fp32, "
+            f"{'constrained' if constrained else 'unconstrained'}: the same "
+            f"32 sentences ({changed} changed), pipelined and not, loss "
+            f"{lf:.6f} vs {lu:.6f}")
+
+    # two fused steps (pipelined, constrained), card against CPU
+    runs = {}
+    for device in ("cpu", "cuda"):
+        cfg, state, frozen = fresh(device)
+        fs = fused.FusedLeafStep(cfg, tok, rho, constraint=WordConstraint(),
+                                 device=device)
+        rng_d = np.random.default_rng(10)
+        advs, losses = [], []
+        for texts in batches:
+            state, info = fs(state, frozen, texts, rng_d)
+            advs.append(fs.adv_sentences(texts, info))
+            losses.append(float(info["metrics"]["loss"]))
+        runs[device] = (advs, losses, {n: p.detach().cpu() for n, p in
+                                       state.text.named_parameters()})
+    (ca, cl, cp), (ga, gl, gp) = runs["cpu"], runs["cuda"]
+    require(ga == ca, "the fused step picks other sentences on the card "
+            "than on the CPU")
+    for c, g in zip(cl, gl):
+        require(abs(g - c) <= 1e-4 * abs(c), f"fused loss {g} vs CPU {c}")
+    param_err = max(float((gp[n] - cp[n]).abs().max()) for n in cp)
+    require(param_err <= 1e-4, f"fused parameters differ by {param_err}")
+    say(f"(i) fused step parity, card vs CPU: the same sentences in 2 steps, "
+        f"losses card {gl} vs CPU {cl}, parameters max abs diff "
+        f"{param_err:.3g}")
+
+
 # ---------------------------------------------------------------------------
 # (j) the trainer
 # ---------------------------------------------------------------------------
@@ -791,9 +934,11 @@ def phase_train_parity():
 TRAIN_FLAGS = ["--model", MODEL, "--precision", "bf16", "--dataset-type",
                "synthetic", "--batch-size", "128", "--rho", "50", "--k_adv",
                "1", "--lr", "1e-5", "--wd", "1e-4", "--warmup", "2",
-               "--zeroshot-frequency", "0", "--epochs", "1",
-               "--train-num-samples", "1024", "--log-every-n-steps", "1",
+               "--lr-scheduler", "const", "--zeroshot-frequency", "0",
+               "--epochs", "1", "--train-num-samples", "1024",
+               "--log-every-n-steps", "1", "--delete-previous-checkpoint",
                "--device", "cuda"]
+BATCH, RHO, K = 128, 50, 1
 
 
 class _Steps(logging.Handler):
@@ -812,7 +957,8 @@ class _Steps(logging.Handler):
 class _CaptionBatches:
     """Batches of seeded captions, one range of lengths per batch.  The
     loop comes back for the next batch between two steps: `marks` keeps
-    what `seconds` (the attack's running host/device totals) held then."""
+    what `seconds` (running totals of host and device or wait seconds)
+    held then."""
 
     def __init__(self, batches, seconds):
         self.batches = batches
@@ -825,87 +971,181 @@ class _CaptionBatches:
             yield None, texts
 
 
-def _report_steps(tag, steps, seconds, batch, rho, k):
-    """Print rates and the host/device split of `steps` (log-line tuples)
-    whose attacks took `seconds` in all; every mean is over all steps."""
+def _step_times(tag, steps):
     losses = [a[8] for a in steps]
     require(all(np.isfinite(v) and v > 0 for v in losses),
             f"{tag}: losses {losses}")
-    n = len(steps)
     step_s = float(np.mean([a[5] for a in steps]))
+    say(f"(j) {tag}: {len(steps)} steps, losses "
+        f"{[round(v, 4) for v in losses]}")
+    return step_s, {"steps": len(steps), "step_s": step_s,
+                    "samples_per_s": BATCH / step_s,
+                    "candidates_per_s": 2 * K * BATCH * RHO / step_s}
+
+
+def _report_unfused(tag, steps, seconds):
+    """Print rates and the host/device split of the unfused loop's `steps`
+    (log-line tuples) whose attacks took `seconds` in all; every mean is
+    over all steps."""
+    step_s, out = _step_times(tag, steps)
+    n = len(steps)
     attack_s = float(np.mean([a[7] for a in steps]))
     host_s, dev_s = seconds["host"] / n, seconds["device"] / n
-    say(f"(j) {tag}: {n} steps, losses {[round(v, 4) for v in losses]}")
     say(f"(j) {tag}: {step_s:.3f} s per step (the first {steps[0][5]:.3f}), "
-        f"{batch / step_s:.1f} samples/s, "
-        f"{2 * k * batch * rho / step_s:.0f} candidates/s; attack "
+        f"{out['samples_per_s']:.1f} samples/s, "
+        f"{out['candidates_per_s']:.0f} candidates/s; attack "
         f"{attack_s:.3f} s per step = host (edit + tokenize) {host_s:.3f} s "
         f"+ device (scoring, waited for) {dev_s:.3f} s; rest of the step "
         f"(anchors, tokenizing, train step) {step_s - attack_s:.3f} s; host "
         f"share of a step {host_s / step_s:.2f}")
-    return {"steps": n, "step_s": step_s, "samples_per_s": batch / step_s,
-            "candidates_per_s": 2 * k * batch * rho / step_s,
-            "attack_s": attack_s, "host_s": host_s, "device_s": dev_s}
+    return dict(out, attack_s=attack_s, host_s=host_s, device_s=dev_s)
+
+
+def _report_fused(tag, steps, before, fused_step):
+    """Print rates of the fused loop's `steps` and, from the fused step's
+    running totals since `before`, the host's preparation and waiting
+    seconds per step and where the first readbacks returned."""
+    step_s, out = _step_times(tag, steps)
+    n = len(steps)
+    host_s = (fused_step.seconds["host"] - before["host"]) / n
+    wait_s = (fused_step.seconds["wait"] - before["wait"]) / n
+    early = fused_step.readbacks["early"] - before["early"]
+    late = fused_step.readbacks["late"] - before["late"]
+    require(early + late == n and early > 0,
+            f"{tag}: of the first readbacks of {n} pipelined steps, {early} "
+            f"returned before the second half's phase 1 had finished and "
+            f"{late} after")
+    steady = float(np.mean([a[5] for a in steps[1:]])) if n > 1 else step_s
+    say(f"(j) {tag}: {step_s:.3f} s per step (the first {steps[0][5]:.3f}, "
+        f"the others {steady:.3f}), {out['samples_per_s']:.1f} samples/s, "
+        f"{out['candidates_per_s']:.0f} candidates/s; host preparation "
+        f"(native grids, masks, draws) {host_s:.3f} s per step, host waited "
+        f"for best-probe readbacks {wait_s:.3f} s, the rest (enqueuing, "
+        f"copies, the loop) {step_s - host_s - wait_s:.3f} s; host "
+        f"preparation share of a step {host_s / step_s:.2f}; the first "
+        f"half's readback returned before the second half's phase 1 had "
+        f"finished in {early} of {n} steps")
+    return dict(out, host_s=host_s, wait_s=wait_s, steady_step_s=steady,
+                readbacks_early=early, readbacks_late=late)
+
+
+def _fused_marks(fused_step):
+    return {**fused_step.seconds, **fused_step.readbacks}
+
+
+class _Counters:
+    """The three ops' launch counters, zeroed and read around a cell."""
+
+    NAMES = ("packed_attention", "fused_attention_block", "layer_norm")
+
+    def __init__(self):
+        from leaf_tpu_torch.ops import packed_attention as pa
+        self.ops = {name: getattr(pa, name) for name in self.NAMES}
+        self.total = dict.fromkeys(self.NAMES, 0)
+
+    def zero(self):
+        for op in self.ops.values():
+            op.launches = 0
+
+    def hold(self, tag: str, encodes: int, layers: int, why: str):
+        """Read the counters, hold them to `encodes` text encodes (a fused
+        block and its attention kernel per layer, `ln_2` per layer plus
+        `ln_final` for the LayerNorm op) and add them to the totals."""
+        import torch
+        torch.cuda.synchronize()
+        want = {"packed_attention": layers * encodes,
+                "fused_attention_block": layers * encodes,
+                "layer_norm": (layers + 1) * encodes}
+        got = {name: op.launches for name, op in self.ops.items()}
+        say(f"(j) launches, {tag}: {got}; {encodes} encodes expected ({why}) "
+            f"= {want}")
+        for name in self.NAMES:
+            require(got[name] == want[name],
+                    f"{tag}: {name} {got[name]} launches, {want[name]} "
+                    "expected")
+            self.total[name] += got[name]
+
+
+def _anchor_misses(batches, cache: set) -> int:
+    """How many half-batches of `batches` the pipelined fused step encodes
+    anchors for: a half misses unless all its captions are cached; its
+    captions are cached at once (before the second half is looked up)."""
+    misses = 0
+    for texts in batches:
+        h = len(texts) // 2
+        for half in (texts[:h], texts[h:]):
+            if not all(t in cache for t in half):
+                misses += 1
+            cache.update(half)
+    return misses
+
+
+def _csv_rows(path):
+    import csv
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def _check_run_files(out, epochs, n_steps):
+    """results.csv rows for epochs 0..N, one attack time per step."""
+    rows = _csv_rows(os.path.join(out["out_dir"], "results.csv"))
+    require([r["epoch"] for r in rows] == [str(e) for e in epochs]
+            and all(float(r["train_loss"]) > 0 for r in rows
+                    if r["epoch"] != "0"), f"results.csv: {rows}")
+    with open(os.path.join(out["out_dir"], "times_False.csv")) as f:
+        times = f.read().split()
+    require(times[0] == "0" and len(times) == 1 + n_steps
+            and all(float(t) > 0 for t in times[1:]),
+            f"times_False.csv: {len(times) - 1} rows for {n_steps} steps: "
+            f"{times}")
+    return [float(t) for t in times[1:]]
 
 
 def phase_train(workdir: str):
-    import csv
     import torch
     from leaf_tpu_torch.attacks import edits
+    from leaf_tpu_torch.attacks.constraint import WordConstraint
     from leaf_tpu_torch.attacks.engine import CandidateScorer, bucket_need
     from leaf_tpu_torch.data.common import DataInfo
+    from leaf_tpu_torch.models import interop
     from leaf_tpu_torch.models.factory import create_model, get_tokenizer
-    from leaf_tpu_torch.ops import packed_attention as pa
-    from leaf_tpu_torch.train import driver, loop, params, step
+    from leaf_tpu_torch.train import driver, fused, loop, params, step
 
-    batch, rho, k, n_steps = 128, 50, 1, 8
+    n_steps = 8
     handler = _Steps()
     log = logging.getLogger("leaf_tpu_torch.train.loop")
     log.addHandler(handler)
-    pa.packed_attention.launches = 0
-    pa.fused_attention_block.launches = 0
-    pa.layer_norm.launches = 0
+    counters = _Counters()
+    tok = get_tokenizer(MODEL)
+    results = {}
     try:
-        out = driver.main(TRAIN_FLAGS + ["--logs", workdir, "--name", "leaf"])
-        torch.cuda.synchronize()
-        first = _report_steps("train.driver, caption 'Dummy caption' (bucket 16)",
-                              handler.steps, out["attack_seconds"], batch,
-                              rho, k)
-        require(first["steps"] == n_steps, f"{first['steps']} steps logged")
-        cfg = out["cfg"]
-        # every encode of a step runs each text layer's fused block once,
-        # in one chunk: the frozen tower's anchor encode, 2 scoring encodes
-        # per attack round, the train forward (its backward recomputes
-        # through the plain version and launches nothing)
-        per_step = cfg.text.layers * (1 + 2 * k + 1)
-        launches = {"packed_attention": pa.packed_attention.launches,
-                    "fused_attention_block": pa.fused_attention_block.launches}
-        say(f"(j) launches over train.driver's {n_steps} steps: {launches}; "
-            f"{n_steps} x {per_step} = {n_steps * per_step} expected "
-            f"({cfg.text.layers} layers x (anchor + {2 * k} scoring + train "
-            f"forward))")
-        for name, count in launches.items():
-            require(count == n_steps * per_step,
-                    f"{name}: {count} launches, {n_steps * per_step} expected")
-        # the LayerNorm op: ln_2 of every layer and ln_final, in each of
-        # those encodes
-        ln_per_step = (cfg.text.layers + 1) * (1 + 2 * k + 1)
-        launches["layer_norm"] = pa.layer_norm.launches
-        say(f"(j) layer_norm launches: {launches['layer_norm']}; {n_steps} x "
-            f"{ln_per_step} = {n_steps * ln_per_step} expected")
-        require(launches["layer_norm"] == n_steps * ln_per_step,
-                f"layer_norm: {launches['layer_norm']} launches")
-
-        with open(os.path.join(out["out_dir"], "results.csv"), newline="") as f:
-            rows = list(csv.DictReader(f))
-        require([r["epoch"] for r in rows] == ["0", "1"]
-                and float(rows[0]["train_loss"]) == -1.0
-                and float(rows[1]["train_loss"]) > 0, f"results.csv: {rows}")
-        with open(os.path.join(out["out_dir"], "times_False.csv")) as f:
-            times = f.read().split()
-        require(times[0] == "0" and len(times) == 1 + n_steps
-                and all(float(t) > 0 for t in times[1:]),
-                f"times_False.csv: {times}")
+        # ---- driver.main, fused, unconstrained, the synthetic caption
+        tok_before = dict(tok.counts)
+        counters.zero()
+        out = driver.main(TRAIN_FLAGS + ["--logs", workdir, "--name", "free"])
+        cfg, layers = out["cfg"], out["cfg"].text.layers
+        fs = out["fused_step"]
+        # per step: 2 probe + 2 candidate scoring encodes and the train
+        # forward's 2 half encodes (its backward recomputes through the
+        # plain version and launches nothing); the caption is the same in
+        # every row, so only the first step's first half encodes anchors
+        counters.hold("train.driver fused, 'Dummy caption'", 6 * n_steps + 1,
+                      layers, f"{n_steps} steps x (2 probe + 2 candidate + 2 "
+                      "train-forward half encodes) + 1 anchor encode, the "
+                      "cache hit ever after")
+        results["fused_s16"] = _report_fused(
+            "train.driver fused, caption 'Dummy caption' (bucket 16)",
+            handler.steps, dict.fromkeys(_fused_marks(fs), 0), fs)
+        require(len(handler.steps) == n_steps, f"{len(handler.steps)} steps")
+        times = _check_run_files(out, (0, 1), n_steps)
+        say(f"(j) times_False.csv: {n_steps} rows, attack seconds "
+            f"{[round(t, 3) for t in times]}")
+        grids = tok.counts["native_texts"] - tok_before["native_texts"]
+        python_texts = tok.counts["python_texts"] - tok_before["python_texts"]
+        say(f"(j) tokenizer counters over the run: {grids} texts through the "
+            f"native library, {python_texts} through the Python tokenizer")
+        require(grids >= n_steps * 2 * BATCH * RHO and python_texts == 0,
+                f"native {grids}, python {python_texts}")
 
         # the frozen copy still holds the seed's weights bit for bit; the
         # trainable tower has moved, in fp32
@@ -922,52 +1162,176 @@ def phase_train(workdir: str):
         say(f"(j) frozen tower unchanged bit for bit; trainable tower (fp32 "
             f"master weights) moved by at most {moved:.3g}")
         del fresh
+        shutil.rmtree(os.path.join(out["out_dir"], "checkpoints"))
 
-        # the same loop on captions of 3-58 words (about one token a word):
-        # batches whose longest caption needs bucket 16, 32, 48, 64
+        # ---- the unfused loop on the same caption, state and towers
+        args = params.parse_args(TRAIN_FLAGS)
+        state, frozen_text = out["state"], out["frozen_text"]
+        scorer = CandidateScorer(cfg, "cuda")
+        unfused_steps = 4
+
+        def run_loop(batches, epoch, seed, fused_step=None, constraint=None):
+            """One epoch of the loop over caption batches; returns the
+            unfused attack's host/device seconds and the loader."""
+            handler.steps.clear()
+            seconds = {"host": 0.0, "device": 0.0}
+            watched = fused_step.seconds if fused_step is not None else seconds
+            loader = _CaptionBatches(batches, watched)
+            data = {"train": DataInfo(loader, num_batches=len(batches),
+                                      num_samples=BATCH * len(batches))}
+            counters.zero()
+            loop.train_one_epoch_text_only(
+                state, frozen_text, scorer, step.make_anchor_encode(),
+                step.make_train_step(), tok, edits.DEFAULT_VOCAB, data, epoch,
+                args, constraint=constraint, rng=np.random.default_rng(seed),
+                seconds=seconds, fused_step=fused_step)
+            torch.cuda.synchronize()
+            loader.marks.append(dict(watched))
+            return seconds, loader
+
+        seconds, _ = run_loop([["Dummy caption"] * BATCH] * unfused_steps,
+                              1, 5)
+        # the frozen tower's anchor encode, 2 scoring encodes, the train
+        # forward, each in one chunk
+        counters.hold("unfused loop, 'Dummy caption'", 4 * unfused_steps,
+                      layers, f"{unfused_steps} steps x (anchor + 2 scoring + "
+                      "train forward)")
+        results["unfused_s16"] = _report_unfused(
+            "unfused loop, caption 'Dummy caption' (bucket 16)",
+            handler.steps, seconds)
+        del out
+
+        # ---- driver.main, fused, --constrain; saved; resumed
+        marks = None
+        for leg, extra in enumerate((["--epochs", "1"],
+                                     ["--epochs", "2", "--resume", "latest"])):
+            handler.steps.clear()
+            counters.zero()
+            out = driver.main(TRAIN_FLAGS + ["--constrain", "--logs", workdir,
+                                             "--name", "constrained"] + extra)
+            fs = out["fused_step"]
+            counters.hold(f"train.driver fused --constrain, leg {leg + 1}",
+                          6 * n_steps + 1, layers,
+                          f"{n_steps} steps x 6 half encodes + 1 anchor encode")
+            results[f"constrained_s16_leg{leg + 1}"] = _report_fused(
+                "train.driver fused --constrain, caption 'Dummy caption', "
+                + ("epoch 1" if leg == 0 else "--resume latest, epoch 2"),
+                handler.steps, dict.fromkeys(_fused_marks(fs), 0), fs)
+            require(out["state"].step == n_steps * (leg + 1),
+                    f"step {out['state'].step} after leg {leg + 1}")
+            if leg == 0:
+                _check_run_files(out, (0, 1), n_steps)
+                ckpts = os.path.join(out["out_dir"], "checkpoints")
+                require(sorted(os.listdir(ckpts)) == [
+                    "epoch_1", "frozen", "model_epoch_1"],
+                    f"checkpoints after epoch 1 with "
+                    f"--delete-previous-checkpoint: {os.listdir(ckpts)}")
+                marks = {n: p.detach().clone() for n, p in
+                         out["state"].text.named_parameters()}
+                del out
+                torch.cuda.empty_cache()
+        _check_run_files(out, (0, 1, 2), n_steps)
+        moved = max(float((p.detach() - marks[n]).abs().max())
+                    for n, p in out["state"].text.named_parameters())
+        adam_steps = {int(s["step"]) for s in out["state"].optimizer.adamw
+                      .state_dict()["state"].values()}
+        require(moved > 0 and adam_steps == {2 * n_steps},
+                f"the resumed leg moved the tower by {moved}; AdamW step "
+                f"counts {adam_steps}")
+        with open(os.path.join(out["out_dir"], "out.log")) as f:
+            require("resuming from" in f.read(), "no resume in out.log")
+        # the export, read back by the port's own loader
+        export = os.path.join(ckpts, "model_epoch_2")
+        require(sorted(os.listdir(export)) == [
+            "open_clip_config.json", "open_clip_model.safetensors"],
+            f"export: {os.listdir(export)}")
+        size = os.path.getsize(
+            os.path.join(export, "open_clip_model.safetensors"))
+        t0 = time.perf_counter()
+        loaded = create_model(MODEL, export, precision="bf16", device="cuda")
+        dt = time.perf_counter() - t0
+        toks = torch.from_numpy(tok(["a photo of a dog", "Dummy caption"])
+                                [:, :16].astype(np.int64)).cuda()
+        with torch.inference_mode():
+            want = out["state"].text.encode_text(toks).float()
+            got = loaded.module.text.encode_text(toks).float()
+        err = float((got - want).abs().max())
+        require(bool(torch.isfinite(got).all()) and err == 0.0,
+                f"features of the export read back differ by {err}")
+        say(f"(j) --resume latest continued at step {n_steps} to "
+            f"{out['state'].step}; export {size / 1e9:.2f} GB written and "
+            f"read back by interop.load_pretrained in {dt:.1f} s, text "
+            f"features equal (max abs diff {err})")
+        del loaded, out, marks
+        shutil.rmtree(ckpts)
+        torch.cuda.empty_cache()
+
+        # ---- captions of 3-58 words (about one token a word): batches
+        # whose longest caption needs bucket 16, 32, 48, 64
         rng = np.random.default_rng(4)
-        tok = get_tokenizer(MODEL)
         ranges = [(3, 8), (18, 26), (34, 42), (50, 58)]
-        batches = [_captions(rng, batch, lo, hi) for lo, hi in ranges]
+        batches = [_captions(rng, BATCH, lo, hi) for lo, hi in ranges]
         needs = [bucket_need(tok(b)) for b in batches]
         say(f"(j) caption batches of {ranges} words need context {needs}")
         require([min(b for b in (16, 32, 48, 64, 77) if n <= b)
                  for n in needs] == [16, 32, 48, 64], f"buckets of {needs}")
-        args = params.parse_args(TRAIN_FLAGS)
-        handler.steps.clear()
-        pa.packed_attention.launches = 0
-        pa.fused_attention_block.launches = 0
-        pa.layer_norm.launches = 0
-        seconds = {"host": 0.0, "device": 0.0}
-        loader = _CaptionBatches(batches, seconds)
-        data = {"train": DataInfo(loader, num_batches=len(batches),
-                                  num_samples=batch * len(batches))}
-        loop.train_one_epoch_text_only(
-            out["state"], out["frozen_text"], CandidateScorer(cfg, "cuda"),
-            step.make_anchor_encode(), step.make_train_step(), tok,
-            edits.DEFAULT_VOCAB, data, 1, args,
-            rng=np.random.default_rng(5), seconds=seconds)
-        torch.cuda.synchronize()
-        marks = loader.marks + [dict(seconds)]
+
+        def fused_cell(tag, fs, epoch, cache):
+            before = _fused_marks(fs)
+            misses = _anchor_misses(batches, cache)
+            _, loader = run_loop(batches, epoch, 5, fused_step=fs,
+                                 constraint=fs.constraint)
+            counters.hold(tag, 6 * len(batches) + misses, layers,
+                          f"{len(batches)} steps x 6 half encodes + {misses} "
+                          "anchor encodes of halves that missed the cache")
+            for i, (bucket, a) in enumerate(zip((16, 32, 48, 64),
+                                                handler.steps)):
+                host, wait = (loader.marks[i + 1][key] - loader.marks[i][key]
+                              for key in ("host", "wait"))
+                say(f"(j) {tag}, bucket {bucket}: step {a[5]:.3f} s, host "
+                    f"preparation {host:.3f} s, waited {wait:.3f} s, loss "
+                    f"{a[8]:.4f}")
+            return _report_fused(tag + " (buckets 16-64)", handler.steps,
+                                 before, fs)
+
+        kw = dict(cfg=cfg, tokenizer=tok, rho=RHO, k=K, device="cuda")
+        fs_free = fused.FusedLeafStep(**kw)
+        cache = set()
+        results["fused_long_miss"] = fused_cell(
+            "fused loop, captions of 3-58 words, anchors missed", fs_free, 2,
+            cache)
+        results["fused_long_hit"] = fused_cell(
+            "fused loop, captions of 3-58 words, anchors cached", fs_free, 3,
+            cache)
+        fs_con = fused.FusedLeafStep(constraint=WordConstraint(), **kw)
+        results["constrained_long"] = fused_cell(
+            "fused loop --constrain, captions of 3-58 words, anchors missed",
+            fs_con, 4, set())
+
+        seconds, loader = run_loop(batches, 5, 5)
+        counters.hold("unfused loop, captions of 3-58 words",
+                      4 * len(batches), layers,
+                      f"{len(batches)} steps x (anchor + 2 scoring + train "
+                      "forward)")
         for i, (bucket, a) in enumerate(zip((16, 32, 48, 64), handler.steps)):
-            host, dev = (marks[i + 1][key] - marks[i][key]
+            host, dev = (loader.marks[i + 1][key] - loader.marks[i][key]
                          for key in ("host", "device"))
-            say(f"(j) bucket {bucket}: step {a[5]:.3f} s, attack {a[7]:.3f} s "
-                f"= host {host:.3f} s + device {dev:.3f} s, loss {a[8]:.4f}")
-        second = _report_steps("loop, captions of 3-58 words (buckets 16-64)",
-                               handler.steps, seconds, batch, rho, k)
-        more = {"packed_attention": (pa.packed_attention.launches, per_step),
-                "fused_attention_block": (pa.fused_attention_block.launches,
-                                          per_step),
-                "layer_norm": (pa.layer_norm.launches, ln_per_step)}
-        for name, (count, each) in more.items():
-            require(count == len(batches) * each,
-                    f"{name}: {count} launches, {len(batches) * each} "
-                    "expected")
-            launches[name] += count
+            say(f"(j) unfused, bucket {bucket}: step {a[5]:.3f} s, attack "
+                f"{a[7]:.3f} s = host {host:.3f} s + device {dev:.3f} s, loss "
+                f"{a[8]:.4f}")
+        results["unfused_long"] = _report_unfused(
+            "unfused loop, captions of 3-58 words (buckets 16-64)",
+            handler.steps, seconds)
+        python_texts = tok.counts["python_texts"] - tok_before["python_texts"]
+        say(f"(j) tokenizer counters over (j): "
+            f"{tok.counts['native_texts'] - tok_before['native_texts']} texts "
+            f"native, {python_texts} Python")
+        # (the unfused loop tokenizes whole adversarial strings: one with
+        # an inserted '&' is outside the native contract and goes through
+        # the Python tokenizer, by the JAX package's rule)
     finally:
         log.removeHandler(handler)
-    return launches, first, second
+    return counters.total, results
 
 
 # ---------------------------------------------------------------------------
@@ -1019,7 +1383,8 @@ def main() -> int:
 
         flash_launches = phase_flash(cfg.vision.layers)
         phase_train_parity()
-        train_launches, _, _ = phase_train(workdir)
+        phase_fused_parity()
+        train_launches, trainer = phase_train(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1042,11 +1407,12 @@ def main() -> int:
     for name, by_shape in rows.items():
         for path, count in by_path[name].items():
             require(count > 0, f"{name}: no launch on the {path} path")
-        # the shape the main path runs most: the trainer's scoring encode
-        # (bucket 16, 800 rows) for the packed kernels, the vision shape
+        # the shape the main path runs most: the scoring encode of
+        # `train.driver.main`'s fused step (a half batch's 3200 candidates
+        # at bucket 16, 400 rows) for the packed kernels, the vision shape
         # for flash attention; every shape is under "by_shape"
         main_shape = next((r for r in by_shape
-                           if r["shape"] == "train_s16_bf16"), by_shape[0])
+                           if r["shape"] == FUSED_MAIN_SHAPE), by_shape[0])
         report.append({
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name],
@@ -1071,6 +1437,7 @@ def main() -> int:
                        "launches_by_path": ln_launches,
                        "by_shape": parts["layer_norm"]}}
     require(report[1]["name"] == "fused_attention_block", "report order")
+    print(json.dumps({"trainer": trainer}))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,7 +36,9 @@ def _np(x) -> np.ndarray:
 
 
 def _tensor(x) -> torch.Tensor:
-    return torch.tensor(np.ascontiguousarray(_np(x)))   # a contiguous copy
+    # a contiguous copy of the same shape (`np.ascontiguousarray` would
+    # turn a 0-d logit_scale into shape [1], which `load_state_dict` refuses)
+    return torch.from_numpy(np.array(_np(x), order="C", copy=True))
 
 
 # ---------------------------------------------------------------------------
@@ -127,10 +129,10 @@ def openclip_to_params(sd: Mapping[str, Any], cfg: CLIPConfig) -> StateDict:
 # ---------------------------------------------------------------------------
 
 def load_state_dict_file(path: str) -> StateDict:
-    """Load a checkpoint file (torch .pt/.bin, or .safetensors) -> dict of
-    fp32 tensors."""
+    """Load a checkpoint file (torch .pt/.bin, or .safetensors, read by
+    the port's own reader) -> dict of fp32 tensors."""
     if path.endswith(".safetensors"):
-        from safetensors.torch import load_file
+        from leaf_tpu_torch.utils.safetensors_io import load_file
         return {k: v.float() for k, v in load_file(path).items()}
     try:
         # OpenAI's released CLIP .pt files are TorchScript archives

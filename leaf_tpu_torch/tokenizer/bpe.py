@@ -9,7 +9,10 @@ as the JAX package's tokenizer.  Differences:
     `unicodedata` categories (`L*`, `N*`), folded into code-point
     ranges.  `[^\\W\\d_]` is not a substitute (Python's `\\w` also admits
     No/Nl characters such as '½');
-  * there is no native C++ fast path;
+  * the native C++ fast path (`native_binding`, built at first use) is
+    taken for printable-ASCII batches as there, but a failed build raises
+    instead of falling back, and `CLIPTokenizer.counts` records how many
+    calls and texts went each way;
   * the vocabulary file is read by path from the JAX package's assets
     directory, never through an import of that package.
 """
@@ -34,6 +37,10 @@ try:  # text fixing is optional (ascii-only attack text is unaffected)
 except ImportError:  # pragma: no cover
     def _fix_text(t: str) -> str:
         return t
+
+# printable ASCII without '&' (the Python clean html-unescapes it): the
+# native fast path's contract; control characters would truncate at NUL
+_NATIVE_SAFE = re.compile(r"[ -%'-~]*")
 
 DEFAULT_CONTEXT_LENGTH = 77
 VOCAB_SIZE = 49408
@@ -153,6 +160,27 @@ class CLIPTokenizer:
             "<start_of_text>": (self.sot_token_id,),
             "<end_of_text>": (self.eot_token_id,),
         }
+        self._bpe_path = bpe_path
+        # the native tokenizer is looked up (and built) at the first call
+        self._native = None
+        self._native_checked = False
+        # which path took the work: `__call__` counts its calls and texts,
+        # the attacks' fused edit+tokenize grids count as native
+        self.counts = {"native_calls": 0, "native_texts": 0,
+                       "python_calls": 0, "python_texts": 0}
+
+    def native(self):
+        """The native tokenizer of this vocabulary (built at first use), or
+        None when `LEAF_TPU_NO_NATIVE_TOKENIZER` asks for the Python path."""
+        if not self._native_checked:
+            from leaf_tpu_torch.tokenizer.native_binding import get_native
+            self._native = get_native(self._bpe_path)
+            self._native_checked = True
+        return self._native
+
+    def count(self, path: str, texts: int) -> None:
+        self.counts[f"{path}_calls"] += 1
+        self.counts[f"{path}_texts"] += texts
 
     # -- core BPE ----------------------------------------------------------
 
@@ -214,6 +242,15 @@ class CLIPTokenizer:
         if isinstance(texts, str):
             texts = [texts]
         ctx = context_length or self.context_length
+        # native C++ fast path for printable-ASCII batches (the attack
+        # workload); the Python path below stays the source of truth and
+        # takes every other input
+        native = self.native()
+        if native is not None and all(
+                _NATIVE_SAFE.fullmatch(t) for t in texts):
+            self.count("native", len(texts))
+            return native.encode_batch(list(texts), ctx)
+        self.count("python", len(texts))
         result = np.zeros((len(texts), ctx), dtype=np.int32)
         sot, eot = self.sot_token_id, self.eot_token_id
         for i, text in enumerate(texts):

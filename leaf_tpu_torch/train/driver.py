@@ -4,31 +4,41 @@
         --dataset-type synthetic --precision bf16 --batch-size 128 --rho 50
 
 Wires the pieces: model and frozen anchor tower, optimizer with the
-weight-decay mask and schedule, data, the epochs loop and the
-`results.csv` / `times_False.csv` ledgers.  It runs on `--device`
-(default `cuda`).  See `scripts/train_leaf_vitl.sh` for the recipes.
+weight-decay mask and schedule, data, the fused attack+train step
+(`train.fused.FusedLeafStep`, every recipe but `--use_charmer`), the
+epochs loop, checkpoints with `--resume`, the per-save OpenCLIP export
+and the `results.csv` / `times_False.csv` ledgers.  It runs on
+`--device` (default `cuda`).  See `scripts/train_leaf_vitl.sh` for the
+recipes.
 
 Against the JAX driver: the frozen anchor tower is a deep copy of the
 text tower made before training; bf16 runs keep fp32 master weights and
-compute in bf16; the step is the unfused one of `train.loop`.  Flags
-whose code is not ported yet raise, naming where ROADMAP.md queues them;
-none is ignored.
+compute in bf16; a checkpoint is `checkpoints/epoch_<N>/state.pt` (the
+text tower's fp32 `state_dict`, the optimizer's state, the step) where
+the JAX package writes an Orbax directory.  Flags whose code is not
+ported yet raise, naming where ROADMAP.md queues them; none is ignored.
 """
 from __future__ import annotations
 
 import copy
 import datetime
+import json
 import logging
 import os
+import shutil
 from typing import Dict
 
 import numpy as np
 import torch
 
 from leaf_tpu_torch.attacks import edits
+from leaf_tpu_torch.attacks.constraint import WordConstraint
 from leaf_tpu_torch.attacks.engine import CandidateScorer
+from leaf_tpu_torch.convert import params_to_openclip, save_state_dict
 from leaf_tpu_torch.data.synthetic import get_synthetic_dataset
 from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+from leaf_tpu_torch.train import checkpoint as ckpt
+from leaf_tpu_torch.train.fused import FusedLeafStep
 from leaf_tpu_torch.train.loop import train_one_epoch_text_only
 from leaf_tpu_torch.train.optim import make_optimizer
 from leaf_tpu_torch.train.params import parse_args
@@ -63,17 +73,8 @@ def build_run_name(args) -> str:
 def _not_ported(args) -> None:
     """Raise on every flag whose code the port does not have yet."""
     checks = [
-        (args.constrain, "--constrain (attacks/constraint.py)",
-         "'Next, in order' item 1"),
         (args.use_charmer, "--use_charmer (the batched charmer attack)",
          "Queue 1 item 8"),
-        (args.resume, "--resume (train/checkpoint.py)",
-         "'Next, in order' item 2"),
-        (args.save_most_recent or args.delete_previous_checkpoint,
-         "--save-most-recent / --delete-previous-checkpoint "
-         "(train/checkpoint.py)", "'Next, in order' item 2"),
-        (args.accum_freq != 1, "--accum-freq > 1",
-         "'Next, in order' item 3"),
         (args.zeroshot_frequency != 0,
          "--zeroshot-frequency other than 0 (evals/zero_shot.py)",
          "Queue 1 item 7"),
@@ -83,16 +84,16 @@ def _not_ported(args) -> None:
          "--imagenet-v2 (evals)", "Queue 1 item 7"),
         (args.dataset_type != "synthetic",
          f"--dataset-type {args.dataset_type} (data/wds.py, data/csv_data.py)"
-         ": pass --dataset-type synthetic", "'Next, in order' item 5"),
+         ": pass --dataset-type synthetic", "'Next, in order' item 1"),
         (args.remote_sync or args.copy_codebase,
          "--remote-sync / --copy-codebase (utils/file_utils.py)",
-         "'Next, in order' item 5"),
+         "'Next, in order' item 7"),
         (args.report_to, "--report-to (utils/trackers.py)",
-         "'Next, in order' item 5"),
-        (args.profile_dir, "--profile-dir", "'Next, in order' item 5"),
+         "'Next, in order' item 7"),
+        (args.profile_dir, "--profile-dir", "'Next, in order' item 7"),
         (args.mesh_shape, "--mesh-shape (multiple GPUs)", "Queue 1 item 6"),
         (args.matmul_precision, "--matmul-precision",
-         "'Next, in order' item 5"),
+         "'Next, in order' item 7"),
         (args.force_quick_gelu or args.force_patch_dropout is not None
          or args.force_image_size is not None or args.image_mean
          or args.image_std or args.image_interpolation
@@ -133,6 +134,7 @@ def main(args=None) -> Dict:
 
     run_name = build_run_name(args)
     out_dir = os.path.join(args.logs, run_name)
+    ckpt_dir = os.path.join(out_dir, "checkpoints")
     os.makedirs(out_dir, exist_ok=True)
     setup_logging(log_file=os.path.join(out_dir, "out.log"),
                   level=logging.DEBUG if args.debug else logging.INFO)
@@ -150,6 +152,7 @@ def main(args=None) -> Dict:
     frozen_text = copy.deepcopy(text).requires_grad_(False)
 
     vocab = edits.DEFAULT_VOCAB
+    constraint = WordConstraint() if args.constrain else None
     scorer = CandidateScorer(cfg, device)
     tokenizer = get_tokenizer(args.model)
 
@@ -177,11 +180,86 @@ def main(args=None) -> Dict:
                                  remat=args.grad_checkpointing,
                                  w_fare_text=args.w_fare_text)
     anchor_encode = make_anchor_encode(normalize=args.normalize_fare)
+    fused_step = None
+    if not args.use_charmer:
+        # the fused path covers every leaf-attack recipe, INCLUDING
+        # --constrain (validity masks are applied to the candidate token
+        # buffer host-side) and k_adv > 1 (two phases per edit round, the
+        # train update fused into the last)
+        fused_step = FusedLeafStep(cfg, tokenizer, rho=args.rho, vocab=vocab,
+                                   normalize=args.normalize_fare,
+                                   remat=args.grad_checkpointing,
+                                   constraint=constraint,
+                                   objective=args.attack_objective,
+                                   w_fare_text=args.w_fare_text,
+                                   k=args.k_adv, device=device)
 
-    results = ResultsLedger(os.path.join(out_dir, "results.csv"),
-                            columns=RESULT_COLUMNS, fresh=True)
     timing = TimingLedger(os.path.join(out_dir,
                                        f"times_{args.use_charmer}.csv"))
+
+    # resume ---------------------------------------------------------------
+    start_epoch = 0
+    resume = ckpt.resolve_resume(args.resume, ckpt_dir)
+    # a run that does not resume starts its ledger anew; a resumed one
+    # keeps the rows up to the epoch it resumes from
+    results = ResultsLedger(os.path.join(out_dir, "results.csv"),
+                            columns=RESULT_COLUMNS, fresh=resume is None)
+    if resume is not None:
+        epoch_done, path = resume
+        LOG.info("resuming from %s (epoch %d)", path, epoch_done)
+        payload = ckpt.load_checkpoint(path, map_location=device)
+        text.load_state_dict(payload["text"])
+        optimizer.load_state_dict(payload["optimizer"])
+        state.step = int(payload["step"])
+        # the frozen anchor tower never changes: it lives in a one-off
+        # `frozen` sidecar, not in every epoch payload.  It is looked for
+        # in this run's checkpoints, then next to the resumed checkpoint
+        # (an explicit --resume into another run's directory), and in the
+        # second case saved again as this run's sidecar so that the *next*
+        # resume finds it.
+        try:
+            frozen_sd = ckpt.load_named(ckpt_dir, "frozen")
+        except FileNotFoundError:
+            frozen_sd = ckpt.load_named(
+                os.path.dirname(os.path.abspath(path)), "frozen")
+            ckpt.save_named(ckpt_dir, "frozen", frozen_sd)
+        frozen_text.load_state_dict(frozen_sd["frozen_text"])
+        # checkpoint names record *completed* epochs; training epoch
+        # indices are 0-based, so the next epoch to run == epoch_done
+        start_epoch = epoch_done
+        results.truncate_to_epoch(epoch_done)
+    else:
+        ckpt.save_named(ckpt_dir, "frozen",
+                        {"frozen_text": frozen_text.state_dict()})
+
+    def payload_now() -> Dict:
+        return {"text": text.state_dict(),
+                "optimizer": optimizer.state_dict(), "step": state.step}
+
+    def export_model(epoch: int) -> None:
+        """Full-model OpenCLIP-format export next to the trainer's own
+        state: `checkpoints/model_epoch_<N>/open_clip_model.safetensors`
+        (+ activation metadata) is what the standalone evals and the JAX
+        package's loaders consume; `state.pt` holds only the trained
+        text side."""
+        out = os.path.join(ckpt_dir, f"model_epoch_{epoch}")
+        save_state_dict(params_to_openclip(model.module.state_dict(), cfg),
+                        out, "openclip")
+        with open(os.path.join(out, "open_clip_config.json"), "w") as f:
+            json.dump({"model_cfg": {"quick_gelu": bool(cfg.quick_gelu)}}, f)
+
+    def save(epoch: int) -> None:
+        ckpt.save_checkpoint(ckpt_dir, epoch, payload_now())
+        export_model(epoch)
+        if args.delete_previous_checkpoint:
+            # the save above writes on a worker thread: epoch_N must be in
+            # place before epoch_{N-1} is deleted, or a crash in between
+            # leaves no checkpoint to resume from
+            ckpt.wait_for_checkpoints()
+            for prev in (os.path.join(ckpt_dir, f"epoch_{epoch - 1}"),
+                         os.path.join(ckpt_dir, f"model_epoch_{epoch - 1}")):
+                if os.path.isdir(prev):
+                    shutil.rmtree(prev)
 
     def record(epoch: int, train_loss: float, metrics: Dict[str, float]):
         row = {"epoch": epoch, "train_loss": train_loss}
@@ -192,21 +270,33 @@ def main(args=None) -> Dict:
 
     # epoch-0 snapshot: the in-training evals are not ported, so the row
     # holds the epoch and the reference's train_loss=-1 only
-    record(0, -1.0, {})
+    if start_epoch == 0:
+        record(0, -1.0, {})
+        save(0)
 
     seconds: Dict[str, float] = {}
-    for epoch in range(args.epochs):
+    for epoch in range(start_epoch, args.epochs):
         LOG.info("Start epoch %d", epoch)
         state, log_data = train_one_epoch_text_only(
             state, frozen_text, scorer, anchor_encode, train_step,
-            tokenizer, vocab, data, epoch, args, timing=timing,
+            tokenizer, vocab, data, epoch, args, constraint=constraint,
+            timing=timing,
             rng=np.random.default_rng(args.seed + 1000 * epoch),
-            seconds=seconds)
-        record(epoch + 1, log_data.get("train/loss", float("nan")), {})
+            seconds=seconds, fused_step=fused_step)
+        completed = epoch + 1
+        record(completed, log_data.get("train/loss", float("nan")), {})
+        if (args.save_frequency > 0
+                and completed % args.save_frequency == 0) \
+                or completed == args.epochs:
+            save(completed)
+        if args.save_most_recent:
+            ckpt.save_latest(ckpt_dir, completed, payload_now())
 
+    ckpt.wait_for_checkpoints()
     return {"results": results.rows, "state": state, "model": model,
             "frozen_text": frozen_text, "cfg": cfg, "out_dir": out_dir,
-            "attack_times": timing.times, "attack_seconds": seconds}
+            "attack_times": timing.times, "attack_seconds": seconds,
+            "fused_step": fused_step}
 
 
 if __name__ == "__main__":

@@ -1,7 +1,6 @@
-"""LEAF training epoch loop (port of `leaf_tpu/train/loop.py`, its
-unfused branch).
+"""LEAF training epoch loop (port of `leaf_tpu/train/loop.py`).
 
-Per batch:
+Per batch, on the unfused branch:
 
   1. frozen-tower anchor encode of the clean captions (device),
   2. inner max: LEAF batch attack against the *trainable* tower,
@@ -9,10 +8,18 @@ Per batch:
   3. one train step: TextFARE MSE + AdamW update,
   4. meters, attack-timing ledger.
 
+With `fused_step` (a `train.fused.FusedLeafStep`: every recipe but
+`--use_charmer`), a batch is one call of the fused step, which selects
+the winners on the device and never builds the adversarial strings;
+while its train update runs on the device, the loop pulls batch i+1 and
+prepares its probes on the host.  Nothing between enqueuing a step and
+that preparation reads a device value: a logged step's loss stays a
+tensor until the next logging point.
+
 The attack wall-time CSV (`times_{use_charmer}.csv`) is the trainer's
-own throughput record and is kept.  The JAX package's default step fuses
-2-4 into two dispatches (`train/fused.py`), and its `--use_charmer`
-branch runs the batched charmer; neither is ported yet.
+own throughput record and is kept; on the fused branch a worker thread
+writes it (`utils.results.AsyncAttackTimer`).  The `--use_charmer` branch
+of `run_attack` (the batched charmer) is not ported yet.
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ from leaf_tpu_torch.attacks.text import attack_text_leaf
 from leaf_tpu_torch.models.clip import TextTower
 from leaf_tpu_torch.train.step import TrainState
 from leaf_tpu_torch.utils.meters import AverageMeter
-from leaf_tpu_torch.utils.results import TimingLedger
+from leaf_tpu_torch.utils.results import AsyncAttackTimer, TimingLedger
 
 LOG = logging.getLogger(__name__)
 
@@ -65,16 +72,20 @@ def train_one_epoch_text_only(
     timing: Optional[TimingLedger] = None,
     rng: Optional[np.random.Generator] = None,
     seconds: Optional[dict] = None,
+    fused_step=None,
 ):
     """Run one epoch; returns (state, log_data).
 
-    `seconds`, if given, collects the attack's wall seconds on the host
-    (string edits and tokenizing) and in device scoring calls, summed over
-    the epoch (see `attack_text_leaf`)."""
-    if args.accum_freq != 1:
-        raise NotImplementedError(
-            "--accum-freq > 1 is not ported yet: ROADMAP 'Next, in order' "
-            "item 3")
+    With `fused_step`, each batch runs as the fused step; selection and
+    update semantics are those of the unfused branch
+    (tests/test_torch_fused.py).  Under `--accum-freq k` an optimizer
+    update is applied every k batches, and steps, log lines and
+    `num_batches_per_epoch` count updates.
+
+    `seconds`, if given, collects the unfused attack's wall seconds on
+    the host (edits and tokenizing) and in device scoring calls, summed
+    over the epoch (see `attack_text_leaf`); the fused step keeps its own
+    (`FusedLeafStep.seconds`)."""
     rng = rng or np.random.default_rng(args.seed + 1000 * epoch)
     _bucket = bucket_tokens if can_bucket(scorer.cfg) else np.asarray
     device = scorer.device
@@ -119,40 +130,80 @@ def train_one_epoch_text_only(
     def put(tokens) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(tokens)).to(device)
 
-    for i, (images, texts) in enumerate(info.loader):
+    attack_timer = None
+    if fused_step is not None and timing is not None:
+        attack_timer = AsyncAttackTimer(timing)
+    loader_it = iter(info.loader)
+    batch = next(loader_it, None)
+    prepared = None
+    i = -1
+    while batch is not None:
+        i += 1
+        images, texts = batch
         del images  # the text-only objective ignores images
-        step = num_batches_per_epoch * epoch + i
+        i_accum = i // args.accum_freq
+        step = num_batches_per_epoch * epoch + i_accum
         data_time_m.update(time.time() - end)
 
-        tokens = put(_bucket(tokenizer(texts)))
-        anchors = anchor_encode(frozen_text, tokens)
+        if fused_step is not None:
+            t0 = time.perf_counter()
+            state, step_info = fused_step(state, frozen_text, list(texts),
+                                          rng, prepared=prepared)
+            metrics = step_info["metrics"]
+            # attack-only timing: the worker thread waits on the step's
+            # attack marker (an event behind the last scoring call) and
+            # records t_ready - t0, the train update excluded, without a
+            # sync on this thread that would break the overlap below.  t0
+            # is at step entry, so a step whose anchors miss the cache
+            # also counts the anchor encode.
+            if attack_timer is not None:
+                attack_timer.submit(t0, step_info["attack_marker"])
+                attack_seconds = attack_timer.last  # lags by <= 1 step
+            else:
+                attack_seconds = time.perf_counter() - t0
+            # overlap: while this batch's train update runs on the device,
+            # pull batch i+1 and do its host-side probe prep (edit
+            # tokenisation + constraint masks).  The rng draw order is that
+            # of the unoverlapped loop: positions for i+1 were always drawn
+            # after batch i's characters.
+            batch = next(loader_it, None)
+            prepared = None
+            if batch is not None:
+                prepared = fused_step.prepare_probes(list(batch[1]), rng)
+        else:
+            tokens = put(_bucket(tokenizer(texts)))
+            anchors = anchor_encode(frozen_text, tokens)
 
-        t0 = time.time()
-        adv_texts = run_attack(scorer, state.text, tokenizer, texts, anchors,
-                               args, vocab, constraint, rng, seconds)
-        attack_seconds = time.time() - t0
-        if timing is not None:
-            timing.append(attack_seconds)
+            t0 = time.time()
+            adv_texts = run_attack(scorer, state.text, tokenizer, texts,
+                                   anchors, args, vocab, constraint, rng,
+                                   seconds)
+            attack_seconds = time.time() - t0
+            if timing is not None:
+                timing.append(attack_seconds)
 
-        adv_tokens = put(_bucket(tokenizer(adv_texts)))
-        state, metrics = train_step(state, adv_tokens, anchors)
+            adv_tokens = put(_bucket(tokenizer(adv_texts)))
+            state, metrics = train_step(state, adv_tokens, anchors)
+            batch = next(loader_it, None)
 
         batch_time_m.update(time.time() - end)
         end = time.time()
-        batch_count = i + 1
+        batch_count = i_accum + 1
 
-        if (batch_count % args.log_every_n_steps == 0
-                or batch_count == num_batches_per_epoch):
+        if ((i + 1) % args.accum_freq == 0
+                and (batch_count % args.log_every_n_steps == 0
+                     or batch_count == num_batches_per_epoch)):
             rec = {
                 "loss_arr": metrics["loss"],
                 "n_texts": len(texts),
-                "seen": batch_count * args.batch_size,
+                "seen": batch_count * args.batch_size * args.accum_freq,
                 "pct": 100.0 * batch_count / max(num_batches_per_epoch, 1),
                 "data_time": data_time_m.avg,
                 "batch_time": batch_time_m.avg,
                 "data_time_val": data_time_m.val,
                 "batch_time_val": batch_time_m.val,
-                "sps": args.batch_size / batch_time_m.val,
+                "sps": (args.accum_freq * args.batch_size
+                        / batch_time_m.val),
                 "attack_seconds": attack_seconds,
                 "step": step,
             }
@@ -162,5 +213,7 @@ def train_one_epoch_text_only(
             data_time_m.reset()
 
     _flush(pending_log)
+    if attack_timer is not None:
+        attack_timer.close()  # every step's row written, in step order
     log_data.setdefault("train/loss", losses_m.avg if losses_m.count else 0.0)
     return state, log_data

@@ -12,8 +12,11 @@ the port's dotted state-dict names: weight decay applies to every
 parameter that is not a LayerNorm gain or bias, another bias, the class
 embedding or the logit scale.
 
-Gradient accumulation (`accum_freq > 1`, optax `MultiSteps` there) is not
-ported yet.
+Gradient accumulation (`accum_freq = k > 1`) has the meaning of optax's
+`MultiSteps(tx, every_k_schedule=k)`: the gradients of k calls are
+averaged (as a running mean, in the same order of operations), the chain
+above is applied to the average on the k-th call, the parameters stay
+unchanged on the others, and the schedule counts applied updates.
 """
 from __future__ import annotations
 
@@ -44,29 +47,72 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 @dataclasses.dataclass
 class Optimizer:
-    """AdamW with its schedule and clip.  `update(step)` consumes the
-    gradients that `backward()` left on the parameters."""
+    """AdamW with its schedule, clip and accumulation.  `update(step)`
+    consumes the gradients that `backward()` left on the parameters."""
     adamw: torch.optim.AdamW
     schedule: Callable[[int], float]
     grad_clip_norm: Optional[float]
+    accum_freq: int = 1
+    # running mean of the gradients since the last applied update
+    # (accum_freq > 1 only; None right after an applied update)
+    accumulated: Optional[List[torch.Tensor]] = None
 
     def parameters(self) -> List[torch.Tensor]:
         return [p for g in self.adamw.param_groups for p in g["params"]]
 
+    def state_dict(self) -> dict:
+        """AdamW's moments and step counts, and the accumulated gradients."""
+        return {"adamw": self.adamw.state_dict(),
+                "accumulated": self.accumulated}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adamw.load_state_dict(state["adamw"])
+        acc = state["accumulated"]
+        if acc is not None:
+            acc = [a.to(p.device, p.dtype)
+                   for a, p in zip(acc, self.parameters())]
+        self.accumulated = acc
+
+    def _accumulate(self, mini_step: int) -> None:
+        """Fold the parameters' gradients into the running mean, as
+        optax's `acc + (g - acc) / (mini_step + 1)`."""
+        grads = [p.grad for p in self.parameters()]
+        if any(g is None for g in grads):
+            raise RuntimeError("gradient accumulation needs a gradient on "
+                               "every parameter at every call")
+        if self.accumulated is None:
+            self.accumulated = [torch.zeros_like(g) for g in grads]
+        torch._foreach_sub_(grads, self.accumulated)
+        torch._foreach_div_(grads, float(mini_step + 1))
+        torch._foreach_add_(self.accumulated, grads)
+
     def update(self, step: int) -> torch.Tensor:
-        """Clip, take one AdamW step at `schedule(step)` and clear the
-        gradients.  Returns the gradients' global norm before clipping."""
+        """`step` counts the calls so far.  Clip, take one AdamW step at
+        `schedule(step // accum_freq)` and clear the gradients; under
+        accumulation only every `accum_freq`-th call does that, on the
+        mean of the gradients since the last one.  Returns the global
+        norm of this call's gradients before clipping."""
         grads = [p.grad for p in self.parameters() if p.grad is not None]
-        norm = global_norm(grads)
+        norm = clip_norm = global_norm(grads)
+        if self.accum_freq > 1:
+            mini_step = step % self.accum_freq
+            self._accumulate(mini_step)
+            if mini_step != self.accum_freq - 1:
+                self.adamw.zero_grad(set_to_none=True)
+                return norm
+            grads, self.accumulated = self.accumulated, None
+            for p, g in zip(self.parameters(), grads):
+                p.grad = g
+            clip_norm = global_norm(grads)
         if self.grad_clip_norm:
             # optax's clip_by_global_norm: g * max_norm / norm above the
             # threshold, untouched below it (torch's clip_grad_norm_ would
             # divide by norm + 1e-6)
-            scale = torch.where(norm < self.grad_clip_norm,
-                                torch.ones_like(norm),
-                                self.grad_clip_norm / norm)
+            scale = torch.where(clip_norm < self.grad_clip_norm,
+                                torch.ones_like(clip_norm),
+                                self.grad_clip_norm / clip_norm)
             torch._foreach_mul_(grads, scale)
-        lr = float(self.schedule(step))
+        lr = float(self.schedule(step // self.accum_freq))
         for group in self.adamw.param_groups:
             group["lr"] = lr
         self.adamw.step()
@@ -86,11 +132,9 @@ def make_optimizer(
 ) -> Optimizer:
     """AdamW over `named_parameters` with the JAX package's defaults
     (`eps=1e-6`, `beta2=0.98`) and decay groups; `schedule` maps the
-    0-based update count to the learning rate."""
-    if accum_freq > 1:
-        raise NotImplementedError(
-            "--accum-freq > 1 is not ported yet: ROADMAP 'Next, in order' "
-            "item 3")
+    0-based count of applied updates to the learning rate."""
+    if accum_freq < 1:
+        raise ValueError(f"accum_freq must be at least 1, got {accum_freq}")
     decay, no_decay = [], []
     for name, p in named_parameters:
         (decay if is_decay_param(name) else no_decay).append(p)
@@ -98,4 +142,4 @@ def make_optimizer(
         [{"params": decay, "weight_decay": weight_decay},
          {"params": no_decay, "weight_decay": 0.0}],
         lr=float(schedule(0)), betas=(beta1, beta2), eps=eps)
-    return Optimizer(adamw, schedule, grad_clip_norm)
+    return Optimizer(adamw, schedule, grad_clip_norm, accum_freq)

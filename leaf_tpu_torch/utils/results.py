@@ -3,14 +3,16 @@
 
 `results.csv` holds the tracked metrics of every epoch, and
 `times_{attack}.csv` the wall seconds of every batch's attack: the
-trainer's own attack-throughput record.  The JAX package's
-`AsyncAttackTimer` times the fused step's attack from a worker thread;
-it comes with the fused step.
+trainer's own attack-throughput record.  `AsyncAttackTimer` times the
+fused step's attack from a worker thread that waits on a CUDA event.
 """
 from __future__ import annotations
 
 import csv
 import os
+import queue
+import threading
+import time
 from typing import Dict, List, Optional
 
 
@@ -95,3 +97,70 @@ class TimingLedger:
             if first:
                 writer.writerow(["0"])
             writer.writerow([seconds])
+
+
+class AsyncAttackTimer:
+    """Attack-only wall times for the *fused* LEAF step.
+
+    `times_{use_charmer}.csv` times exactly the inner maximisation.  The
+    unfused loop times the attack call, which ends in a copy of the
+    winners to the host and so waits for the device.  The fused step
+    never returns strings: its
+    attack ends when the final candidate-scoring work is done on the
+    device, *before* the train update.  Blocking the training thread
+    there would serialise the loop's host/device overlap, so a single
+    worker thread waits on the steps' markers in order and appends
+    (t_ready - t_start) to the ledger.  Rows land in step order; the
+    value logged inline (`last`) may lag the current step by one.
+
+    A marker is a `torch.cuda.Event` recorded right after the step's last
+    scoring call, or None on a CPU device, where that work is done by
+    the time the step returns.  `Event.synchronize()` waits inside the
+    CUDA runtime with the interpreter lock released, so the worker does
+    not hold the training thread back.  On the k=1 pipelined path the
+    event sits between the second half's scoring and the train update;
+    on the unpipelined path it sits after the candidates' argmax, again
+    before the update's forward.
+    """
+
+    def __init__(self, ledger: TimingLedger):
+        self.ledger = ledger
+        self.last = 0.0
+        self._q: queue.Queue = queue.Queue()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def submit(self, t_start: float, marker) -> None:
+        """Enqueue a step: `t_start` from time.perf_counter() at attack
+        start, `marker` the event that marks the end of the attack's
+        device work (None: already done)."""
+        self._q.put((t_start, marker, time.perf_counter()))
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            try:
+                if item is None:
+                    return
+                t_start, marker, t_submitted = item
+                if marker is None:
+                    t_ready = t_submitted
+                else:
+                    try:
+                        marker.synchronize()
+                    except RuntimeError:   # a failed launch surfaces in
+                        pass               # the main thread instead
+                    t_ready = time.perf_counter()
+                self.last = t_ready - t_start
+                self.ledger.append(self.last)
+            finally:
+                self._q.task_done()
+
+    def drain(self) -> None:
+        """Block until every submitted step has been timed and written."""
+        self._q.join()
+
+    def close(self) -> None:
+        self.drain()
+        self._q.put(None)
+        self._thread.join()

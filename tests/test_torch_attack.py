@@ -91,11 +91,27 @@ def test_attack_text_leaf_draws_like_jax_and_reports_its_seconds(setup):
 
 
 def test_attack_text_leaf_rejects_a_constraint(setup):
+    """Under a word constraint the attack rejects the candidates the
+    constraint rejects (they score as the clean sentence): the same
+    sentences as the JAX package's constrained attack, every one of them
+    either unchanged or valid."""
+    from leaf_tpu.attacks.constraint import WordConstraint as JWordConstraint
+    from leaf_tpu_torch.attacks.constraint import WordConstraint
     s = setup
-    with pytest.raises(NotImplementedError, match="constraint"):
-        ttext_attacks.attack_text_leaf(
-            s["tscorer"], s["ttext"], s["ttok"], SENTENCES,
-            np.zeros((len(SENTENCES), 64), np.float32), constraint=object())
+    anchors = np.asarray(s["jscorer"].encode_text(s["jtext"],
+                                                  s["jtok"](SENTENCES)))
+    wc = WordConstraint()
+    for k in (1, 2):
+        _, jadv = jtext_attacks.attack_text_leaf(
+            s["jscorer"], s["jtext"], s["jtok"], SENTENCES, anchors, n=8, k=k,
+            constraint=JWordConstraint(), rng=np.random.default_rng(3))
+        _, tadv = ttext_attacks.attack_text_leaf(
+            s["tscorer"], s["ttext"], s["ttok"], SENTENCES, anchors, n=8, k=k,
+            constraint=wc, rng=np.random.default_rng(3))
+        assert tadv == jadv
+        assert any(a != c for a, c in zip(tadv, SENTENCES))
+        assert all(a == c or wc.count(a) < wc.count(c)
+                   for a, c in zip(tadv, SENTENCES))
 
 
 def test_pad_rows_matches_jax(setup):

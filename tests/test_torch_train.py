@@ -266,10 +266,87 @@ def test_textfare_loss_matches_jax():
 
 
 def test_accum_freq_is_not_ported():
+    """(The name dates from when accumulation raised.)  `accum_freq` is
+    ported: 2 builds an optimizer that accumulates, and a count below 1
+    is refused."""
     module = tclip.CLIP(tconfig.get_model_config(MODEL))
-    with pytest.raises(NotImplementedError, match="accum-freq"):
+    opt = toptim.make_optimizer(module.text.named_parameters(),
+                                lambda s: 1e-3, accum_freq=2)
+    assert opt.accum_freq == 2 and opt.accumulated is None
+    with pytest.raises(ValueError, match="accum_freq"):
         toptim.make_optimizer(module.text.named_parameters(),
-                              lambda s: 1e-3, accum_freq=2)
+                              lambda s: 1e-3, accum_freq=0)
+
+
+@pytest.mark.parametrize("clip", [None, 0.5], ids=["noclip", "clip"])
+@pytest.mark.parametrize("k", [2, 3])
+def test_accum_freq_matches_optax_multisteps(k, clip):
+    """2k calls against `optax.MultiSteps(tx, every_k_schedule=k)`: the
+    parameters stay unchanged on all calls but every k-th, which applies
+    the chain to the mean gradient at the schedule's applied-update
+    count; the accumulated mean survives a state_dict round trip."""
+    rng = np.random.default_rng(0)
+    shapes = {"token_embedding": (7, 4), "ln_final.scale": (4,),
+              "blocks.0.attn.qkv_w": (4, 12), "blocks.0.attn.qkv_b": (12,)}
+    init = {n: rng.standard_normal(s).astype(np.float32)
+            for n, s in shapes.items()}
+    grads = [{n: rng.standard_normal(s).astype(np.float32)
+              for n, s in shapes.items()} for _ in range(2 * k)]
+    kw = dict(weight_decay=0.2, beta1=0.9, beta2=0.98, eps=1e-6,
+              grad_clip_norm=clip, accum_freq=k)
+
+    def nest(flat):
+        tree = {}
+        for name, v in flat.items():
+            node = tree
+            *parents, leaf = name.split(".")
+            for key in parents:
+                node = node.setdefault(key, {})
+            node[leaf] = jnp.asarray(v)
+        return tree
+
+    def leaf(tree, name):
+        for key in name.split("."):
+            tree = tree[key]
+        return np.asarray(tree)
+
+    jsched = jschedules.cosine_lr(1e-2, 1, 8)
+    tx = joptim.make_optimizer(lambda s: jnp.asarray(jsched(s)), **kw)
+    assert isinstance(tx, optax.MultiSteps) or hasattr(tx, "update")
+    jparams = nest(init)
+    jopt = tx.init(jparams)
+    tparams_ = {n: torch.nn.Parameter(torch.from_numpy(v.copy()))
+                for n, v in init.items()}
+    opt = toptim.make_optimizer(tparams_.items(),
+                                tschedules.cosine_lr(1e-2, 1, 8), **kw)
+    for step, g in enumerate(grads):
+        before = {n: p.detach().clone() for n, p in tparams_.items()}
+        updates, jopt = tx.update(nest(g), jopt, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for n, p in tparams_.items():
+            p.grad = torch.from_numpy(g[n].copy())
+        norm = opt.update(step)
+        np.testing.assert_allclose(
+            float(norm), float(optax.global_norm(nest(g))), rtol=1e-6)
+        applied = (step + 1) % k == 0
+        for n, p in tparams_.items():
+            assert torch.equal(p.detach(), before[n]) != applied, (step, n)
+            np.testing.assert_allclose(p.detach().numpy(), leaf(jparams, n),
+                                       atol=2e-6, rtol=1e-5, err_msg=n)
+            assert p.grad is None
+        assert (opt.accumulated is None) == applied
+        if not applied:
+            names = {id(p): n for n, p in tparams_.items()}
+            for a, p in zip(opt.accumulated, opt.parameters()):
+                n = names[id(p)]
+                np.testing.assert_allclose(
+                    a.numpy(), leaf(jopt.acc_grads, n), atol=1e-6, err_msg=n)
+            # a save and a load in the middle of an accumulation
+            saved = copy.deepcopy(opt.state_dict())
+            opt.accumulated = None
+            opt.load_state_dict(saved)
+            assert opt.accumulated is not None
+    assert int(jopt.gradient_step) == 2
 
 
 def test_clamp_logit_scale():
@@ -371,11 +448,11 @@ def test_frozen_anchor_stays_fixed(tiny_run):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--constrain"], "constrain"),
+    (["--val-data", "x.tar"], "val-data"),
     (["--use_charmer"], "use_charmer"),
-    (["--resume", "latest"], "resume"),
-    (["--save-most-recent"], "save-most-recent"),
-    (["--accum-freq", "2"], "accum-freq"),
+    (["--imagenet-val", "/data/imagenet"], "imagenet-val"),
+    (["--copy-codebase"], "copy-codebase"),
+    (["--matmul-precision", "highest"], "matmul-precision"),
     (["--zeroshot-frequency", "1"], "zeroshot-frequency"),
     (["--dataset-type", "webdataset", "--train-data", "x.tar"],
      "dataset-type"),
@@ -434,8 +511,13 @@ def test_trainer_imports_no_jax():
         "import leaf_tpu_torch.attacks.text, leaf_tpu_torch.attacks.edits\n"
         "import leaf_tpu_torch.ops.flash_attention\n"
         "import leaf_tpu_torch.data.synthetic, leaf_tpu_torch.utils.results\n"
+        "import leaf_tpu_torch.train.fused, leaf_tpu_torch.train.checkpoint\n"
+        "import leaf_tpu_torch.convert, leaf_tpu_torch.attacks.constraint\n"
+        "import leaf_tpu_torch.tokenizer.native_binding\n"
+        "import leaf_tpu_torch.utils.safetensors_io\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'optax', 'flax', 'regex', 'PIL', 'leaf_tpu'))\n"
+        "('jax', 'jaxlib', 'optax', 'flax', 'regex', 'PIL', 'leaf_tpu', "
+        "'safetensors', 'orbax', 'nltk'))\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True,
