@@ -8,8 +8,9 @@ Phases, each printing its own lines:
       the native C++ tokenizer from `leaf_tpu_torch/tokenizer/native/` with
       the host compiler;
   (c) each kernel against its plain PyTorch version on the card at the
-      shapes the serving and training paths give it, the fused step's half
-      batches among them (fp32: max abs <= 1e-4; bf16: max abs <= 2e-2, or
+      shapes the serving, training and eval paths give it, the fused step's
+      half batches, the zero-shot classifier's text shapes and the eval's
+      fp32 vision shape among them (fp32: max abs <= 1e-4; bf16: max abs <= 2e-2, or
       two bf16 rounding steps, 2^-6 of the value, where that is more; for
       the GEMM's rows with a residual, 2^-6 of the value's and the
       residual's sizes together), with CUDA-event times taken in turns
@@ -28,9 +29,10 @@ Phases, each printing its own lines:
       and the unfused train step's; the out-projections also with their
       residual) and at three ragged
       shapes in every tile width, with `torch.addmm` as its library call
-      and its operations bound; the LayerNorm op at the bf16 shapes
-      and one fp32, with `F.layer_norm` and its bytes bound, and its
-      gradients;
+      and its operations bound, and in fp32 at the eval's vision qkv and
+      out-projection shapes; the LayerNorm op at the bf16 shapes and two
+      fp32 ones (text bucket 77, the eval's vision shape), with
+      `F.layer_norm` and its bytes bound, and its gradients;
   (d) `leaf_tpu_torch.serve.main` on ViT-L-14-quickgelu (seed 0, bf16):
       4096 short captions (bucket 16, 8 per 128-token row), then 2048 long
       ones (bucket 77, one per row), batch 256, so that serve's timed
@@ -75,9 +77,29 @@ Phases, each printing its own lines:
       seconds, samples/s and candidates/s, and how many of its first
       best-probe readbacks returned while the second half's phase 1 was
       still running; the tokenizer's counters show that the candidate grids
-      went through the native library.
+      went through the native library;
+  (k) the recipe with its evals: first `zero_shot_eval` at ViT-tiny-test,
+      fp32, TF32 off, on the card and on the CPU from the same weights (the
+      full 1000-class, 80-template classifier, a folder of 16 seeded
+      arrays, both synthetic text sets): the same clean top-1/top-5 and
+      text accuracies, and the Charmer classification attack picks the
+      same sentences; then `train.driver.main` with the flags of
+      `scripts/train_leaf_vitl.sh` on local files at ViT-L-14-quickgelu's
+      full width and depth (bf16 on fp32 master weights, batch 128, rho 50,
+      k 1, --constrain, the cosine schedule after 2 warm-up steps where the
+      recipe warms up for 1400): 3 tar shards of 1,000 unique seeded
+      captions of 3-58 words, 8 steps; `--imagenet-val` on 128 seeded
+      224x224 `.npy` arrays in 8 class folders; `--val-text-classification
+      synthetic --n_val_text 64`.  The kernels' counters are zeroed just
+      before each of its two evals (epoch 0 and 1) and held, just after, to
+      the encodes it makes (classifier, Charmer grids, templated scoring;
+      clean, 10 PGD steps and adversarial image encodes in fp32, anchor
+      encodes); it prints each eval part's seconds and both rows' seven
+      eval columns (finite, in [0, 1]).  Last, the fused and the unfused
+      loop over the same tar set, one epoch each, no evals.
 Any failure raises.  The line before the last is the kernels' JSON
-report; the last is {"ok": true, "device": {...}}.  Without CUDA, or
+report (each kernel at its main-path shape; the line before it has the
+rows of every shape); the last is {"ok": true, "device": {...}}.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
@@ -116,6 +138,13 @@ SHAPES = [
     ("vision_bf16", 128, 257, 257, False, 1024, 16, "bfloat16"),
     ("text_s16_fp32", 32, 128, 16, True, 768, 12, "float32"),
     ("text_s77_fp32", 256, 77, 77, True, 768, 12, "float32"),
+    # the in-training eval (k): the zero-shot classifier encodes 10 classes
+    # x 80 templates = 800 prompts a call, 84 of its 100 calls at bucket 16
+    # (8 a row) and 16 at bucket 32 (4 a row); images are encoded and
+    # attacked with PGD in fp32, 128 a batch
+    ("classifier_s16_bf16", 100, 128, 16, True, 768, 12, "bfloat16"),
+    ("classifier_s32_bf16", 200, 128, 32, True, 768, 12, "bfloat16"),
+    ("eval_vision_fp32", 128, 257, 257, False, 1024, 16, "float32"),
 ]
 # (name, M, K, N) of the fused block's two GEMMs on the main path; the
 # out-projections run again with their residual
@@ -133,6 +162,9 @@ GEMM_SHAPES = [("s16 qkv", 32 * 128, 768, 2304), ("s16 out", 32 * 128, 768, 768)
                ("train out", 800 * 128, 768, 768)]
 # M = 3 rows of 77 tokens; N and K multiples of 8 and of no tile (64 k, 128
 # to 256 columns), one of them narrower than a single TMA box
+# the eval's fp32 vision GEMMs: the block's qkv and out projections
+EVAL_FP32_GEMM_SHAPES = [("eval vision qkv fp32", 128 * 257, 1024, 3072),
+                         ("eval vision out fp32", 128 * 257, 1024, 1024)]
 RAGGED_GEMM_SHAPES = [("ragged 231x72x200", 231, 72, 200),
                       ("ragged 231x776x1096", 231, 776, 1096),
                       ("ragged 231x8x40", 231, 8, 40)]
@@ -490,6 +522,20 @@ def phase_parts():
                     lambda: pa._launch_gemm_bias(a, w, b, res))))
     say(f"(c) gemm_bias: the ragged shapes also agree in every tile width "
         f"{GEMM_TILES}")
+    for name, M, K, N in EVAL_FP32_GEMM_SHAPES:
+        # fp32 runs on scalar FMAs; the library call is torch.addmm, TF32 off
+        a = normal(M, K, dtype=torch.float32)
+        w = normal(K, N, scale=K ** -0.5, dtype=torch.float32)
+        b = normal(N, dtype=torch.float32)
+        err, ms, pms, lib = _compare(
+            lambda: pa._launch_gemm_bias(a, w, b),
+            lambda: pa._gemm_bias_reference(a, w, b), "float32",
+            lambda: torch.addmm(b, a, w))
+        parts["gemm_bias"].append(_row(
+            "gemm_bias", name, "float32", err, ms, pms, lib,
+            4.0 * (M * K + K * N + N + M * N), 2.0 * M * N * K, M=M, K=K, N=N,
+            residual=False, tflops=2.0 * M * N * K / ms / 1e9,
+            device_ms=_graph_ms(lambda: pa._launch_gemm_bias(a, w, b))))
 
     for name, R, L, _, _, D, _, dt in SHAPES:
         if name == "text_s16_fp32":   # fp32 is held at bucket 77 alone
@@ -1335,6 +1381,291 @@ def phase_train(workdir: str):
 
 
 # ---------------------------------------------------------------------------
+# (k) the recipe with its evals
+# ---------------------------------------------------------------------------
+
+# the recipe (`scripts/train_leaf_vitl.sh`) on local files: 3 tar shards of
+# 1,000 unique captions each, 8 steps of 128; an image folder of 128
+# 224 x 224 arrays in 8 classes; the synthetic text-classification sets
+RECIPE_SAMPLES, RECIPE_IMAGES, RECIPE_CLASSES, RECIPE_TEXTS = 1024, 128, 8, 64
+
+
+def _write_tar_set(root: str, rng, shards: int = 3, per_shard: int = 1000):
+    """`shards` tar files of unique seeded captions of 3-58 words."""
+    import io
+    import tarfile
+    os.makedirs(root)
+    seen = set()
+    for s in range(shards):
+        with tarfile.open(os.path.join(root, f"{s:03d}.tar"), "w") as tf:
+            i = 0
+            while i < per_shard:
+                cap = _captions(rng, 1, 3, 58)[0]
+                if cap in seen:
+                    continue
+                seen.add(cap)
+                payload = cap.encode()
+                info = tarfile.TarInfo(f"{s:03d}_{i:05d}.txt")
+                info.size = len(payload)
+                tf.addfile(info, io.BytesIO(payload))
+                i += 1
+    return os.path.join(root, "{000..%03d}.tar" % (shards - 1))
+
+
+def _write_image_folder(root: str, rng, n: int, classes: int, size: int):
+    """`n` seeded HWC uint8 arrays as `.npy` files in `classes` folders."""
+    for i in range(n):
+        cdir = os.path.join(root, f"class_{i % classes:02d}")
+        os.makedirs(cdir, exist_ok=True)
+        np.save(os.path.join(cdir, f"{i:04d}.npy"),
+                rng.integers(0, 256, (size, size, 3), dtype=np.uint8))
+    return root
+
+
+def _eval_encodes(args, n_images: int):
+    """(text encodes, image encodes) of one `zero_shot_eval` with the
+    ImageNet split and both synthetic text sets: the classifier's calls of
+    10 classes, 3 a chunk of 16 sentences (probes, candidates, templated
+    scoring); per image batch the clean encode, one per PGD step and the
+    adversarial encode, and one anchor encode per text set."""
+    chunks = -(-args.n_val_text // 16)
+    text = -(-1000 // 10) + 2 * 3 * chunks
+    image = -(-n_images // args.batch_size) * (args.n_steps_adv + 2) + 2
+    return text, image
+
+
+class _EvalLaunches:
+    """Wraps the driver's `zero_shot_eval`: the kernels' counters are
+    zeroed just before each eval and read just after it."""
+
+    def __init__(self, driver, counters):
+        self.driver, self.counters = driver, counters
+        self.inner = driver.zero_shot_eval
+        self.calls = []
+
+    def __call__(self, *args, **kwargs):
+        import torch
+        self.counters.zero()
+        out = self.inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.calls.append({name: op.launches
+                           for name, op in self.counters.ops.items()})
+        return out
+
+    def __enter__(self):
+        self.driver.zero_shot_eval = self
+        return self
+
+    def __exit__(self, *exc):
+        self.driver.zero_shot_eval = self.inner
+
+
+def phase_eval_parity(workdir: str):
+    """ViT-tiny-test, fp32, TF32 off: `zero_shot_eval` on the card and on
+    the CPU from the same weights gives the same clean top-1/top-5 and
+    text accuracies, and the Charmer classification attack the same
+    sentences."""
+    import torch
+    from leaf_tpu_torch.attacks.engine import CandidateScorer
+    from leaf_tpu_torch.attacks.text import (
+        attack_text_charmer_classification_batched)
+    from leaf_tpu_torch.data import get_data
+    from leaf_tpu_torch.evals import zero_shot as zs
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+    from leaf_tpu_torch.models.preprocess import image_transform
+    from leaf_tpu_torch.train import params
+
+    root = _write_image_folder(os.path.join(workdir, "tiny_imagenet"),
+                               np.random.default_rng(11), 16, 4, 80)
+    args = params.parse_args([
+        "--model", "ViT-tiny-test", "--dataset-type", "synthetic",
+        "--imagenet-val", root, "--n_val_imagenet", "16", "--batch-size",
+        "8", "--val-text-classification", "synthetic", "--n_val_text", "16",
+        "--n_charmer_test", "5", "--zeroshot-frequency", "1", "--seed", "2"])
+    pre = image_transform(64, do_normalize=False)
+    tok = get_tokenizer("ViT-tiny-test")
+    runs = {}
+    with zs.fp32_products():
+        for device in ("cpu", "cuda"):
+            model = create_model("ViT-tiny-test", precision="fp32", seed=0,
+                                 device=device)
+            model.module.visual.requires_grad_(False)
+            data = get_data(args, pre)
+            scorer = CandidateScorer(model.cfg, device)
+            t0 = time.perf_counter()
+            metrics = zs.zero_shot_eval(
+                model.module, model.cfg, data, tok, pre, 1, args,
+                scorer=scorer,
+                generator=torch.Generator(device=device).manual_seed(2))
+            dt = time.perf_counter() - t0
+            # every image's five best classes, from one more classifier
+            images, _ = next(iter(data["imagenet-val"].loader))
+            with torch.no_grad():
+                logits = zs._clean_logits(
+                    model.module.visual, model.cfg,
+                    torch.from_numpy(images).to(device),
+                    zs._classifier(scorer, model.module.text, tok))
+            top5 = logits.topk(5, dim=-1).indices.cpu().numpy()
+            textcls = data["train-agnews"]
+            anchors = zs.encode_anchor_images(model.module.visual, model.cfg,
+                                              textcls, pre)
+            sentences = [s["text"] for s in textcls.samples]
+            adv = attack_text_charmer_classification_batched(
+                scorer, model.module.text, tok, sentences, anchors,
+                [s["label"] for s in textcls.samples], n=5,
+                vocab=textcls.vocab)
+            runs[device] = (metrics, adv, anchors.cpu(), dt, top5)
+    (cm, ca, cf, cdt, c5), (gm, ga, gf, gdt, g5) = runs["cpu"], runs["cuda"]
+    require(np.array_equal(g5, c5), "the images' five best classes differ "
+            "between the card and the CPU")
+    adv_key = "imagenet-zeroshot-val-top1-adv"
+    same = {k: v for k, v in cm.items() if k != adv_key}
+    require({k: v for k, v in gm.items() if k != adv_key} == same,
+            f"eval metrics on the card {gm} against the CPU's {cm}")
+    require(ga == ca, "the Charmer classification attack picks other "
+            "sentences on the card than on the CPU")
+    err = float((gf - cf).abs().max())
+    require(err <= 1e-4, f"anchor features differ by {err}")
+    changed = sum(a != s for a, s in zip(ga, sentences))
+    say(f"(k) eval parity, ViT-tiny-test fp32, TF32 off, card vs CPU: "
+        f"{same} equal; PGD top-1 card {gm[adv_key]} / CPU {cm[adv_key]} "
+        f"(other generators); the same {len(ga)} adversarial sentences "
+        f"({changed} changed); the {len(g5)} images' five best of 1000 "
+        f"classes the same; anchor features max abs diff {err:.3g}; "
+        f"eval {gdt:.2f} s on the card, {cdt:.2f} s on the CPU")
+    return {"metrics": same, "anchor_err": err}
+
+
+RECIPE_FLAGS = ["--model", MODEL, "--precision", "bf16", "--batch-size",
+                "128", "--rho", "50", "--k_adv", "1", "--k_adv_test", "1",
+                "--n_charmer_test", "20", "--constrain", "--lr", "1e-5",
+                "--wd", "1e-4", "--warmup", "2", "--lr-scheduler", "cosine",
+                "--epochs", "1", "--seed", "1", "--zeroshot-frequency", "1",
+                "--save-frequency", "1", "--delete-previous-checkpoint",
+                "--dataset-type", "webdataset",
+                "--train-num-samples", str(RECIPE_SAMPLES),
+                "--n_val_imagenet", str(RECIPE_IMAGES),
+                "--val-text-classification", "synthetic",
+                "--n_val_text", str(RECIPE_TEXTS),
+                "--log-every-n-steps", "1", "--device", "cuda"]
+
+
+def phase_recipe(workdir: str):
+    """`driver.main` with the recipe's flags on local files at full width
+    and depth, the kernels' launches held during each eval; then the fused
+    and the unfused loop over the same tar set, one epoch each, no evals."""
+    import torch
+    from leaf_tpu_torch.attacks import edits
+    from leaf_tpu_torch.attacks.engine import CandidateScorer
+    from leaf_tpu_torch.data import get_data
+    from leaf_tpu_torch.models.factory import get_tokenizer
+    from leaf_tpu_torch.train import driver, fused, loop, params, step
+
+    rng = np.random.default_rng(12)
+    tars = _write_tar_set(os.path.join(workdir, "tars"), rng)
+    folder = _write_image_folder(os.path.join(workdir, "imagenet"), rng,
+                                 RECIPE_IMAGES, RECIPE_CLASSES, 224)
+    flags = RECIPE_FLAGS + ["--train-data", tars, "--imagenet-val", folder,
+                            "--logs", workdir, "--name", "recipe"]
+    args = params.parse_args(flags)
+    counters = _Counters()
+    handler = _Steps()
+    log = logging.getLogger("leaf_tpu_torch.train.loop")
+    log.addHandler(handler)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _EvalLaunches(driver, counters) as evals:
+            out = driver.main(flags)
+        wall = time.perf_counter() - t0
+        steps = list(handler.steps)
+        cfg = out["cfg"]
+        text_enc, image_enc = _eval_encodes(args, RECIPE_IMAGES)
+        want = {"packed_attention": cfg.text.layers * text_enc
+                + cfg.vision.layers * image_enc,
+                "fused_attention_block": cfg.text.layers * text_enc
+                + cfg.vision.layers * image_enc,
+                "layer_norm": (cfg.text.layers + 1) * text_enc
+                + (cfg.vision.layers + 2) * image_enc}
+        require(len(evals.calls) == 2, f"{len(evals.calls)} evals, 2 expected")
+        eval_launches = dict.fromkeys(want, 0)
+        for epoch, got in enumerate(evals.calls):
+            say(f"(k) launches during the epoch-{epoch} eval: {got}; "
+                f"{text_enc} text encodes ({-(-1000 // 10)} classifier calls "
+                f"+ 2 sets x {-(-args.n_val_text // 16)} chunks x 3) and "
+                f"{image_enc} image encodes (1 batch x (clean + "
+                f"{args.n_steps_adv} PGD + adversarial) + 2 anchor sets) "
+                f"expected = {want}")
+            for name in want:
+                require(got[name] == want[name], f"eval {epoch}: {name} "
+                        f"{got[name]} launches, {want[name]} expected")
+                eval_launches[name] += got[name]
+        rows = _csv_rows(os.path.join(out["out_dir"], "results.csv"))
+        require([r["epoch"] for r in rows] == ["0", "1"], f"rows {rows}")
+        columns = driver.RESULT_COLUMNS[2:]
+        for r in rows:
+            vals = {c: float(r[c]) for c in columns}
+            require(all(np.isfinite(v) and 0.0 <= v <= 1.0
+                        for v in vals.values()), f"eval columns {vals}")
+            say(f"(k) results.csv epoch {r['epoch']}: train_loss "
+                f"{r['train_loss']}, {vals}")
+        require(len(steps) == RECIPE_SAMPLES // 128, f"{len(steps)} steps")
+        train_s = float(sum(a[5] for a in steps))
+        parts = out["eval_seconds"]
+        eval_s = {e: float(sum(p.values())) for e, p in parts.items()}
+        for e, p in parts.items():
+            say(f"(k) eval at epoch {e}: " + ", ".join(
+                f"{k} {v:.2f} s" for k, v in p.items())
+                + f"; {eval_s[e]:.2f} s in all")
+        say(f"(k) driver.main: {wall:.1f} s wall; the epoch's {len(steps)} "
+            f"steps {train_s:.2f} s (losses "
+            f"{[round(a[8], 4) for a in steps]}); the two evals "
+            f"{eval_s[0] + eval_s[1]:.2f} s; an eval is "
+            f"{eval_s[1] / (eval_s[1] + train_s):.2f} of an epoch of "
+            f"{len(steps)} steps plus its eval; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        recipe = {"wall_s": wall, "train_s": train_s, "eval_s": eval_s,
+                  "eval_parts_s": parts, "eval_launches": eval_launches,
+                  "rows": rows}
+        state, frozen = out["state"], out["frozen_text"]
+        shutil.rmtree(os.path.join(out["out_dir"], "checkpoints"))
+        del out
+        torch.cuda.empty_cache()
+
+        # ---- fused and unfused over the same tar set, one epoch each
+        tok = get_tokenizer(MODEL)
+        scorer = CandidateScorer(cfg, "cuda")
+        fs = fused.FusedLeafStep(cfg, tok, rho=RHO, k=K, device="cuda")
+        loops = {}
+        for tag, fused_step, epoch in (("fused", fs, 1), ("unfused", None, 2)):
+            data = {"train": get_data(args, None, text_only=True)["train"]}
+            handler.steps.clear()
+            seconds = {"host": 0.0, "device": 0.0}
+            before = _fused_marks(fs)
+            counters.zero()
+            loop.train_one_epoch_text_only(
+                state, frozen, scorer, step.make_anchor_encode(),
+                step.make_train_step(), tok, edits.DEFAULT_VOCAB, data, epoch,
+                args,
+                rng=np.random.default_rng(13), seconds=seconds,
+                fused_step=fused_step)
+            torch.cuda.synchronize()
+            name = f"{tag} loop, recipe tar set (unique captions of 3-58 words)"
+            loops[tag] = (_report_fused(name, handler.steps, before, fs)
+                          if fused_step is not None else
+                          _report_unfused(name, handler.steps, seconds))
+        f_sps, u_sps = (loops[t]["samples_per_s"] for t in ("fused", "unfused"))
+        say(f"(k) fused {f_sps:.1f} against unfused {u_sps:.1f} samples/s "
+            f"over one epoch of the tar set: fused/unfused "
+            f"{f_sps / u_sps:.3f}")
+        recipe["loops"] = loops
+    finally:
+        log.removeHandler(handler)
+    return eval_launches, recipe
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1385,6 +1716,8 @@ def main() -> int:
         phase_train_parity()
         phase_fused_parity()
         train_launches, trainer = phase_train(workdir)
+        eval_parity = phase_eval_parity(workdir)
+        eval_launches, recipe = phase_recipe(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1398,10 +1731,12 @@ def main() -> int:
                 "flash_attention": "leaf_tpu/ops/flash_attention.py:44"}
     by_path = {
         "packed_attention": {"serve": serve_launches["packed_attention"],
-                             "train": train_launches["packed_attention"]},
+                             "train": train_launches["packed_attention"],
+                             "eval": eval_launches["packed_attention"]},
         "fused_attention_block": {
             "serve": serve_launches["fused_attention_block"],
-            "train": train_launches["fused_attention_block"]},
+            "train": train_launches["fused_attention_block"],
+            "eval": eval_launches["fused_attention_block"]},
         "flash_attention": {"op": flash_launches}}
     report = []
     for name, by_shape in rows.items():
@@ -1410,7 +1745,7 @@ def main() -> int:
         # the shape the main path runs most: the scoring encode of
         # `train.driver.main`'s fused step (a half batch's 3200 candidates
         # at bucket 16, 400 rows) for the packed kernels, the vision shape
-        # for flash attention; every shape is under "by_shape"
+        # for flash attention; every shape is on the "kernel_shapes" line
         main_shape = next((r for r in by_shape
                            if r["shape"] == FUSED_MAIN_SHAPE), by_shape[0])
         report.append({
@@ -1423,21 +1758,22 @@ def main() -> int:
             "bound_ms": main_shape["bound_ms"],
             "bound_by": main_shape["bound_by"],
             "library_ms": main_shape["library_ms"],
-            "shape": main_shape["shape"], "dtype": main_shape["dtype"],
-            "by_shape": by_shape})
-    # the fused block's parts alone: rows by shape with ms, library_ms,
-    # bound_ms, bound_by and max_abs_err, and the LayerNorm op's launches
-    # outside the block
-    ln_launches = {"serve": ln_serve, "train": train_launches["layer_norm"]}
+            "shape": main_shape["shape"], "dtype": main_shape["dtype"]})
+    # the LayerNorm op's launches outside the block; its rows by shape and
+    # the GEMM's are on the "kernel_shapes" line
+    ln_launches = {"serve": ln_serve, "train": train_launches["layer_norm"],
+                   "eval": eval_launches["layer_norm"]}
     for path, count in ln_launches.items():
         require(count > 0, f"layer_norm: no launch on the {path} path")
-    report[1]["parts"] = {
-        "gemm_bias": {"by_shape": parts["gemm_bias"]},
-        "layer_norm": {"launches": sum(ln_launches.values()),
-                       "launches_by_path": ln_launches,
-                       "by_shape": parts["layer_norm"]}}
     require(report[1]["name"] == "fused_attention_block", "report order")
-    print(json.dumps({"trainer": trainer}))
+    report[1]["parts"] = {"layer_norm": {"launches": sum(ln_launches.values()),
+                                         "launches_by_path": ln_launches}}
+    print(json.dumps({"trainer": trainer, "recipe": recipe,
+                      "eval_parity": eval_parity}))
+    # every shape's row (ms, plain_ms, library_ms, bound_ms, bound_by,
+    # max_abs_err) on a line of its own, so that the kernels line stays
+    # short enough to read whole from the end of a captured output
+    print(json.dumps({"kernel_shapes": {**rows, **parts}}))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,9 +11,11 @@ Ported: `attack_text_leaf`, on the native fused edit+tokenize grids
 edit and tokenizes in one pass, so candidate strings are never made) and
 on the string path (`edits.apply_edit` and the tokenizer; the word
 constraint's `filter_batched` runs there); `_fused_ok` decides between
-the two.  `_constrain_grid` applies the word constraint to such a grid;
-its callers in the JAX package, the charmer and bruteforce attacks, are
-not ported yet, nor are the classification attacks.
+the two.  The Charmer classification attack of the zero-shot text eval,
+per sentence and batched (`_fused_probe_grid` / `_fused_cand_grid` for
+the grids).  `_constrain_grid` applies the word constraint to a grid;
+its callers in the JAX package, the retrieval charmer and bruteforce
+attacks, are not ported yet (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -215,3 +217,163 @@ def attack_text_leaf(
         for kind, value in clock.items():
             seconds[kind] = seconds.get(kind, 0.0) + value
     return best_feats.float().cpu().numpy(), sentences
+
+
+def _fused_probe_grid(native, sentences, ctx):
+    """Space probes at every slot, as (z, cp) grids through the fused
+    tokenizer: returns (tokens [B, P, ctx], mask [B, P], n_slots, zs,
+    cps).  Probe index == slot index, the order of the string path's
+    `generate_all_sentences(S, SPACE_VOCAB)`."""
+    B = len(sentences)
+    n_slots = [edits.num_slots(len(S)) for S in sentences]
+    P = max(n_slots)
+    zs = np.zeros((B, P), np.int32)
+    cps = np.full((B, P), -1, np.int32)  # pad = no-op delete at slot 0
+    mask = np.zeros((B, P), bool)
+    for i, m in enumerate(n_slots):
+        zs[i, :m] = np.arange(m)
+        cps[i, :m] = ord(" ")
+        mask[i, :m] = True
+    tokens = native.encode_edits(sentences, zs, cps, ctx).reshape(B, P, ctx)
+    return tokens, mask, n_slots, zs, cps
+
+
+def _fused_cand_grid(native, sentences, top, n, vocab, n_slots, ctx):
+    """Full-vocabulary candidates at the top-n slots: returns (tokens
+    [B, n*|V|, ctx], mask, zs, cps).  Candidate order is position-major,
+    then vocabulary, that of `generate_all_sentences(S, vocab,
+    subset_z=top)`; the winner b decodes as (z=zs[i, b], u=b % |V|)."""
+    B = len(sentences)
+    vcodes = np.asarray(vocab, np.int32)
+    nv = len(vcodes)
+    R = n * nv
+    zs = np.zeros((B, R), np.int32)
+    cps = np.full((B, R), -1, np.int32)
+    mask = np.zeros((B, R), bool)
+    for i, m in enumerate(n_slots):
+        vn = min(n, m)
+        zs[i, :vn * nv] = np.repeat(top[i, :vn], nv)
+        cps[i, :vn * nv] = np.tile(vcodes, vn)
+        mask[i, :vn * nv] = True
+    tokens = native.encode_edits(sentences, zs, cps, ctx).reshape(B, R, ctx)
+    return tokens, mask, zs, cps
+
+
+def attack_text_charmer_classification(
+    scorer: CandidateScorer,
+    text: TextTower,
+    tokenizer,
+    sentence: str,
+    class_features,
+    label: int,
+    n: int = 10,
+    k: int = 1,
+    vocab: Sequence[int] = edits.DEFAULT_VOCAB,
+) -> Tuple[str, int]:
+    """Charmer with the margin loss over class-anchor similarities, one
+    sentence; stops once the prediction flips.  Returns (adversarial
+    sentence, rounds run)."""
+    class_features = _normalize_np(class_features)
+    dist = 0
+    for dist in range(k):
+        probes = edits.generate_all_sentences(
+            sentence, edits.SPACE_VOCAB, alternative=-1)
+        loss, _ = scorer.score_classification(
+            text, tokenizer(probes), class_features, label)
+        top = np.argsort(-loss, kind="stable")[:min(n, len(loss))]
+
+        candidates = edits.generate_all_sentences(
+            sentence, vocab, subset_z=top.tolist(), alternative=-1)
+        loss, preds = scorer.score_classification(
+            text, tokenizer(candidates), class_features, label)
+        best = int(np.argmax(loss))
+        sentence = candidates[best]
+        if preds[best] != label:
+            break
+    return sentence, dist + 1
+
+
+def attack_text_charmer_classification_batched(
+    scorer: CandidateScorer,
+    text: TextTower,
+    tokenizer,
+    sentences: Sequence[str],
+    class_features,
+    labels: Sequence[int],
+    n: int = 10,
+    k: int = 1,
+    vocab: Sequence[int] = edits.DEFAULT_VOCAB,
+) -> List[str]:
+    """Charmer classification attack over a batch: each sentence's search
+    is that of `attack_text_charmer_classification`, the early exit
+    included (a sentence whose prediction has flipped is frozen for the
+    remaining rounds); probes and candidates share device batches.
+    ASCII batches with a single-byte vocabulary run on the native (slot,
+    codepoint) grids, where no candidate string is made; the others on
+    the string path, with the same decisions."""
+    sentences = list(sentences)
+    B = len(sentences)
+    class_features = _normalize_np(class_features)
+    labels = np.asarray(labels)
+    done = np.zeros(B, bool)
+
+    native = _native_of(tokenizer)
+    if _fused_ok(native, None, sentences, vocab):
+        ctx = getattr(tokenizer, "context_length", 77)
+        nv = len(vocab)
+        for _ in range(k):
+            if done.all():
+                break
+            tokens, pmask, n_slots, _, _ = _fused_probe_grid(
+                native, sentences, ctx)
+            tokenizer.count("native", pmask.size)
+            loss, _ = scorer.score_classification_rows(
+                text, tokens, class_features, labels, pmask)
+            top = np.argsort(-loss, axis=1, kind="stable")
+            tokens, cmask, zs2, _ = _fused_cand_grid(
+                native, sentences, top, n, vocab, n_slots, ctx)
+            tokenizer.count("native", cmask.size)
+            loss, preds = scorer.score_classification_rows(
+                text, tokens, class_features, labels, cmask)
+            best = np.argmax(loss, axis=1)
+            for i in range(B):
+                if done[i]:
+                    continue      # frozen after an earlier flip
+                b = int(best[i])
+                sentences[i] = edits.apply_edit(
+                    sentences[i], int(zs2[i, b]), b % nv, vocab, 1, -1)
+                if preds[i, b] != labels[i]:
+                    done[i] = True
+        return sentences
+
+    for _ in range(k):
+        if done.all():
+            break
+        # ---- phase 1: margin loss over every space probe, padded
+        probe_rows = [edits.generate_all_sentences(S, edits.SPACE_VOCAB,
+                                                   alternative=-1)
+                      for S in sentences]
+        tokens, mask = _pad_rows(tokenizer, sentences, probe_rows)
+        loss, _ = scorer.score_classification_rows(
+            text, tokens, class_features, labels, mask)
+        top = np.argsort(-loss, axis=1, kind="stable")
+
+        # ---- phase 2: the whole vocabulary at the top-n positions
+        cand_rows = [
+            edits.generate_all_sentences(
+                S, vocab,
+                subset_z=top[i][:min(n, len(probe_rows[i]))].tolist(),
+                alternative=-1)
+            for i, S in enumerate(sentences)
+        ]
+        tokens, mask = _pad_rows(tokenizer, sentences, cand_rows)
+        loss, preds = scorer.score_classification_rows(
+            text, tokens, class_features, labels, mask)
+        best = np.argmax(loss, axis=1)
+        for i in range(B):
+            if done[i]:
+                continue          # frozen after an earlier flip
+            sentences[i] = cand_rows[i][best[i]]
+            if preds[i, best[i]] != labels[i]:
+                done[i] = True
+    return sentences

@@ -67,9 +67,11 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
     ...).  `pretrained` is a local OpenCLIP checkpoint file or snapshot
     directory; without it the weights are a seeded random init.
 
-    `master_weights` is for training the text tower: its weights stay
+    `master_weights` is for the trainer: the text tower's weights stay
     fp32 and it computes in `precision` (`TextTower.compute_dtype`); the
-    vision tower is cast as for serving."""
+    vision tower stays fp32 and computes in fp32, since the in-training
+    eval encodes images and runs PGD in fp32, as the JAX package's eval
+    does."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not "
@@ -87,7 +89,6 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
     module.to(device)
     dtype = PRECISIONS[precision]
     if master_weights:
-        _cast_weights(module.visual, dtype)
         module.text.compute_dtype = dtype
     else:
         _cast_weights(module, dtype)

@@ -164,6 +164,8 @@ def load_pretrained(path: str, cfg: CLIPConfig) -> StateDict:
     sd = load_state_dict_file(resolve_checkpoint_file(path))
     if any(k.startswith("text_model.") for k in sd):
         raise NotImplementedError(
-            f"{path}: HF-format CLIP checkpoints are not ported yet; "
-            "convert to OpenCLIP format with `python -m leaf_tpu.convert`")
+            f"{path}: HF-format CLIP checkpoints are not ported to "
+            "leaf_tpu_torch yet (ROADMAP Queue 1 item 13); convert it to "
+            "OpenCLIP format on a machine where the JAX package runs "
+            "(leaf_tpu.convert), then pass the converted file")
     return openclip_to_params(sd, cfg)

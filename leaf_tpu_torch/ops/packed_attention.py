@@ -331,6 +331,22 @@ def _launch_layer_norm(x: torch.Tensor, scale: torch.Tensor,
 # Autograd wrappers: kernel forward, backward through the plain version
 # ---------------------------------------------------------------------------
 
+def _recompute_inputs(ctx) -> list:
+    """The saved tensor inputs, detached, each requiring a gradient where
+    the caller needs one (a frozen tower's weights do not: PGD asks for
+    the input's gradient alone)."""
+    return [t.detach().requires_grad_(need) for t, need in
+            zip(ctx.saved_tensors, ctx.needs_input_grad)]
+
+
+def _input_grads(ctx, out, ts, g) -> list:
+    """Gradients of `out` (recomputed from `ts`) for the inputs that need
+    one, None for the others."""
+    need = [t for t in ts if t.requires_grad]
+    grads = iter(torch.autograd.grad(out, need, g) if need else ())
+    return [next(grads) if t.requires_grad else None for t in ts]
+
+
 class _PackedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, n_heads, group_len, causal):
@@ -364,13 +380,12 @@ class _FusedAttentionBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         with torch.enable_grad():
-            ts = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            ts = _recompute_inputs(ctx)
             p = {"ln_1": {}, "attn": {}}
             for (group, key), t in zip(_BLOCK_KEYS, ts[1:]):
                 p[group][key] = t
             out = _block_reference(p, ts[0], *ctx.args)
-        grads = torch.autograd.grad(out, ts, g)
-        return (*grads, None, None, None, None)
+        return (*_input_grads(ctx, out, ts, g), None, None, None, None)
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -383,9 +398,9 @@ class _LayerNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         with torch.enable_grad():
-            ts = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            ts = _recompute_inputs(ctx)
             out = _layer_norm_reference(*ts, ctx.eps)
-        return (*torch.autograd.grad(out, ts, g), None)
+        return (*_input_grads(ctx, out, ts, g), None)
 
 
 def _needs_grad(*tensors) -> bool:

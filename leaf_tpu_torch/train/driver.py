@@ -4,12 +4,14 @@
         --dataset-type synthetic --precision bf16 --batch-size 128 --rho 50
 
 Wires the pieces: model and frozen anchor tower, optimizer with the
-weight-decay mask and schedule, data, the fused attack+train step
-(`train.fused.FusedLeafStep`, every recipe but `--use_charmer`), the
-epochs loop, checkpoints with `--resume`, the per-save OpenCLIP export
-and the `results.csv` / `times_False.csv` ledgers.  It runs on
-`--device` (default `cuda`).  See `scripts/train_leaf_vitl.sh` for the
-recipes.
+weight-decay mask and schedule, data (`data.get_data`: webdataset tars,
+CSV or synthetic captions; ImageNet folders; the text-classification
+sets), the fused attack+train step (`train.fused.FusedLeafStep`, every
+recipe but `--use_charmer`), the epochs loop, the zero-shot eval before
+training and after every epoch (`evals.zero_shot.zero_shot_eval`),
+checkpoints with `--resume`, the per-save OpenCLIP export and the
+`results.csv` / `times_False.csv` ledgers.  It runs on `--device`
+(default `cuda`).  See `scripts/train_leaf_vitl.sh` for the recipes.
 
 Against the JAX driver: the frozen anchor tower is a deep copy of the
 text tower made before training; bf16 runs keep fp32 master weights and
@@ -35,8 +37,10 @@ from leaf_tpu_torch.attacks import edits
 from leaf_tpu_torch.attacks.constraint import WordConstraint
 from leaf_tpu_torch.attacks.engine import CandidateScorer
 from leaf_tpu_torch.convert import params_to_openclip, save_state_dict
-from leaf_tpu_torch.data.synthetic import get_synthetic_dataset
+from leaf_tpu_torch.data import get_data
+from leaf_tpu_torch.evals.zero_shot import zero_shot_eval
 from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+from leaf_tpu_torch.models.preprocess import image_transform
 from leaf_tpu_torch.train import checkpoint as ckpt
 from leaf_tpu_torch.train.fused import FusedLeafStep
 from leaf_tpu_torch.train.loop import train_one_epoch_text_only
@@ -75,25 +79,17 @@ def _not_ported(args) -> None:
     checks = [
         (args.use_charmer, "--use_charmer (the batched charmer attack)",
          "Queue 1 item 8"),
-        (args.zeroshot_frequency != 0,
-         "--zeroshot-frequency other than 0 (evals/zero_shot.py)",
-         "Queue 1 item 7"),
-        (args.val_data or args.val_text_classification or args.imagenet_val
-         or args.imagenet_v2,
-         "--val-data / --val-text-classification / --imagenet-val / "
-         "--imagenet-v2 (evals)", "Queue 1 item 7"),
-        (args.dataset_type != "synthetic",
-         f"--dataset-type {args.dataset_type} (data/wds.py, data/csv_data.py)"
-         ": pass --dataset-type synthetic", "'Next, in order' item 1"),
+        (args.val_data,
+         "--val-data (the contrastive val loss, evaluate_contrastive)",
+         "Queue 1 item 10"),
         (args.remote_sync or args.copy_codebase,
          "--remote-sync / --copy-codebase (utils/file_utils.py)",
-         "'Next, in order' item 7"),
+         "Queue 1 item 14"),
         (args.report_to, "--report-to (utils/trackers.py)",
-         "'Next, in order' item 7"),
-        (args.profile_dir, "--profile-dir", "'Next, in order' item 7"),
+         "Queue 1 item 14"),
+        (args.profile_dir, "--profile-dir", "Queue 1 item 14"),
         (args.mesh_shape, "--mesh-shape (multiple GPUs)", "Queue 1 item 6"),
-        (args.matmul_precision, "--matmul-precision",
-         "'Next, in order' item 7"),
+        (args.matmul_precision, "--matmul-precision", "Queue 1 item 14"),
         (args.force_quick_gelu or args.force_patch_dropout is not None
          or args.force_image_size is not None or args.image_mean
          or args.image_std or args.image_interpolation
@@ -147,6 +143,9 @@ def main(args=None) -> Dict:
                          master_weights=True)
     cfg = model.cfg
     text = model.module.text
+    # the vision tower is never trained (LEAF text-AT locks it); it is
+    # evaluated, and PGD asks for its input's gradient alone
+    model.module.visual.requires_grad_(False)
     # the frozen anchor tower: a copy of the initial text tower that no
     # optimizer ever sees
     frozen_text = copy.deepcopy(text).requires_grad_(False)
@@ -157,12 +156,14 @@ def main(args=None) -> Dict:
     tokenizer = get_tokenizer(args.model)
 
     # data ----------------------------------------------------------------
-    data = {"train": get_synthetic_dataset(
-        args.train_num_samples or 100, args.batch_size,
-        image_size=cfg.vision.image_size, seed=args.seed)}
+    # attacks operate in pixel space: datasets yield un-normalised images
+    preprocess_nonorm = image_transform(cfg.vision.image_size,
+                                        do_normalize=False)
+    data = get_data(args, preprocess_nonorm, text_only=args.text_only)
 
     # optimizer ------------------------------------------------------------
-    steps_per_epoch = data["train"].num_batches // args.accum_freq
+    steps_per_epoch = (data["train"].num_batches // args.accum_freq
+                       if "train" in data else 0)
     total_steps = steps_per_epoch * args.epochs
     schedule = make_scheduler(
         "const" if args.skip_scheduler else args.lr_scheduler,
@@ -261,6 +262,19 @@ def main(args=None) -> Dict:
                 if os.path.isdir(prev):
                     shutil.rmtree(prev)
 
+    eval_seconds: Dict[int, Dict[str, float]] = {}
+
+    def run_eval(epoch: int) -> Dict[str, float]:
+        """The zero-shot eval on the current text tower and the frozen
+        vision tower, its PGD starts drawn from `seed + epoch`."""
+        eval_seconds[epoch] = {}
+        return zero_shot_eval(
+            model.module, cfg, data, tokenizer, preprocess_nonorm, epoch,
+            args, scorer=scorer,
+            generator=torch.Generator(device=device).manual_seed(
+                args.seed + epoch),
+            seconds=eval_seconds[epoch])
+
     def record(epoch: int, train_loss: float, metrics: Dict[str, float]):
         row = {"epoch": epoch, "train_loss": train_loss}
         for col in RESULT_COLUMNS[2:]:
@@ -268,13 +282,19 @@ def main(args=None) -> Dict:
                 row[col] = metrics[col]
         results.append(row)
 
-    # epoch-0 snapshot: the in-training evals are not ported, so the row
-    # holds the epoch and the reference's train_loss=-1 only
+    # epoch-0 snapshot; the reference writes train_loss=-1 for it
     if start_epoch == 0:
-        record(0, -1.0, {})
-        save(0)
+        metrics = run_eval(0)
+        LOG.info("epoch 0 eval: %s", metrics)
+        record(0, -1.0, metrics)
+        if "train" in data:
+            save(0)
 
     seconds: Dict[str, float] = {}
+    if "train" not in data:
+        return {"results": results.rows, "state": state, "model": model,
+                "frozen_text": frozen_text, "cfg": cfg, "out_dir": out_dir,
+                "eval_seconds": eval_seconds}
     for epoch in range(start_epoch, args.epochs):
         LOG.info("Start epoch %d", epoch)
         state, log_data = train_one_epoch_text_only(
@@ -284,7 +304,9 @@ def main(args=None) -> Dict:
             rng=np.random.default_rng(args.seed + 1000 * epoch),
             seconds=seconds, fused_step=fused_step)
         completed = epoch + 1
-        record(completed, log_data.get("train/loss", float("nan")), {})
+        metrics = run_eval(completed)
+        LOG.info("epoch %d eval: %s", completed, metrics)
+        record(completed, log_data.get("train/loss", float("nan")), metrics)
         if (args.save_frequency > 0
                 and completed % args.save_frequency == 0) \
                 or completed == args.epochs:
@@ -296,7 +318,7 @@ def main(args=None) -> Dict:
     return {"results": results.rows, "state": state, "model": model,
             "frozen_text": frozen_text, "cfg": cfg, "out_dir": out_dir,
             "attack_times": timing.times, "attack_seconds": seconds,
-            "fused_step": fused_step}
+            "fused_step": fused_step, "eval_seconds": eval_seconds}
 
 
 if __name__ == "__main__":

@@ -350,3 +350,18 @@ def test_export_round_trips_through_the_jax_package(tmp_path):
     for k in ours:
         np.testing.assert_array_equal(ours[k].numpy(), np.asarray(jsd[k]))
         assert ours[k].is_contiguous()
+
+
+def test_hf_checkpoint_message_names_no_jax_program(tmp_path):
+    """An HF-format checkpoint is refused with a message a machine without
+    the JAX package can act on: convert where the JAX package runs."""
+    path = str(tmp_path / "model.safetensors")
+    safetensors_io.save_file(
+        {"text_model.embeddings.token_embedding.weight": torch.zeros(4, 2)},
+        path)
+    cfg = create_model("ViT-tiny-test", device="cpu").cfg
+    with pytest.raises(NotImplementedError) as info:
+        tinterop.load_pretrained(path, cfg)
+    msg = str(info.value)
+    assert "where the JAX package runs" in msg and "Queue 1 item 13" in msg
+    assert "python -m leaf_tpu.convert" not in msg

@@ -268,6 +268,48 @@ def test_backward_recomputes_through_plain_version(monkeypatch):
                                    atol=1e-5, rtol=1e-4)
 
 
+def test_backward_of_a_frozen_block_gives_the_input_gradient_alone(
+        monkeypatch):
+    """PGD on a frozen tower: the wrappers' backwards differentiate their
+    recomputation for the input alone, leave the weights without a
+    gradient and give the input the one the plain version gives."""
+    asked = []
+    grad = torch.autograd.grad
+
+    def recording(outputs, inputs, *a, **kw):
+        asked.append(len(inputs))
+        return grad(outputs, inputs, *a, **kw)
+
+    monkeypatch.setattr(torch.autograd, "grad", recording)
+    monkeypatch.setattr(tpa, "_launch_fused_block",
+                        lambda x, s, b, qw, qb, ow, ob, h, g, c, eps:
+                        tpa._block_reference(
+                            {"ln_1": {"scale": s, "bias": b},
+                             "attn": {"qkv_w": qw, "qkv_b": qb, "out_w": ow,
+                                      "out_b": ob}}, x, h, g, c, eps))
+    monkeypatch.setattr(tpa, "_launch_layer_norm",
+                        lambda x, s, b, eps: tpa._layer_norm_reference(
+                            x, s, b, eps))
+    rng = np.random.default_rng(4)
+    D = 16
+    x = torch.from_numpy((rng.standard_normal((2, 32, D)) * 0.1)
+                         .astype(np.float32))
+    tp = _torch_tree(_block_params(rng, D))
+    leaves = [tp[g][k] for g, k in tpa._BLOCK_KEYS]
+    tx = x.clone().requires_grad_()
+    out = tpa._FusedAttentionBlock.apply(tx, *leaves, 2, 8, True, 1e-5)
+    tpa._LayerNorm.apply(out, leaves[0], leaves[1], 1e-5).sin().sum() \
+        .backward()
+    ref = x.clone().requires_grad_()
+    tpa._layer_norm_reference(tpa._block_reference(tp, ref, 2, 8, True, 1e-5),
+                              leaves[0], leaves[1], 1e-5).sin().sum() \
+        .backward()
+    assert asked == [1, 1]      # the LayerNorm's backward, the block's
+    assert all(leaf.grad is None for leaf in leaves)
+    np.testing.assert_allclose(tx.grad.numpy(), ref.grad.numpy(),
+                               atol=1e-6, rtol=1e-5)
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
