@@ -9,8 +9,8 @@ Phases, each printing its own lines:
       the host compiler;
   (c) each kernel against its plain PyTorch version on the card at the
       shapes the serving, training and eval paths give it, the fused step's
-      half batches, the zero-shot classifier's text shapes and the eval's
-      fp32 vision shape among them (fp32: max abs <= 1e-4; bf16: max abs <= 2e-2, or
+      half batches, the zero-shot classifier's text shapes, the eval's
+      fp32 vision shape and the text attacks' scoring chunks among them (fp32: max abs <= 1e-4; bf16: max abs <= 2e-2, or
       two bf16 rounding steps, 2^-6 of the value, where that is more; for
       the GEMM's rows with a residual, 2^-6 of the value's and the
       residual's sizes together), with CUDA-event times taken in turns
@@ -96,7 +96,25 @@ Phases, each printing its own lines:
       clean, 10 PGD steps and adversarial image encodes in fp32, anchor
       encodes); it prints each eval part's seconds and both rows' seven
       eval columns (finite, in [0, 1]).  Last, the fused and the unfused
-      loop over the same tar set, one epoch each, no evals.
+      loop over the same tar set, one epoch each, no evals;
+  (l) the text attacks and the standalone evals: first, at ViT-tiny-test,
+      fp32, TF32 off, the card against the CPU from the same weights: the
+      batched Charmer (free and constrained), bruteforce and one
+      `--use_charmer` attack pick the same sentences, and TextFARE,
+      zero-shot text and retrieval give the same metrics; then, at
+      ViT-L-14-quickgelu's full width and depth (random weights, seed 0),
+      through each command line's `main` on the card: `evals.textfare` on
+      the synthetic sentences (charmer and leaf at 32 sentences, rho 50,
+      bf16; charmer in fp32 at 8; bruteforce at 4), `evals.zero_shot_text`
+      with `scripts/dress_rehearsal.sh`'s flags (32 sentences, rho 20, image
+      anchors, bf16), `evals.retrieval` on 32 seeded 256 x 256 `.npy`
+      images with 5 captions each (rho 10, bf16, untargeted and `--target
+      0`), and `train.driver.main --use_charmer` (batch 128, rho 50, k 1):
+      2 steps on "Dummy caption", 1 step with `--constrain` on (k)'s tar
+      set.  Each part prints its seconds, its candidates per second, its
+      chunks per scoring call and its peak device memory, with the
+      kernels' counters held to 12 / 13 launches per text encode and 24 /
+      26 per image encode.
 Any failure raises.  The line before the last is the kernels' JSON
 report (each kernel at its main-path shape; the line before it has the
 rows of every shape); the last is {"ok": true, "device": {...}}.  Without CUDA, or
@@ -145,6 +163,15 @@ SHAPES = [
     ("classifier_s16_bf16", 100, 128, 16, True, 768, 12, "bfloat16"),
     ("classifier_s32_bf16", 200, 128, 32, True, 768, 12, "bfloat16"),
     ("eval_vision_fp32", 128, 257, 257, False, 1024, 16, "float32"),
+    # the text attacks (l): a scoring call's candidates go in chunks of at
+    # most `engine.chunk_rows` sequences, 43,688 at bucket 16 in bf16 (8 a
+    # row: 5,461 rows; the batched Charmer's candidate grids, --use_charmer
+    # and the bf16 evals), 10,920 at bucket 64 (2 a row: 5,460 rows; the
+    # long captions of --use_charmer --constrain) and 21,840 at bucket 16
+    # in fp32 (2,730 rows; the evals' default precision)
+    ("charmer_s16_bf16", 5461, 128, 16, True, 768, 12, "bfloat16"),
+    ("charmer_s64_bf16", 5460, 128, 64, True, 768, 12, "bfloat16"),
+    ("charmer_s16_fp32", 2730, 128, 16, True, 768, 12, "float32"),
 ]
 # (name, M, K, N) of the fused block's two GEMMs on the main path; the
 # out-projections run again with their residual
@@ -159,7 +186,9 @@ GEMM_SHAPES = [("s16 qkv", 32 * 128, 768, 2304), ("s16 out", 32 * 128, 768, 768)
                ("fused s64 qkv", 1600 * 128, 768, 2304),
                ("fused s64 out", 1600 * 128, 768, 768),
                ("train qkv", 800 * 128, 768, 2304),
-               ("train out", 800 * 128, 768, 768)]
+               ("train out", 800 * 128, 768, 768),
+               ("charmer s16 qkv", 5461 * 128, 768, 2304),
+               ("charmer s16 out", 5461 * 128, 768, 768)]
 # M = 3 rows of 77 tokens; N and K multiples of 8 and of no tile (64 k, 128
 # to 256 columns), one of them narrower than a single TMA box
 # the eval's fp32 vision GEMMs: the block's qkv and out projections
@@ -1666,6 +1695,360 @@ def phase_recipe(workdir: str):
 
 
 # ---------------------------------------------------------------------------
+# (l) the text attacks and the standalone evals
+# ---------------------------------------------------------------------------
+
+# the card-against-CPU sentences of (l): ASCII, one word with no slot to
+# spare, punctuation
+CHARMER_SENTENCES = ["a photo of a cat", "stocks fall!", "x",
+                     "two dogs run near the old river bank"]
+
+
+def _write_coco_set(root: str, rng, n: int, size: int, captions: int = 5):
+    """`n` seeded HWC uint8 `.npy` images with `captions` seeded captions
+    each, and their Karpathy-format annotation file."""
+    os.makedirs(root)
+    ann = []
+    for i in range(n):
+        np.save(os.path.join(root, f"{i:04d}.npy"),
+                rng.integers(0, 256, (size, size, 3), dtype=np.uint8))
+        ann.append({"image": f"{i:04d}.npy",
+                    "caption": [c.capitalize() + "." for c in
+                                _captions(rng, captions, 5, 14)]})
+    path = os.path.join(root, "annotation.json")
+    with open(path, "w") as f:
+        json.dump(ann, f)
+    return path
+
+
+class _Part:
+    """One part of (l): the kernels' counters zeroed and the device
+    memory's peak reset just before; just after, the counters held to the
+    towers' encodes on the card (a fused block and its attention per
+    layer, and `ln_2` per layer + `ln_final` per text encode, `ln_pre`,
+    `ln_2` per layer and `ln_post` per image encode), and one line with
+    the part's seconds, the candidates its scorers encoded (padding
+    included) per second, its scoring calls and the encodes (chunks) they
+    made, and the peak device memory.  Encodes are counted by wrapping the
+    towers' `encode_text`/`encode_image`, scorers by wrapping
+    `CandidateScorer.__init__`; the scoring calls (each ends in a copy to
+    the host) and the model builds are timed by wrapping them too."""
+
+    def __init__(self, counters, tag: str, out: dict):
+        self.counters, self.tag, self.out = counters, tag, out
+
+    def __enter__(self):
+        import torch
+        from leaf_tpu_torch.attacks.engine import CandidateScorer
+        from leaf_tpu_torch.models import factory
+        from leaf_tpu_torch.models.clip import TextTower, VisionTower
+        self.encodes = {"text": 0, "image": 0}
+        self.clock = {"scoring": 0.0, "build": 0.0}
+        self.scorers = []
+        part = self
+
+        def timed(inner, kind):
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return inner(*args, **kwargs)
+                finally:
+                    part.clock[kind] += time.perf_counter() - t0
+            return wrapper
+
+        def counted(cls, name, kind):
+            inner = getattr(cls, name)
+
+            def wrapper(self, x, *args, **kwargs):
+                if x.is_cuda:
+                    part.encodes[kind] += 1
+                return inner(self, x, *args, **kwargs)
+            return inner, wrapper
+
+        def collect(inner):
+            def init(self, *args, **kwargs):
+                inner(self, *args, **kwargs)
+                part.scorers.append(self)
+            return init
+
+        self.saved = []
+        for cls, name, kind in ((TextTower, "encode_text", "text"),
+                                (VisionTower, "encode_image", "image")):
+            inner, wrapper = counted(cls, name, kind)
+            self.saved.append((cls, name, inner))
+            setattr(cls, name, wrapper)
+        self.saved.append((CandidateScorer, "__init__",
+                           CandidateScorer.__init__))
+        CandidateScorer.__init__ = collect(CandidateScorer.__init__)
+        for name in ("score_rows", "score_flat", "score_classification_rows",
+                     "score_classification"):
+            self.saved.append((CandidateScorer, name,
+                               getattr(CandidateScorer, name)))
+            setattr(CandidateScorer, name,
+                    timed(getattr(CandidateScorer, name), "scoring"))
+        from leaf_tpu_torch.train import driver
+        for module in (factory, driver):   # the driver imported its own name
+            self.saved.append((module, "create_model", module.create_model))
+            module.create_model = timed(module.create_model, "build")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        self.counters.zero()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        import torch
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - self.t0
+        for cls, name, inner in self.saved:
+            setattr(cls, name, inner)
+        if exc_type is not None:
+            return False
+        counts = {k: sum(s.counts[k] for s in self.scorers)
+                  for k in ("calls", "encodes", "candidates")}
+        layers = {"text": 12, "image": 24}
+        t, i = self.encodes["text"], self.encodes["image"]
+        want = {"packed_attention": layers["text"] * t + layers["image"] * i,
+                "fused_attention_block": layers["text"] * t
+                + layers["image"] * i,
+                "layer_norm": (layers["text"] + 1) * t
+                + (layers["image"] + 2) * i}
+        got = {name: op.launches for name, op in self.counters.ops.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        per_call = counts["encodes"] / max(counts["calls"], 1)
+        scoring = self.clock["scoring"]
+        rate = counts["candidates"] / max(scoring, 1e-9)
+        say(f"(l) {self.tag}: {seconds:.2f} s ({self.clock['build']:.2f} s "
+            f"of it building models, {scoring:.2f} s in scoring calls); "
+            f"{counts['candidates']} candidates scored in {counts['calls']} "
+            f"scoring calls of {per_call:.2f} chunks on average "
+            f"({counts['encodes']} encodes), {rate:.0f} candidates/s in "
+            f"them; peak device memory {peak:.1f} GiB; launches {got}, {t} "
+            f"text + {i} image encodes expected = {want}")
+        for name in want:
+            require(got[name] == want[name], f"{self.tag}: {name} "
+                    f"{got[name]} launches, {want[name]} expected")
+            self.counters.total[name] += got[name]
+        require(counts["encodes"] <= t and t > 0,
+                f"{self.tag}: {counts['encodes']} scoring encodes of {t}")
+        self.out[self.tag] = {
+            "seconds": seconds, "build_s": self.clock["build"],
+            "scoring_s": scoring, "candidates": counts["candidates"],
+            "candidates_per_s": rate, "scoring_calls": counts["calls"],
+            "chunks_per_call": per_call, "text_encodes": t,
+            "image_encodes": i, "peak_gib": peak, "launches": got}
+        return False
+
+
+def phase_charmer_parity(workdir: str):
+    """ViT-tiny-test, fp32, TF32 off, the card against the CPU from the
+    same weights: the batched Charmer (free and constrained),
+    bruteforce and one `--use_charmer` attack pick the same sentences,
+    and the three evals give the same metrics (TextFARE's drifts to 1e-4
+    relative, with the same adversarial sentences)."""
+    import types
+
+    import torch
+    from leaf_tpu_torch.attacks import edits
+    from leaf_tpu_torch.attacks import text as attacks
+    from leaf_tpu_torch.attacks.constraint import WordConstraint
+    from leaf_tpu_torch.attacks.engine import CandidateScorer
+    from leaf_tpu_torch.data.coco import get_coco_retrieval
+    from leaf_tpu_torch.data.textcls import TextClassificationData
+    from leaf_tpu_torch.evals import retrieval, textfare, zero_shot_text
+    from leaf_tpu_torch.evals.zero_shot import fp32_products
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+    from leaf_tpu_torch.models.preprocess import image_transform
+    from leaf_tpu_torch.train import loop, step
+
+    tiny = "ViT-tiny-test"
+    tok = get_tokenizer(tiny)
+    wc = WordConstraint()
+    ann = _write_coco_set(os.path.join(workdir, "tiny_coco"),
+                          np.random.default_rng(21), 6, 72)
+    pre = image_transform(64, do_normalize=False)
+    samples, _ = textfare._load_eval_samples("synthetic", 6)
+    textcls = TextClassificationData.from_samples(
+        "agnews", [dict(s, label=i % 4) for i, s in enumerate(samples)])
+    captions = _captions(np.random.default_rng(22), 6, 3, 12)
+    args = types.SimpleNamespace(use_charmer=True, rho=5, k_adv=1,
+                                 attack_objective="l2")
+    runs = {}
+    with fp32_products():
+        for device in ("cpu", "cuda"):
+            model = create_model(tiny, precision="fp32", seed=0, device=device)
+            clean = create_model(tiny, precision="fp32", seed=1, device=device)
+            text = model.module.text
+            scorer = CandidateScorer(model.cfg, device)
+            anchors = scorer.encode_text(text, tok(CHARMER_SENTENCES))
+            r = {"free": attacks.attack_text_charmer_batched(
+                     scorer, text, tok, CHARMER_SENTENCES, anchors, n=5, k=2),
+                 "constrained": attacks.attack_text_charmer_batched(
+                     scorer, text, tok, CHARMER_SENTENCES, anchors, n=5,
+                     k=2, constraint=wc),
+                 "bruteforce": [attacks.attack_text_bruteforce(
+                     scorer, text, tok, s, anchors[i])[0]
+                     for i, s in enumerate(CHARMER_SENTENCES[:2])]}
+            frozen = step.make_anchor_encode()(
+                clean.module.text, scorer._put(scorer._bucket(tok(captions))))
+            r["use_charmer"] = loop.run_attack(
+                scorer, text, tok, captions, frozen, args,
+                edits.DEFAULT_VOCAB, None, None)
+            csv_path = os.path.join(workdir, f"textfare_{device}.csv")
+            r["textfare"] = textfare.eval_textfare(
+                scorer, text, clean.module.text, tok, samples, "charmer",
+                rho=5, out_csv=csv_path, attack_batch=4)
+            r["textfare_sentences"] = [row["adv_sentence"]
+                                       for row in _csv_rows(csv_path)]
+            label_feats = zero_shot_text.class_anchor_features(
+                scorer, model.module, tok, textcls, "image", pre)
+            r["zero_shot_text"] = zero_shot_text.eval_zero_shot_text(
+                scorer, text, tok, textcls, label_feats, rho=5, chunk_size=4)
+            ds = get_coco_retrieval(os.path.dirname(ann), ann, pre)
+            embeds = retrieval.embed_images(model, ds.image_batches())
+            out = retrieval.eval_retrieval(
+                scorer, text, tok, embeds, ds.text, ds.img2txt, ds.txt2img,
+                target=0, rho=5, attack_batch=8)
+            r["retrieval"] = out
+            runs[device] = r
+    cpu, card = runs["cpu"], runs["cuda"]
+    for key in ("free", "constrained", "bruteforce", "use_charmer",
+                "textfare_sentences", "zero_shot_text", "retrieval"):
+        require(card[key] == cpu[key], f"(l) {key}: the card gives "
+                f"{card[key]}, the CPU {cpu[key]}")
+    for key in ("textfare_clean", "textfare_adv"):
+        a, b = card["textfare"][key], cpu["textfare"][key]
+        require(abs(a - b) <= 1e-4 * max(abs(b), 1e-6),
+                f"(l) TextFARE {key}: card {a}, CPU {b}")
+    changed = {k: sum(a != s for a, s in zip(card[k], CHARMER_SENTENCES))
+               for k in ("free", "constrained", "bruteforce")}
+    say(f"(l) Charmer parity, ViT-tiny-test fp32, TF32 off, card vs CPU: "
+        f"the same sentences from the batched Charmer free and constrained "
+        f"(k 2), bruteforce and one --use_charmer attack (changed: "
+        f"{changed}); TextFARE {card['textfare']} (CPU {cpu['textfare']}) "
+        f"with the same adversarial sentences; zero-shot text "
+        f"{card['zero_shot_text']}; retrieval clean {card['retrieval']['clean']}"
+        f", adversarial {card['retrieval']['adv']}: equal")
+    return {"textfare": card["textfare"],
+            "zero_shot_text": card["zero_shot_text"],
+            "retrieval": {k: card["retrieval"][k] for k in ("clean", "adv")}}
+
+
+CHARMER_FLAGS = TRAIN_FLAGS + ["--use_charmer"]
+
+
+def phase_text_attacks(workdir: str):
+    """The text attacks and the standalone evals at ViT-L-14-quickgelu's
+    full width and depth (random weights, seed 0), each part through its
+    command line's `main`, on the card."""
+    import torch
+    from leaf_tpu_torch.evals import retrieval, textfare, zero_shot_text
+    from leaf_tpu_torch.train import driver
+
+    counters = _Counters()
+    out = {}
+    evals_dir = os.path.join(workdir, "text_evals")
+    tf_flags = ["--model", MODEL, "--dataset", "synthetic", "--rho", "50",
+                "--output-dir", evals_dir, "--device", "cuda"]
+    for tag, extra in (
+            ("textfare charmer bf16, 32 sentences",
+             ["--attack_name", "charmer", "--n_test", "32", "--precision",
+              "bf16"]),
+            ("textfare leaf bf16, 32 sentences",
+             ["--attack_name", "leaf", "--n_test", "32", "--precision",
+              "bf16"]),
+            ("textfare charmer fp32, 8 sentences",
+             ["--attack_name", "charmer", "--n_test", "8", "--precision",
+              "fp32"]),
+            ("textfare bruteforce bf16, 4 sentences",
+             ["--attack_name", "bruteforce", "--n_test", "4", "--precision",
+              "bf16"])):
+        with _Part(counters, tag, out):
+            res = textfare.main(tf_flags + extra)
+        require(res["n"] == int(extra[3]) and np.isfinite(res["textfare_adv"])
+                and res["textfare_adv"] > res["textfare_clean"] == 0.0,
+                f"{tag}: {res}")
+        out[tag]["result"] = res
+        say(f"(l) {tag}: {res}")
+
+    tag = "zero_shot_text, 32 sentences, image anchors, bf16"
+    with _Part(counters, tag, out):
+        res = zero_shot_text.main([
+            "--model", MODEL, "--dataset", "synthetic", "--rho", "20", "--k",
+            "1", "--n_test", "32", "--label-encoder", "image", "--precision",
+            "bf16", "--output-dir", evals_dir, "--device", "cuda"])
+    require(res["n"] == 32 and 0.0 <= res["acc_adv"] <= 1.0
+            and 0.0 <= res["acc"] <= 1.0, f"{tag}: {res}")
+    rows = _csv_rows(os.path.join(
+        evals_dir, f"{MODEL}_agnews_k1_rho_20_image.csv"))
+    require(len(rows) == 32, f"{tag}: {len(rows)} CSV rows")
+    out[tag]["result"] = res
+    say(f"(l) {tag}: {res}")
+
+    ann = _write_coco_set(os.path.join(workdir, "coco"),
+                          np.random.default_rng(23), 32, 256)
+    for target in (None, 0):
+        tag = ("retrieval, 32 images x 5 captions, bf16, "
+               + ("untargeted" if target is None else f"target {target}"))
+        output = os.path.join(workdir, f"retrieval_{target}.json")
+        with _Part(counters, tag, out):
+            res = retrieval.main(
+                ["--model", MODEL, "--coco-root", os.path.dirname(ann),
+                 "--annotation", ann, "--rho", "10", "--precision", "bf16",
+                 "--output", output, "--device", "cuda"]
+                + ([] if target is None else ["--target", str(target)]))
+        vals = [v for d in res.values() for v in d.values()]
+        require(all(0.0 <= v <= 1.0 for v in vals), f"{tag}: {res}")
+        require(len(_csv_rows(output.replace(".json", "_perturbations.csv")))
+                == 160, f"{tag}: perturbations")
+        out[tag]["result"] = res
+        say(f"(l) {tag}: {res}")
+
+    handler = _Steps()
+    log = logging.getLogger("leaf_tpu_torch.train.loop")
+    log.addHandler(handler)
+    tars = os.path.join(workdir, "tars", "{000..002}.tar")
+    try:
+        for tag, extra, n_steps in (
+                ("--use_charmer, 'Dummy caption', 2 steps",
+                 ["--train-num-samples", "256", "--name", "charmer"], 2),
+                ("--use_charmer --constrain, recipe tar set, 1 step",
+                 ["--train-num-samples", "128", "--dataset-type",
+                  "webdataset", "--train-data", tars, "--constrain",
+                  "--name", "charmer_constrained"], 1)):
+            handler.steps.clear()
+            with _Part(counters, tag, out):
+                res = driver.main(CHARMER_FLAGS + ["--logs", workdir] + extra)
+            steps = list(handler.steps)
+            losses = [a[8] for a in steps]
+            require(len(steps) == n_steps and all(
+                np.isfinite(v) and v > 0 for v in losses),
+                f"{tag}: steps {steps}")
+            with open(os.path.join(res["out_dir"], "times_True.csv")) as f:
+                times = f.read().split()
+            require(len(times) == 1 + n_steps, f"{tag}: times_True.csv")
+            part = out[tag]
+            step_s = float(np.mean([a[5] for a in steps]))
+            attack_s = float(np.mean([a[7] for a in steps]))
+            part.update(step_s=step_s, attack_s=attack_s, losses=losses,
+                        step_candidates_per_s=part["candidates"] / n_steps
+                        / step_s,
+                        attack_seconds=res["attack_seconds"])
+            say(f"(l) {tag}: {step_s:.2f} s a step (attack {attack_s:.2f} "
+                f"s: host {res['attack_seconds']['host'] / n_steps:.2f} s, "
+                f"scoring {res['attack_seconds']['device'] / n_steps:.2f} "
+                f"s), {part['step_candidates_per_s']:.0f} candidates/s, "
+                f"losses {[round(v, 4) for v in losses]}")
+            shutil.rmtree(os.path.join(res["out_dir"], "checkpoints"))
+            del res
+            torch.cuda.empty_cache()
+    finally:
+        log.removeHandler(handler)
+    return counters.total, out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1718,6 +2101,8 @@ def main() -> int:
         train_launches, trainer = phase_train(workdir)
         eval_parity = phase_eval_parity(workdir)
         eval_launches, recipe = phase_recipe(workdir)
+        charmer_parity = phase_charmer_parity(workdir)
+        attack_launches, text_attacks = phase_text_attacks(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1732,11 +2117,14 @@ def main() -> int:
     by_path = {
         "packed_attention": {"serve": serve_launches["packed_attention"],
                              "train": train_launches["packed_attention"],
-                             "eval": eval_launches["packed_attention"]},
+                             "eval": eval_launches["packed_attention"],
+                             "text_attacks":
+                                 attack_launches["packed_attention"]},
         "fused_attention_block": {
             "serve": serve_launches["fused_attention_block"],
             "train": train_launches["fused_attention_block"],
-            "eval": eval_launches["fused_attention_block"]},
+            "eval": eval_launches["fused_attention_block"],
+            "text_attacks": attack_launches["fused_attention_block"]},
         "flash_attention": {"op": flash_launches}}
     report = []
     for name, by_shape in rows.items():
@@ -1762,14 +2150,17 @@ def main() -> int:
     # the LayerNorm op's launches outside the block; its rows by shape and
     # the GEMM's are on the "kernel_shapes" line
     ln_launches = {"serve": ln_serve, "train": train_launches["layer_norm"],
-                   "eval": eval_launches["layer_norm"]}
+                   "eval": eval_launches["layer_norm"],
+                   "text_attacks": attack_launches["layer_norm"]}
     for path, count in ln_launches.items():
         require(count > 0, f"layer_norm: no launch on the {path} path")
     require(report[1]["name"] == "fused_attention_block", "report order")
     report[1]["parts"] = {"layer_norm": {"launches": sum(ln_launches.values()),
                                          "launches_by_path": ln_launches}}
     print(json.dumps({"trainer": trainer, "recipe": recipe,
-                      "eval_parity": eval_parity}))
+                      "eval_parity": eval_parity,
+                      "charmer_parity": charmer_parity,
+                      "text_attacks": text_attacks}))
     # every shape's row (ms, plain_ms, library_ms, bound_ms, bound_by,
     # max_abs_err) on a line of its own, so that the kernels line stays
     # short enough to read whole from the end of a captured output

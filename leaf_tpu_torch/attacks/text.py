@@ -1,26 +1,37 @@
 """Character-level (Levenshtein-k) text attacks (port of
-`leaf_tpu/attacks/text.py`; the LEAF training attack so far).
+`leaf_tpu/attacks/text.py`).
 
 The search structure (probe positions with a space substitution, then
-try characters at the best position) is the reference's; each round is
+try characters at the best positions) is the reference's; each round is
 host string edits plus one fixed-shape device scoring call (see
 `engine.CandidateScorer`).
 
-Ported: `attack_text_leaf`, on the native fused edit+tokenize grids
-(`_edit_tokens_fast`: the C++ tokenizer applies each (slot, codepoint)
-edit and tokenizes in one pass, so candidate strings are never made) and
-on the string path (`edits.apply_edit` and the tokenizer; the word
-constraint's `filter_batched` runs there); `_fused_ok` decides between
-the two.  The Charmer classification attack of the zero-shot text eval,
-per sentence and batched (`_fused_probe_grid` / `_fused_cand_grid` for
-the grids).  `_constrain_grid` applies the word constraint to a grid;
-its callers in the JAX package, the retrieval charmer and bruteforce
-attacks, are not ported yet (ROADMAP Queue 1 item 8).
+Every attack has the JAX package's three paths, and `_grids_ok` (or
+`_fused_ok`, unconstrained) decides between them:
+  * the native fused grids: the C++ tokenizer applies each (slot,
+    codepoint) edit and tokenizes in one pass (`_edit_tokens_fast`,
+    `_fused_probe_grid`, `_fused_cand_grid`), so candidate strings are
+    never made and only the winners are rebuilt as strings;
+  * the constrained grids: the same, with the word constraint's native
+    validity masks (`_constrain_grid`): an invalid candidate's tokens are
+    replaced by the clean sentence's, as the string path's `filter` does;
+  * the string path (`edits.apply_edit`, `edits.generate_all_sentences`,
+    the constraint's `filter`, the tokenizer), for non-ASCII sentences, a
+    vocabulary beyond single-byte ASCII, or no native library.
+All three make the same decisions.  The attacks: `attack_text_leaf` (the
+LEAF training attack; its constraint takes the string path), the
+Charmer per sentence (`attack_text_charmer_inference`, with the
+dual-encoder mode, and `attack_text_charmer_constrained_ret`) and
+batched (`attack_text_charmer_batched`), `attack_text_bruteforce`, and
+the Charmer classification attacks of the zero-shot text evals.  Beyond
+the JAX package, the per-sentence Charmers run on the grids too, and a
+candidate grid is only as wide as its widest sentence needs (`min(n,
+slots) * |V|` columns, not `n * |V|`): the columns cut were masked.
 """
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,7 +44,7 @@ from leaf_tpu_torch.models.clip import TextTower, l2_normalize
 
 def _normalize_np(a) -> torch.Tensor:
     if not isinstance(a, torch.Tensor):
-        a = torch.from_numpy(np.asarray(a))
+        a = torch.from_numpy(np.array(a))
     return l2_normalize(a.float())
 
 
@@ -89,6 +100,15 @@ def _constrain_grid(constraint, sentences, tokens, grid_mask, zs, cps,
     return valid
 
 
+def _grids_ok(native, constraint, sentences, vocab) -> bool:
+    """The fused grids apply, a constrained search's too when the word
+    constraint's validity masks are native (the Python validity fallback
+    would recount the words of every candidate, slower than the string
+    path it replaces)."""
+    return _fused_ok(native, None, sentences, vocab) and (
+        constraint is None or constraint._get_native() is not None)
+
+
 def _edit_tokens_fast(tokenizer, sentences, zs: np.ndarray, cps: np.ndarray):
     """[B] sentences + [B, rho] (slot, codepoint) edits -> [B, rho, C]
     tokens via the C++ fused path, or None when it does not apply (no
@@ -103,6 +123,18 @@ def _edit_tokens_fast(tokenizer, sentences, zs: np.ndarray, cps: np.ndarray):
     tokenizer.count("native", B * rho)
     return native.encode_edits(list(sentences), zs, cps, ctx).reshape(
         B, rho, ctx)
+
+
+def _clock(seconds: Optional[dict]):
+    """A `timed(kind, fn, *args)` that adds fn's wall seconds to
+    `seconds[kind]` (no-op bookkeeping when `seconds` is None)."""
+    def timed(kind, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if seconds is not None:
+            seconds[kind] = seconds.get(kind, 0.0) + time.perf_counter() - t0
+        return out
+    return timed
 
 
 def attack_text_leaf(
@@ -148,13 +180,7 @@ def attack_text_leaf(
     B = len(sentences)
     if objective in ("sim", "dissim"):
         anchor_features = _normalize_np(anchor_features)
-    clock = {"host": 0.0, "device": 0.0}
-
-    def timed(kind, fn, *args, **kwargs):
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        clock[kind] += time.perf_counter() - t0
-        return out
+    timed = _clock(seconds)
 
     native = _native_of(tokenizer)
     vocab_arr = np.asarray(vocab, np.int32)
@@ -213,9 +239,6 @@ def attack_text_leaf(
         else:
             sentences = [cand_rows[i][best_idx[i]] for i in range(B)]
 
-    if seconds is not None:
-        for kind, value in clock.items():
-            seconds[kind] = seconds.get(kind, 0.0) + value
     return best_feats.float().cpu().numpy(), sentences
 
 
@@ -240,13 +263,14 @@ def _fused_probe_grid(native, sentences, ctx):
 
 def _fused_cand_grid(native, sentences, top, n, vocab, n_slots, ctx):
     """Full-vocabulary candidates at the top-n slots: returns (tokens
-    [B, n*|V|, ctx], mask, zs, cps).  Candidate order is position-major,
-    then vocabulary, that of `generate_all_sentences(S, vocab,
-    subset_z=top)`; the winner b decodes as (z=zs[i, b], u=b % |V|)."""
+    [B, R, ctx], mask, zs, cps) with R = max(min(n, slots)) * |V|.
+    Candidate order is position-major, then vocabulary, that of
+    `generate_all_sentences(S, vocab, subset_z=top)`; the winner b
+    decodes as (z=zs[i, b], u=b % |V|)."""
     B = len(sentences)
     vcodes = np.asarray(vocab, np.int32)
     nv = len(vcodes)
-    R = n * nv
+    R = max(min(n, m) for m in n_slots) * nv
     zs = np.zeros((B, R), np.int32)
     cps = np.full((B, R), -1, np.int32)
     mask = np.zeros((B, R), bool)
@@ -257,6 +281,272 @@ def _fused_cand_grid(native, sentences, top, n, vocab, n_slots, ctx):
         mask[i, :vn * nv] = True
     tokens = native.encode_edits(sentences, zs, cps, ctx).reshape(B, R, ctx)
     return tokens, mask, zs, cps
+
+
+def attack_text_bruteforce(
+    scorer: CandidateScorer,
+    text: TextTower,
+    tokenizer,
+    sentence: str,
+    anchor_features,
+    objective: str = "l2",
+    k: int = 1,
+    vocab: Sequence[int] = edits.DEFAULT_VOCAB,
+    constraint: Optional[WordConstraint] = None,
+) -> Tuple[str, int]:
+    """Exhaustive k=1 attack: score every ((k+1)L+k)*|V| single edit of
+    one sentence and keep the best.  Returns (adversarial sentence, 1)."""
+    if objective in ("sim", "dissim"):
+        anchor_features = _normalize_np(anchor_features)
+
+    native = _native_of(tokenizer)
+    if _grids_ok(native, constraint, [sentence], vocab):
+        ctx = getattr(tokenizer, "context_length", 77)
+        nv = len(vocab)
+        m = edits.num_slots(len(sentence))
+        zs = np.repeat(np.arange(m, dtype=np.int32), nv)[None]
+        cps = np.tile(np.asarray(vocab, np.int32), m)[None]
+        tokens = native.encode_edits([sentence], zs, cps, ctx)
+        tokenizer.count("native", m * nv)
+        # the reshape is a view: invalid rows are replaced in `tokens`
+        valid = _constrain_grid(constraint, [sentence],
+                                tokens.reshape(1, m * nv, ctx),
+                                np.ones((1, m * nv), bool), zs, cps,
+                                native, ctx)
+        loss = scorer.score_flat(text, tokens, anchor_features, objective)
+        b = int(np.argmax(loss))
+        if valid is not None and not valid[0, b]:
+            return sentence, 1  # an invalid winner is the original
+        return edits.apply_edit(sentence, int(zs[0, b]), b % nv,
+                                vocab, 1, -1), 1
+
+    candidates = edits.generate_all_sentences(sentence, vocab, alternative=-1)
+    if constraint is not None:
+        candidates = constraint.filter(sentence, candidates)
+    loss = scorer.score_flat(text, tokenizer(candidates), anchor_features,
+                             objective)
+    return candidates[int(np.argmax(loss))], 1
+
+
+def _charmer_sentence(tokenizer, sentence: str, score: Callable, n: int,
+                      k: int, vocab: Sequence[int],
+                      constraint: Optional[WordConstraint]
+                      ) -> Tuple[str, int]:
+    """The per-sentence Charmer search: per round, every space probe
+    scored with `score(tokens, 1)`, the top-n slots kept, the whole
+    vocabulary at them scored with `score(tokens, 2)` (each -> loss [N]
+    numpy), the best kept.  On the grids when `_grids_ok`, else on
+    strings; invalid candidates stand as the clean sentence either way."""
+    native = _native_of(tokenizer)
+    fast = _grids_ok(native, constraint, [sentence], vocab)
+    ctx = getattr(tokenizer, "context_length", 77)
+    nv = len(vocab)
+    dist = 0
+    for dist in range(k):
+        if fast:
+            tokens, pmask, n_slots, zs, cps = _fused_probe_grid(
+                native, [sentence], ctx)
+            tokenizer.count("native", pmask.size)
+            _constrain_grid(constraint, [sentence], tokens, pmask, zs, cps,
+                            native, ctx)
+            loss = score(tokens[0], 1)
+        else:
+            probes = edits.generate_all_sentences(
+                sentence, edits.SPACE_VOCAB, alternative=-1)
+            if constraint is not None:
+                probes = constraint.filter(sentence, probes)
+            loss = score(tokenizer(probes), 1)
+        top = np.argsort(-loss, kind="stable")[:min(n, len(loss))]
+
+        if fast:
+            tokens, cmask, zs2, cps2 = _fused_cand_grid(
+                native, [sentence], top[None], n, vocab, n_slots, ctx)
+            tokenizer.count("native", cmask.size)
+            valid = _constrain_grid(constraint, [sentence], tokens, cmask,
+                                    zs2, cps2, native, ctx)
+            b = int(np.argmax(score(tokens[0], 2)))
+            if valid is None or valid[0, b]:
+                sentence = edits.apply_edit(sentence, int(zs2[0, b]), b % nv,
+                                            vocab, 1, -1)
+            continue
+        candidates = edits.generate_all_sentences(
+            sentence, vocab, subset_z=top.tolist(), alternative=-1)
+        if constraint is not None:
+            candidates = constraint.filter(sentence, candidates) or [sentence]
+        sentence = candidates[int(np.argmax(score(tokenizer(candidates), 2)))]
+    return sentence, dist + 1
+
+
+def attack_text_charmer_inference(
+    scorer: CandidateScorer,
+    text: TextTower,
+    tokenizer,
+    sentence: str,
+    anchor_features,
+    objective: str = "l2",
+    n: int = 10,
+    k: int = 1,
+    vocab: Sequence[int] = edits.DEFAULT_VOCAB,
+    constraint: Optional[WordConstraint] = None,
+    text2: Optional[TextTower] = None,
+    anchor_features2=None,
+    scorer2: Optional[CandidateScorer] = None,
+) -> Tuple[str, int]:
+    """Charmer attack (arXiv:2405.04346), one sentence: per round, score
+    every space substitution, take the top-n positions, then try the
+    whole vocabulary at them.  With a second encoder (`text2`,
+    `anchor_features2`, and `scorer2` when its architecture differs) the
+    two models' losses are averaged.  Returns (sentence, rounds run)."""
+    if objective in ("sim", "dissim"):
+        anchor_features = _normalize_np(anchor_features)
+        if anchor_features2 is not None:
+            anchor_features2 = _normalize_np(anchor_features2)
+
+    def score(tokens, phase):
+        return scorer.score_flat(text, tokens, anchor_features, objective,
+                                 anchor2=anchor_features2, text2=text2,
+                                 scorer2=scorer2)
+
+    return _charmer_sentence(tokenizer, sentence, score, n, k, vocab,
+                             constraint)
+
+
+def attack_text_charmer_batched(
+    scorer: CandidateScorer,
+    text: TextTower,
+    tokenizer,
+    sentences: Sequence[str],
+    anchor_features,
+    objective: str = "l2",
+    n: int = 10,
+    k: int = 1,
+    vocab: Sequence[int] = edits.DEFAULT_VOCAB,
+    constraint: Optional[WordConstraint] = None,
+    seconds: Optional[dict] = None,
+) -> List[str]:
+    """Charmer over a batch of sentences: each sentence's search is that
+    of `attack_text_charmer_inference`; the searches share device batches
+    (probes padded to the longest sentence's slot count and masked).  All
+    sentences run k rounds.
+
+    Unconstrained, or constrained with native validity masks, ASCII
+    sentences with a single-byte vocabulary go through the native grids,
+    where only the winning edit is applied as a string.  `seconds`, if
+    given, has its "host" entry raised by the wall seconds spent making
+    candidates (grids or strings, masks, tokenizing) and its "device"
+    entry by those of the scoring calls, each ending in a copy to the
+    host.  Returns the adversarial sentences."""
+    sentences = list(sentences)
+    B = len(sentences)
+    if objective in ("sim", "dissim"):
+        anchor_features = _normalize_np(anchor_features)
+    timed = _clock(seconds)
+
+    def probe_top(tokens, mask):
+        """Each sentence's n best probe slots."""
+        _, _, loss = scorer.score_rows(text, tokens, anchor_features,
+                                       objective, mask=mask)
+        return np.argsort(-loss.cpu().numpy(), axis=1, kind="stable")[:, :n]
+
+    native = _native_of(tokenizer)
+    if _grids_ok(native, constraint, sentences, vocab):
+        ctx = getattr(tokenizer, "context_length", 77)
+        nv = len(vocab)
+
+        def probe_grid():
+            tokens, pmask, n_slots, zs, cps = _fused_probe_grid(
+                native, sentences, ctx)
+            tokenizer.count("native", pmask.size)
+            _constrain_grid(constraint, sentences, tokens, pmask, zs, cps,
+                            native, ctx)
+            return tokens, pmask, n_slots
+
+        def cand_grid(top, n_slots):
+            tokens, cmask, zs2, cps2 = _fused_cand_grid(
+                native, sentences, top, n, vocab, n_slots, ctx)
+            tokenizer.count("native", cmask.size)
+            valid = _constrain_grid(constraint, sentences, tokens, cmask,
+                                    zs2, cps2, native, ctx)
+            return tokens, cmask, zs2, valid
+
+        for _ in range(k):
+            tokens, pmask, n_slots = timed("host", probe_grid)
+            top = timed("device", probe_top, tokens, pmask)
+            tokens, cmask, zs2, cvalid = timed("host", cand_grid, top,
+                                               n_slots)
+            best_idx, _, _ = timed("device", scorer.score_rows, text, tokens,
+                                   anchor_features, objective, mask=cmask)
+            # only the winners become strings; an invalid winner IS the
+            # original sentence (the string path's in-place replacement)
+            sentences = [
+                sentences[i] if cvalid is not None and not cvalid[i, b]
+                else edits.apply_edit(sentences[i], int(zs2[i, b]),
+                                      int(b) % nv, vocab, 1, -1)
+                for i, b in enumerate(best_idx)]
+        return sentences
+
+    def rows_tokens(rows):
+        if constraint is not None:
+            rows = [c or [s] for c, s in
+                    zip(constraint.filter_batched(sentences, rows),
+                        sentences)]
+        return (rows,) + _pad_rows(tokenizer, sentences, rows)
+
+    for _ in range(k):
+        # ---- phase 1: every space substitution, padded across sentences
+        probe_rows, tokens, mask = timed("host", rows_tokens, [
+            edits.generate_all_sentences(S, edits.SPACE_VOCAB,
+                                         alternative=-1)
+            for S in sentences])
+        top = timed("device", probe_top, tokens, mask)
+
+        # ---- phase 2: the whole vocabulary at the top-n positions
+        cand_rows, tokens, mask = timed("host", rows_tokens, [
+            edits.generate_all_sentences(
+                S, vocab, subset_z=top[i][:min(n, len(probe_rows[i]))].tolist(),
+                alternative=-1)
+            for i, S in enumerate(sentences)])
+        best_idx, _, _ = timed("device", scorer.score_rows, text, tokens,
+                               anchor_features, objective, mask=mask)
+        sentences = [cand_rows[i][best_idx[i]] for i in range(B)]
+    return sentences
+
+
+def attack_text_charmer_constrained_ret(
+    scorer: CandidateScorer,
+    text: TextTower,
+    tokenizer,
+    sentence: str,
+    anchor_features=None,
+    objective: str = "l2",
+    n: int = 10,
+    k: int = 1,
+    vocab: Sequence[int] = edits.DEFAULT_VOCAB,
+    constraint: Optional[WordConstraint] = None,
+) -> Tuple[str, int]:
+    """The retrieval variant of the per-sentence Charmer.  With
+    `anchor_features` set, the objective is taken against that (target)
+    caption; with None, the sentence is repelled from its own clean
+    features (l2 -> negl2, dissim -> sim on the original features).
+
+    Kept from the reference: phase 1 scores l2/negl2 on NORMALISED
+    candidate features against the raw anchor, phase 2 on raw ones
+    (the "_normfeat" objective of `engine.CandidateScorer`)."""
+    if anchor_features is None:
+        anchor = scorer.encode_text(text, tokenizer([sentence]))[0]
+        obj = {"l2": "negl2", "dissim": "sim"}[objective]
+    else:
+        anchor, obj = anchor_features, objective
+    if obj in ("sim", "dissim"):
+        anchor = _normalize_np(anchor)
+    p1_obj = obj + "_normfeat" if obj in ("l2", "negl2") else obj
+
+    def score(tokens, phase):
+        return scorer.score_flat(text, tokens, anchor,
+                                 p1_obj if phase == 1 else obj)
+
+    return _charmer_sentence(tokenizer, sentence, score, n, k, vocab,
+                             constraint)
 
 
 def attack_text_charmer_classification(

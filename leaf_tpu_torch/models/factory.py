@@ -60,6 +60,19 @@ def _cast_weights(module: torch.nn.Module, dtype: torch.dtype) -> None:
             p.data = p.data.to(dtype)
 
 
+def local_checkpoint(path: Optional[str], flag: str = "--pretrained"
+                     ) -> Optional[str]:
+    """`path` when it is None or names a local checkpoint file or
+    directory; a registry tag or hub id raises, naming where ROADMAP.md
+    queues the registry."""
+    if path and not os.path.exists(path):
+        raise NotImplementedError(
+            f"{flag} {path!r}: registry tags and hub ids "
+            "(models/pretrained.py) are not ported to leaf_tpu_torch yet: "
+            "ROADMAP Queue 1 item 11; pass a local checkpoint")
+    return path or None
+
+
 def create_model(model_name: str, pretrained: Optional[str] = None,
                  precision: str = "fp32", seed: int = 0, *,
                  device, master_weights: bool = False) -> CLIPModel:
@@ -67,11 +80,11 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
     ...).  `pretrained` is a local OpenCLIP checkpoint file or snapshot
     directory; without it the weights are a seeded random init.
 
-    `master_weights` is for the trainer: the text tower's weights stay
-    fp32 and it computes in `precision` (`TextTower.compute_dtype`); the
-    vision tower stays fp32 and computes in fp32, since the in-training
-    eval encodes images and runs PGD in fp32, as the JAX package's eval
-    does."""
+    `master_weights` is the JAX package's precision policy, for the
+    trainer and the evals: the text tower's weights stay fp32 and it
+    computes in `precision` (`TextTower.compute_dtype`); the vision tower
+    stays fp32 and computes in fp32, since the evals encode images (and
+    run PGD) in fp32, as the JAX package's do."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not "

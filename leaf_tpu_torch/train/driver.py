@@ -7,10 +7,11 @@ Wires the pieces: model and frozen anchor tower, optimizer with the
 weight-decay mask and schedule, data (`data.get_data`: webdataset tars,
 CSV or synthetic captions; ImageNet folders; the text-classification
 sets), the fused attack+train step (`train.fused.FusedLeafStep`, every
-recipe but `--use_charmer`), the epochs loop, the zero-shot eval before
+recipe but `--use_charmer`, which takes the unfused loop with the batched
+Charmer), the epochs loop, the zero-shot eval before
 training and after every epoch (`evals.zero_shot.zero_shot_eval`),
 checkpoints with `--resume`, the per-save OpenCLIP export and the
-`results.csv` / `times_False.csv` ledgers.  It runs on `--device`
+`results.csv` / `times_{use_charmer}.csv` ledgers.  It runs on `--device`
 (default `cuda`).  See `scripts/train_leaf_vitl.sh` for the recipes.
 
 Against the JAX driver: the frozen anchor tower is a deep copy of the
@@ -77,8 +78,6 @@ def build_run_name(args) -> str:
 def _not_ported(args) -> None:
     """Raise on every flag whose code the port does not have yet."""
     checks = [
-        (args.use_charmer, "--use_charmer (the batched charmer attack)",
-         "Queue 1 item 8"),
         (args.val_data,
          "--val-data (the contrastive val loss, evaluate_contrastive)",
          "Queue 1 item 10"),

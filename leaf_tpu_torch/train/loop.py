@@ -3,8 +3,9 @@
 Per batch, on the unfused branch:
 
   1. frozen-tower anchor encode of the clean captions (device),
-  2. inner max: LEAF batch attack against the *trainable* tower,
-     anchored to the frozen features,
+  2. inner max: LEAF batch attack (or the batched Charmer with
+     `--use_charmer`) against the *trainable* tower, anchored to the
+     frozen features,
   3. one train step: TextFARE MSE + AdamW update,
   4. meters, attack-timing ledger.
 
@@ -18,8 +19,7 @@ tensor until the next logging point.
 
 The attack wall-time CSV (`times_{use_charmer}.csv`) is the trainer's
 own throughput record and is kept; on the fused branch a worker thread
-writes it (`utils.results.AsyncAttackTimer`).  The `--use_charmer` branch
-of `run_attack` (the batched charmer) is not ported yet.
+writes it (`utils.results.AsyncAttackTimer`).
 """
 from __future__ import annotations
 
@@ -32,7 +32,8 @@ import torch
 
 from leaf_tpu_torch.attacks.engine import (CandidateScorer, bucket_tokens,
                                            can_bucket)
-from leaf_tpu_torch.attacks.text import attack_text_leaf
+from leaf_tpu_torch.attacks.text import (attack_text_charmer_batched,
+                                         attack_text_leaf)
 from leaf_tpu_torch.models.clip import TextTower
 from leaf_tpu_torch.train.step import TrainState
 from leaf_tpu_torch.utils.meters import AverageMeter
@@ -44,12 +45,16 @@ LOG = logging.getLogger(__name__)
 def run_attack(scorer: CandidateScorer, text: TextTower, tokenizer, texts,
                anchors, args, vocab, constraint, rng,
                seconds: Optional[dict] = None):
-    """Training-time inner maximisation: the LEAF attack."""
-    if args.use_charmer:
-        raise NotImplementedError(
-            "--use_charmer (the batched charmer attack) is not ported yet: "
-            "ROADMAP Queue 1 item 8")
+    """Training-time inner maximisation: the LEAF attack, or with
+    `--use_charmer` the batched Charmer (each sentence's search that of
+    the per-sentence attack; deterministic, it draws nothing from
+    `rng`)."""
     objective = getattr(args, "attack_objective", "l2")
+    if args.use_charmer:
+        return attack_text_charmer_batched(
+            scorer, text, tokenizer, list(texts), anchors,
+            objective=objective, n=args.rho, k=args.k_adv, vocab=vocab,
+            constraint=constraint, seconds=seconds)
     _, adv_texts = attack_text_leaf(
         scorer, text, tokenizer, list(texts), anchors,
         objective=objective, n=args.rho, k=args.k_adv, vocab=vocab,
@@ -84,7 +89,8 @@ def train_one_epoch_text_only(
 
     `seconds`, if given, collects the unfused attack's wall seconds on
     the host (edits and tokenizing) and in device scoring calls, summed
-    over the epoch (see `attack_text_leaf`); the fused step keeps its own
+    over the epoch (see `attack_text_leaf` and
+    `attack_text_charmer_batched`); the fused step keeps its own
     (`FusedLeafStep.seconds`)."""
     rng = rng or np.random.default_rng(args.seed + 1000 * epoch)
     _bucket = bucket_tokens if can_bucket(scorer.cfg) else np.asarray

@@ -450,7 +450,7 @@ def test_frozen_anchor_stays_fixed(tiny_run):
 
 @pytest.mark.parametrize("flags,match", [
     (["--val-data", "x.tar"], "val-data"),
-    (["--use_charmer"], "use_charmer"),
+    (["--use_charmer", "--val-data", "x.tar"], "val-data"),
     (["--force-patch-dropout", "0.5"], "force-"),
     (["--copy-codebase"], "copy-codebase"),
     (["--matmul-precision", "highest"], "matmul-precision"),
