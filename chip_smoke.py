@@ -114,7 +114,37 @@ Phases, each printing its own lines:
       set.  Each part prints its seconds, its candidates per second, its
       chunks per scoring call and its peak device memory, with the
       kernels' counters held to 12 / 13 launches per text encode and 24 /
-      26 per image encode.
+      26 per image encode;
+  (m) FARE and the ImageNet robust eval: first, at ViT-tiny-test, fp32,
+      TF32 off, the card against the CPU from the same weights: 2 FARE
+      steps with PGD from the same starts and 2 with APGD give the same
+      losses and parameters (1e-4), the APGD cascade and Square the same
+      fooled masks and adversarial images (1e-4); `train.fare_driver.main`
+      on the card for 3 steps and again with `--resume latest --steps 5`
+      (Adam's moments and step carried, the milestones there, no fallback
+      left); then at ViT-H-14's full width and depth (random weights, seed
+      0; D 1280, 16 heads of width 80, GELU): `fare_driver.main` with
+      `scripts/train_fare_vith.sh`'s flags (bf16 on fp32 master weights,
+      batch 128, PGD-10 L-inf at eps 2/255, AdamW at lr 1e-5, wd 1e-4;
+      3 steps after 1 warm-up step where the recipe has 10,000 after 700)
+      on 256 seeded 256 x 256 `.npy` arrays in 8 classes, with block remat,
+      then 1 step with `--no-remat`: per step the device's seconds split
+      into anchor, attack and update, images/s, the loader's wait and the
+      launches, held to 1 forward-only and 11 differentiated encodes (a
+      differentiated block launches twice under remat); the peak device
+      memory; each checkpoint's size and its seconds; finite positive
+      losses, the frozen tower unchanged, the trained one moved; last
+      `evals.imagenet_robust.main` (fp32, TF32 off) on 32 seeded `.npy`
+      images, each put in the class folder (of 1,000) that the model's
+      clean prediction names, by a first pass with the same weights and
+      classifier that also runs Square alone on them (20 iterations), since
+      with random weights APGD may leave Square nothing to attack; the
+      eval itself runs 10 APGD iterations, 1 target, Square with 20:
+      seconds per part (classifier, clean, APGD, Square), peak memory, the
+      launches held to its 100 text and its image encodes, clean and
+      robust top-1 in [0, 1], robust <= clean.  (c) has rows at ViT-H's
+      shapes: the block, `packed_attention` and the LayerNorm at [128,
+      257, 1280] bf16 and [32, 257, 1280] fp32, and the block's GEMMs.
 Any failure raises.  The line before the last is the kernels' JSON
 report (each kernel at its main-path shape; the line before it has the
 rows of every shape); the last is {"ok": true, "device": {...}}.  Without CUDA, or
@@ -172,6 +202,11 @@ SHAPES = [
     ("charmer_s16_bf16", 5461, 128, 16, True, 768, 12, "bfloat16"),
     ("charmer_s64_bf16", 5460, 128, 64, True, 768, 12, "bfloat16"),
     ("charmer_s16_fp32", 2730, 128, 16, True, 768, 12, "float32"),
+    # FARE (m) at ViT-H-14: D = 1280, 16 heads of width 80, 257 tokens; the
+    # trainer's bf16 batch of 128 images and the robust eval's fp32 batch
+    # of 32
+    ("fare_vith_bf16", 128, 257, 257, False, 1280, 16, "bfloat16"),
+    ("robust_vith_fp32", 32, 257, 257, False, 1280, 16, "float32"),
 ]
 # (name, M, K, N) of the fused block's two GEMMs on the main path; the
 # out-projections run again with their residual
@@ -188,12 +223,16 @@ GEMM_SHAPES = [("s16 qkv", 32 * 128, 768, 2304), ("s16 out", 32 * 128, 768, 768)
                ("train qkv", 800 * 128, 768, 2304),
                ("train out", 800 * 128, 768, 768),
                ("charmer s16 qkv", 5461 * 128, 768, 2304),
-               ("charmer s16 out", 5461 * 128, 768, 768)]
+               ("charmer s16 out", 5461 * 128, 768, 768),
+               ("fare vith qkv", 128 * 257, 1280, 3840),
+               ("fare vith out", 128 * 257, 1280, 1280)]
 # M = 3 rows of 77 tokens; N and K multiples of 8 and of no tile (64 k, 128
 # to 256 columns), one of them narrower than a single TMA box
 # the eval's fp32 vision GEMMs: the block's qkv and out projections
 EVAL_FP32_GEMM_SHAPES = [("eval vision qkv fp32", 128 * 257, 1024, 3072),
-                         ("eval vision out fp32", 128 * 257, 1024, 1024)]
+                         ("eval vision out fp32", 128 * 257, 1024, 1024),
+                         ("robust vith qkv fp32", 32 * 257, 1280, 3840),
+                         ("robust vith out fp32", 32 * 257, 1280, 1280)]
 RAGGED_GEMM_SHAPES = [("ragged 231x72x200", 231, 72, 200),
                       ("ragged 231x776x1096", 231, 776, 1096),
                       ("ragged 231x8x40", 231, 8, 40)]
@@ -222,6 +261,19 @@ WORDS = ("a photo of the small large red blue green dog cat man woman child "
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+# wall seconds of each phase of `main`, printed before the kernels' report
+PHASE_SECONDS = {}
+
+
+def _timed(name: str, fn, *args):
+    """`fn(*args)`, its wall seconds kept under `name`."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
 
 
 def require(ok, what: str) -> None:
@@ -419,19 +471,23 @@ def phase_kernels():
     from leaf_tpu_torch.ops import packed_attention as pa
     rows = {"packed_attention": [], "fused_attention_block": [],
             "flash_attention": []}
+    t0 = time.perf_counter()
     with torch.inference_mode():
         for name, R, L, S, causal, D, H, dt in SHAPES:
             dtype = getattr(torch, dt)
             esize = 2 if dt == "bfloat16" else 4
-            rng = np.random.default_rng(0)
+            # drawn on the card: the largest rows hold billions of values,
+            # which a host generator takes minutes to draw
+            g = torch.Generator(device="cuda").manual_seed(0)
 
-            def dev(a, scale=1.0, dtype=dtype):
-                return torch.from_numpy(
-                    (scale * a).astype(np.float32)).to("cuda", dtype)
+            def dev(*shape, scale=1.0, shift=0.0, dtype=dtype):
+                return (torch.randn(*shape, generator=g, device="cuda")
+                        * scale + shift).to(dtype)
 
             # q and k unit normal (softmax logits of std ~1), v at 0.5
-            qkv = dev(rng.standard_normal((R, L, 3 * D))
-                      * np.repeat([1.0, 1.0, 0.5], D))
+            qkv = torch.randn(R, L, 3 * D, generator=g, device="cuda")
+            qkv[..., 2 * D:] *= 0.5
+            qkv = qkv.to(dtype)
             mask = pa.block_mask(L, S, causal, "cuda")
 
             def sdpa(qkv=qkv, mask=mask):
@@ -453,16 +509,14 @@ def phase_kernels():
                 visible_share=(_visible_share(L, S, causal)
                                if dt == "bfloat16" else None)))
 
-            x = dev(rng.standard_normal((R, L, D)), 0.5)
-            p = {"ln_1": {"scale": dev(1 + 0.1 * rng.standard_normal(D),
+            x = dev(R, L, D, scale=0.5)
+            p = {"ln_1": {"scale": dev(D, scale=0.1, shift=1.0,
                                        dtype=torch.float32),
-                          "bias": dev(0.1 * rng.standard_normal(D),
-                                      dtype=torch.float32)},
-                 "attn": {"qkv_w": dev(rng.standard_normal((D, 3 * D)),
-                                       D ** -0.5),
-                          "qkv_b": dev(rng.standard_normal(3 * D), 0.1),
-                          "out_w": dev(rng.standard_normal((D, D)), D ** -0.5),
-                          "out_b": dev(rng.standard_normal(D), 0.1)}}
+                          "bias": dev(D, scale=0.1, dtype=torch.float32)},
+                 "attn": {"qkv_w": dev(D, 3 * D, scale=D ** -0.5),
+                          "qkv_b": dev(3 * D, scale=0.1),
+                          "out_w": dev(D, D, scale=D ** -0.5),
+                          "out_b": dev(D, scale=0.1)}}
             err, ms, pms, lib = _compare(
                 lambda: pa.fused_attention_block(p, x, H, S, causal),
                 lambda: pa._block_reference(p, x, H, S, causal, 1e-5), dt)
@@ -473,6 +527,8 @@ def phase_kernels():
                 causal=causal, D=D, heads=H, device_ms=_graph_ms(
                     lambda: pa.fused_attention_block(p, x, H, S, causal))))
 
+        PHASE_SECONDS["c attention rows"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
         for name, B, H, S, d, causal in FLASH_SHAPES:
             for dt in ("bfloat16", "float32"):
                 dtype = getattr(torch, dt)
@@ -506,8 +562,9 @@ def phase_kernels():
                 f"mha_with_flash: shape {tuple(out.shape)}, max abs err {err}")
         say(f"(c) mha_with_flash vision bfloat16 against the packed plain "
             f"version: max_abs_err {err:.3g}")
-        parts = phase_parts()
-    phase_sweep()
+        PHASE_SECONDS["c flash rows"] = round(time.perf_counter() - t0, 1)
+        parts = _timed("c parts", phase_parts)
+    _timed("c sweep", phase_sweep)
     return rows, parts
 
 
@@ -623,9 +680,20 @@ def phase_sweep():
                     pa._reference(qkv, H, S, causal),
                     f"packed_attention S={S} G={G} causal={causal} hd={hd}"))
                 cases += 1
+        # ViT-H-14's rows: 16 heads of width 80 over 257 tokens, and one
+        # token either side
+        for L in (256, 257, 258):
+            _schedule(L, L, False)
+            qkv = normal(rng, 2, L, 3 * 16 * 80)
+            worst = max(worst, _close(
+                pa.packed_attention(qkv, 16, L, False),
+                pa._reference(qkv, 16, L, False),
+                f"packed_attention L={L} 16 x 80"))
+            cases += 1
         say(f"(c) sweep packed_attention bf16: {cases} shapes "
             f"(group_len, groups, causal) in {PACKED_SWEEP} x head widths "
-            f"(64, 80), max_abs_err {worst:.3g}")
+            f"(64, 80) and 16 heads of 80 at 256-258 tokens, max_abs_err "
+            f"{worst:.3g}")
         worst, cases = 0.0, 0
         for S in FLASH_SWEEP_S:
             for d in FLASH_SWEEP_D:
@@ -1722,7 +1790,7 @@ def _write_coco_set(root: str, rng, n: int, size: int, captions: int = 5):
 
 
 class _Part:
-    """One part of (l): the kernels' counters zeroed and the device
+    """One part of (l) or (m): the kernels' counters zeroed and the device
     memory's peak reset just before; just after, the counters held to the
     towers' encodes on the card (a fused block and its attention per
     layer, and `ln_2` per layer + `ln_final` per text encode, `ln_pre`,
@@ -1732,10 +1800,14 @@ class _Part:
     made, and the peak device memory.  Encodes are counted by wrapping the
     towers' `encode_text`/`encode_image`, scorers by wrapping
     `CandidateScorer.__init__`; the scoring calls (each ends in a copy to
-    the host) and the model builds are timed by wrapping them too."""
+    the host) and the model builds are timed by wrapping them too.
+    `layers`: the towers' depths (ViT-L's by default)."""
 
-    def __init__(self, counters, tag: str, out: dict):
+    def __init__(self, counters, tag: str, out: dict, layers=None,
+                 phase: str = "l"):
         self.counters, self.tag, self.out = counters, tag, out
+        self.layers = layers or {"text": 12, "image": 24}
+        self.phase = phase
 
     def __enter__(self):
         import torch
@@ -1807,7 +1879,7 @@ class _Part:
             return False
         counts = {k: sum(s.counts[k] for s in self.scorers)
                   for k in ("calls", "encodes", "candidates")}
-        layers = {"text": 12, "image": 24}
+        layers = self.layers
         t, i = self.encodes["text"], self.encodes["image"]
         want = {"packed_attention": layers["text"] * t + layers["image"] * i,
                 "fused_attention_block": layers["text"] * t
@@ -1819,7 +1891,7 @@ class _Part:
         per_call = counts["encodes"] / max(counts["calls"], 1)
         scoring = self.clock["scoring"]
         rate = counts["candidates"] / max(scoring, 1e-9)
-        say(f"(l) {self.tag}: {seconds:.2f} s ({self.clock['build']:.2f} s "
+        say(f"({self.phase}) {self.tag}: {seconds:.2f} s ({self.clock['build']:.2f} s "
             f"of it building models, {scoring:.2f} s in scoring calls); "
             f"{counts['candidates']} candidates scored in {counts['calls']} "
             f"scoring calls of {per_call:.2f} chunks on average "
@@ -2049,6 +2121,416 @@ def phase_text_attacks(workdir: str):
 
 
 # ---------------------------------------------------------------------------
+# (m) FARE adversarial training and the ImageNet robust eval
+# ---------------------------------------------------------------------------
+
+FARE_MODEL = "ViT-H-14"
+FARE_IMAGES, FARE_CLASSES, FARE_STEPS = 256, 8, 3
+ROBUST_IMAGES = 32
+# scripts/train_fare_vith.sh's flags, but for the schedule: 3 steps after 1
+# warm-up step where the recipe warms up for 700 of its 10,000
+FARE_FLAGS = ["--model", FARE_MODEL, "--precision", "bf16", "--batch-size",
+              "128", "--loss", "l2", "--inner-loss", "l2", "--opt", "adamw",
+              "--lr", "1e-5", "--wd", "1e-4", "--attack", "pgd", "--norm",
+              "linf", "--eps", "2", "--iterations-adv", "10",
+              "--stepsize-adv", "1", "--warmup", "1", "--log-freq", "1",
+              "--seed", "0", "--device", "cuda"]
+# the eval's defaults are 100 APGD iterations, 3 targets and 1,000 Square
+# iterations; 1,000 images where the run has 32
+ROBUST_FLAGS = ["--model", FARE_MODEL, "--n-samples", str(ROBUST_IMAGES),
+                "--attack-iters", "10", "--n-targets", "1", "--square",
+                "--square-iters", "20", "--seed", "0", "--device", "cuda"]
+
+
+def _fare_launches(layers: int, encodes: int, differentiated: int,
+                   remat: bool):
+    """Launches of each packed kernel and of the LayerNorm op for `encodes`
+    forward-only image encodes and `differentiated` ones: a block per layer
+    (twice under remat: the forward and its recompute in the backward;
+    the backward itself recomputes through the plain versions), `ln_2`
+    with each block, and `ln_pre` and `ln_post` once an encode."""
+    blocks = layers * (encodes + (2 if remat else 1) * differentiated)
+    return {"packed_attention": blocks, "fused_attention_block": blocks,
+            "layer_norm": blocks + 2 * (encodes + differentiated)}
+
+
+def phase_fare_parity(workdir: str):
+    """ViT-tiny-test, fp32, TF32 off, the card against the CPU from the same
+    weights: 2 FARE steps with PGD from the same starts and 2 with APGD (on
+    the cross-entropy) give the same losses and parameters (1e-4), the APGD
+    cascade and Square the same fooled masks and images; then
+    `fare_driver.main` on the card, 3 steps and a resume to 5."""
+    import torch
+    from leaf_tpu_torch.attacks.square import make_margin_loss_fn, square_attack
+    from leaf_tpu_torch.benchmark.zeroshot_classification import (
+        _apgd_attack_batch, _logits_fn)
+    from leaf_tpu_torch.evals.zero_shot import fp32_products
+    from leaf_tpu_torch.models.factory import create_model
+    from leaf_tpu_torch.train import checkpoint, fare, fare_driver
+
+    tiny, eps = "ViT-tiny-test", 8 / 255
+    rng = np.random.default_rng(31)
+    images = rng.uniform(0.2, 0.8, (4, 64, 64, 3)).astype(np.float32)
+    starts = [(eps * (2 * rng.random(images.shape) - 1)).astype(np.float32)
+              for _ in range(2)]
+    clf = rng.standard_normal((64, 10)).astype(np.float32)
+    clf /= np.linalg.norm(clf, axis=0)
+    targets = np.arange(4)
+    runs = {}
+    with fp32_products():
+        for device in ("cpu", "cuda"):
+            r = {}
+            for attack in ("pgd", "apgd"):
+                model = create_model(tiny, seed=0, device=device,
+                                     master_weights=True)
+                # APGD has no random start: on the l2 loss it would start
+                # where the trainable and the frozen tower agree, at a zero
+                # gradient, so it maximises the cross-entropy instead
+                fcfg = fare.FareConfig(
+                    steps=2, warmup=1, lr=1e-4, eps=eps, iterations_adv=3,
+                    stepsize_adv=eps / 2, attack=attack, log_freq=1,
+                    inner_loss="l2" if attack == "pgd" else "ce")
+                losses = []
+                out = fare.train_fare(
+                    model.module.visual, model.cfg, fcfg,
+                    iter([(images, targets)] * 2),
+                    classifier=torch.from_numpy(clf).to(device), seed=0,
+                    starts=(torch.from_numpy(s).to(device) for s in starts),
+                    on_step=lambda s, m: losses.append(m["loss"]))
+                r[attack] = (losses, {k: v.cpu() for k, v in
+                                      out["visual"].state_dict().items()})
+            model = create_model(tiny, seed=0, device=device,
+                                 master_weights=True)
+            model.module.requires_grad_(False)
+            visual = model.module.visual
+            clf_t = torch.from_numpy(clf).to(device)
+            x = torch.from_numpy(images).to(device)
+            logits_fn = _logits_fn(visual, model.cfg, clf_t)
+            with torch.no_grad():
+                labels = logits_fn(x).argmax(-1)
+            adv, fooled = _apgd_attack_batch(visual, model.cfg, clf_t, x,
+                                             labels, 4 / 255, n_iter=6,
+                                             n_targets=2)
+            mfn = make_margin_loss_fn(logits_fn, labels.cpu().numpy(), device)
+            sq = square_attack(mfn, images, eps=eps, n_iters=15, seed=0)
+            r["cascade"] = (adv.cpu().numpy(), fooled.cpu().numpy())
+            r["square"] = (sq, mfn(sq)[1].cpu().numpy())
+            runs[device] = r
+    cpu, card = runs["cpu"], runs["cuda"]
+    worst = {}
+    for attack in ("pgd", "apgd"):
+        (cl, cp), (gl, gp) = cpu[attack], card[attack]
+        require(np.allclose(gl, cl, rtol=1e-4, atol=1e-6),
+                f"(m) {attack} losses: card {gl}, CPU {cl}")
+        # the attention's key bias has a zero true gradient (softmax is
+        # shift invariant): Adam turns rounding noise there into a step of
+        # up to lr either way, so it is held to 2 lr a step (ROADMAP Queue 3)
+        diff = {k: (gp[k] - cp[k]).abs() for k in cp}
+        key_bias = max(float(d[d.shape[0] // 3:2 * d.shape[0] // 3].max())
+                       for k, d in diff.items() if k.endswith("attn.qkv_b"))
+        for k, d in diff.items():
+            if k.endswith("attn.qkv_b"):
+                d[d.shape[0] // 3:2 * d.shape[0] // 3] = 0
+        worst[attack] = max(float(d.max()) for d in diff.values())
+        require(worst[attack] <= 1e-4 and key_bias <= 2 * 2 * fcfg.lr,
+                f"(m) {attack}: parameters differ by {worst[attack]}, the "
+                f"key bias by {key_bias}")
+    require(np.array_equal(card["cascade"][1], cpu["cascade"][1])
+            and np.array_equal(card["square"][1], cpu["square"][1]),
+            f"(m) fooled masks: card {card['cascade'][1]} "
+            f"{card['square'][1]}, CPU {cpu['cascade'][1]} {cpu['square'][1]}")
+    adv_err = float(np.abs(card["cascade"][0] - cpu["cascade"][0]).max())
+    sq_err = float(np.abs(card["square"][0] - cpu["square"][0]).max())
+    require(adv_err <= 1e-4 and sq_err <= 1e-4,
+            f"(m) adversarial images differ by {adv_err} (APGD), {sq_err} "
+            "(Square)")
+    say(f"(m) FARE parity, ViT-tiny-test fp32, TF32 off, card vs CPU: 2 "
+        f"steps PGD (same starts) losses {card['pgd'][0]} (CPU "
+        f"{cpu['pgd'][0]}), parameters within {worst['pgd']:.3g}; 2 steps "
+        f"APGD losses {card['apgd'][0]}, parameters within "
+        f"{worst['apgd']:.3g}; the cascade fooled {card['cascade'][1]} and "
+        f"Square {card['square'][1]} on both, images within {adv_err:.3g} / "
+        f"{sq_err:.3g}")
+
+    folder = _write_image_folder(os.path.join(workdir, "tiny_fare"),
+                                 np.random.default_rng(32), 8, 2, 72)
+    out_dir = os.path.join(workdir, "tiny_fare_out")
+    flags = ["--model", tiny, "--imagenet-root", folder, "--batch-size", "4",
+             "--iterations-adv", "2", "--warmup", "1", "--fallback-freq", "1",
+             "--log-freq", "1", "--output-dir", out_dir, "--device", "cuda"]
+    fare_driver.main(flags + ["--steps", "3"])
+    ck = os.path.join(out_dir, "FARE", "checkpoints")
+    saved = checkpoint.load_checkpoint(os.path.join(ck, "epoch_3"))
+    out = fare_driver.main(flags + ["--steps", "5", "--resume", "latest"])
+    names = sorted(os.listdir(ck))
+    adam = out["state"].optimizer.adamw.state_dict()["state"]
+    steps = {float(a["step"]) for a in adam.values()}
+    require(saved["step"] == 3 and out["steps"] == 5 and steps == {5.0},
+            f"(m) resume: saved step {saved['step']}, {out['steps']} steps, "
+            f"Adam's steps {steps}")
+    require(names == [f"epoch_{i}" for i in range(1, 6)],
+            f"(m) checkpoints left: {names}")
+    say(f"(m) fare_driver.main on the card, ViT-tiny-test: 3 steps, then "
+        f"--resume latest --steps 5 from epoch_3 (step 3): Adam's step "
+        f"counts {sorted(steps)}, checkpoints {names}, no fallback left")
+    return {"pgd_param_err": worst["pgd"], "apgd_param_err": worst["apgd"],
+            "cascade_err": adv_err, "square_err": sq_err}
+
+
+class _FareRun:
+    """Wraps `fare.train_fare` for one `fare_driver.main` call on the card:
+    the kernels' counters are read each time the loop takes a batch and
+    once when it returns (a step's launches are the difference of two
+    reads), each step's loss is recorded, the trainable tower's parameters
+    are copied to the host before training (the frozen tower is held to
+    them after), and each checkpoint's host copy and disk write are
+    timed."""
+
+    def __init__(self, counters):
+        self.counters = counters
+
+    def __enter__(self):
+        from leaf_tpu_torch.train import checkpoint, fare
+        run = self
+        self.reads, self.losses, self.saves, self.writes = [], [], [], []
+        self.saved = [(fare, "train_fare", fare.train_fare),
+                      (checkpoint, "save_checkpoint",
+                       checkpoint.save_checkpoint),
+                      (checkpoint, "_write", checkpoint._write)]
+
+        def read():
+            return {name: op.launches
+                    for name, op in self.counters.ops.items()}
+
+        def train_fare(visual, cfg, fcfg, data_iter, **kw):
+            run.before = {k: v.detach().cpu().clone()
+                          for k, v in visual.state_dict().items()}
+
+            def batches():
+                for batch in data_iter:
+                    run.reads.append(read())
+                    yield batch
+            kw["on_step"] = lambda s, m: run.losses.append(m["loss"])
+            out = self.saved[0][2](visual, cfg, fcfg, batches(), **kw)
+            run.reads.append(read())
+            return out
+
+        def timed(inner, into):
+            def wrapper(*args, **kw):
+                t0 = time.perf_counter()
+                inner(*args, **kw)
+                into.append(time.perf_counter() - t0)
+            return wrapper
+
+        fare.train_fare = train_fare
+        checkpoint.save_checkpoint = timed(checkpoint.save_checkpoint,
+                                           self.saves)
+        checkpoint._write = timed(checkpoint._write, self.writes)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, inner in self.saved:
+            setattr(module, name, inner)
+        return False
+
+    def launches(self):
+        return [{k: b[k] - a[k] for k in a}
+                for a, b in zip(self.reads, self.reads[1:])]
+
+
+def _dir_gb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files) / 1e9
+
+
+def phase_fare(workdir: str):
+    """`fare_driver.main` with the recipe's flags at ViT-H-14's full width
+    and depth (random weights, seed 0): 3 steps with remat, then 1 with
+    `--no-remat`; each step's seconds and launches, the peak device memory,
+    each checkpoint's seconds and size."""
+    import torch
+    from leaf_tpu_torch.models.clip import VisionTower
+    from leaf_tpu_torch.models.config import get_model_config
+    from leaf_tpu_torch.train import fare_driver
+
+    cfg = get_model_config(FARE_MODEL)
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in VisionTower(cfg.vision).parameters())
+    ckpt_gb = 3 * 4 * n_params / 1e9   # parameters and two moments, fp32
+    free_gb = shutil.disk_usage(workdir).free / 1e9
+    need_gb = (FARE_STEPS + 1) * ckpt_gb
+    say(f"(m) {FARE_MODEL} vision tower: {n_params} parameters; a checkpoint "
+        f"~{ckpt_gb:.2f} GB; {free_gb:.1f} GB free in {workdir}")
+    require(free_gb > need_gb, f"(m) {free_gb:.1f} GB free in {workdir}, "
+            f"{need_gb:.1f} GB needed for the checkpoints")
+    folder = _write_image_folder(os.path.join(workdir, "fare_train"),
+                                 np.random.default_rng(33), FARE_IMAGES,
+                                 FARE_CLASSES, 256)
+    counters = _Counters()
+    layers = cfg.vision.layers
+    iters = int(FARE_FLAGS[FARE_FLAGS.index("--iterations-adv") + 1])
+    batch = int(FARE_FLAGS[FARE_FLAGS.index("--batch-size") + 1])
+    results, total = {}, dict.fromkeys(counters.NAMES, 0)
+    for tag, extra, n_steps, remat in (
+            ("remat", [], FARE_STEPS, True),
+            ("no-remat", ["--no-remat"], 1, False)):
+        out_dir = os.path.join(workdir, f"fare_{tag}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counters.zero()
+        t0 = time.perf_counter()
+        with _FareRun(counters) as run:
+            out = fare_driver.main(FARE_FLAGS + extra + [
+                "--imagenet-root", folder, "--steps", str(n_steps),
+                "--output-dir", out_dir])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = _fare_launches(layers, 1, iters + 1, remat)
+        steps = []
+        for i, (t, got) in enumerate(zip(out["times"], run.launches())):
+            require(got == want, f"(m) FARE {tag} step {i + 1}: launches "
+                    f"{got}, {want} expected (1 anchor + {iters + 1} "
+                    f"differentiated encodes of {layers} layers)")
+            steps.append(dict(t, images_per_s=batch / t["step_s"],
+                              launches=got))
+            say(f"(m) FARE {tag} step {i + 1}: {t['step_s']:.3f} s on the "
+                f"device, {batch / t['step_s']:.1f} images/s; anchor "
+                f"{t['anchor_s']:.3f} s, attack {t['attack_s']:.3f} s, "
+                f"update {t['update_s']:.3f} s; the loader kept the host "
+                f"waiting {t['wait_s']:.3f} s; launches {got} (1 + "
+                f"{iters + 1} differentiated encodes)")
+        for name in counters.NAMES:
+            got = sum(s["launches"][name] for s in steps)
+            require(counters.ops[name].launches == got,
+                    f"(m) FARE {tag}: {name} launched outside the steps")
+            total[name] += got
+        require(len(steps) == n_steps == out["steps"]
+                and len(run.losses) == n_steps
+                and all(np.isfinite(v) and v > 0 for v in run.losses),
+                f"(m) FARE {tag}: steps {out['steps']}, losses {run.losses}")
+        frozen = out["frozen"].state_dict()
+        require(all(torch.equal(frozen[k].cpu(), v)
+                    for k, v in run.before.items()),
+                f"(m) FARE {tag}: the frozen tower changed")
+        moved = max(float((v.cpu() - run.before[k]).abs().max())
+                    for k, v in out["visual"].state_dict().items())
+        require(moved > 0, f"(m) FARE {tag}: the trained tower did not move")
+        ck = os.path.join(out_dir, "FARE", "checkpoints")
+        sizes = {name: _dir_gb(os.path.join(ck, name))
+                 for name in sorted(os.listdir(ck))}
+        require(len(sizes) == len(run.writes) == len(run.saves),
+                f"(m) FARE {tag}: checkpoints {sizes}, {len(run.writes)} "
+                "writes")
+        say(f"(m) FARE {tag}: {n_steps} steps in {seconds:.1f} s (model "
+            f"build and checkpoints included), losses "
+            f"{[round(v, 5) for v in run.losses]}, the largest parameter "
+            f"change {moved:.3g}, the frozen tower unchanged; peak device "
+            f"memory {peak:.1f} GiB; checkpoints {sizes} GB, each save "
+            f"{[round(v, 2) for v in run.saves]} s on the host (the copy) "
+            f"and {[round(v, 2) for v in run.writes]} s writing")
+        results[tag] = {"seconds": seconds, "steps": steps,
+                        "losses": run.losses, "peak_gib": peak,
+                        "checkpoint_gb": list(sizes.values()),
+                        "save_s": run.saves, "write_s": run.writes}
+        shutil.rmtree(out_dir)
+        del out, run, frozen
+        torch.cuda.empty_cache()
+    return total, results
+
+
+def _robust_folder(workdir: str):
+    """The eval's images, each in the class folder (of 1,000) that the
+    model picks for it, so that every clean prediction is right and the
+    attacks have work to do; then Square on them at full width (20
+    iterations), outside the eval, where APGD may leave it nothing.
+    Returns (folder, Square's seconds, its fooled count, its launches)."""
+    import torch
+    from leaf_tpu_torch.attacks.engine import CandidateScorer
+    from leaf_tpu_torch.attacks.square import make_margin_loss_fn, square_attack
+    from leaf_tpu_torch.benchmark.zeroshot_classification import _logits_fn
+    from leaf_tpu_torch.evals.zero_shot import fp32_products
+    from leaf_tpu_torch.models import zero_shot
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+    from leaf_tpu_torch.models.preprocess import image_transform, read_image
+
+    arrays = _write_image_folder(os.path.join(workdir, "robust_arrays"),
+                                 np.random.default_rng(34), ROBUST_IMAGES,
+                                 1, 256)
+    paths = sorted(os.path.join(d, f) for d, _, files in os.walk(arrays)
+                   for f in files)
+    model = create_model(FARE_MODEL, seed=0, device="cuda",
+                         master_weights=True)
+    model.module.requires_grad_(False)
+    scorer = CandidateScorer(model.cfg, "cuda")
+    pre = image_transform(model.cfg.vision.image_size, do_normalize=False)
+    images = np.stack([pre(read_image(p)) for p in paths])
+    with fp32_products():
+        classifier = zero_shot.build_zero_shot_classifier(
+            lambda t: scorer.encode_text(model.module.text, t),
+            get_tokenizer(FARE_MODEL), zero_shot.imagenet_classnames(),
+            zero_shot.openai_imagenet_templates())
+    logits_fn = _logits_fn(model.module.visual, model.cfg, classifier)
+    with torch.no_grad():
+        classes = logits_fn(torch.from_numpy(images).cuda()).argmax(-1).cpu()
+    folder = os.path.join(workdir, "robust_val")
+    for c in range(1000):
+        os.makedirs(os.path.join(folder, f"c{c:04d}"))
+    for p, c in zip(paths, classes.tolist()):
+        shutil.move(p, os.path.join(folder, f"c{c:04d}",
+                                    os.path.basename(p)))
+    mfn = make_margin_loss_fn(logits_fn, classes.numpy(), "cuda")
+    pa = _Counters()
+    pa.zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adv = square_attack(mfn, images, eps=2 / 255, n_iters=20, seed=0)
+    fooled = int(mfn(adv)[1].sum())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: op.launches for name, op in pa.ops.items()}
+    require(np.abs(adv - images).max() <= 2 / 255 + 1e-6,
+            "(m) Square left the eps-ball")
+    say(f"(m) Square at {FARE_MODEL}, fp32, {ROBUST_IMAGES} images the model "
+        f"classifies as labelled, 20 iterations: {seconds:.2f} s, "
+        f"{fooled} fooled, launches {launches}; the images go to "
+        f"{len(set(classes.tolist()))} of 1000 class folders")
+    del model, scorer, classifier, logits_fn, mfn
+    torch.cuda.empty_cache()
+    return folder, seconds, fooled, launches
+
+
+def phase_robust(workdir: str):
+    """`imagenet_robust.main` at ViT-H-14's full width and depth (fp32, TF32
+    off), the kernels' launches held to its encodes."""
+    from leaf_tpu_torch.evals import imagenet_robust
+    from leaf_tpu_torch.models.config import get_model_config
+
+    cfg = get_model_config(FARE_MODEL)
+    folder, square_s, square_fooled, square_launches = _robust_folder(workdir)
+    counters, out, seconds = _Counters(), {}, {}
+    tag = (f"imagenet_robust {FARE_MODEL} fp32, {ROBUST_IMAGES} images, "
+           "APGD 10 iterations x (CE + 1 target), Square 20 (defaults 100, "
+           "3, 1000; 1000 images)")
+    with _Part(counters, tag, out, {"text": cfg.text.layers,
+                                    "image": cfg.vision.layers}, "m"):
+        res = imagenet_robust.main(ROBUST_FLAGS + [
+            "--imagenet-root", folder, "--output-dir",
+            os.path.join(workdir, "robust_out")], seconds=seconds)
+    clean, robust = res["clean_acc1"], res["robust_acc1"]
+    require(res["n_samples"] == ROBUST_IMAGES and clean == 1.0
+            and 0.0 <= robust <= clean, f"(m) robust eval: {res}")
+    part = out[tag]
+    part.update(result=res, part_seconds=seconds, square_alone_s=square_s,
+                square_alone_fooled=square_fooled,
+                square_alone_launches=square_launches)
+    say(f"(m) robust eval: {res}; seconds by part "
+        f"{ {k: round(v, 2) for k, v in seconds.items()} }")
+    return counters.total, part
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2058,9 +2540,10 @@ def main() -> int:
     from leaf_tpu_torch.models.factory import create_model
     from leaf_tpu_torch.ops import packed_attention as pa
 
+    t_start = time.perf_counter()
     phase_card()
-    phase_build()
-    rows, parts = phase_kernels()
+    _timed("b", phase_build)
+    rows, parts = _timed("c", phase_kernels)
 
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -2069,6 +2552,7 @@ def main() -> int:
         pa.packed_attention.launches = 0
         pa.fused_attention_block.launches = 0
         pa.layer_norm.launches = 0
+        t0 = time.perf_counter()
         rates, text_batches, sets = phase_serve(workdir)
         card_bf16 = create_model(MODEL, precision="bf16", seed=0,
                                  device="cuda")
@@ -2094,15 +2578,20 @@ def main() -> int:
         phase_parity(card_bf16, sets, images)
         del card_bf16, images
         torch.cuda.empty_cache()
+        PHASE_SECONDS["d-g"] = round(time.perf_counter() - t0, 1)
 
-        flash_launches = phase_flash(cfg.vision.layers)
-        phase_train_parity()
-        phase_fused_parity()
-        train_launches, trainer = phase_train(workdir)
-        eval_parity = phase_eval_parity(workdir)
-        eval_launches, recipe = phase_recipe(workdir)
-        charmer_parity = phase_charmer_parity(workdir)
-        attack_launches, text_attacks = phase_text_attacks(workdir)
+        flash_launches = _timed("h", phase_flash, cfg.vision.layers)
+        _timed("i train", phase_train_parity)
+        _timed("i fused", phase_fused_parity)
+        train_launches, trainer = _timed("j", phase_train, workdir)
+        eval_parity = _timed("k parity", phase_eval_parity, workdir)
+        eval_launches, recipe = _timed("k", phase_recipe, workdir)
+        charmer_parity = _timed("l parity", phase_charmer_parity, workdir)
+        attack_launches, text_attacks = _timed("l", phase_text_attacks,
+                                               workdir)
+        fare_parity = _timed("m parity", phase_fare_parity, workdir)
+        fare_launches, fare_runs = _timed("m FARE", phase_fare, workdir)
+        robust_launches, robust = _timed("m robust", phase_robust, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2119,12 +2608,17 @@ def main() -> int:
                              "train": train_launches["packed_attention"],
                              "eval": eval_launches["packed_attention"],
                              "text_attacks":
-                                 attack_launches["packed_attention"]},
+                                 attack_launches["packed_attention"],
+                             "fare": fare_launches["packed_attention"],
+                             "robust_eval":
+                                 robust_launches["packed_attention"]},
         "fused_attention_block": {
             "serve": serve_launches["fused_attention_block"],
             "train": train_launches["fused_attention_block"],
             "eval": eval_launches["fused_attention_block"],
-            "text_attacks": attack_launches["fused_attention_block"]},
+            "text_attacks": attack_launches["fused_attention_block"],
+            "fare": fare_launches["fused_attention_block"],
+            "robust_eval": robust_launches["fused_attention_block"]},
         "flash_attention": {"op": flash_launches}}
     report = []
     for name, by_shape in rows.items():
@@ -2151,16 +2645,23 @@ def main() -> int:
     # the GEMM's are on the "kernel_shapes" line
     ln_launches = {"serve": ln_serve, "train": train_launches["layer_norm"],
                    "eval": eval_launches["layer_norm"],
-                   "text_attacks": attack_launches["layer_norm"]}
+                   "text_attacks": attack_launches["layer_norm"],
+                   "fare": fare_launches["layer_norm"],
+                   "robust_eval": robust_launches["layer_norm"]}
     for path, count in ln_launches.items():
         require(count > 0, f"layer_norm: no launch on the {path} path")
     require(report[1]["name"] == "fused_attention_block", "report order")
     report[1]["parts"] = {"layer_norm": {"launches": sum(ln_launches.values()),
                                          "launches_by_path": ln_launches}}
-    print(json.dumps({"trainer": trainer, "recipe": recipe,
+    PHASE_SECONDS["all"] = round(time.perf_counter() - t_start, 1)
+    say(f"phase seconds: {PHASE_SECONDS}")
+    print(json.dumps({"phase_seconds": PHASE_SECONDS,
+                      "trainer": trainer, "recipe": recipe,
                       "eval_parity": eval_parity,
                       "charmer_parity": charmer_parity,
-                      "text_attacks": text_attacks}))
+                      "text_attacks": text_attacks,
+                      "fare_parity": fare_parity, "fare": fare_runs,
+                      "robust_eval": robust}))
     # every shape's row (ms, plain_ms, library_ms, bound_ms, bound_by,
     # max_abs_err) on a line of its own, so that the kernels line stays
     # short enough to read whole from the end of a captured output

@@ -1,5 +1,7 @@
 """Attack side of the port: sentence edits, the candidate scoring engine,
-the text attacks (LEAF, Charmer, bruteforce) and the image attacks."""
+the text attacks (LEAF, Charmer, bruteforce) and the image attacks (PGD,
+APGD, Square).  `attacks.apgd` is the module: its function of that name
+is not exported here, where it would hide the module."""
 from leaf_tpu_torch.attacks.edits import (
     DEFAULT_VOCAB,
     apply_edit,
@@ -25,6 +27,12 @@ from leaf_tpu_torch.attacks.image import (
     attack_image_classification,
     pgd,
 )
+from leaf_tpu_torch.attacks.apgd import (
+    ce_loss_fn,
+    dlr_targeted_loss_fn,
+    l1_projection,
+)
+from leaf_tpu_torch.attacks.square import make_margin_loss_fn, square_attack
 
 __all__ = [
     "DEFAULT_VOCAB", "apply_edit", "expand_slots", "generate_all_sentences",
@@ -34,5 +42,7 @@ __all__ = [
     "attack_text_charmer_inference", "attack_text_charmer_batched",
     "attack_text_charmer_constrained_ret",
     "attack_text_charmer_classification", "attack_image",
-    "attack_image_classification", "pgd",
+    "attack_image_classification", "pgd", "ce_loss_fn",
+    "dlr_targeted_loss_fn", "l1_projection", "make_margin_loss_fn",
+    "square_attack",
 ]

@@ -2,7 +2,7 @@
 
 Datasets are plain Python iterables yielding numpy batches, wrapped in a
 background-thread prefetcher so that host data preparation overlaps the
-device's work.
+device's work; `put_batch` takes a batch to the device.
 """
 from __future__ import annotations
 
@@ -10,6 +10,23 @@ import dataclasses
 import queue
 import threading
 from typing import Any, Callable, Iterable, Iterator
+
+import numpy as np
+import torch
+
+
+def put_batch(array, device: torch.device, dtype=None) -> torch.Tensor:
+    """A host batch on `device` (in `dtype`).  On a card the copy is made
+    from pinned memory and not waited for: a copy from pageable memory
+    holds the host until the stream has run everything enqueued before it,
+    which would undo the overlap of the host's next step with the device's
+    work."""
+    host = torch.from_numpy(np.ascontiguousarray(array))
+    if dtype is not None:
+        host = host.to(dtype)
+    if device.type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 @dataclasses.dataclass

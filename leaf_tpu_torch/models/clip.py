@@ -7,7 +7,9 @@ its embedding weights: for serving the factory casts matrix weights and
 embeddings once, and LayerNorm parameters stay fp32.  For training the
 text tower keeps fp32 master weights and is given a `compute_dtype`:
 embeddings, block weights and the projection are then cast where they
-are used, and the gradient flows back through the cast.
+are used, and the gradient flows back through the cast.  The vision
+tower has the same `compute_dtype` for FARE, which trains it in bf16 on
+fp32 master weights; everywhere else it computes in its weights' dtype.
 
 Text: short sequences are packed G per row (`_pack_groups`, target 128
 tokens as in the JAX package) under a block-diagonal causal pattern;
@@ -207,6 +209,13 @@ class VisionTower(nn.Module):
                                          _act(quick_gelu), cfg.ln_eps)
         self.ln_post = layers.LayerNorm(w, cfg.ln_eps)
         self.proj = nn.Parameter(torch.zeros(w, cfg.output_dim))
+        # None: compute in the stored weights' dtype
+        self.compute_dtype: Optional[torch.dtype] = None
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dtype of activations and features."""
+        return self.compute_dtype or self.patch_embedding.dtype
 
     def init_weights(self, generator: torch.Generator) -> None:
         scale = self.cfg.width ** -0.5
@@ -216,16 +225,18 @@ class VisionTower(nn.Module):
         self.blocks.init_weights(generator)
         layers.normal_(self.proj, scale, generator)
 
-    def encode_image(self, images: torch.Tensor,
-                     normalize: bool = False) -> torch.Tensor:
-        """NHWC images [B, H, W, 3] -> image features [B, output_dim]."""
-        dtype = self.patch_embedding.dtype
-        x = patchify(images.to(dtype), self.cfg.patch_size) @ self.patch_embedding
-        cls = self.class_embedding.expand(x.shape[0], 1, x.shape[-1])
-        x = torch.cat([cls, x], dim=1) + self.positional_embedding
+    def encode_image(self, images: torch.Tensor, normalize: bool = False,
+                     remat: bool = False) -> torch.Tensor:
+        """NHWC images [B, H, W, 3] -> image features [B, output_dim].
+        `remat` recomputes each block in the backward pass."""
+        dtype = self.dtype
+        x = patchify(images.to(dtype), self.cfg.patch_size) \
+            @ self.patch_embedding.to(dtype)
+        cls = self.class_embedding.to(dtype).expand(x.shape[0], 1, x.shape[-1])
+        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)
         x = self.ln_pre(x)
-        x = self.blocks(x, packed=(x.shape[1], False))
-        pooled = self.ln_post(x)[:, 0] @ self.proj
+        x = self.blocks(x, packed=(x.shape[1], False), remat=remat)
+        pooled = self.ln_post(x)[:, 0] @ self.proj.to(dtype)
         return l2_normalize(pooled) if normalize else pooled
 
 

@@ -42,6 +42,7 @@ from leaf_tpu_torch.attacks.engine import (bucket_tokens,
                                            can_bucket as engine_can_bucket,
                                            objective_loss)
 from leaf_tpu_torch.attacks.text import _edit_tokens_fast
+from leaf_tpu_torch.data.common import put_batch
 from leaf_tpu_torch.models.clip import TextTower, l2_normalize
 from leaf_tpu_torch.models.config import CLIPConfig
 from leaf_tpu_torch.train.step import TrainState
@@ -303,14 +304,9 @@ class FusedLeafStep:
             else np.asarray(tokens)
 
     def _put(self, tokens: np.ndarray) -> torch.Tensor:
-        """Host token buffer -> the device.  On CUDA the copy is made from
-        pinned memory and not waited for: a copy from pageable memory
-        holds the host until the stream has run everything enqueued
-        before it, which would undo the overlap this step is built on."""
-        host = torch.from_numpy(np.ascontiguousarray(tokens))
-        if self.device.type != "cuda":
-            return host
-        return host.pin_memory().to(self.device, non_blocking=True)
+        """Host token buffer -> the device, from pinned memory and not
+        waited for (`data.common.put_batch`)."""
+        return put_batch(tokens, self.device)
 
     def _readback(self, tensor: torch.Tensor) -> _Readback:
         if self.device.type == "cuda" and self._copy_stream is None:

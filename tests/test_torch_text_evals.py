@@ -320,8 +320,13 @@ def test_the_new_modules_import_no_jax_and_no_pil():
             "import leaf_tpu_torch.evals.zero_shot_text\n"
             "import leaf_tpu_torch.evals.retrieval\n"
             "import leaf_tpu_torch.profile_charmer\n"
+            "import leaf_tpu_torch.attacks.apgd, leaf_tpu_torch.attacks.square\n"
+            "import leaf_tpu_torch.train, leaf_tpu_torch.train.fare_driver\n"
+            "import leaf_tpu_torch.benchmark.zeroshot_classification\n"
+            "import leaf_tpu_torch.evals.imagenet_robust\n"
+            "import leaf_tpu_torch.profile_fare\n"
             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
-            "('jax', 'jaxlib', 'leaf_tpu', 'PIL', 'regex')))\n")
+            "('jax', 'jaxlib', 'leaf_tpu', 'PIL', 'regex', 'optax')))\n")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=repo)
     out = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
