@@ -144,7 +144,29 @@ Phases, each printing its own lines:
       launches held to its 100 text and its image encodes, clean and
       robust top-1 in [0, 1], robust <= clean.  (c) has rows at ViT-H's
       shapes: the block, `packed_attention` and the LayerNorm at [128,
-      257, 1280] bf16 and [32, 257, 1280] fp32, and the block's GEMMs.
+      257, 1280] bf16 and [32, 257, 1280] fp32, and the block's GEMMs;
+  (n) contrastive CLIP training: first, at ViT-tiny-test, fp32, TF32 off,
+      the card against the CPU from the same weights: two plain steps and
+      two feature-cache steps (`--accum-freq 2`) give the same losses and
+      parameters (1e-4), `evaluate_contrastive` and the LEAF driver's
+      `--val-data` the same metrics; then at ViT-B-32's full width and
+      depth (random weights, seed 0; vision 12 x 768, 50 tokens; text
+      12 x 512, 8 heads; bf16 on fp32 master weights, batch 256, lr 5e-4,
+      wd 0.2, `--local-loss`, `--workers 4`): the plain step with its
+      batch already on the card (CUDA events), then
+      `train.contrastive_driver.main` on 2,048 seeded 256 x 256 `.npy`
+      image-caption pairs in 8 tar shards: 8 plain steps (cosine after 2
+      warm-up steps) with `--val-data` over one more shard before and
+      after, saved; `--resume latest` for 2 more; 4 steps each with
+      `--siglip`, `--accum-freq 2`, `--distill-model ViT-B-32` and
+      `--lock-image` (the vision tower unchanged bit for bit).  Per step
+      its span on the device (CUDA events), the loader's wait, the loop's
+      samples/s, its peak device memory and the launches, held to 1 pass
+      of both towers a plain step, 4 with the feature cache, 2 with the
+      teacher and 1 a val batch; the val metrics finite, recalls in
+      [0, 1].  (c) has rows at ViT-B-32's shapes: both kernels and the
+      LayerNorm at [256, 77, 512] causal and [256, 50, 768] bf16, and the
+      block's GEMMs.
 Any failure raises.  The line before the last is the kernels' JSON
 report (each kernel at its main-path shape; the line before it has the
 rows of every shape); the last is {"ok": true, "device": {...}}.  Without CUDA, or
@@ -207,6 +229,11 @@ SHAPES = [
     # of 32
     ("fare_vith_bf16", 128, 257, 257, False, 1280, 16, "bfloat16"),
     ("robust_vith_fp32", 32, 257, 257, False, 1280, 16, "float32"),
+    # contrastive training (n) at ViT-B-32, batch 256: the text tower at
+    # D 512, 8 heads of 64, one 77-token caption per row; the vision tower
+    # at D 768, 12 heads, 50 tokens (7 x 7 patches of 32 + the class token)
+    ("contrastive_text_s77_bf16", 256, 77, 77, True, 512, 8, "bfloat16"),
+    ("contrastive_vision_bf16", 256, 50, 50, False, 768, 12, "bfloat16"),
 ]
 # (name, M, K, N) of the fused block's two GEMMs on the main path; the
 # out-projections run again with their residual
@@ -225,7 +252,11 @@ GEMM_SHAPES = [("s16 qkv", 32 * 128, 768, 2304), ("s16 out", 32 * 128, 768, 768)
                ("charmer s16 qkv", 5461 * 128, 768, 2304),
                ("charmer s16 out", 5461 * 128, 768, 768),
                ("fare vith qkv", 128 * 257, 1280, 3840),
-               ("fare vith out", 128 * 257, 1280, 1280)]
+               ("fare vith out", 128 * 257, 1280, 1280),
+               ("b32 text qkv", 256 * 77, 512, 1536),
+               ("b32 text out", 256 * 77, 512, 512),
+               ("b32 vision qkv", 256 * 50, 768, 2304),
+               ("b32 vision out", 256 * 50, 768, 768)]
 # M = 3 rows of 77 tokens; N and K multiples of 8 and of no tile (64 k, 128
 # to 256 columns), one of them narrower than a single TMA box
 # the eval's fp32 vision GEMMs: the block's qkv and out projections
@@ -2531,6 +2562,404 @@ def phase_robust(workdir: str):
 
 
 # ---------------------------------------------------------------------------
+# (n) contrastive training at ViT-B-32
+# ---------------------------------------------------------------------------
+
+CLIP_MODEL, CLIP_BATCH = "ViT-B-32", 256
+CLIP_SHARDS, CLIP_PER_SHARD = 8, 256
+# OpenCLIP's LAION-400M ViT-B/32 run per GPU: batch 256 of its global
+# 32,768, lr 5e-4, wd 0.2, the local loss; the cosine after 2 warm-up steps,
+# since the cells are a few steps each
+CLIP_FLAGS = ["--model", CLIP_MODEL, "--precision", "bf16", "--batch-size",
+              str(CLIP_BATCH), "--lr", "5e-4", "--wd", "0.2", "--warmup",
+              "2", "--local-loss", "--workers", "4", "--dataset-type",
+              "webdataset", "--log-every-n-steps", "1", "--seed", "0",
+              "--device", "cuda"]
+
+
+def _write_pair_tars(root: str, rng, shards: int, per_shard: int,
+                     size: int = 256) -> str:
+    """`shards` tar files of seeded HWC uint8 `.npy` images, each with a
+    caption of 3-30 words; returns the brace spec."""
+    import io
+    import tarfile
+    os.makedirs(root)
+    for s in range(shards):
+        images = rng.integers(0, 256, (per_shard, size, size, 3),
+                              dtype=np.uint8)
+        with tarfile.open(os.path.join(root, f"{s:03d}.tar"), "w") as tf:
+            for i, cap in enumerate(_captions(rng, per_shard, 3, 30)):
+                buf = io.BytesIO()
+                np.save(buf, images[i])
+                for ext, payload in (("npy", buf.getvalue()),
+                                     ("txt", cap.encode())):
+                    info = tarfile.TarInfo(f"{s:03d}_{i:05d}.{ext}")
+                    info.size = len(payload)
+                    tf.addfile(info, io.BytesIO(payload))
+    return os.path.join(root, "{000..%03d}.tar" % (shards - 1))
+
+
+def _clip_launches(cfg, encodes: int):
+    """Launches of each packed kernel and of the LayerNorm op for
+    `encodes` forward passes of both towers: a block per layer of each
+    (the backward recomputes through the plain versions), `ln_2` with each
+    block, `ln_final`, `ln_pre` and `ln_post` once a pass."""
+    blocks = (cfg.text.layers + cfg.vision.layers) * encodes
+    return {"packed_attention": blocks, "fused_attention_block": blocks,
+            "layer_norm": blocks + 3 * encodes}
+
+
+class _ContrastiveRun:
+    """Wraps the step makers and the val eval of `contrastive_driver` for
+    one `main` call: the kernels' counters are read just before and just
+    after each step and each eval, each step's loss is kept, and each
+    step's peak device memory (the allocator's peak, reset just before
+    the step; no synchronise)."""
+
+    NAMES = ("make_contrastive_train_step",
+             "make_accum_contrastive_train_step", "make_distill_train_step",
+             "evaluate_contrastive")
+
+    def __init__(self, counters):
+        self.counters = counters
+
+    def _read(self):
+        return {name: op.launches for name, op in self.counters.ops.items()}
+
+    def _diff(self, before):
+        after = self._read()
+        return {k: after[k] - before[k] for k in after}
+
+    def __enter__(self):
+        from leaf_tpu_torch.train import contrastive_driver as cd
+        self.cd = cd
+        self.saved = {name: getattr(cd, name) for name in self.NAMES}
+        self.steps, self.losses, self.evals = [], [], []
+        self.sps, self.peaks = [], []
+        run = self
+        import torch
+
+        def wrap_maker(maker):
+            def make(*args, **kw):
+                step_fn = maker(*args, **kw)
+
+                def step(state, images, tokens):
+                    torch.cuda.reset_peak_memory_stats()
+                    before = run._read()
+                    out = step_fn(state, images, tokens)
+                    run.steps.append(run._diff(before))
+                    run.peaks.append(torch.cuda.max_memory_allocated()
+                                     / 2 ** 30)
+                    run.losses.append(out[1]["loss"])
+                    return out
+                return step
+            return make
+
+        def evaluate(*args, **kw):
+            before = run._read()
+            metrics = run.saved["evaluate_contrastive"](*args, **kw)
+            run.evals.append((run._diff(before), metrics))
+            return metrics
+
+        for name in self.NAMES[:3]:
+            setattr(cd, name, wrap_maker(self.saved[name]))
+        cd.evaluate_contrastive = evaluate
+
+        class Rates(logging.Handler):
+            def emit(self, record):
+                if str(record.msg).startswith("Contrastive Epoch"):
+                    run.sps.append(record.args[5])
+        self.handler = Rates()
+        logging.getLogger(cd.__name__).addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cd, name, fn)
+        logging.getLogger(self.cd.__name__).removeHandler(self.handler)
+        return False
+
+
+def phase_contrastive_parity(workdir: str):
+    """ViT-tiny-test, fp32, TF32 off, the card against the CPU from the
+    same weights: two contrastive steps, plain and with the feature cache
+    (k = 2), give the same losses and parameters (1e-4);
+    `evaluate_contrastive` and the LEAF driver's `--val-data` give the same
+    metrics."""
+    import torch
+    from leaf_tpu_torch.evals.zero_shot import fp32_products
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+    from leaf_tpu_torch.train import contrastive, driver
+    from leaf_tpu_torch.train.optim import make_optimizer
+
+    tiny, lr = "ViT-tiny-test", 1e-4
+    rng = np.random.default_rng(41)
+    images = rng.standard_normal((2, 4, 64, 64, 3)).astype(np.float32)
+    captions = _captions(rng, 8, 3, 30)
+    tokenizer = get_tokenizer(tiny)
+    tokens = np.asarray(tokenizer(captions)).reshape(2, 4, -1)
+    val = _write_pair_tars(os.path.join(workdir, "tiny_val"), rng, 1, 8, 72)
+    runs = {}
+    with fp32_products():
+        for device in ("cpu", "cuda"):
+            r = {}
+            for kind in ("plain", "accum"):
+                model = create_model(tiny, seed=0, device=device,
+                                     master_weights=True)
+                state = contrastive.ContrastiveState(model.module, make_optimizer(
+                    model.module.named_parameters(), lambda step: lr))
+                im = torch.from_numpy(images).to(device)
+                tk = torch.from_numpy(tokens).to(device)
+                if kind == "plain":
+                    step = contrastive.make_contrastive_train_step()
+                    batches = list(zip(im, tk))
+                else:
+                    step = contrastive.make_accum_contrastive_train_step()
+                    batches = [(im, tk)] * 2
+                losses = [float(step(state, x, t)[1]["loss"])
+                          for x, t in batches]
+                r[kind] = (losses, {k: v.cpu() for k, v in
+                                    model.module.state_dict().items()})
+            model = create_model(tiny, seed=0, device=device,
+                                 master_weights=True)
+            r["eval"] = contrastive.evaluate_contrastive(
+                model.module, [(images[i], captions[4 * i:4 * i + 4])
+                               for i in range(2)], tokenizer)
+            seen = {}
+            inner = driver.evaluate_contrastive
+
+            def recording(*args, **kw):
+                seen.update(inner(*args, **kw))
+                return seen
+            driver.evaluate_contrastive = recording
+            try:
+                driver.main(["--model", tiny, "--val-data", val,
+                             "--batch-size", "4", "--zeroshot-frequency",
+                             "0", "--workers", "1", "--logs",
+                             os.path.join(workdir, "tiny_leaf_val"),
+                             "--name", device, "--device", device])
+            finally:
+                driver.evaluate_contrastive = inner
+            r["leaf_val"] = seen
+            runs[device] = r
+    cpu, card = runs["cpu"], runs["cuda"]
+    worst = {}
+    for kind in ("plain", "accum"):
+        (cl, cp), (gl, gp) = cpu[kind], card[kind]
+        require(np.allclose(gl, cl, rtol=1e-4, atol=1e-6),
+                f"(n) {kind} losses: card {gl}, CPU {cl}")
+        # the attention's key bias has a zero true gradient: held to 2 lr a
+        # step (ROADMAP Queue 3)
+        diff = {k: (gp[k] - cp[k]).abs() for k in cp}
+        key_bias = max(float(d[d.shape[0] // 3:2 * d.shape[0] // 3].max())
+                       for k, d in diff.items() if k.endswith("attn.qkv_b"))
+        for k, d in diff.items():
+            if k.endswith("attn.qkv_b"):
+                d[d.shape[0] // 3:2 * d.shape[0] // 3] = 0
+        worst[kind] = max(float(d.max()) for d in diff.values())
+        require(worst[kind] <= 1e-4 and key_bias <= 2 * 2 * lr,
+                f"(n) {kind}: parameters differ by {worst[kind]}, the key "
+                f"bias by {key_bias}")
+    for part in ("eval", "leaf_val"):
+        a, b = cpu[part], card[part]
+        require(sorted(a) == sorted(b) and b["num_samples"] == 8
+                and all(np.isclose(b[k], a[k], rtol=1e-4, atol=1e-6)
+                        for k in a),
+                f"(n) {part} metrics: card {b}, CPU {a}")
+    say(f"(n) contrastive parity, ViT-tiny-test fp32, TF32 off, card vs CPU: "
+        f"2 plain steps, losses {card['plain'][0]} (CPU {cpu['plain'][0]}), "
+        f"parameters within {worst['plain']:.3g}; 2 feature-cache steps "
+        f"(k = 2), losses {card['accum'][0]}, parameters within "
+        f"{worst['accum']:.3g}; evaluate_contrastive {card['eval']} on both; "
+        f"the LEAF driver's --val-data clip_val_loss "
+        f"{card['leaf_val']['clip_val_loss']:.6g} (CPU "
+        f"{cpu['leaf_val']['clip_val_loss']:.6g})")
+    return {"plain_param_err": worst["plain"],
+            "accum_param_err": worst["accum"],
+            "eval": card["eval"], "leaf_val": card["leaf_val"]}
+
+
+def _device_steps(n: int = 3):
+    """The plain step at ViT-B-32, batch 256, with its batch already on the
+    card: 1 warm-up step, then `n` timed by CUDA events, each held to its
+    launches."""
+    import torch
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+    from leaf_tpu_torch.train.contrastive import (
+        ContrastiveState, make_contrastive_train_step)
+    from leaf_tpu_torch.train.optim import make_optimizer
+
+    model = create_model(CLIP_MODEL, precision="bf16", seed=0, device="cuda",
+                         master_weights=True)
+    module = model.module
+    module.visual.compute_dtype = torch.bfloat16
+    state = ContrastiveState(module, make_optimizer(
+        module.named_parameters(), lambda step: 5e-4, weight_decay=0.2))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    size = model.cfg.vision.image_size
+    images = torch.randn(CLIP_BATCH, size, size, 3, generator=g,
+                         device="cuda")
+    tokens = torch.from_numpy(np.asarray(get_tokenizer(CLIP_MODEL)(
+        _captions(np.random.default_rng(42), CLIP_BATCH, 3, 30)))).cuda()
+    step = make_contrastive_train_step()
+    counters = _Counters()
+    step(state, images, tokens)
+    torch.cuda.synchronize()
+    want = _clip_launches(model.cfg, 1)
+    seconds = []
+    for _ in range(n):
+        counters.zero()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, images, tokens)
+        end.record()
+        end.synchronize()
+        got = {k: op.launches for k, op in counters.ops.items()}
+        require(got == want, f"(n) device step: launches {got}, {want} "
+                "expected")
+        seconds.append(start.elapsed_time(end) / 1e3)
+    say(f"(n) plain step, batch already on the card: "
+        f"{[round(t, 4) for t in seconds]} s on the device, "
+        f"{CLIP_BATCH / float(np.mean(seconds)):.1f} samples/s; launches "
+        f"{want} a step")
+    del model, module, state, images, tokens
+    torch.cuda.empty_cache()
+    return seconds
+
+
+def phase_contrastive(workdir: str):
+    """`contrastive_driver.main` at ViT-B-32's full width and depth (random
+    weights, seed 0; bf16 on fp32 master weights; batch 256) on 2,048
+    seeded image-caption pairs in 8 tar shards: 8 plain steps with
+    `--val-data` (one more shard) before and after, a resume for 2 more,
+    then 4 steps each with `--siglip`, `--accum-freq 2`, `--distill-model
+    ViT-B-32` and `--lock-image`.  Per step: the device's seconds, the
+    loader's wait, samples/s, launches held; per cell the peak memory."""
+    import torch
+    from leaf_tpu_torch.models.factory import create_model
+    from leaf_tpu_torch.models.config import get_model_config
+    from leaf_tpu_torch.train import contrastive_driver as cd
+
+    cfg = get_model_config(CLIP_MODEL)
+    rng = np.random.default_rng(43)
+    t0 = time.perf_counter()
+    train = _write_pair_tars(os.path.join(workdir, "clip_train"), rng,
+                             CLIP_SHARDS, CLIP_PER_SHARD)
+    val = _write_pair_tars(os.path.join(workdir, "clip_val"), rng, 1,
+                           CLIP_PER_SHARD)
+    say(f"(n) {CLIP_SHARDS * CLIP_PER_SHARD + CLIP_PER_SHARD} seeded 256 x "
+        f"256 image-caption pairs written in {time.perf_counter() - t0:.1f} s")
+    device_steps = _device_steps()
+    logs = os.path.join(workdir, "clip_logs")
+    base = CLIP_FLAGS + ["--train-data", train, "--logs", logs]
+    pairs = CLIP_SHARDS * CLIP_PER_SHARD
+    cells = [("plain", ["--val-data", val, "--train-num-samples",
+                        str(pairs), "--epochs", "1"], 8, 1),
+             ("resumed", ["--val-data", val, "--train-num-samples", "512",
+                          "--epochs", "2", "--resume", "latest"], 2, 1),
+             ("siglip", ["--siglip", "--train-num-samples", "1024",
+                         "--epochs", "1"], 4, 1),
+             ("accum 2", ["--accum-freq", "2", "--train-num-samples",
+                          str(pairs), "--epochs", "1"], 4, 4),
+             ("distill", ["--distill-model", CLIP_MODEL,
+                          "--train-num-samples", "1024", "--epochs", "1"],
+              4, 2),
+             ("lock-image", ["--lock-image", "--train-num-samples", "1024",
+                             "--epochs", "1"], 4, 1)]
+    counters = _Counters()
+    total = dict.fromkeys(counters.NAMES, 0)
+    results = {"device_steps_s": device_steps}
+    for tag, extra, n_steps, encodes in cells:
+        name = "plain" if tag == "resumed" else tag.replace(" ", "_")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        counters.zero()
+        t0 = time.perf_counter()
+        with _ContrastiveRun(counters) as run:
+            out = cd.main(base + extra + ["--name", name])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = max(run.peaks)
+        accum = 2 if tag == "accum 2" else 1
+        samples = CLIP_BATCH * accum
+        want = _clip_launches(cfg, encodes)
+        losses = [float(v) for v in run.losses]
+        times = [t for t in out["times"]]
+        require(len(run.steps) == len(times) == len(losses) == n_steps
+                == len(run.sps),
+                f"(n) {tag}: {len(run.steps)} steps, {len(times)} times, "
+                f"{n_steps} expected")
+        require(all(np.isfinite(v) and v > 0 for v in losses),
+                f"(n) {tag}: losses {losses}")
+        steps = []
+        for i, (t, got, sps, gib) in enumerate(zip(times, run.steps, run.sps,
+                                                    run.peaks)):
+            require(got == want, f"(n) {tag} step {i + 1}: launches {got}, "
+                    f"{want} expected ({encodes} passes of both towers)")
+            steps.append(dict(t, samples_per_s=sps,
+                              device_samples_per_s=samples / t["device_s"],
+                              peak_gib=gib, launches=got))
+            say(f"(n) {tag} step {i + 1}: {t['device_s']:.4f} s on the "
+                f"device ({samples / t['device_s']:.1f} samples/s), the "
+                f"loader kept the host waiting {t['wait_s']:.4f} s, the "
+                f"loop's {sps:.1f} samples/s; peak {gib:.2f} GiB; launches "
+                f"{got}")
+        evals = []
+        for got, metrics in run.evals:
+            batches = -(-metrics["num_samples"] // CLIP_BATCH)
+            want_eval = _clip_launches(cfg, batches)
+            require(got == want_eval, f"(n) {tag} val eval: launches {got}, "
+                    f"{want_eval} expected ({batches} batches)")
+            n = metrics["num_samples"]
+            require(n == CLIP_PER_SHARD
+                    and all(0 <= v <= 1 for k, v in metrics.items()
+                            if "_R@" in k)
+                    and all(1 <= v <= n for k, v in metrics.items()
+                            if k.endswith("_rank"))
+                    and np.isfinite(metrics["clip_val_loss"]),
+                    f"(n) {tag} val metrics: {metrics}")
+            evals.append(metrics)
+        launched = {k: op.launches for k, op in counters.ops.items()}
+        counted = {k: sum(s[k] for s in run.steps)
+                   + sum(g[k] for g, _ in run.evals) for k in launched}
+        require(launched == counted,
+                f"(n) {tag}: launches {launched} outside the steps and "
+                f"evals ({counted})")
+        for k in total:
+            total[k] += launched[k]
+        rows = out["results"]
+        extra_say = ""
+        if tag == "resumed":
+            require(out["state"].step == 10 and [
+                str(r["epoch"]) for r in rows] == ["0", "1", "2"],
+                f"(n) resume: step {out['state'].step}, rows {rows}")
+            extra_say = ", resumed at step 8 to step 10"
+        if tag == "lock-image":
+            init = create_model(CLIP_MODEL, seed=0, device="cpu",
+                                master_weights=True).module.visual
+            final = out["model"].module.visual.state_dict()
+            require(all(torch.equal(v, final[k].cpu())
+                        for k, v in init.state_dict().items()),
+                    "(n) --lock-image: the vision tower moved")
+            extra_say = ", the vision tower unchanged bit for bit"
+            del init, final
+        if evals:
+            extra_say += (f"; val metrics {[{k: round(v, 4) for k, v in m.items()} for m in evals]}")
+        say(f"(n) {tag}: {n_steps} steps in {seconds:.1f} s (model build, "
+            f"evals and checkpoint included), losses "
+            f"{[round(v, 4) for v in losses]}, peak device memory of a step "
+            f"{peak:.2f} GiB{extra_say}")
+        results[tag] = {"seconds": seconds, "steps": steps,
+                        "losses": losses, "peak_gib": peak, "val": evals}
+        if tag != "plain":
+            shutil.rmtree(os.path.join(logs, name), ignore_errors=True)
+        del out, run
+        torch.cuda.empty_cache()
+    return total, results
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2592,6 +3021,8 @@ def main() -> int:
         fare_parity = _timed("m parity", phase_fare_parity, workdir)
         fare_launches, fare_runs = _timed("m FARE", phase_fare, workdir)
         robust_launches, robust = _timed("m robust", phase_robust, workdir)
+        clip_parity = _timed("n parity", phase_contrastive_parity, workdir)
+        clip_launches, clip_runs = _timed("n", phase_contrastive, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2611,14 +3042,17 @@ def main() -> int:
                                  attack_launches["packed_attention"],
                              "fare": fare_launches["packed_attention"],
                              "robust_eval":
-                                 robust_launches["packed_attention"]},
+                                 robust_launches["packed_attention"],
+                             "contrastive":
+                                 clip_launches["packed_attention"]},
         "fused_attention_block": {
             "serve": serve_launches["fused_attention_block"],
             "train": train_launches["fused_attention_block"],
             "eval": eval_launches["fused_attention_block"],
             "text_attacks": attack_launches["fused_attention_block"],
             "fare": fare_launches["fused_attention_block"],
-            "robust_eval": robust_launches["fused_attention_block"]},
+            "robust_eval": robust_launches["fused_attention_block"],
+            "contrastive": clip_launches["fused_attention_block"]},
         "flash_attention": {"op": flash_launches}}
     report = []
     for name, by_shape in rows.items():
@@ -2647,7 +3081,8 @@ def main() -> int:
                    "eval": eval_launches["layer_norm"],
                    "text_attacks": attack_launches["layer_norm"],
                    "fare": fare_launches["layer_norm"],
-                   "robust_eval": robust_launches["layer_norm"]}
+                   "robust_eval": robust_launches["layer_norm"],
+                   "contrastive": clip_launches["layer_norm"]}
     for path, count in ln_launches.items():
         require(count > 0, f"layer_norm: no launch on the {path} path")
     require(report[1]["name"] == "fused_attention_block", "report order")
@@ -2661,7 +3096,9 @@ def main() -> int:
                       "charmer_parity": charmer_parity,
                       "text_attacks": text_attacks,
                       "fare_parity": fare_parity, "fare": fare_runs,
-                      "robust_eval": robust}))
+                      "robust_eval": robust,
+                      "contrastive_parity": clip_parity,
+                      "contrastive": clip_runs}))
     # every shape's row (ms, plain_ms, library_ms, bound_ms, bound_by,
     # max_abs_err) on a line of its own, so that the kernels line stays
     # short enough to read whole from the end of a captured output

@@ -1,9 +1,9 @@
 """Data layer of the port: host-side pipelines feeding numpy batches to
 the device (port of `leaf_tpu/data/__init__.py`).
 
-`get_data` assembles the trainer's datasets: train (webdataset tars,
-CSV or synthetic), the ImageNet folders, and the text-classification
-eval sets.
+`get_data` assembles the trainers' datasets: train (webdataset tars,
+CSV or synthetic), val (tars, in order), the ImageNet folders, and the
+text-classification eval sets.
 """
 from __future__ import annotations
 
@@ -37,7 +37,8 @@ def get_data(args, preprocess: Callable, epoch: int = 0,
     """Assemble datasets from a parsed-args namespace (see
     `leaf_tpu_torch.train.params`).  `text_only` skips image decode in
     the train pipelines (the LEAF text-AT loop discards images).
-    `preprocess_val` (default: `preprocess`) serves the ImageNet splits.
+    `preprocess_val` (default: `preprocess`) serves the val and ImageNet
+    splits.
     `epoch` is the JAX package's argument and changes nothing."""
     del epoch
     data: Dict[str, object] = {}
@@ -48,7 +49,8 @@ def get_data(args, preprocess: Callable, epoch: int = 0,
     if getattr(args, "dataset_type", None) == "synthetic":
         data["train"] = get_synthetic_dataset(
             args.train_num_samples or 100, args.batch_size,
-            image_size=getattr(args, "image_size", 224), seed=args.seed)
+            image_size=getattr(args, "image_size", 224), seed=args.seed,
+            preprocess=preprocess)
     elif getattr(args, "train_data", None):
         if args.dataset_type in ("webdataset", "auto"):
             factors = getattr(args, "train_data_upsampling_factors", None)
@@ -75,9 +77,10 @@ def get_data(args, preprocess: Callable, epoch: int = 0,
                 process_count=process_count, text_only=text_only)
 
     if getattr(args, "val_data", None):
-        raise NotImplementedError(
-            "--val-data (the contrastive val loss, evaluate_contrastive) is "
-            "not ported to leaf_tpu_torch yet: ROADMAP Queue 1 item 10")
+        data["val"] = get_wds_dataset(
+            WdsConfig(urls=args.val_data, batch_size=args.batch_size,
+                      is_train=False, num_samples=args.val_num_samples),
+            preprocess_val)
 
     for key, flag in (("imagenet-val", "imagenet_val"),
                       ("imagenet-v2", "imagenet_v2")):

@@ -5,9 +5,11 @@ Brace-expanded tar shard lists, a deterministic shard shuffle per epoch,
 a per-host shard split, sample grouping that skips corrupt members, a
 streaming sample shuffle and equal-batch rounding across hosts.  Batches
 are (images [B, H, W, 3] float32 NHWC or None, texts list[str]): raw
-text, tokenized by the training process.  The trainer is text-only and
-reads captions alone (`text_only`), so an image is never decoded on its
-path; decoding one needs Pillow, imported where it is used.
+text, tokenized by the training process.  The LEAF trainer is text-only
+and reads captions alone (`text_only`), so an image is never decoded on
+its path.  Beyond the JAX package's image members (JPEG, PNG, WebP,
+decoded with Pillow, imported where it is used), a sample's image may be
+an `.npy` HWC uint8 array, which needs no Pillow.
 """
 from __future__ import annotations
 
@@ -26,14 +28,14 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from leaf_tpu_torch.data.common import DataInfo, Prefetcher, bucket_for, shuffle_buffer
-from leaf_tpu_torch.models.preprocess import pil_image
+from leaf_tpu_torch.models.preprocess import pil_image, to_rgb_uint8
 
 LOG = logging.getLogger(__name__)
 
 SAMPLE_SHUFFLE_SIZE = 5000
 SAMPLE_SHUFFLE_INITIAL = 1000
 
-IMAGE_EXTS = ("jpg", "jpeg", "png", "webp")
+IMAGE_EXTS = ("jpg", "jpeg", "png", "webp", "npy")
 _BRACE_RE = re.compile(r"\{(\d+)\.\.(\d+)\}")
 _ALT_RE = re.compile(r"\{([^{}.]*(?:,[^{}.]*)+)\}")
 
@@ -182,12 +184,12 @@ def decode_sample(sample: dict, preprocess: Optional[Callable],
     sample (no caption; no image unless `text_only`; undecodable).
 
     `text_only` never touches the image (the LEAF text-AT loop discards
-    images).  Otherwise the image is decoded with Pillow, and a machine
-    without Pillow raises: it is an error of the setup, not of a
-    sample."""
+    images).  Otherwise an `.npy` member is read with numpy and any other
+    image is decoded with Pillow, where a machine without Pillow raises:
+    it is an error of the setup, not of a sample."""
     if "txt" not in sample:
         return None
-    img_bytes = None
+    img_bytes = ext = None
     for ext in IMAGE_EXTS:
         if ext in sample:
             img_bytes = sample[ext]
@@ -195,12 +197,15 @@ def decode_sample(sample: dict, preprocess: Optional[Callable],
     if img_bytes is None and not text_only:
         # text-only training also accepts caption-only tars
         return None
-    Image = None if text_only else pil_image()
+    Image = None if text_only or ext == "npy" else pil_image()
     try:
         text = sample["txt"].decode("utf-8")
         if text_only:
             return {"image": None, "text": text}
-        img = np.asarray(Image.open(io.BytesIO(img_bytes)).convert("RGB"))
+        if Image is None:
+            img = to_rgb_uint8(np.load(io.BytesIO(img_bytes)))
+        else:
+            img = np.asarray(Image.open(io.BytesIO(img_bytes)).convert("RGB"))
         image = preprocess(img) if preprocess else img
     except Exception as e:  # noqa: BLE001 -- a bad sample is skipped
         LOG.warning("skipping undecodable sample %s (%r)",

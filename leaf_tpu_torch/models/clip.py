@@ -19,14 +19,19 @@ token pool, projection) runs every block with `packed=(T, False)`, one
 sequence per row.  Images are NHWC, and the patch embedding is a reshape
 plus one matmul (the stride-p conv of OpenCLIP, `patchify`).
 
-Not ported yet (the port's configs cannot ask for them): patch dropout
-(train time only), the SigLIP attention-pool head, timm MLP heads, text
-projection biases and CLIPA's pool-then-LN ordering.
+Train-time patch dropout keeps the class token and a random subset of the
+patch tokens after the positional embedding (`keep_patches`, given the
+uniform scores that `patch_dropout_scores` draws).  `CLIP.forward` is the
+joint forward of the contrastive trainer.
+
+Not ported yet (the port's configs cannot ask for them): the SigLIP
+attention-pool head, timm MLP heads, text projection biases and CLIPA's
+pool-then-LN ordering.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -191,6 +196,28 @@ def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
     return x.reshape(B, gh * gw, p * p * C)
 
 
+def keep_patches(x: torch.Tensor, rate: float,
+                 scores: torch.Tensor) -> torch.Tensor:
+    """Patch dropout of tokens [B, 1 + N, D] (class token first): the class
+    token and, per sample, the `max(1, int(N * (1 - rate)))` patches of
+    lowest `scores` [B, N], in that order of scores (the JAX package's
+    `patch_dropout` with its uniform draw passed in)."""
+    num_keep = max(1, int(scores.shape[1] * (1 - rate)))
+    keep = torch.argsort(scores, dim=-1, stable=True)[:, :num_keep] + 1
+    patches = torch.gather(x, 1, keep[..., None].expand(-1, -1, x.shape[-1]))
+    return torch.cat([x[:, :1], patches], dim=1)
+
+
+def patch_dropout_scores(seed: int, step: int, batch: int, num_patches: int,
+                         device) -> torch.Tensor:
+    """Uniform scores [batch, num_patches] for `keep_patches`, drawn on
+    `device` from a generator seeded from (`seed`, `step`)."""
+    mixed = int(np.random.SeedSequence([seed, step]).generate_state(
+        1, np.uint64)[0])
+    g = torch.Generator(device=device).manual_seed(mixed)
+    return torch.rand(batch, num_patches, generator=g, device=device)
+
+
 class VisionTower(nn.Module):
     """CLIP-ViT vision tower: patch embedding, class token, ln_pre,
     transformer, ln_post, class-token pool, projection."""
@@ -226,14 +253,19 @@ class VisionTower(nn.Module):
         layers.normal_(self.proj, scale, generator)
 
     def encode_image(self, images: torch.Tensor, normalize: bool = False,
-                     remat: bool = False) -> torch.Tensor:
+                     remat: bool = False,
+                     dropout: Optional[torch.Tensor] = None) -> torch.Tensor:
         """NHWC images [B, H, W, 3] -> image features [B, output_dim].
-        `remat` recomputes each block in the backward pass."""
+        `remat` recomputes each block in the backward pass.  `dropout`, the
+        scores [B, num patches] of `patch_dropout_scores`, applies the
+        config's `patch_dropout` (none at rate 0)."""
         dtype = self.dtype
         x = patchify(images.to(dtype), self.cfg.patch_size) \
             @ self.patch_embedding.to(dtype)
         cls = self.class_embedding.to(dtype).expand(x.shape[0], 1, x.shape[-1])
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)
+        if dropout is not None and self.cfg.patch_dropout > 0:
+            x = keep_patches(x, self.cfg.patch_dropout, dropout)
         x = self.ln_pre(x)
         x = self.blocks(x, packed=(x.shape[1], False), remat=remat)
         pooled = self.ln_post(x)[:, 0] @ self.proj.to(dtype)
@@ -264,3 +296,27 @@ class CLIP(nn.Module):
     def encode_image(self, images: torch.Tensor,
                      normalize: bool = False) -> torch.Tensor:
         return self.visual.encode_image(images, normalize)
+
+    def forward(self, images: Optional[torch.Tensor] = None,
+                tokens: Optional[torch.Tensor] = None,
+                dropout: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        """The joint forward: {image_features, text_features} (normalised,
+        each present when its input is) and `logit_scale` = exp of the
+        parameter.  `dropout`: `VisionTower.encode_image`'s patch scores."""
+        out = {"logit_scale": self.logit_scale.exp()}
+        if images is not None:
+            out["image_features"] = self.visual.encode_image(
+                images, True, dropout=dropout)
+        if tokens is not None:
+            out["text_features"] = self.text.encode_text(tokens, True)
+        return out
+
+    def get_logits(self, images: torch.Tensor, tokens: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(image logits [B_img, B_txt], text logits [B_txt, B_img]): the
+        scaled cosine similarities of the normalised features."""
+        out = self(images, tokens)
+        image_logits = (out["logit_scale"] * out["image_features"]
+                        @ out["text_features"].T)
+        return image_logits, image_logits.T

@@ -43,6 +43,8 @@ class VisionConfig:
     mlp_ratio: float = 4.0
     output_dim: int = 512
     ln_eps: float = 1e-5
+    # share of the patch tokens dropped at train time (`--force-patch-dropout`)
+    patch_dropout: float = 0.0
 
     @property
     def heads(self) -> int:

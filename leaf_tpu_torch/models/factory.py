@@ -25,7 +25,8 @@ from leaf_tpu_torch.models import interop
 from leaf_tpu_torch.models.clip import CLIP
 from leaf_tpu_torch.models.config import CLIPConfig, get_model_config
 from leaf_tpu_torch.models.layers import LayerNorm
-from leaf_tpu_torch.models.preprocess import image_transform
+from leaf_tpu_torch.models.preprocess import (image_transform,
+                                              train_image_transform)
 from leaf_tpu_torch.tokenizer import get_tokenizer as _get_bpe
 
 PRECISIONS = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -75,7 +76,8 @@ def local_checkpoint(path: Optional[str], flag: str = "--pretrained"
 
 def create_model(model_name: str, pretrained: Optional[str] = None,
                  precision: str = "fp32", seed: int = 0, *,
-                 device, master_weights: bool = False) -> CLIPModel:
+                 device, master_weights: bool = False,
+                 force_patch_dropout: Optional[float] = None) -> CLIPModel:
     """Build a CLIP model by registry name on `device` ('cuda', 'cpu',
     ...).  `pretrained` is a local OpenCLIP checkpoint file or snapshot
     directory; without it the weights are a seeded random init.
@@ -84,12 +86,17 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
     trainer and the evals: the text tower's weights stay fp32 and it
     computes in `precision` (`TextTower.compute_dtype`); the vision tower
     stays fp32 and computes in fp32, since the evals encode images (and
-    run PGD) in fp32, as the JAX package's do."""
+    run PGD) in fp32, as the JAX package's do; a trainer of the vision
+    tower sets its `compute_dtype`.  `force_patch_dropout` sets the vision
+    config's train-time `patch_dropout`."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not "
                            "available")
     cfg = get_model_config(model_name)
+    if force_patch_dropout is not None:
+        cfg = dataclasses.replace(cfg, vision=dataclasses.replace(
+            cfg.vision, patch_dropout=force_patch_dropout))
     module = CLIP(cfg)
     if pretrained:
         if not os.path.exists(pretrained):
@@ -112,12 +119,21 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
 def create_model_and_transforms(
         model_name: str, pretrained: Optional[str] = None,
         precision: str = "fp32", seed: int = 0, *,
-        device) -> Tuple[CLIPModel, Callable, Callable]:
-    """(model, preprocess_train, preprocess_val); serving needs no
-    augmentation, so both transforms are the eval pipeline."""
+        device, master_weights: bool = False,
+        force_patch_dropout: Optional[float] = None,
+        aug_cfg=None) -> Tuple[CLIPModel, Callable, Callable]:
+    """(model, preprocess_train, preprocess_val).  With an `aug_cfg` (the
+    contrastive trainer's) preprocess_train is the random-resized-crop
+    pipeline drawing from `seed`; without one both are the eval
+    pipeline."""
     model = create_model(model_name, pretrained, precision, seed,
-                         device=device)
-    preprocess = image_transform(model.cfg.vision.image_size)
+                         device=device, master_weights=master_weights,
+                         force_patch_dropout=force_patch_dropout)
+    size = model.cfg.vision.image_size
+    preprocess = image_transform(size)
+    if aug_cfg:
+        return model, train_image_transform(size, aug_cfg=aug_cfg,
+                                            seed=seed), preprocess
     return model, preprocess, preprocess
 
 

@@ -1,7 +1,15 @@
-"""Host-side image preprocessing: resize, center crop, normalize (port of
-`leaf_tpu/models/preprocess.py`, eval geometry "shortest").
+"""Host-side image preprocessing: resize, center crop, normalize, and the
+contrastive trainer's augmentation (port of `leaf_tpu/models/preprocess.py`,
+eval geometry "shortest").
 
-Returns NHWC float32 numpy ready for upload.  The card machine has no
+Returns NHWC float32 numpy ready for upload.  The train transform
+(`train_image_transform`) is the JAX package's: a random resized crop
+(torchvision's 10 attempts and centre-crop fallback, numpy draws from one
+generator per decode thread) resized bicubically, then optionally colour
+jitter and gray scale, each written in numpy to give Pillow's pixels:
+`ImageEnhance`'s Brightness, Contrast and Color are Pillow's `blend` in
+float32, hue shifts go through Pillow's HSV conversions, and gray is its
+integer `L`.  The card machine has no
 Pillow, so the bicubic resize is numpy's own: Pillow's 8-bit
 `Image.resize(BICUBIC)` step for step (`resample_bicubic`).  Pillow is
 needed only to decode a JPEG/PNG file or byte string (`pil_image`,
@@ -10,7 +18,8 @@ needed only to decode a JPEG/PNG file or byte string (`pil_image`,
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+import threading
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -169,3 +178,196 @@ def image_transform(image_size: int, do_normalize: bool = True,
 
     return transform
 
+
+
+class AugmentationCfg:
+    """Train-time augmentation knobs (`--aug-cfg key=value ...`): crop
+    `scale` and `ratio` ranges, colour jitter and gray-scale
+    probabilities.  Unknown keys raise."""
+
+    def __init__(self, scale=(0.9, 1.0), ratio=(3 / 4, 4 / 3),
+                 color_jitter=None, color_jitter_prob=None,
+                 gray_scale_prob=None):
+        self.scale = tuple(float(s) for s in scale)
+        self.ratio = tuple(float(r) for r in ratio)
+        self.color_jitter = (tuple(float(c) for c in color_jitter)
+                             if color_jitter is not None else None)
+        self.color_jitter_prob = color_jitter_prob
+        self.gray_scale_prob = gray_scale_prob
+
+    @classmethod
+    def parse(cls, d) -> "AugmentationCfg":
+        if d is None:
+            return cls()
+        if isinstance(d, cls):
+            return d
+        return cls(**d)
+
+
+def crop_box(w: int, h: int, scale, ratio, rng) -> Tuple[int, int, int, int]:
+    """A random resized crop's (left, top, right, bottom) in a w x h image:
+    up to 10 draws of an area share in `scale` and a log-uniform aspect
+    ratio in `ratio`, then the centre crop of the clipped aspect ratio."""
+    area = w * h
+    for _ in range(10):
+        target = area * rng.uniform(*scale)
+        ar = np.exp(rng.uniform(np.log(ratio[0]), np.log(ratio[1])))
+        cw = int(round(np.sqrt(target * ar)))
+        ch = int(round(np.sqrt(target / ar)))
+        if 0 < cw <= w and 0 < ch <= h:
+            left = int(rng.integers(0, w - cw + 1))
+            top = int(rng.integers(0, h - ch + 1))
+            return left, top, left + cw, top + ch
+    in_ratio = w / h
+    if in_ratio < ratio[0]:
+        cw, ch = w, int(round(w / ratio[0]))
+    elif in_ratio > ratio[1]:
+        cw, ch = int(round(h * ratio[1])), h
+    else:
+        cw, ch = w, h
+    left, top = (w - cw) // 2, (h - ch) // 2
+    return left, top, left + cw, top + ch
+
+
+def to_grayscale(arr: np.ndarray) -> np.ndarray:
+    """[H, W, 3] uint8 -> gray [H, W, 3] uint8, as Pillow's
+    `convert("L").convert("RGB")`: L = (19595 R + 38470 G + 7471 B +
+    2^15) >> 16."""
+    return np.repeat(_luma(arr)[..., None], 3, axis=-1)
+
+
+def _blend(degenerate: np.ndarray, arr: np.ndarray,
+           factor: float) -> np.ndarray:
+    """Pillow's `Image.blend(degenerate, arr, factor)` of uint8 arrays:
+    degenerate + factor * (arr - degenerate) in float32, clipped to
+    [0, 255] and truncated."""
+    d = degenerate.astype(np.float32)
+    out = d + np.float32(factor) * (arr.astype(np.float32) - d)
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _luma(arr: np.ndarray) -> np.ndarray:
+    rgb = arr.astype(np.int64)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471
+             + 0x8000) >> 16).astype(np.uint8)
+
+
+def rgb_to_hsv(arr: np.ndarray) -> np.ndarray:
+    """[H, W, 3] uint8 RGB -> Pillow's 8-bit HSV (`convert("HSV")`), with
+    its float and double steps."""
+    rgb = arr.astype(np.int64)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    maxc, minc = rgb.max(-1), rgb.min(-1)
+    grey = maxc == minc
+    cr = np.where(grey, 1, maxc - minc).astype(np.float32)
+    s = cr / np.maximum(maxc, 1).astype(np.float32)
+    rc, gc, bc = ((maxc - c).astype(np.float32) / cr for c in (r, g, b))
+    h = np.where(r == maxc, (bc - gc).astype(np.float64),
+                 np.where(g == maxc, 2.0 + rc.astype(np.float64) - bc,
+                          4.0 + gc.astype(np.float64) - rc)).astype(np.float32)
+    h = np.fmod(h.astype(np.float64) / 6.0 + 1.0, 1.0).astype(np.float32)
+    uh = np.clip((h.astype(np.float64) * 255.0).astype(np.int64), 0, 255)
+    us = np.clip((s.astype(np.float64) * 255.0).astype(np.int64), 0, 255)
+    return np.stack([np.where(grey, 0, uh), np.where(grey, 0, us), maxc],
+                    -1).astype(np.uint8)
+
+
+def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
+    """Pillow's 8-bit HSV -> RGB (`convert("RGB")` of an "HSV" image)."""
+    h, s, v = (hsv[..., k].astype(np.int64) for k in range(3))
+    x = h.astype(np.float64) * 6.0 / 255.0
+    i = np.floor(x).astype(np.int64)
+    f = (x - i).astype(np.float32)
+    fs = (s.astype(np.float64) / 255.0).astype(np.float32)
+    vf = v.astype(np.float64)
+
+    def rounded(y):   # C's round(): half away from zero, y >= 0 here
+        return np.clip(np.floor(y + 0.5).astype(np.int64), 0, 255)
+
+    p = rounded(vf * (1.0 - fs.astype(np.float64)))
+    q = rounded(vf * (1.0 - (fs * f).astype(np.float64)))
+    t = rounded(vf * (1.0 - fs.astype(np.float64) * (1.0 - f.astype(
+        np.float64))))
+    k = i % 6
+    rgb = np.stack([np.choose(k, [v, q, p, p, t, v]),
+                    np.choose(k, [t, v, v, q, p, p]),
+                    np.choose(k, [p, p, t, v, v, q])], -1)
+    return np.where((s == 0)[..., None], v[..., None], rgb).astype(np.uint8)
+
+
+def color_jitter(arr: np.ndarray, cj, prob: float, rng) -> np.ndarray:
+    """With probability `prob`, brightness, contrast and saturation factors
+    drawn from [max(0, 1 - v), 1 + v] and a hue shift from [-hue, hue] of
+    the circle (`cj` = (b, c, s, hue)), applied in that order as Pillow's
+    `ImageEnhance` and HSV do."""
+    if rng.uniform() >= prob:
+        return arr
+    b, c, s, hue = cj
+    for v, degenerate in (
+            (b, lambda a: np.zeros_like(a)),
+            (c, lambda a: np.full_like(
+                a, int(_luma(a).astype(np.int64).sum() / (a.size // 3)
+                       + 0.5))),
+            (s, lambda a: np.repeat(_luma(a)[..., None], 3, axis=-1))):
+        if v:
+            arr = _blend(degenerate(arr), arr,
+                         rng.uniform(max(0.0, 1 - v), 1 + v))
+    if hue:
+        hsv = rgb_to_hsv(arr).astype(np.int16)
+        shift = int(round(rng.uniform(-hue, hue) * 255))
+        hsv[..., 0] = (hsv[..., 0] + shift) % 256
+        arr = hsv_to_rgb(hsv.astype(np.uint8))
+    return arr
+
+
+def train_image_transform(image_size: int, do_normalize: bool = True,
+                          mean: Optional[Sequence[float]] = None,
+                          std: Optional[Sequence[float]] = None,
+                          aug_cfg=None, interpolation: str = "bicubic",
+                          seed: int = 0, rank: int = 0):
+    """Return fn: PIL image / uint8 array -> NHWC float32 [image_size,
+    image_size, 3]: `crop_box` resized bicubically to `image_size`,
+    `color_jitter` with `color_jitter_prob`, gray scale with
+    `gray_scale_prob`, [0, 1], then (optionally) normalize.  Each thread that calls it draws from its own
+    `np.random.default_rng((seed, rank, thread number))`, the threads
+    numbered in the order of their first call."""
+    aug = AugmentationCfg.parse(aug_cfg)
+    if interpolation != "bicubic":
+        raise NotImplementedError(
+            f"interpolation {interpolation!r} (--image-interpolation) is not "
+            "ported to leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
+    if aug.color_jitter_prob and (aug.color_jitter is None
+                                  or len(aug.color_jitter) != 4):
+        raise ValueError("color_jitter_prob needs color_jitter=(b, c, s, "
+                         "hue)")
+    mean = OPENAI_DATASET_MEAN if mean is None else tuple(mean)
+    std = OPENAI_DATASET_STD if std is None else tuple(std)
+    local = threading.local()
+    threads = [0]
+    lock = threading.Lock()
+
+    def _rng():
+        rng = getattr(local, "rng", None)
+        if rng is None:
+            with lock:
+                tid = threads[0]
+                threads[0] += 1
+            rng = local.rng = np.random.default_rng((seed, rank, tid))
+        return rng
+
+    def transform(img) -> np.ndarray:
+        rng = _rng()
+        arr = to_rgb_uint8(img)
+        left, top, right, bottom = crop_box(arr.shape[1], arr.shape[0],
+                                            aug.scale, aug.ratio, rng)
+        arr = resample_bicubic(arr[top:bottom, left:right],
+                               (image_size, image_size))
+        if aug.color_jitter_prob:
+            arr = color_jitter(arr, aug.color_jitter, aug.color_jitter_prob,
+                               rng)
+        if aug.gray_scale_prob and rng.uniform() < aug.gray_scale_prob:
+            arr = to_grayscale(arr)
+        arr = arr.astype(np.float32) / 255.0
+        return normalize(arr, mean, std) if do_normalize else arr
+
+    return transform

@@ -4,8 +4,8 @@
 For every class, encode all templated prompts, average the normalised
 embeddings, normalise again, and stack into a [D, K] classifier, a few
 classes per encode call.  The 1000 ImageNet class names and the 80
-OpenAI prompt templates are read from the JAX package's JSON asset, by
-path.
+OpenAI prompt templates are read from the port's own copy of the JSON
+asset, `leaf_tpu_torch/models/assets/zero_shot_metadata.json`.
 """
 from __future__ import annotations
 
@@ -19,9 +19,8 @@ import torch
 
 from leaf_tpu_torch.models.clip import l2_normalize
 
-_ASSET = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "leaf_tpu", "models", "assets", "zero_shot_metadata.json")
+_ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                      "zero_shot_metadata.json")
 
 
 @functools.lru_cache()

@@ -13,8 +13,8 @@ as the JAX package's tokenizer.  Differences:
     taken for printable-ASCII batches as there, but a failed build raises
     instead of falling back, and `CLIPTokenizer.counts` records how many
     calls and texts went each way;
-  * the vocabulary file is read by path from the JAX package's assets
-    directory, never through an import of that package.
+  * the vocabulary file is the port's own copy, in
+    `leaf_tpu_torch/models/assets/`.
 """
 from __future__ import annotations
 
@@ -47,10 +47,9 @@ VOCAB_SIZE = 49408
 SOT_ID = 49406
 EOT_ID = 49407
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-DEFAULT_BPE_PATH = os.path.join(_REPO_ROOT, "leaf_tpu", "models", "assets",
-                                "bpe_simple_vocab_16e6.txt.gz")
+DEFAULT_BPE_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "models",
+    "assets", "bpe_simple_vocab_16e6.txt.gz")
 
 
 def _class_body(ranges) -> str:

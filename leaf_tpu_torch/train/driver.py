@@ -9,7 +9,9 @@ CSV or synthetic captions; ImageNet folders; the text-classification
 sets), the fused attack+train step (`train.fused.FusedLeafStep`, every
 recipe but `--use_charmer`, which takes the unfused loop with the batched
 Charmer), the epochs loop, the zero-shot eval before
-training and after every epoch (`evals.zero_shot.zero_shot_eval`),
+training and after every epoch (`evals.zero_shot.zero_shot_eval`; with
+`--val-data` also the contrastive val loss and recall metrics of
+`train.contrastive.evaluate_contrastive`, logged),
 checkpoints with `--resume`, the per-save OpenCLIP export and the
 `results.csv` / `times_{use_charmer}.csv` ledgers.  It runs on `--device`
 (default `cuda`).  See `scripts/train_leaf_vitl.sh` for the recipes.
@@ -37,12 +39,14 @@ import torch
 from leaf_tpu_torch.attacks import edits
 from leaf_tpu_torch.attacks.constraint import WordConstraint
 from leaf_tpu_torch.attacks.engine import CandidateScorer
+from leaf_tpu_torch.attacks.image import _normalize_images
 from leaf_tpu_torch.convert import params_to_openclip, save_state_dict
 from leaf_tpu_torch.data import get_data
 from leaf_tpu_torch.evals.zero_shot import zero_shot_eval
 from leaf_tpu_torch.models.factory import create_model, get_tokenizer
 from leaf_tpu_torch.models.preprocess import image_transform
 from leaf_tpu_torch.train import checkpoint as ckpt
+from leaf_tpu_torch.train.contrastive import evaluate_contrastive
 from leaf_tpu_torch.train.fused import FusedLeafStep
 from leaf_tpu_torch.train.loop import train_one_epoch_text_only
 from leaf_tpu_torch.train.optim import make_optimizer
@@ -78,9 +82,6 @@ def build_run_name(args) -> str:
 def _not_ported(args) -> None:
     """Raise on every flag whose code the port does not have yet."""
     checks = [
-        (args.val_data,
-         "--val-data (the contrastive val loss, evaluate_contrastive)",
-         "Queue 1 item 10"),
         (args.remote_sync or args.copy_codebase,
          "--remote-sync / --copy-codebase (utils/file_utils.py)",
          "Queue 1 item 14"),
@@ -263,16 +264,31 @@ def main(args=None) -> Dict:
 
     eval_seconds: Dict[int, Dict[str, float]] = {}
 
+    def val_batches():
+        """--val-data's batches, the images normalised on the device."""
+        for images, texts in data["val"].loader:
+            yield _normalize_images(
+                torch.from_numpy(np.ascontiguousarray(images)).to(device),
+                cfg), texts
+
     def run_eval(epoch: int) -> Dict[str, float]:
         """The zero-shot eval on the current text tower and the frozen
-        vision tower, its PGD starts drawn from `seed + epoch`."""
+        vision tower, its PGD starts drawn from `seed + epoch`; the val
+        metrics every `--val-frequency` epochs and at the last, both
+        towers in the run's precision."""
         eval_seconds[epoch] = {}
-        return zero_shot_eval(
+        metrics = zero_shot_eval(
             model.module, cfg, data, tokenizer, preprocess_nonorm, epoch,
             args, scorer=scorer,
             generator=torch.Generator(device=device).manual_seed(
                 args.seed + epoch),
             seconds=eval_seconds[epoch])
+        if "val" in data and (epoch % max(args.val_frequency, 1) == 0
+                              or epoch == args.epochs):
+            metrics.update(evaluate_contrastive(
+                model.module, val_batches(), tokenizer,
+                dtype=model.module.text.dtype))
+        return metrics
 
     def record(epoch: int, train_loss: float, metrics: Dict[str, float]):
         row = {"epoch": epoch, "train_loss": train_loss}

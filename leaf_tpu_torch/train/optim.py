@@ -12,6 +12,12 @@ the port's dotted state-dict names: weight decay applies to every
 parameter that is not a LayerNorm gain or bias, another bias, the class
 embedding or the logit scale.
 
+Locking (`train.locking`): a parameter of multiplier 0 goes to a group
+whose learning rate is scaled by 0 (`lr_scale`), so that neither Adam's
+step nor the decay moves it, while its gradient still counts in the clip's
+global norm and Adam's moments still follow it: the JAX package's update
+mask chained after the whole chain.
+
 Gradient accumulation (`accum_freq = k > 1`) has the meaning of optax's
 `MultiSteps(tx, every_k_schedule=k)`: the gradients of k calls are
 averaged (as a running mean, in the same order of operations), the chain
@@ -21,7 +27,7 @@ unchanged on the others, and the schedule counts applied updates.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterable, List, Optional, Tuple
+from typing import Callable, Iterable, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -114,7 +120,7 @@ class Optimizer:
             torch._foreach_mul_(grads, scale)
         lr = float(self.schedule(step // self.accum_freq))
         for group in self.adamw.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr * group.get("lr_scale", 1.0)
         self.adamw.step()
         self.adamw.zero_grad(set_to_none=True)
         return norm
@@ -129,17 +135,26 @@ def make_optimizer(
     eps: float = 1e-6,
     grad_clip_norm: Optional[float] = None,
     accum_freq: int = 1,
+    multipliers: Optional[Mapping[str, float]] = None,
 ) -> Optimizer:
     """AdamW over `named_parameters` with the JAX package's defaults
     (`eps=1e-6`, `beta2=0.98`) and decay groups; `schedule` maps the
-    0-based count of applied updates to the learning rate."""
+    0-based count of applied updates to the learning rate.  `multipliers`
+    ({name: 0.0 or 1.0}, `train.locking`) locks the parameters of 0."""
     if accum_freq < 1:
         raise ValueError(f"accum_freq must be at least 1, got {accum_freq}")
-    decay, no_decay = [], []
+    # (decay, lr_scale) -> parameters; the two trainable groups always
+    # exist, the locked ones where they have parameters
+    groups = {(True, 1.0): [], (False, 1.0): []}
     for name, p in named_parameters:
-        (decay if is_decay_param(name) else no_decay).append(p)
+        scale = 1.0 if multipliers is None else float(multipliers[name])
+        if scale not in (0.0, 1.0):
+            raise ValueError(f"{name}: multiplier {scale}, not 0 or 1")
+        groups.setdefault((is_decay_param(name), scale), []).append(p)
     adamw = torch.optim.AdamW(
-        [{"params": decay, "weight_decay": weight_decay},
-         {"params": no_decay, "weight_decay": 0.0}],
+        [{"params": params, "weight_decay": weight_decay if decay else 0.0,
+          "lr_scale": scale}
+         for (decay, scale), params in groups.items()
+         if params or scale == 1.0],
         lr=float(schedule(0)), betas=(beta1, beta2), eps=eps)
     return Optimizer(adamw, schedule, grad_clip_norm, accum_freq)

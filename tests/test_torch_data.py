@@ -267,8 +267,18 @@ def test_get_data_eval_sets_match_jax(files):
         pre_j = jpre.image_transform(32, do_normalize=False)
         np.testing.assert_allclose(g.anchor_images(pre_t),
                                    w.anchor_images(pre_j), rtol=0, atol=PIXEL)
-    with pytest.raises(NotImplementedError, match="val-data"):
-        tdata.get_data(_args(tparams, ["--val-data", "x.tar"]), None)
+    # --val-data: the tars in order, through `preprocess_val`
+    flags = ["--val-data", files["img_tars"], "--batch-size", "4"]
+    want = jdata.get_data(_args(jparams, flags), None,
+                          preprocess_val=jpre.image_transform(16))["val"]
+    got = tdata.get_data(_args(tparams, flags), None,
+                         preprocess_val=tpre.image_transform(16))["val"]
+    assert got.num_samples == want.num_samples
+    pairs = list(zip(got.loader, want.loader))
+    assert len(pairs) == 3
+    for (gi, gt), (wi, wt) in pairs:
+        assert list(gt) == list(wt)
+        np.testing.assert_allclose(gi, wi, rtol=0, atol=PIXEL)
 
 
 def test_hub_text_classification_needs_datasets(monkeypatch):

@@ -467,6 +467,13 @@ def test_frozen_anchor_stays_fixed(tiny_run):
 ])
 def test_unported_flags_raise(flags, match, tmp_path):
     # later flags override the tiny run's own
+    if match == "val-data":
+        # ported since these cases were written: the flag is taken, and the
+        # val eval over a shard that is not there (skipped with a warning,
+        # as in the JAX package) gives no metric
+        out = tdriver.main(TINY_RUN + ["--logs", str(tmp_path)] + flags)
+        assert [r["epoch"] for r in out["results"]] == [0, 1]
+        return
     with pytest.raises(NotImplementedError, match=match) as info:
         tdriver.main(TINY_RUN + ["--logs", str(tmp_path)] + flags)
     assert "ROADMAP" in str(info.value)
