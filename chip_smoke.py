@@ -166,7 +166,31 @@ Phases, each printing its own lines:
       teacher and 1 a val batch; the val metrics finite, recalls in
       [0, 1].  (c) has rows at ViT-B-32's shapes: both kernels and the
       LayerNorm at [256, 77, 512] causal and [256, 50, 768] bf16, and the
-      block's GEMMs.
+      block's GEMMs;
+  (o) the benchmark suite and PEZ: first, at ViT-tiny-test, fp32, TF32
+      off, the card against the CPU from the same seeded weights:
+      `benchmark.cli eval` gives the same JSON metrics for zero-shot
+      classification clean and with `--attack apgd` (5 iterations),
+      retrieval, caption selection and the linear probe (its loss within
+      1e-4), and 20 PEZ steps choose the same ids at every step; then at
+      ViT-L-14-quickgelu's full width and depth (random weights, seed 0)
+      through each command line's `main` on the card: `cli eval` (fp32,
+      batch 64) on a CIFAR-10 pickle layout of 1,024 seeded images, an
+      imagenet1k WordNet-id folder (8 classes, 64 `.npy` images, 80
+      templates), the CIFAR set in bf16, APGD (10 iterations, CE + 3
+      targets) on 32 CIFAR images, a Karpathy retrieval JSON (64 images x
+      5 captions), a SugarCrepe JSON (64 records), the linear probe on
+      8-class folders (256 / 64 images, 100 epochs) and with `--fewshot-k
+      8`; `build` and `reformat` over the JSONs; `evals.pez_driver.main`
+      on 2 seeded captions (300 iterations; the default is 3,000) and on 2
+      target images (16 slots, 100 iterations), `pez_metrics.main`, and
+      20 PEZ steps under `torch.profiler`.  Each part prints its seconds by
+      part (model build, waits for the host's images, encodes), images/s,
+      peak memory and metrics (finite, in [0, 1], robust <= clean), with
+      its encodes and the kernels' launches held (PEZ: one text encode a
+      step).  (c) has rows at the shapes: both kernels and the LayerNorm at
+      [64, 257, 1024] fp32 and bf16 and at [1, 77, 768] fp32 causal, and
+      the block's fp32 GEMMs at M = 64 x 257.
 Any failure raises.  The line before the last is the kernels' JSON
 report (each kernel at its main-path shape; the line before it has the
 rows of every shape); the last is {"ok": true, "device": {...}}.  Without CUDA, or
@@ -234,6 +258,12 @@ SHAPES = [
     # at D 768, 12 heads, 50 tokens (7 x 7 patches of 32 + the class token)
     ("contrastive_text_s77_bf16", 256, 77, 77, True, 512, 8, "bfloat16"),
     ("contrastive_vision_bf16", 256, 50, 50, False, 768, 12, "bfloat16"),
+    # the benchmark command line (o) encodes images 64 a batch (its
+    # default), in fp32 (its default) and bf16; PEZ runs one 77-token prompt
+    # through the text tower in fp32, forward and the input's gradient
+    ("bench_vision_fp32", 64, 257, 257, False, 1024, 16, "float32"),
+    ("bench_vision_bf16", 64, 257, 257, False, 1024, 16, "bfloat16"),
+    ("pez_text_s77_fp32", 1, 77, 77, True, 768, 12, "float32"),
 ]
 # (name, M, K, N) of the fused block's two GEMMs on the main path; the
 # out-projections run again with their residual
@@ -263,7 +293,9 @@ GEMM_SHAPES = [("s16 qkv", 32 * 128, 768, 2304), ("s16 out", 32 * 128, 768, 768)
 EVAL_FP32_GEMM_SHAPES = [("eval vision qkv fp32", 128 * 257, 1024, 3072),
                          ("eval vision out fp32", 128 * 257, 1024, 1024),
                          ("robust vith qkv fp32", 32 * 257, 1280, 3840),
-                         ("robust vith out fp32", 32 * 257, 1280, 1280)]
+                         ("robust vith out fp32", 32 * 257, 1280, 1280),
+                         ("bench vision qkv fp32", 64 * 257, 1024, 3072),
+                         ("bench vision out fp32", 64 * 257, 1024, 1024)]
 RAGGED_GEMM_SHAPES = [("ragged 231x72x200", 231, 72, 200),
                       ("ragged 231x776x1096", 231, 776, 1096),
                       ("ragged 231x8x40", 231, 8, 40)]
@@ -2961,6 +2993,388 @@ def phase_contrastive(workdir: str):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# (o) the benchmark suite and PEZ
+# ---------------------------------------------------------------------------
+
+BENCH_BATCH = 64          # the benchmark command line's default batch
+CIFAR_IMAGES, APGD_IMAGES = 1024, 32
+PEZ_ITERS, PEZ_IMAGE_ITERS = 300, 100   # the command line's default: 3,000
+
+
+def _write_cifar(root: str, rng, n: int) -> str:
+    """A CIFAR-10 python-pickle layout of `n` seeded 32 x 32 images."""
+    import pickle
+    d = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(d)
+    with open(os.path.join(d, "test_batch"), "wb") as f:
+        pickle.dump({b"data": rng.integers(0, 256, (n, 3072), dtype=np.uint8),
+                     b"labels": [int(x) for x in rng.integers(0, 10, n)]}, f)
+    with open(os.path.join(d, "batches.meta"), "wb") as f:
+        pickle.dump({b"label_names": [
+            n.encode() for n in ("airplane automobile bird cat deer dog frog "
+                                 "horse ship truck").split()]}, f)
+    return root
+
+
+def _write_bench_sets(root: str, rng, n_images: int, size: int,
+                      probe=(256, 64), classes: int = 8):
+    """The non-CIFAR layouts of (o), seeded `.npy` images: a WordNet-id
+    folder (imagenet1k's first `classes` classes), a Karpathy retrieval JSON
+    (5 captions an image), a SugarCrepe JSON (`add_att`) and linear-probe
+    train/test folders.  Returns their roots."""
+    from leaf_tpu_torch.benchmark.builder import load_imagenet_wnids
+
+    def image(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.save(path, rng.integers(0, 256, (size, size, 3), dtype=np.uint8))
+
+    wnids = load_imagenet_wnids()["all"][:classes]
+    for i in range(n_images):
+        image(os.path.join(root, "imagenet", wnids[i % classes], f"{i}.npy"))
+    ann, sugar = [], {}
+    for i in range(n_images):
+        image(os.path.join(root, "coco", f"{i:04d}.npy"))
+        ann.append({"image": f"{i:04d}.npy",
+                    "caption": [c.capitalize() + "." for c in
+                                _captions(rng, 5, 5, 14)]})
+        image(os.path.join(root, "sugar", "images", f"{i:04d}.npy"))
+        pos, neg = _captions(rng, 2, 4, 12)
+        sugar[str(i)] = {"filename": f"{i:04d}.npy", "caption": pos,
+                         "negative_caption": neg}
+    with open(os.path.join(root, "coco", "karpathy.json"), "w") as f:
+        json.dump(ann, f)
+    with open(os.path.join(root, "sugar", "add_att.json"), "w") as f:
+        json.dump(sugar, f)
+    for split, n in zip(("train", "test"), probe):
+        for i in range(n):
+            image(os.path.join(root, "probe", split, f"class_{i % classes}",
+                               f"{i:04d}.npy"))
+    return {name: os.path.join(root, name)
+            for name in ("imagenet", "coco", "sugar", "probe")}
+
+
+def _bench_flags(sets, cifar, cifar_apgd):
+    """Each benchmark part's `cli eval` flags (model, device and output
+    left out)."""
+    return {
+        "cifar10 fp32": ["--dataset", "cifar10", "--dataset-root", cifar],
+        "imagenet1k wnid folder fp32": [
+            "--dataset", "imagenet1k", "--dataset-root", sets["imagenet"]],
+        "cifar10 bf16": ["--dataset", "cifar10", "--dataset-root", cifar,
+                         "--precision", "bf16"],
+        "cifar10 apgd": ["--dataset", "cifar10", "--dataset-root",
+                         cifar_apgd, "--attack", "apgd", "--attack-iters",
+                         None],
+        "retrieval": ["--dataset", "mscoco_captions", "--dataset-root",
+                      sets["coco"], "--annotation-file",
+                      os.path.join(sets["coco"], "karpathy.json")],
+        "sugar_crepe": ["--dataset", "sugar_crepe/add_att",
+                        "--dataset-root", sets["sugar"]],
+        "linear_probe": ["--dataset", "probe", "--dataset-root",
+                         sets["probe"], "--task", "linear_probe"],
+        "linear_probe fewshot 8": [
+            "--dataset", "probe", "--dataset-root", sets["probe"], "--task",
+            "linear_probe", "--fewshot-k", "8"],
+    }
+
+
+def phase_benchmark_parity(workdir: str):
+    """ViT-tiny-test, fp32, TF32 off, the card against the CPU from the same
+    seeded weights: `benchmark.cli eval` gives the same JSON metrics for
+    zero-shot classification clean and with APGD (5 iterations), retrieval,
+    caption selection and the linear probe (the same initial weight; its
+    loss within 1e-4); 20 PEZ steps from the same initial ids choose the
+    same ids at every step, with similarities within 1e-4."""
+    import torch
+    from leaf_tpu_torch.benchmark import cli
+    from leaf_tpu_torch.evals.pez import optimize_prompt
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+
+    tiny = "ViT-tiny-test"
+    root = os.path.join(workdir, "bench_tiny")
+    rng = np.random.default_rng(41)
+    cifar = _write_cifar(os.path.join(root, "cifar"), rng, 12)
+    sets = _write_bench_sets(root, rng, 6, 48, probe=(12, 6), classes=3)
+    flags = _bench_flags(sets, cifar, cifar)
+    flags["cifar10 apgd"][-1] = "5"
+    del flags["cifar10 bf16"], flags["linear_probe fewshot 8"]
+    out = {}
+    for part, args in flags.items():
+        res = {}
+        for device in ("cpu", "cuda"):
+            res[device] = cli.main(["eval", "--model", tiny, "--batch-size",
+                                    "4", "--device", device] + args)[0]
+        cpu, card = res["cpu"]["metrics"], res["cuda"]["metrics"]
+        loss_gap = abs(cpu.pop("lp_train_loss", 0.0)
+                       - card.pop("lp_train_loss", 0.0))
+        require(cpu == card and loss_gap <= 1e-4,
+                f"(o) tiny {part}: card {card} against CPU {cpu} (probe loss "
+                f"gap {loss_gap})")
+        say(f"(o) tiny {part}: card = CPU {card}"
+            + (f", probe loss gap {loss_gap:.2e}" if "lp_acc1" in card
+               else ""))
+        out[part] = card
+
+    tok = get_tokenizer(tiny)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model = create_model(tiny, seed=0, device=device)
+        with torch.no_grad():
+            target = create_model(tiny, seed=0, device="cpu").module.text \
+                .encode_text(torch.from_numpy(tok(["a red car near the old "
+                                                   "river bank"])),
+                             normalize=True)
+        runs[device] = optimize_prompt(model.module.text, target,
+                                       prompt_len=8, iters=20, seed=0)
+    cpu, card = runs["cpu"], runs["cuda"]
+    gap = float(np.max(np.abs(np.asarray(cpu["per_step_sims"])
+                              - np.asarray(card["per_step_sims"]))))
+    changes = sum(a != b for a, b in zip(card["per_step_ids"],
+                                         card["per_step_ids"][1:]))
+    require(card["per_step_ids"] == cpu["per_step_ids"] and gap <= 1e-4,
+            f"(o) tiny PEZ: ids {card['per_step_ids']} against "
+            f"{cpu['per_step_ids']}, sims gap {gap}")
+    say(f"(o) tiny PEZ, 20 steps: the card chose the CPU's ids at every step "
+        f"({changes} changes of the prompt), sims within {gap:.2e}, best "
+        f"{card['sim']:.6f}")
+    out["pez"] = {"sims_gap": gap, "prompt_changes": changes,
+                  "best_sim": card["sim"]}
+    return out
+
+
+class _Encodes:
+    """One part of (o): the kernels' counters zeroed and the device memory's
+    peak reset just before; just after, the counters held to the text and
+    image encodes the part made on the card (a fused block and its
+    attention per layer, `ln_2` per layer + `ln_final` per text encode,
+    `ln_pre` + `ln_2` per layer + `ln_post` per image encode), the encodes
+    to the count the part implies where it is fixed, and a line with the
+    part's seconds and peak memory.  Text encodes are counted at the text
+    tail every text forward ends in (packed or from embeddings, as PEZ
+    runs it), image encodes at `encode_image`."""
+
+    def __init__(self, counters, tag: str, want_encodes=None,
+                 layers=(12, 24)):
+        self.counters, self.tag, self.want = counters, tag, want_encodes
+        self.layers = layers
+
+    def __enter__(self):
+        import torch
+        from leaf_tpu_torch.models.clip import TextTower, VisionTower
+        self.encodes = {"text": 0, "image": 0}
+        part = self
+
+        def counted(cls, name, kind):
+            inner = getattr(cls, name)
+
+            def wrapper(self, x, *args, **kwargs):
+                if x.is_cuda:
+                    part.encodes[kind] += 1
+                return inner(self, x, *args, **kwargs)
+            setattr(cls, name, wrapper)
+            return cls, name, inner
+
+        self.saved = [counted(TextTower, "_text_tail", "text"),
+                      counted(VisionTower, "encode_image", "image")]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        self.counters.zero()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        import torch
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - self.t0
+        for cls, name, inner in self.saved:
+            setattr(cls, name, inner)
+        if exc_type is not None:
+            return False
+        t, i = self.encodes["text"], self.encodes["image"]
+        lt, li = self.layers
+        want = {"packed_attention": lt * t + li * i,
+                "fused_attention_block": lt * t + li * i,
+                "layer_norm": (lt + 1) * t + (li + 2) * i}
+        self.launches = {n: op.launches for n, op in self.counters.ops.items()}
+        self.peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        say(f"(o) {self.tag}: {self.seconds:.2f} s, peak device memory "
+            f"{self.peak_gib:.1f} GiB; launches {self.launches}, {t} text + "
+            f"{i} image encodes = {want}")
+        if self.want is not None:
+            require((t, i) == self.want, f"(o) {self.tag}: {t} text and {i} "
+                    f"image encodes, {self.want} expected")
+        for name in want:
+            require(self.launches[name] == want[name],
+                    f"(o) {self.tag}: {name} {self.launches[name]} launches, "
+                    f"{want[name]} expected")
+            self.counters.total[name] += self.launches[name]
+        require(t + i > 0, f"(o) {self.tag}: no encode on the card")
+        return False
+
+
+def _in_unit(metrics: dict, keys) -> bool:
+    return all(np.isfinite(metrics[k]) and 0.0 <= metrics[k] <= 1.0
+               for k in keys if metrics.get(k) is not None)
+
+
+def phase_benchmark(workdir: str):
+    """`benchmark.cli` and the PEZ command lines at ViT-L-14-quickgelu's full
+    width and depth (random weights, seed 0), each part's encodes and
+    launches held: `cli eval` (fp32, batch 64, TF32 off) on a CIFAR-10
+    pickle layout of 1,024 seeded 32 x 32 images (10 classes x 18
+    templates), an imagenet1k WordNet-id folder of 8 classes with 64 `.npy`
+    images (80 templates), the CIFAR set with `--precision bf16`, `--attack
+    apgd --attack-iters 10` on 32 CIFAR images, a Karpathy retrieval JSON of
+    64 images x 5 captions, a SugarCrepe JSON of 64 records, the linear
+    probe on 8-class folders (256 / 64 images, 100 epochs) and with
+    `--fewshot-k 8`; `build` and `reformat` over the JSONs; then
+    `pez_driver.main` on 2 seeded captions (3-10 and 20-30 words, prompt
+    length "match", 300 iterations where the default is 3,000), one image
+    target of 2 `.npy` images (16 slots, 100 iterations), `pez_metrics.main`
+    over the results, and 20 PEZ steps under `torch.profiler` (the device's
+    idle share).  Each part prints its seconds by part (model build, the
+    waits for the host's images, the device's encodes), images/s, peak
+    memory and metrics (finite, in [0, 1], robust <= clean)."""
+    import torch
+    from leaf_tpu_torch.benchmark import cli
+    from leaf_tpu_torch.evals import pez, pez_driver, pez_metrics
+    from leaf_tpu_torch.models.factory import create_model
+    from leaf_tpu_torch.profile_serve import profile_cell
+
+    root = os.path.join(workdir, "bench")
+    rng = np.random.default_rng(43)
+    t0 = time.perf_counter()
+    cifar = _write_cifar(os.path.join(root, "cifar"), rng, CIFAR_IMAGES)
+    cifar_apgd = _write_cifar(os.path.join(root, "cifar_apgd"), rng,
+                              APGD_IMAGES)
+    sets = _write_bench_sets(root, rng, BENCH_BATCH, 256)
+    say(f"(o) wrote the benchmark's seeded layouts in "
+        f"{time.perf_counter() - t0:.1f} s")
+    flags = _bench_flags(sets, cifar, cifar_apgd)
+    flags["cifar10 apgd"][-1] = "10"
+    n_probe = (256 + 64) // BENCH_BATCH
+    want = {"cifar10 fp32": (1, CIFAR_IMAGES // BENCH_BATCH),
+            "imagenet1k wnid folder fp32": (1, 1),
+            "cifar10 bf16": (1, CIFAR_IMAGES // BENCH_BATCH),
+            "cifar10 apgd": None,
+            "retrieval": (2, 1), "sugar_crepe": (1, 1),
+            "linear_probe": (0, n_probe),
+            "linear_probe fewshot 8": (0, n_probe)}
+    images = {"cifar10 fp32": CIFAR_IMAGES,
+              "imagenet1k wnid folder fp32": BENCH_BATCH,
+              "cifar10 bf16": CIFAR_IMAGES, "cifar10 apgd": APGD_IMAGES,
+              "retrieval": BENCH_BATCH, "sugar_crepe": BENCH_BATCH,
+              "linear_probe": 320, "linear_probe fewshot 8": 320}
+    counters, pez_counters, out, results = _Counters(), _Counters(), {}, []
+    for part, args in flags.items():
+        seconds = {}
+        path = os.path.join(root, part.replace(" ", "_") + ".json")
+        with _Encodes(counters, f"benchmark {part}", want[part]) as enc:
+            res = cli.main(["eval", "--model", MODEL, "--device", "cuda",
+                            "--output", path] + args, seconds=seconds)[0]
+        m = res["metrics"]
+        require(_in_unit(m, [k for k in m if k.startswith(
+                    ("acc", "mean_", "image_", "text_", "lp_acc",
+                     "lp_mean", "robust"))]),
+                f"(o) {part}: metrics out of range: {m}")
+        if "robust_acc1" in m:
+            require(m["robust_acc1"] <= m["acc1"], f"(o) {part}: {m}")
+        device_s = sum(v for k, v in seconds.items()
+                       if k not in ("build", "data"))
+        rate = images[part] / max(enc.seconds - seconds.get("build", 0.0),
+                                  1e-9)
+        waits = seconds.get("data", 0.0)
+        say(f"(o) {part}: seconds by part "
+            f"{ {k: round(v, 2) for k, v in seconds.items()} }; "
+            f"{images[part]} images, {rate:.1f} images/s after the build, "
+            f"host waits {waits / max(waits + device_s, 1e-9):.2f} of the "
+            f"data + device time; metrics {m}")
+        out[part] = {"seconds": enc.seconds, "part_seconds": seconds,
+                     "images": images[part], "images_per_s": rate,
+                     "peak_gib": enc.peak_gib, "launches": enc.launches,
+                     "metrics": m}
+        results.append(path)
+    t0 = time.perf_counter()
+    cli.main(["build", *results, "--output", os.path.join(root, "b.csv")])
+    table = cli.main(["reformat", os.path.join(root, "b.csv"), "--output",
+                      os.path.join(root, "p.csv")])
+    # one row of clean top-1 (fp32 and bf16 averaged: the result files do
+    # not say their precision) and one under APGD
+    require(len(table) == 3, f"(o) reformat: {table}")
+    say(f"(o) build + reformat over {len(results)} JSONs: "
+        f"{time.perf_counter() - t0:.2f} s, {len(table) - 1} table rows")
+
+    captions = os.path.join(root, "captions.txt")
+    with open(captions, "w") as f:
+        f.write("\n".join(_captions(rng, 1, 3, 10) + _captions(rng, 1, 20, 30))
+                + "\n")
+    pez_out = os.path.join(root, "pez")
+    inner, clock = pez.optimize_prompt, {"s": 0.0, "iters": 0}
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            clock["s"] += time.perf_counter() - t0
+            clock["iters"] += kwargs["iters"]
+
+    pez.optimize_prompt = timed
+    try:
+        for tag, args, encodes in (
+                ("captions", ["--captions", captions, "--iter",
+                              str(PEZ_ITERS)], (2 * (1 + PEZ_ITERS), 0)),
+                ("image target", ["--images"] + [
+                    os.path.join(sets["coco"], f"000{i}.npy")
+                    for i in range(2)] + ["--prompt-len", "16", "--iter",
+                                          str(PEZ_IMAGE_ITERS)],
+                 (PEZ_IMAGE_ITERS, 1))):
+            clock.update(s=0.0, iters=0)
+            with _Encodes(pez_counters, f"pez {tag}", encodes) as enc:
+                payload = pez_driver.main(
+                    ["--model", MODEL, "--device", "cuda", "--output",
+                     os.path.join(pez_out, tag.split()[0])] + args)
+            sims = [r["cosine_sim"] for r in payload["results"]]
+            require(all(np.isfinite(x) and -1.0 <= x <= 1.0 for x in sims),
+                    f"(o) pez {tag}: {sims}")
+            per_it = clock["s"] / clock["iters"]
+            say(f"(o) pez {tag}: {clock['iters']} iterations in "
+                f"{clock['s']:.2f} s, {per_it * 1e3:.2f} ms an iteration "
+                f"({1 / per_it:.1f}/s); {enc.seconds - clock['s']:.2f} s "
+                f"outside the loop; sims {sims}, prompt lengths "
+                f"{[r['prompt_len'] for r in payload['results']]}")
+            out[f"pez {tag}"] = {"seconds": enc.seconds, "loop_s": clock["s"],
+                                 "iterations": clock["iters"],
+                                 "s_per_iteration": per_it,
+                                 "peak_gib": enc.peak_gib,
+                                 "launches": enc.launches, "sims": sims}
+    finally:
+        pez.optimize_prompt = inner
+    # the metrics are defined for caption inversions alone
+    metrics = pez_metrics.main([os.path.join(pez_out, "captions")])
+    cap = next(iter(metrics.values()))
+    require(_in_unit(cap, ["word_accuracy", "token_accuracy"]),
+            f"(o) pez_metrics: {metrics}")
+    out["pez metrics"] = cap
+
+    model = create_model(MODEL, seed=0, device="cuda")
+    text = model.module.text
+    target = torch.nn.functional.normalize(
+        torch.randn(1, text.cfg.output_dim, device="cuda"), dim=-1)
+    prof = profile_cell("(o) 20 PEZ steps at ViT-L-14 (text [1, 77, 768] "
+                        "fp32)", lambda: pez.optimize_prompt(
+                            text, target, prompt_len=16, iters=20),
+                        batches=1, warm=1, profiled=1)
+    say(f"(o) PEZ under the profiler: {prof['ms_per_batch'] / 20:.2f} ms a "
+        f"step, device busy {prof['busy_ms_per_batch'] / 20:.2f} ms a step, "
+        f"idle share {prof['idle_share']:.3f}, "
+        f"{prof['device_events_per_batch'] / 20:.0f} device events a step")
+    out["pez profile"] = prof
+    return counters.total, pez_counters.total, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3023,6 +3437,9 @@ def main() -> int:
         robust_launches, robust = _timed("m robust", phase_robust, workdir)
         clip_parity = _timed("n parity", phase_contrastive_parity, workdir)
         clip_launches, clip_runs = _timed("n", phase_contrastive, workdir)
+        bench_parity = _timed("o parity", phase_benchmark_parity, workdir)
+        bench_launches, pez_launches, bench_runs = _timed(
+            "o", phase_benchmark, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3044,7 +3461,9 @@ def main() -> int:
                              "robust_eval":
                                  robust_launches["packed_attention"],
                              "contrastive":
-                                 clip_launches["packed_attention"]},
+                                 clip_launches["packed_attention"],
+                             "benchmark": bench_launches["packed_attention"],
+                             "pez": pez_launches["packed_attention"]},
         "fused_attention_block": {
             "serve": serve_launches["fused_attention_block"],
             "train": train_launches["fused_attention_block"],
@@ -3052,7 +3471,9 @@ def main() -> int:
             "text_attacks": attack_launches["fused_attention_block"],
             "fare": fare_launches["fused_attention_block"],
             "robust_eval": robust_launches["fused_attention_block"],
-            "contrastive": clip_launches["fused_attention_block"]},
+            "contrastive": clip_launches["fused_attention_block"],
+            "benchmark": bench_launches["fused_attention_block"],
+            "pez": pez_launches["fused_attention_block"]},
         "flash_attention": {"op": flash_launches}}
     report = []
     for name, by_shape in rows.items():
@@ -3082,7 +3503,9 @@ def main() -> int:
                    "text_attacks": attack_launches["layer_norm"],
                    "fare": fare_launches["layer_norm"],
                    "robust_eval": robust_launches["layer_norm"],
-                   "contrastive": clip_launches["layer_norm"]}
+                   "contrastive": clip_launches["layer_norm"],
+                   "benchmark": bench_launches["layer_norm"],
+                   "pez": pez_launches["layer_norm"]}
     for path, count in ln_launches.items():
         require(count > 0, f"layer_norm: no launch on the {path} path")
     require(report[1]["name"] == "fused_attention_block", "report order")
@@ -3098,7 +3521,9 @@ def main() -> int:
                       "fare_parity": fare_parity, "fare": fare_runs,
                       "robust_eval": robust,
                       "contrastive_parity": clip_parity,
-                      "contrastive": clip_runs}))
+                      "contrastive": clip_runs,
+                      "benchmark_parity": bench_parity,
+                      "benchmark": bench_runs}, default=float))
     # every shape's row (ms, plain_ms, library_ms, bound_ms, bound_by,
     # max_abs_err) on a line of its own, so that the kernels line stays
     # short enough to read whole from the end of a captured output

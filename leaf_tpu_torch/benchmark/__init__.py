@@ -1,3 +1,5 @@
-"""The benchmark suite of the port (no eager imports): so far the
-AutoAttack-style APGD cascade of zero-shot classification, which the
-ImageNet robust eval runs (ROADMAP Queue 1 item 12 has the rest)."""
+"""The CLIP benchmark suite of the port (no eager imports): zero-shot
+classification clean and under the APGD cascade, zero-shot retrieval,
+image-caption selection and linear probes over local datasets, and the
+`python -m leaf_tpu_torch.benchmark.cli` command line that writes their
+JSON results and CSV tables."""

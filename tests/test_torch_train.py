@@ -526,9 +526,23 @@ def test_trainer_imports_no_jax():
         "import leaf_tpu_torch.data.csv_data, leaf_tpu_torch.data.textcls\n"
         "import leaf_tpu_torch.evals.zero_shot, leaf_tpu_torch.evals.textfare\n"
         "import leaf_tpu_torch.attacks.image, leaf_tpu_torch.models.zero_shot\n"
+        "import leaf_tpu_torch.benchmark.zeroshot_classification\n"
+        "import leaf_tpu_torch.benchmark.zeroshot_retrieval\n"
+        "import leaf_tpu_torch.benchmark.image_caption_selection\n"
+        "import leaf_tpu_torch.benchmark.linear_probe\n"
+        "import leaf_tpu_torch.benchmark.builder\n"
+        "import leaf_tpu_torch.benchmark.tv_datasets\n"
+        "import leaf_tpu_torch.benchmark.model_collection\n"
+        "import leaf_tpu_torch.benchmark.voc2007\n"
+        "import leaf_tpu_torch.benchmark.tfds_datasets\n"
+        "import leaf_tpu_torch.benchmark.captioning\n"
+        "import leaf_tpu_torch.benchmark.cli\n"
+        "import leaf_tpu_torch.evals.pez, leaf_tpu_torch.evals.pez_driver\n"
+        "import leaf_tpu_torch.evals.pez_metrics\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'flax', 'regex', 'PIL', 'leaf_tpu', "
-        "'safetensors', 'orbax', 'nltk', 'datasets'))\n"
+        "'safetensors', 'orbax', 'nltk', 'datasets', 'h5py', 'sacrebleu', "
+        "'pandas'))\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True,
