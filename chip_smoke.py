@@ -190,7 +190,34 @@ Phases, each printing its own lines:
       its encodes and the kernels' launches held (PEZ: one text encode a
       step).  (c) has rows at the shapes: both kernels and the LayerNorm at
       [64, 257, 1024] fp32 and bf16 and at [1, 77, 768] fp32 causal, and
-      the block's fp32 GEMMs at M = 64 x 257.
+      the block's fp32 GEMMs at M = 64 x 257;
+  (p) CLIPScore/FID, the text-to-image harness, HF checkpoints, int8, export,
+      the profiler and the run-management flags: first, at ViT-tiny-test,
+      fp32, TF32 off, the card against the CPU from the same seeded weights:
+      CLIPScore and CLIP-FID, `generate_images` with tiny injected components
+      (DDIM and PLMS), int8 MLP features and the HF round trip within 1e-5;
+      the export traced on the card holds the custom ops
+      (`torch.ops.leaf_tpu_torch.*`, one block per layer) and gives the eager
+      features; and the wrapper time of the custom-op route against the
+      direct call at (c)'s small shapes; then at ViT-L-14-quickgelu's full
+      width and depth (random weights): `convert.main` OpenCLIP -> HF ->
+      OpenCLIP with `--verify` (1e-4) on the card, exact, seconds and GB a
+      file, and `push_to_hf_hub.main --local-dir-only`; `clipscore.main` on
+      256 generated (16 black, reported filtered) and 256 real 224 x 224
+      `.npy` images with CLIP-FID, images/s, then from the HF directory under
+      the GELU name (its QuickGELU adopted: the same scores);
+      `text_to_image.main` stage 1 on 64 captions (rho 10, k 2, fp32) and the
+      dual-encoder mode on 8 (the second tower from seed 1), captions/s;
+      `serve.main --int8-mlp` (bf16, 2,048 captions at bucket 16 with 128
+      `.npy` images, 512 at bucket 77), MiB before and after, encodes/s,
+      cosine >= 0.99 against the unquantized runs, one of which writes
+      `--export`: the artifacts run on the card (launches held) and equal the
+      eager features; `utils.profiler.main` on the card within 1% of the CPU
+      count; `train.driver.main` for 8 steps of (j)'s cell with
+      `--profile-dir`, `--remote-sync`, `--copy-codebase` and
+      `--matmul-precision highest`: the trace, the mirrored checkpoints and
+      the code snapshot are there.  Each encoding part holds the kernels'
+      launches to its encodes.
 Any failure raises.  The line before the last is the kernels' JSON
 report (each kernel at its main-path shape; the line before it has the
 rows of every shape); the last is {"ok": true, "device": {...}}.  Without CUDA, or
@@ -211,6 +238,7 @@ import time
 import numpy as np
 
 MODEL = "ViT-L-14-quickgelu"
+DEVICE = "cuda"
 # (name, R, L, group_len, causal, D, heads, dtype name).  Serving, each a
 # batch of 256 captions or 128 images: text bucket 16 (8 captions per
 # 128-token row), bucket 48 (2 per 96-token row, groups that straddle the
@@ -1891,11 +1919,15 @@ class _Part:
                     part.clock[kind] += time.perf_counter() - t0
             return wrapper
 
+        from torch._subclasses.fake_tensor import is_fake
+
         def counted(cls, name, kind):
             inner = getattr(cls, name)
 
             def wrapper(self, x, *args, **kwargs):
-                if x.is_cuda:
+                # a `torch.export` trace runs the towers on fake tensors,
+                # which launch nothing
+                if x.is_cuda and not is_fake(x):
                     part.encodes[kind] += 1
                 return inner(self, x, *args, **kwargs)
             return inner, wrapper
@@ -3155,9 +3187,9 @@ class _Encodes:
     runs it), image encodes at `encode_image`."""
 
     def __init__(self, counters, tag: str, want_encodes=None,
-                 layers=(12, 24)):
+                 layers=(12, 24), label: str = "(o)"):
         self.counters, self.tag, self.want = counters, tag, want_encodes
-        self.layers = layers
+        self.layers, self.label = layers, label
 
     def __enter__(self):
         import torch
@@ -3165,11 +3197,15 @@ class _Encodes:
         self.encodes = {"text": 0, "image": 0}
         part = self
 
+        from torch._subclasses.fake_tensor import is_fake
+
         def counted(cls, name, kind):
             inner = getattr(cls, name)
 
             def wrapper(self, x, *args, **kwargs):
-                if x.is_cuda:
+                # a `torch.export` trace runs the towers on fake tensors,
+                # which launch nothing
+                if x.is_cuda and not is_fake(x):
                     part.encodes[kind] += 1
                 return inner(self, x, *args, **kwargs)
             setattr(cls, name, wrapper)
@@ -3199,18 +3235,18 @@ class _Encodes:
                 "layer_norm": (lt + 1) * t + (li + 2) * i}
         self.launches = {n: op.launches for n, op in self.counters.ops.items()}
         self.peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        say(f"(o) {self.tag}: {self.seconds:.2f} s, peak device memory "
+        say(f"{self.label} {self.tag}: {self.seconds:.2f} s, peak device memory "
             f"{self.peak_gib:.1f} GiB; launches {self.launches}, {t} text + "
             f"{i} image encodes = {want}")
         if self.want is not None:
-            require((t, i) == self.want, f"(o) {self.tag}: {t} text and {i} "
-                    f"image encodes, {self.want} expected")
+            require((t, i) == self.want, f"{self.label} {self.tag}: {t} text "
+                    f"and {i} image encodes, {self.want} expected")
         for name in want:
             require(self.launches[name] == want[name],
-                    f"(o) {self.tag}: {name} {self.launches[name]} launches, "
-                    f"{want[name]} expected")
+                    f"{self.label} {self.tag}: {name} {self.launches[name]} "
+                    f"launches, {want[name]} expected")
             self.counters.total[name] += self.launches[name]
-        require(t + i > 0, f"(o) {self.tag}: no encode on the card")
+        require(t + i > 0, f"{self.label} {self.tag}: no encode on the card")
         return False
 
 
@@ -3375,6 +3411,493 @@ def phase_benchmark(workdir: str):
     return counters.total, pez_counters.total, out
 
 
+# ---------------------------------------------------------------------------
+# (p) CLIPScore, FID, text to image, HF checkpoints, int8, export, profiler
+# ---------------------------------------------------------------------------
+
+def _tiny_sd_components(t2i, tok):
+    """Tiny random-weight SD components (a conv noise predictor that reads
+    the latents, the timestep and the text embedding; an embedding table as
+    text encoder; a transposed conv as VAE decoder), the same weights each
+    call, moved to the latents' device."""
+    import torch
+
+    class UNet(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            torch.manual_seed(0)
+            self.conv = torch.nn.Conv2d(4, 4, 3, padding=1)
+            self.emb_proj = torch.nn.Linear(16, 4)
+
+        def forward(self, x, t, emb):
+            e = self.emb_proj(emb.mean(dim=1))[:, :, None, None]
+            return self.conv(x) + e + 0.001 * float(t) * torch.tanh(x)
+
+    torch.manual_seed(1)
+    text_emb = torch.nn.Embedding(49408, 16)
+    unet = UNet()
+    decode = torch.nn.ConvTranspose2d(4, 3, 4, stride=4)
+    with torch.no_grad():
+        return t2i.SDComponents(
+            tokenize=lambda caps: torch.from_numpy(np.asarray(tok(caps))).long(),
+            text_encoder=lambda ids: text_emb.to(ids.device)(ids).detach(),
+            unet=lambda x, t, emb: unet.to(x.device)(x, t, emb).detach(),
+            vae_decode=lambda z: torch.tanh(decode.to(z.device)(z)).detach(),
+            latent_channels=4, image_size=64, vae_factor=4)
+
+
+def _rel_close(a: dict, b: dict, tol: float) -> float:
+    """Largest difference between two metric dicts, relative to each value's
+    size where it exceeds 1; fails past `tol` or on other keys."""
+    require(a.keys() == b.keys(), f"keys {sorted(a)} != {sorted(b)}")
+    worst = max(abs(a[k] - b[k]) / max(1.0, abs(b[k])) for k in a)
+    require(worst <= tol, f"{a} vs {b}: {worst} > {tol}")
+    return worst
+
+
+def phase_t2i_parity(workdir: str):
+    """(p) at ViT-tiny-test, fp32, TF32 off, the card against the CPU from
+    the same seeded weights: CLIPScore and CLIP-FID, `generate_images` with
+    tiny components (DDIM and PLMS), int8 MLP features, the HF round trip
+    (1e-5 each); the export traced on the card holds the custom ops and
+    gives the eager features; and the custom-op route's wrapper time at
+    (c)'s small shapes against the direct call."""
+    import torch
+    from leaf_tpu_torch.evals import clipscore
+    from leaf_tpu_torch.evals import text_to_image as t2i
+    from leaf_tpu_torch.models import export, interop
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+    from leaf_tpu_torch.ops import packed_attention as pa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tiny = "ViT-tiny-test"
+    tok = get_tokenizer(tiny)
+    rng = np.random.default_rng(60)
+    out = {}
+    models = {dev: create_model(tiny, seed=0, device=dev)
+              for dev in ("cpu", "cuda")}
+
+    caps = _captions(rng, 12, 3, 12)
+    gen = rng.uniform(0, 1, (12, 64, 64, 3)).astype(np.float32)
+    gen[[2, 7]] *= 0.01                                  # two blanked
+    real = rng.uniform(0, 1, (12, 64, 64, 3)).astype(np.float32)
+    res = {dev: clipscore.compute_clipscores_and_fid(
+        m, tok, caps, gen, real, batch_size=4) for dev, m in models.items()}
+    require(res["cuda"]["n_black_filtered"] == 2, f"{res['cuda']}")
+    out["clipscore_fid"] = _rel_close(res["cuda"], res["cpu"], 1e-5)
+    say(f"(p) CLIPScore + CLIP-FID card vs CPU: {res['cuda']}, largest "
+        f"difference {out['clipscore_fid']:.3g}")
+
+    for sched in ("ddim", "pndm"):
+        imgs = {}
+        for dev in ("cpu", "cuda"):
+            comps = _tiny_sd_components(t2i, tok)
+            comps.scheduler = sched
+            imgs[dev] = t2i.generate_images(caps[:3], components=comps,
+                                            num_inference_steps=6, seed=3,
+                                            device=dev)
+        err = float(np.abs(imgs["cuda"] - imgs["cpu"]).max())
+        require(imgs["cuda"].shape == (3, 64, 64, 3) and err <= 1e-5,
+                f"generate_images {sched}: max abs {err}")
+        out[f"generate_{sched}"] = err
+        say(f"(p) generate_images {sched}, 6 steps, card vs CPU: max abs "
+            f"{err:.3g}")
+
+    tokens = np.stack([tok(caps[:8])[:, :16], tok(caps[4:12])[:, :16]])
+    images = rng.standard_normal((4, 64, 64, 3)).astype(np.float32)
+    feats = {}
+    for dev in ("cpu", "cuda"):
+        m = create_model(tiny, seed=0, device=dev, int8_mlp=True)
+        feats[dev] = _features(m, tokens[0], images)
+    err = float(np.abs(feats["cuda"] - feats["cpu"]).max())
+    require(err <= 1e-5, f"int8 features: max abs {err}")
+    out["int8"] = err
+    say(f"(p) int8 MLP features card vs CPU: max abs {err:.3g}")
+
+    card = models["cuda"]
+    back = create_model(tiny, seed=1, device="cuda")
+    hf = interop.params_to_hf(card.module.state_dict(), card.cfg)
+    back.module.load_state_dict(interop.hf_to_params(hf, card.cfg))
+    err = max(float(np.abs(_features(back, tokens[0], images)
+                           - _features(card, tokens[0], images)).max()),
+              float(np.abs(_features(back, tokens[0], images)
+                           - _features(models["cpu"], tokens[0],
+                                       images)).max()))
+    require(err <= 1e-5, f"HF round trip: max abs {err}")
+    out["hf_round_trip"] = err
+    say(f"(p) HF round trip on the card: max abs {err:.3g} (against the card "
+        "and the CPU)")
+
+    text_ep, image_ep = export.trace_model(card, batch_size=4, normalize=True)
+    nodes = {}
+    for name, ep in (("text", text_ep), ("image", image_ep)):
+        for n in ep.graph.nodes:
+            if n.op == "call_function" and "leaf_tpu_torch" in str(n.target):
+                key = f"{name} {n.target}"
+                nodes[key] = nodes.get(key, 0) + 1
+    layers = card.cfg.text.layers
+    require(nodes.get("text leaf_tpu_torch.fused_attention_block.default")
+            == layers and nodes.get(
+                "image leaf_tpu_torch.fused_attention_block.default")
+            == card.cfg.vision.layers, f"exported graph: {nodes}")
+    toks77 = torch.from_numpy(tok(caps[:4])).to("cuda")
+    imgs_d = torch.from_numpy(images).to("cuda")
+    with torch.inference_mode():
+        err = max(float((text_ep.module()(toks77)
+                         - card.module.encode_text(toks77, True)).abs().max()),
+                  float((image_ep.module()(imgs_d)
+                         - card.module.encode_image(imgs_d, True)).abs().max()))
+    require(err <= 1e-6, f"exported features differ from eager: {err}")
+    out["export"] = {"max_abs": err, "nodes": nodes}
+    say(f"(p) export on the card: custom-op nodes {nodes}; exported vs eager "
+        f"features max abs {err:.3g}")
+
+    # the custom-op route's host cost at (c)'s small shapes (PEZ's LayerNorm
+    # and packed row): wrapper times, direct call against the dispatcher
+    x = torch.randn(77, 768, device="cuda")
+    w, b = torch.ones(768, device="cuda"), torch.zeros(768, device="cuda")
+    qkv = torch.randn(1, 77, 3 * 768, device="cuda")
+    route = {}
+    for name, fn in (("layer_norm 77x768 fp32",
+                      lambda: pa.layer_norm(x, w, b)),
+                     ("packed_attention [1, 77, 768] fp32 causal",
+                      lambda: pa.packed_attention(qkv, 12, 77, True))):
+        direct = _time_ms(fn, 200)
+        with pa.dispatcher():
+            routed = _time_ms(fn, 200)
+        direct2 = _time_ms(fn, 200)
+        route[name] = {"direct_ms": min(direct, direct2),
+                       "custom_op_ms": routed}
+        say(f"(p) {name}: direct wrapper {min(direct, direct2):.4f} ms, "
+            f"through the custom op {routed:.4f} ms a call")
+    out["custom_op_route"] = route
+    return out
+
+
+class _ServeLog(logging.Handler):
+    """Keeps serve's rate and int8 lines."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def last(self, prefix: str) -> str:
+        return next(m for m in reversed(self.lines) if m.startswith(prefix))
+
+
+def phase_t2i_tooling(workdir: str):
+    """(p) at ViT-L-14-quickgelu's full width and depth (random weights):
+    `convert.main` OpenCLIP -> HF -> OpenCLIP with `--verify` on the card
+    and `push_to_hf_hub.main --local-dir-only`; `clipscore.main` on 256
+    generated (16 black) and 256 real 224 x 224 `.npy` images with CLIP-FID,
+    then again from the HF directory under the GELU name (the checkpoint's
+    QuickGELU adopted); `text_to_image.main` stage 1 on 64 captions (rho 10,
+    k 2, fp32) and the dual-encoder mode on 8 (the second tower from seed
+    1); `serve.main --int8-mlp` (bf16, buckets 16 and 77, 128 images)
+    against the unquantized runs, and `--export`, its artifacts run on the
+    card; `utils.profiler.main` on the card against the CPU count; and
+    `train.driver.main` for 8 steps with `--profile-dir`, `--remote-sync`,
+    `--copy-codebase` and `--matmul-precision highest`.  Each encoding part
+    holds the kernels' launches to its encodes."""
+    import torch
+    from leaf_tpu_torch import convert, push_to_hf_hub, serve
+    from leaf_tpu_torch.evals import clipscore
+    from leaf_tpu_torch.evals import text_to_image as t2i
+    from leaf_tpu_torch.models import export, interop
+    from leaf_tpu_torch.models.config import get_model_config
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+    from leaf_tpu_torch.models.preprocess import image_transform
+    from leaf_tpu_torch.train import driver
+    from leaf_tpu_torch.utils import profiler
+
+    root = os.path.join(workdir, "p")
+    os.makedirs(root)
+    rng = np.random.default_rng(61)
+    counters = {k: _Counters() for k in ("clipscore", "t2i_attack",
+                                         "serve_int8", "export")}
+    out = {}
+
+    def gb(path):
+        return os.path.getsize(path) / 1e9
+
+    # ---- convert and push_to_hf_hub ----------------------------------------
+    files = {}
+    for seed in (0, 1):
+        t0 = time.perf_counter()
+        m = create_model(MODEL, seed=seed, device="cpu")
+        files[seed] = convert.save_state_dict(
+            convert.params_to_openclip(m.module.state_dict(), m.cfg),
+            os.path.join(root, f"openclip_seed{seed}"))
+        del m
+        say(f"(p) seeded OpenCLIP file, seed {seed}: {gb(files[seed]):.2f} GB "
+            f"in {time.perf_counter() - t0:.1f} s (init + write)")
+    hf_dir, back_dir = os.path.join(root, "hf"), os.path.join(root, "back")
+    conv = {}
+    for name, argv, made in (
+            ("to hf", ["--input", files[0], "--output", hf_dir, "--to", "hf"],
+             os.path.join(hf_dir, "model.safetensors")),
+            ("to openclip", ["--input", hf_dir, "--output", back_dir, "--to",
+                             "openclip"],
+             os.path.join(back_dir, "open_clip_model.safetensors"))):
+        t0 = time.perf_counter()
+        convert.main(["--model", MODEL, "--verify", "--device", DEVICE] + argv)
+        conv[name] = {"seconds": time.perf_counter() - t0, "gb": gb(made)}
+        say(f"(p) convert {name} --verify (1e-4, on the card): "
+            f"{conv[name]['seconds']:.1f} s, wrote {conv[name]['gb']:.2f} GB")
+    a = interop.load_state_dict_file(files[0])
+    b = interop.load_state_dict_file(
+        os.path.join(back_dir, "open_clip_model.safetensors"))
+    require(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+            "OpenCLIP -> HF -> OpenCLIP is not exact")
+    del a, b
+    with open(os.path.join(hf_dir, "config.json")) as f:
+        require(json.load(f)["text_config"]["hidden_act"] == "quick_gelu",
+                "the HF config does not declare QuickGELU")
+    t0 = time.perf_counter()
+    hub = push_to_hf_hub.main(["--model", MODEL, "--input", back_dir,
+                               "--repo-id", "leaf/vit-l-14-quickgelu-seed0",
+                               "--local-dir", os.path.join(root, "hub"),
+                               "--local-dir-only"])
+    conv["push_to_hf_hub"] = {"seconds": time.perf_counter() - t0,
+                              "files": sorted(os.listdir(hub))}
+    require(conv["push_to_hf_hub"]["files"] == [
+        "README.md", "open_clip_config.json", "open_clip_model.safetensors"],
+        f"hub layout {conv['push_to_hf_hub']['files']}")
+    say(f"(p) push_to_hf_hub --local-dir-only: "
+        f"{conv['push_to_hf_hub']['seconds']:.1f} s, {conv['push_to_hf_hub']}")
+    shutil.rmtree(hub)
+    shutil.rmtree(back_dir)
+    out["convert"] = conv
+
+    # ---- CLIPScore and CLIP-FID --------------------------------------------
+    n_img, n_black, size = 256, 16, 224
+    caps = _captions(rng, n_img, 3, 12)
+    for kind in ("gen", "real"):
+        os.makedirs(os.path.join(root, kind))
+        for i in range(n_img):
+            img = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+            if kind == "gen" and i % (n_img // n_black) == 0:
+                img[:] = rng.integers(0, 3, (size, size, 3), dtype=np.uint8)
+            np.save(os.path.join(root, kind, f"{i:05d}.npy"), img)
+    cap_file = os.path.join(root, "captions.json")
+    with open(cap_file, "w") as f:
+        json.dump(caps, f)
+    kept = n_img - n_black
+    want = (-(-kept // 64), 4 * -(-kept // 64))
+    scores = {}
+    for name, flags in (
+            ("random weights", ["--model", MODEL, "--allow-random-weights"]),
+            ("HF dir, GELU name", ["--model", MODEL.replace("-quickgelu", ""),
+                                   "--pretrained", hf_dir])):
+        with _Encodes(counters["clipscore"], f"clipscore {name}", want,
+                      label="(p)") as enc:
+            res = clipscore.main(flags + [
+                "--gen-dir", os.path.join(root, "gen"), "--real-dir",
+                os.path.join(root, "real"), "--captions", cap_file,
+                "--fid-features", "clip", "--batch-size", "64", "--device",
+                DEVICE])
+        require(res["n"] == kept and res["n_black_filtered"] == n_black,
+                f"clipscore: {res}")
+        require(all(np.isfinite(v) for v in res.values()), f"{res}")
+        scores[name] = {"result": res, "seconds": enc.seconds,
+                        "images_per_s": 2 * n_img / enc.seconds,
+                        "launches": enc.launches}
+        say(f"(p) clipscore.main {name}: {res}; {enc.seconds:.1f} s, "
+            f"{2 * n_img / enc.seconds:.1f} images/s (both folders, model "
+            "build included)")
+    diff = _rel_close(scores["HF dir, GELU name"]["result"],
+                      scores["random weights"]["result"], 1e-5)
+    say(f"(p) the HF directory under the GELU name adopted QuickGELU: the same "
+        f"scores as the seeded ViT-L-14-quickgelu (largest difference "
+        f"{diff:.3g})")
+    out["clipscore"] = scores
+    shutil.rmtree(hf_dir)
+
+    # ---- text to image, stage 1 -------------------------------------------
+    t2i_caps = _captions(rng, 64, 3, 12)
+    runs = {}
+    for name, caps_n, extra in (
+            ("single", t2i_caps, []),
+            ("dual", t2i_caps[:8], ["--model2", MODEL, "--pretrained2",
+                                    files[1]])):
+        cf = os.path.join(root, f"t2i_{name}.json")
+        with open(cf, "w") as f:
+            json.dump(caps_n, f)
+        with _Encodes(counters["t2i_attack"], f"text_to_image {name}",
+                      label="(p)") as enc:
+            adv = t2i.main(["--model", MODEL, "--captions", cf, "--rho", "10",
+                            "--k", "2", "--output-dir",
+                            os.path.join(root, f"t2i_{name}"), "--device",
+                            DEVICE] + extra)
+        changed = sum(a != c for a, c in zip(adv, caps_n))
+        require(len(adv) == len(caps_n) and changed > 0,
+                f"t2i {name}: {changed} of {len(adv)} captions changed")
+        runs[name] = {"captions": len(caps_n), "changed": changed,
+                      "seconds": enc.seconds,
+                      "captions_per_s": len(caps_n) / enc.seconds,
+                      "encodes": enc.encodes, "launches": enc.launches}
+        say(f"(p) text_to_image.main {name} (rho 10, k 2, fp32): "
+            f"{len(caps_n)} captions, {changed} changed, {enc.seconds:.1f} s, "
+            f"{len(caps_n) / enc.seconds:.2f} captions/s (model builds "
+            f"included), {enc.encodes['text']} text encodes")
+    out["text_to_image"] = runs
+    os.remove(files[1])
+
+    # ---- serve --int8-mlp and --export -------------------------------------
+    sets = {"s16": _captions(rng, 2048, 3, 10),
+            "s77": _captions(rng, 512, 80, 90)}
+    img_dir = os.path.join(root, "serve_images")
+    os.makedirs(img_dir)
+    for i in range(128):
+        np.save(os.path.join(img_dir, f"{i:04d}.npy"),
+                rng.integers(0, 256, (256, 256, 3), dtype=np.uint8))
+    handler = _ServeLog()
+    log = logging.getLogger("leaf_tpu_torch.serve")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    serve_out, feats = {}, {}
+    export_dir = os.path.join(root, "export")
+    try:
+        for int8 in (True, False):
+            for name, caps_n in sets.items():
+                path = os.path.join(root, f"{name}.txt")
+                with open(path, "w") as f:
+                    f.write("\n".join(caps_n) + "\n")
+                argv = ["--model", MODEL, "--texts", path, "--output",
+                        os.path.join(root, f"serve_{name}_{int8}.npz"),
+                        "--batch-size", "256", "--precision", "bf16",
+                        "--device", DEVICE]
+                if name == "s16":
+                    argv += ["--images", img_dir]
+                if int8:
+                    argv += ["--int8-mlp"]
+                elif name == "s16":
+                    argv += ["--export", export_dir]
+                tag = f"serve {'int8' if int8 else 'bf16'} {name}"
+                n_text = -(-len(caps_n) // 256) + 1
+                n_image = 2 if name == "s16" else 0
+                with _Encodes(counters["serve_int8"] if int8 else _Counters(),
+                              tag, (n_text, n_image), label="(p)") as enc:
+                    res = serve.main(argv)
+                feats[(name, int8)] = res
+                text_line = handler.last("text:")
+                row = {"seconds": enc.seconds, "text": text_line,
+                       "launches": enc.launches}
+                if name == "s16":
+                    row["image"] = handler.last("image:")
+                if int8:
+                    row["int8"] = handler.last("int8 MLP")
+                serve_out[tag] = row
+                say(f"(p) {tag}: {row}")
+        for name in sets:
+            for k in ("text_features", "image_features"):
+                if k not in feats[(name, True)]:
+                    continue
+                q, f = feats[(name, True)][k], feats[(name, False)][k]
+                cos = np.sum(q * f, -1) / (np.linalg.norm(q, axis=-1)
+                                           * np.linalg.norm(f, axis=-1))
+                require(cos.min() >= 0.99, f"int8 {name} {k}: min cosine "
+                        f"{cos.min()}")
+                serve_out[f"int8 vs bf16 {name} {k} min cosine"] = \
+                    float(cos.min())
+                say(f"(p) int8 vs bf16 {name} {k}: min cosine {cos.min():.5f}")
+    finally:
+        log.removeHandler(handler)
+    out["serve"] = serve_out
+
+    paths = {k: os.path.join(export_dir, f"{MODEL}.{k}.pt2")
+             for k in ("text", "image")}
+    eps = {k: export.load_exported(p) for k, p in paths.items()}
+    cfg = get_model_config(MODEL)
+    for k, ep in eps.items():
+        n = sum(1 for node in ep.graph.nodes if node.op == "call_function"
+                and "fused_attention_block" in str(node.target))
+        layers = cfg.text.layers if k == "text" else cfg.vision.layers
+        require(n == layers, f"exported {k}: {n} block nodes, {layers} "
+                "expected")
+    eager = create_model(MODEL, precision="bf16", seed=0, device=DEVICE)
+    tok = get_tokenizer(MODEL)
+    toks = torch.from_numpy(tok(sets["s16"][:256])).to(DEVICE)
+    pre = image_transform(cfg.vision.image_size)
+    imgs = np.stack([pre(np.load(os.path.join(img_dir, f)))
+                     for f in sorted(os.listdir(img_dir))])
+    imgs = torch.from_numpy(np.concatenate([imgs, imgs])).to(
+        DEVICE, torch.bfloat16)
+    ex = counters["export"]
+    torch.cuda.synchronize()
+    ex.zero()
+    with torch.inference_mode():
+        got = {"text": eps["text"].module()(toks),
+               "image": eps["image"].module()(imgs)}
+        torch.cuda.synchronize()
+        launches = {n: op.launches for n, op in ex.ops.items()}
+        ref = {"text": eager.module.encode_text(toks, True),
+               "image": eager.module.encode_image(imgs, True)}
+    want_l = {"packed_attention": cfg.text.layers + cfg.vision.layers,
+              "fused_attention_block": cfg.text.layers + cfg.vision.layers,
+              "layer_norm": cfg.text.layers + 1 + cfg.vision.layers + 2}
+    require(launches == want_l, f"export launches {launches} != {want_l}")
+    for n in ex.NAMES:
+        ex.total[n] += launches[n]
+    diffs = {k: float((got[k].float() - ref[k].float()).abs().max())
+             for k in got}
+    equal = {k: bool(torch.equal(got[k], ref[k])) for k in got}
+    require(max(diffs.values()) <= 2e-2, f"exported vs eager: {diffs}")
+    out["export"] = {"max_abs": diffs, "bitwise_equal": equal,
+                     "launches": launches,
+                     "artifact_gb": {k: gb(p) for k, p in paths.items()}}
+    say(f"(p) exported artifacts on the card: launches {launches}; vs eager "
+        f"bf16 max abs {diffs}, bitwise equal {equal}; sizes "
+        f"{out['export']['artifact_gb']} GB")
+    del eps, eager, got, ref
+    shutil.rmtree(export_dir)
+
+    # ---- the profiler -------------------------------------------------------
+    t0 = time.perf_counter()
+    card_row = profiler.main(["--model", MODEL, "--device", DEVICE])[0]
+    cpu_row = profiler.profile_model(MODEL, device="cpu")
+    for k in ("gflops_image", "gflops_text"):
+        rel = abs(card_row[k] - cpu_row[k]) / cpu_row[k]
+        require(rel <= 0.01, f"profiler {k}: card {card_row[k]} vs CPU "
+                f"{cpu_row[k]}")
+    require(card_row["mparams"] == cpu_row["mparams"], "profiler mparams")
+    out["profiler"] = {"card": card_row, "cpu": cpu_row,
+                       "seconds": time.perf_counter() - t0}
+    say(f"(p) profiler on the card {card_row}; on the CPU {cpu_row}")
+
+    # ---- the trainer's run management ---------------------------------------
+    trace_dir, mirror = os.path.join(root, "trace"), os.path.join(root,
+                                                                  "mirror")
+    t0 = time.perf_counter()
+    res = driver.main(TRAIN_FLAGS + [
+        "--logs", root, "--name", "runmgmt", "--profile-dir", trace_dir,
+        "--remote-sync", mirror, "--copy-codebase", "--matmul-precision",
+        "highest"])
+    seconds = time.perf_counter() - t0
+    traces = os.listdir(trace_dir)
+    mirrored = sorted(os.listdir(os.path.join(mirror, "runmgmt",
+                                              "checkpoints")))
+    require(traces == ["trace_epoch0_batches2-5.json"], f"traces {traces}")
+    require("epoch_1" in mirrored, f"mirrored checkpoints {mirrored}")
+    require(os.path.isfile(os.path.join(root, "runmgmt", "code",
+                                        "leaf_tpu_torch", "serve.py")),
+            "no code snapshot")
+    require(torch.get_float32_matmul_precision() == "highest",
+            "matmul precision")
+    out["trainer"] = {"seconds": seconds, "trace_mb": os.path.getsize(
+        os.path.join(trace_dir, traces[0])) / 1e6, "mirrored": mirrored,
+        "steps": res["state"].step}
+    say(f"(p) train.driver.main with --profile-dir, --remote-sync, "
+        f"--copy-codebase, --matmul-precision highest: {out['trainer']}")
+    shutil.rmtree(root, ignore_errors=True)
+    launches = {path: c.total for path, c in counters.items()}
+    return launches, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3440,6 +3963,8 @@ def main() -> int:
         bench_parity = _timed("o parity", phase_benchmark_parity, workdir)
         bench_launches, pez_launches, bench_runs = _timed(
             "o", phase_benchmark, workdir)
+        t2i_parity = _timed("p parity", phase_t2i_parity, workdir)
+        t2i_launches, t2i_runs = _timed("p", phase_t2i_tooling, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3463,7 +3988,9 @@ def main() -> int:
                              "contrastive":
                                  clip_launches["packed_attention"],
                              "benchmark": bench_launches["packed_attention"],
-                             "pez": pez_launches["packed_attention"]},
+                             "pez": pez_launches["packed_attention"],
+                             **{path: t2i_launches[path]["packed_attention"]
+                                for path in t2i_launches}},
         "fused_attention_block": {
             "serve": serve_launches["fused_attention_block"],
             "train": train_launches["fused_attention_block"],
@@ -3473,7 +4000,9 @@ def main() -> int:
             "robust_eval": robust_launches["fused_attention_block"],
             "contrastive": clip_launches["fused_attention_block"],
             "benchmark": bench_launches["fused_attention_block"],
-            "pez": pez_launches["fused_attention_block"]},
+            "pez": pez_launches["fused_attention_block"],
+            **{path: t2i_launches[path]["fused_attention_block"]
+               for path in t2i_launches}},
         "flash_attention": {"op": flash_launches}}
     report = []
     for name, by_shape in rows.items():
@@ -3505,7 +4034,9 @@ def main() -> int:
                    "robust_eval": robust_launches["layer_norm"],
                    "contrastive": clip_launches["layer_norm"],
                    "benchmark": bench_launches["layer_norm"],
-                   "pez": pez_launches["layer_norm"]}
+                   "pez": pez_launches["layer_norm"],
+                   **{path: t2i_launches[path]["layer_norm"]
+                      for path in t2i_launches}}
     for path, count in ln_launches.items():
         require(count > 0, f"layer_norm: no launch on the {path} path")
     require(report[1]["name"] == "fused_attention_block", "report order")
@@ -3523,7 +4054,8 @@ def main() -> int:
                       "contrastive_parity": clip_parity,
                       "contrastive": clip_runs,
                       "benchmark_parity": bench_parity,
-                      "benchmark": bench_runs}, default=float))
+                      "benchmark": bench_runs, "t2i_parity": t2i_parity,
+                      "t2i": t2i_runs}, default=float))
     # every shape's row (ms, plain_ms, library_ms, bound_ms, bound_by,
     # max_abs_err) on a line of its own, so that the kernels line stays
     # short enough to read whole from the end of a captured output

@@ -21,13 +21,16 @@ sugar_crepe) or a text file of names.  The JSON result files and the CSV
 tables are the JAX command line's.
 
 Beyond the JAX command line: `--device` (default `cuda`), and
-`--precision bf16` computes the towers in bf16 (the JAX benchmark reads
-`--precision` nowhere and computes in fp32, the port's default); the
-logits are fp32 with TF32 off either way.  `reformat` keeps the rows with
+`--precision bf16` computes the towers in bf16.  The JAX command line
+passes `--precision` to `create_model`, which sets the model's compute
+dtype, but its benchmark functions take the fp32 parameters and never
+read that dtype, so it computes in fp32 whatever the flag (the port's
+default); the logits are fp32 with TF32 off either way.  `reformat` keeps the rows with
 an empty index cell (a clean result has no `eps`), which the JAX command
 line's pandas pivot drops; it needs no pandas.  Not ported, and raising by
 name: `--task captioning` (CoCa, ROADMAP Queue 1 item 11), `--model-type
-hf_clip` (item 13), registry and hub `--pretrained` tags (item 11).
+hf_clip` (it names a hub repo, and the hub registry is item 11), registry
+and hub `--pretrained` tags (item 11).
 """
 from __future__ import annotations
 
@@ -96,8 +99,11 @@ def _load_model(args, model_name: str, pretrained: str):
                 "--model-type hf_clip takes the HF repo id as --model; "
                 "--pretrained must be empty")
         raise NotImplementedError(
-            "--model-type hf_clip (the HF-format CLIP loader) is not ported "
-            "to leaf_tpu_torch yet: ROADMAP Queue 1 item 13")
+            "--model-type hf_clip loads an HF hub repo id through the "
+            "pretrained registry (models/pretrained.py), which is not "
+            "ported to leaf_tpu_torch yet: ROADMAP Queue 1 item 11; a "
+            "local HF-format directory loads with --model-type open_clip "
+            "--pretrained <dir>")
     if args.precision not in PRECISIONS:
         raise ValueError(f"--precision {args.precision!r}: one of "
                          f"{sorted(PRECISIONS)}")

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 import os
 from typing import Callable, Optional, Tuple
 
@@ -30,6 +31,7 @@ from leaf_tpu_torch.models.preprocess import (image_transform,
 from leaf_tpu_torch.tokenizer import get_tokenizer as _get_bpe
 
 PRECISIONS = {"fp32": torch.float32, "bf16": torch.bfloat16}
+LOG = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -74,13 +76,40 @@ def local_checkpoint(path: Optional[str], flag: str = "--pretrained"
     return path or None
 
 
+def _adopt_activation(cfg: CLIPConfig, model_name: str, pretrained: str,
+                      force_quick_gelu: bool) -> CLIPConfig:
+    """The activation the checkpoint declares (`interop.
+    checkpoint_quick_gelu`) wins over the config's, unless QuickGELU was
+    forced; either way a disagreement is logged."""
+    ckpt_qg = interop.checkpoint_quick_gelu(pretrained)
+    if ckpt_qg is None or ckpt_qg == cfg.quick_gelu:
+        return cfg
+    if force_quick_gelu:
+        LOG.warning("%s: checkpoint %s declares hidden_act=%s but "
+                    "quick_gelu was forced on — keeping QuickGELU",
+                    model_name, pretrained,
+                    "quick_gelu" if ckpt_qg else "gelu")
+        return cfg
+    LOG.warning("%s: adopting %s activation from checkpoint %s "
+                "(config said %s; reference resolves the config from the "
+                "checkpoint, factory.py:200-207)", model_name,
+                "quick_gelu" if ckpt_qg else "gelu", pretrained,
+                "quick_gelu" if cfg.quick_gelu else "gelu")
+    return dataclasses.replace(cfg, quick_gelu=ckpt_qg)
+
+
 def create_model(model_name: str, pretrained: Optional[str] = None,
                  precision: str = "fp32", seed: int = 0, *,
                  device, master_weights: bool = False,
-                 force_patch_dropout: Optional[float] = None) -> CLIPModel:
+                 force_patch_dropout: Optional[float] = None,
+                 force_quick_gelu: bool = False,
+                 int8_mlp: bool = False) -> CLIPModel:
     """Build a CLIP model by registry name on `device` ('cuda', 'cpu',
-    ...).  `pretrained` is a local OpenCLIP checkpoint file or snapshot
-    directory; without it the weights are a seeded random init.
+    ...).  `pretrained` is a local HF or OpenCLIP checkpoint file or
+    snapshot directory; without it the weights are a seeded random init.
+    A checkpoint's declared activation (its `open_clip_config.json` or HF
+    `config.json`) is adopted unless `force_quick_gelu`, and its vision
+    position grid is resized to the config's resolution.
 
     `master_weights` is the JAX package's precision policy, for the
     trainer and the evals: the text tower's weights stay fp32 and it
@@ -88,24 +117,34 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
     stays fp32 and computes in fp32, since the evals encode images (and
     run PGD) in fp32, as the JAX package's do; a trainer of the vision
     tower sets its `compute_dtype`.  `force_patch_dropout` sets the vision
-    config's train-time `patch_dropout`."""
+    config's train-time `patch_dropout`.  `int8_mlp` stores every MLP
+    weight as int8 with per-column scales (`models.quantize`), quantized
+    from the fp32 weights before the cast to `precision`."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not "
                            "available")
     cfg = get_model_config(model_name)
+    if force_quick_gelu:
+        cfg = dataclasses.replace(cfg, quick_gelu=True)
     if force_patch_dropout is not None:
         cfg = dataclasses.replace(cfg, vision=dataclasses.replace(
             cfg.vision, patch_dropout=force_patch_dropout))
-    module = CLIP(cfg)
     if pretrained:
         if not os.path.exists(pretrained):
             raise FileNotFoundError(
                 f"{pretrained!r} does not exist (pretrained registry tags and "
                 "hub ids are not ported yet: pass a local checkpoint)")
-        module.load_state_dict(interop.load_pretrained(pretrained, cfg))
+        cfg = _adopt_activation(cfg, model_name, pretrained, force_quick_gelu)
+        module = CLIP(cfg)
+        module.load_state_dict(interop.resize_vision_pos_embed(
+            interop.load_pretrained(pretrained, cfg), cfg))
     else:
+        module = CLIP(cfg)
         module.init_weights(torch.Generator().manual_seed(seed))
+    if int8_mlp:
+        from leaf_tpu_torch.models.quantize import quantize_mlp_params
+        quantize_mlp_params(module)
     module.to(device)
     dtype = PRECISIONS[precision]
     if master_weights:
@@ -121,14 +160,16 @@ def create_model_and_transforms(
         precision: str = "fp32", seed: int = 0, *,
         device, master_weights: bool = False,
         force_patch_dropout: Optional[float] = None,
-        aug_cfg=None) -> Tuple[CLIPModel, Callable, Callable]:
+        aug_cfg=None, int8_mlp: bool = False
+) -> Tuple[CLIPModel, Callable, Callable]:
     """(model, preprocess_train, preprocess_val).  With an `aug_cfg` (the
     contrastive trainer's) preprocess_train is the random-resized-crop
     pipeline drawing from `seed`; without one both are the eval
     pipeline."""
     model = create_model(model_name, pretrained, precision, seed,
                          device=device, master_weights=master_weights,
-                         force_patch_dropout=force_patch_dropout)
+                         force_patch_dropout=force_patch_dropout,
+                         int8_mlp=int8_mlp)
     size = model.cfg.vision.image_size
     preprocess = image_transform(size)
     if aug_cfg:

@@ -26,7 +26,8 @@ the same dispatch: on a card `ln_2` of every block and the towers'
 kernel (one read and one write of the activation, which is all that
 bounds it), never the plain elementwise version.  The MLP's two GEMMs
 with their bias adds and the activation stay `torch.matmul` and plain
-PyTorch, as the JAX package leaves them to XLA.
+PyTorch, as the JAX package leaves them to XLA; its weights may be int8
+with per-column scales (`models.quantize`), dequantized where used.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from leaf_tpu_torch.models.quantize import mlp_weight
 from leaf_tpu_torch.ops.packed_attention import (fused_attention_block,
                                                  layer_norm, packed_attention)
 
@@ -120,11 +122,9 @@ class Mlp(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        fc_w, fc_b, proj_w, proj_b = (
-            t.to(x.dtype)
-            for t in (self.fc_w, self.fc_b, self.proj_w, self.proj_b))
-        h = self.act(x @ fc_w + fc_b)
-        return h @ proj_w + proj_b
+        h = self.act(x @ mlp_weight(self, "fc_w", x.dtype)
+                     + self.fc_b.to(x.dtype))
+        return h @ mlp_weight(self, "proj_w", x.dtype) + self.proj_b.to(x.dtype)
 
 
 class ResidualBlock(nn.Module):

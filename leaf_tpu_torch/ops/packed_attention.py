@@ -43,12 +43,26 @@ own LayerNorm stage counts under the block, not under `layer_norm`.
 Each CUDA path is a `torch.autograd.Function` whose backward recomputes
 through the plain version, like the JAX `custom_vjp`s.  Serving never
 differentiates; the backward is there for the training slices.
+
+The three ops are also registered as `torch.library` custom ops,
+`torch.ops.leaf_tpu_torch.{packed_attention, fused_attention_block,
+layer_norm}`, each with a fake (shape) implementation and a flop formula
+(`torch.utils.flop_counter`).  Inside `with dispatcher():` the public ops
+go through them, so that `torch.export` records each as one node of the
+graph (an exported model needs `import leaf_tpu_torch.ops` to load) and
+`FlopCounterMode` sees them; a ctypes call is invisible to both.  The
+registered implementation dispatches by device as the public op does,
+and counts its launches the same way.  Outside the context, eager calls
+skip the dispatcher, whose overhead the small shapes would feel; the
+custom ops have no autograd formula, so the context is for inference.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Mapping, Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from leaf_tpu_torch.ops import build
 
@@ -415,11 +429,34 @@ def _needs_grad(*tensors) -> bool:
 # Public ops
 # ---------------------------------------------------------------------------
 
+_ROUTE = {"dispatcher": False}
+
+
+@contextlib.contextmanager
+def dispatcher():
+    """Route the public ops through their registered custom ops (for
+    `torch.export` and `FlopCounterMode`) while the context is open."""
+    saved = _ROUTE["dispatcher"]
+    _ROUTE["dispatcher"] = True
+    try:
+        yield
+    finally:
+        _ROUTE["dispatcher"] = saved
+
+
 def packed_attention(qkv: torch.Tensor, n_heads: int, group_len: int,
                      causal: bool = True) -> torch.Tensor:
     """Block-diagonal MHA.  qkv `[R, L, 3D]` token-major (the fused qkv
     projection's output, bias added) -> `[R, L, D]`; `group_len == L` is
     ordinary (causal) attention."""
+    if _ROUTE["dispatcher"]:
+        return torch.ops.leaf_tpu_torch.packed_attention(qkv, n_heads,
+                                                         group_len, causal)
+    return _packed_attention(qkv, n_heads, group_len, causal)
+
+
+def _packed_attention(qkv: torch.Tensor, n_heads: int, group_len: int,
+                      causal: bool) -> torch.Tensor:
     _check_activation("qkv", qkv, 3, n_heads, group_len)
     if qkv.device.type == "cpu":
         return _reference(qkv, n_heads, group_len, causal)
@@ -441,6 +478,16 @@ def fused_attention_block(p: Mapping, x: torch.Tensor, n_heads: int,
     `y = x @ w`).  LayerNorm parameters are float32; the other weights
     are in x's dtype (the model casts them once).  x `[R, L, D]`
     token-major packed rows."""
+    if _ROUTE["dispatcher"]:
+        return torch.ops.leaf_tpu_torch.fused_attention_block(
+            x, *(p[group][key] for group, key in _BLOCK_KEYS), n_heads,
+            group_len, causal, ln_eps)
+    return _fused_attention_block(p, x, n_heads, group_len, causal, ln_eps)
+
+
+def _fused_attention_block(p: Mapping, x: torch.Tensor, n_heads: int,
+                           group_len: int, causal: bool,
+                           ln_eps: float) -> torch.Tensor:
     _check_activation("x", x, 1, n_heads, group_len)
     D = x.shape[-1]
     wdt = x.dtype
@@ -465,6 +512,13 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """LayerNorm over the last dimension with fp32 statistics, cast back
     to x's dtype.  x: any leading shape, last dimension D, contiguous,
     float32 or bfloat16; `scale` and `bias`: float32 `[D]`."""
+    if _ROUTE["dispatcher"]:
+        return torch.ops.leaf_tpu_torch.layer_norm(x, scale, bias, eps)
+    return _layer_norm(x, scale, bias, eps)
+
+
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                eps: float) -> torch.Tensor:
     if not isinstance(x, torch.Tensor) or x.dim() < 1:
         raise ValueError("x: expected a tensor [..., D]")
     if x.dtype not in _DTYPE_CODES:
@@ -483,3 +537,77 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 layer_norm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Custom ops: what `torch.export` records and `FlopCounterMode` counts
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("leaf_tpu_torch::packed_attention", mutates_args=())
+def _packed_attention_op(qkv: torch.Tensor, n_heads: int, group_len: int,
+                         causal: bool) -> torch.Tensor:
+    return _packed_attention(qkv, n_heads, group_len, causal)
+
+
+@_packed_attention_op.register_fake
+def _(qkv, n_heads, group_len, causal):
+    R, L, threeD = qkv.shape
+    return qkv.new_empty((R, L, threeD // 3))
+
+
+@torch.library.custom_op("leaf_tpu_torch::fused_attention_block",
+                         mutates_args=())
+def _fused_attention_block_op(
+        x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+        qkv_w: torch.Tensor, qkv_b: torch.Tensor, out_w: torch.Tensor,
+        out_b: torch.Tensor, n_heads: int, group_len: int, causal: bool,
+        ln_eps: float) -> torch.Tensor:
+    p = {"ln_1": {"scale": ln_scale, "bias": ln_bias},
+         "attn": {"qkv_w": qkv_w, "qkv_b": qkv_b, "out_w": out_w,
+                  "out_b": out_b}}
+    return _fused_attention_block(p, x, n_heads, group_len, causal, ln_eps)
+
+
+@_fused_attention_block_op.register_fake
+def _(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b, n_heads, group_len,
+      causal, ln_eps):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("leaf_tpu_torch::layer_norm", mutates_args=())
+def _layer_norm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    return _layer_norm(x, scale, bias, eps)
+
+
+@_layer_norm_op.register_fake
+def _(x, scale, bias, eps):
+    return torch.empty_like(x)
+
+
+# Each formula counts what the op's plain version computes under
+# `FlopCounterMode`: its matrix products, 2 operations a multiply-add,
+# over every (query, key) pair of the row, the masked ones included, as
+# `_reference` computes them all; elementwise work (softmax, LayerNorm,
+# bias adds) counts nothing, as `FlopCounterMode` counts none of it.
+
+def _attention_flops(R: int, L: int, D: int) -> int:
+    return 2 * (2 * R * L * L * D)       # Q K^T and P V over all heads
+
+
+@register_flop_formula(torch.ops.leaf_tpu_torch.packed_attention)
+def _(qkv_shape, n_heads, group_len, causal, out_shape=None, **kwargs):
+    R, L, threeD = qkv_shape
+    return _attention_flops(R, L, threeD // 3)
+
+
+@register_flop_formula(torch.ops.leaf_tpu_torch.fused_attention_block)
+def _(x_shape, *args, out_shape=None, **kwargs):
+    R, L, D = x_shape
+    gemms = 2 * R * L * D * (3 * D) + 2 * R * L * D * D
+    return gemms + _attention_flops(R, L, D)
+
+
+@register_flop_formula(torch.ops.leaf_tpu_torch.layer_norm)
+def _(x_shape, *args, out_shape=None, **kwargs):
+    return 0

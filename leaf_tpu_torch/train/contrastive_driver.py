@@ -23,11 +23,14 @@ newest; `results.csv` has one row per epoch.  It runs on `--device`
 Against the JAX command line: one card, so `--local-loss` is the global
 loss and the features are never gathered; `--grad-checkpointing`, which
 the JAX driver ignores, raises.
-Flags whose code is not ported raise, naming where ROADMAP.md queues
-them: CoCa model names, registry `--pretrained` tags, the other
-`--force-*` and `--image-*` overrides, `--mesh-shape`,
-`--report-to`, `--remote-sync`, `--copy-codebase`, `--profile-dir`,
-`--matmul-precision`; `--no-gather-with-grad` raises as in JAX.
+`--copy-codebase`, `--remote-sync` and `--report-to` act as in the JAX
+driver (`utils.file_utils`, `utils.trackers`); `--profile-dir` traces
+batches 2 to 5 of epoch 0 and `--matmul-precision` sets torch's fp32
+matmul precision, as in the LEAF driver (the JAX contrastive driver
+parses both and reads neither).  Flags whose code is not ported raise,
+naming where ROADMAP.md queues them: CoCa model names, registry
+`--pretrained` tags, the other `--force-*` and `--image-*` overrides,
+`--mesh-shape`; `--no-gather-with-grad` raises as in JAX.
 """
 from __future__ import annotations
 
@@ -55,11 +58,14 @@ from leaf_tpu_torch.train.contrastive import (
     step_metrics)
 from leaf_tpu_torch.train.locking import lock_multipliers
 from leaf_tpu_torch.train.optim import make_optimizer
-from leaf_tpu_torch.train.params import parse_args
+from leaf_tpu_torch.train.params import parse_args, set_matmul_precision
 from leaf_tpu_torch.train.schedules import make_scheduler
+from leaf_tpu_torch.utils.file_utils import copy_codebase, start_run_mirror
 from leaf_tpu_torch.utils.logging_utils import setup_logging
 from leaf_tpu_torch.utils.meters import AverageMeter
+from leaf_tpu_torch.utils.profiler import TraceWindow
 from leaf_tpu_torch.utils.results import ResultsLedger
+from leaf_tpu_torch.utils.trackers import create_tracker
 
 LOG = logging.getLogger(__name__)
 
@@ -77,13 +83,6 @@ def _not_ported(args) -> None:
         ("coca" in args.model.lower(), f"the CoCa model {args.model!r}",
          "Queue 1 item 11"),
         (args.mesh_shape, "--mesh-shape (multiple GPUs)", "Queue 1 item 6"),
-        (args.report_to, "--report-to (utils/trackers.py)",
-         "Queue 1 item 14"),
-        (args.remote_sync or args.copy_codebase,
-         "--remote-sync / --copy-codebase (utils/file_utils.py)",
-         "Queue 1 item 14"),
-        (args.profile_dir, "--profile-dir", "Queue 1 item 14"),
-        (args.matmul_precision, "--matmul-precision", "Queue 1 item 14"),
         (args.force_quick_gelu or args.force_image_size is not None
          or args.image_mean or args.image_std or args.image_interpolation
          or args.image_resize_mode,
@@ -157,6 +156,7 @@ def main(args=None) -> Dict:
         args = parse_args(args)
     setup_logging(level=logging.DEBUG if args.debug else logging.INFO)
     _not_ported(args)
+    set_matmul_precision(args.matmul_precision)
     device = torch.device(args.device)
 
     run_name = args.name or ((args.custom_out_folder or "")
@@ -167,6 +167,9 @@ def main(args=None) -> Dict:
     setup_logging(log_file=os.path.join(out_dir, "out.log"),
                   level=logging.DEBUG if args.debug else logging.INFO)
     LOG.info("contrastive run: %s -> %s on %s", run_name, out_dir, device)
+    if args.copy_codebase:
+        copy_codebase(out_dir)
+    sync_thread = start_run_mirror(args, out_dir, run_name)
 
     precision = "bf16" if args.precision in ("bf16", "amp") else "fp32"
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
@@ -261,6 +264,9 @@ def main(args=None) -> Dict:
             args.siglip, args.seed + 17 if cfg.vision.patch_dropout > 0
             else None)
 
+    tracker = create_tracker(args.report_to, out_dir, run_name,
+                             wandb_project=args.wandb_project_name,
+                             wandb_notes=args.wandb_notes, config=vars(args))
     start_epoch = 0
     resume = ckpt.resolve_resume(args.resume, ckpt_dir)
     results = ResultsLedger(os.path.join(out_dir, "results.csv"),
@@ -298,6 +304,8 @@ def main(args=None) -> Dict:
             if col in metrics:
                 row[col] = metrics[col]
         results.append(row)
+        tracker.log({f"val/{k}": v for k, v in metrics.items()
+                     if isinstance(v, (int, float))}, step=epoch)
 
     if start_epoch == 0:
         metrics = run_eval(0)
@@ -316,9 +324,11 @@ def main(args=None) -> Dict:
         losses_m = AverageMeter()
         batch_time_m = AverageMeter()
         waits, events = [], []
+        trace = TraceWindow(args.profile_dir, epoch)
         end = time.time()
         for i, (images, texts) in enumerate(_timed_batches(
                 _batch_iter(info.loader, args.accum_freq), waits)):
+            trace.step(i)
             if args.accum_freq > 1:
                 tokens = np.stack([tokenizer(t, context_length=ctx)
                                    for t in texts])
@@ -346,6 +356,10 @@ def main(args=None) -> Dict:
                 LOG.info("Contrastive Epoch %d [%d/%d] loss %.5g (%.5g) "
                          "%.1f samples/s", epoch, i + 1, steps_per_epoch,
                          loss_val, losses_m.avg, sps)
+                tracker.log({"train/loss": loss_val,
+                             "train/samples_per_second": sps},
+                            step=state.step)
+        trace.close()
         if events:
             events[-1][1].synchronize()
         for k, wait in enumerate(waits):
@@ -362,6 +376,9 @@ def main(args=None) -> Dict:
             save(completed)
 
     ckpt.wait_for_checkpoints()
+    if sync_thread is not None:
+        sync_thread.stop(final_sync=True)
+    tracker.finish()
     return {"results": results.rows, "state": state, "model": model,
             "cfg": cfg, "out_dir": out_dir, "times": times}
 

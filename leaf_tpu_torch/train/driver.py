@@ -22,6 +22,16 @@ compute in bf16; a checkpoint is `checkpoints/epoch_<N>/state.pt` (the
 text tower's fp32 `state_dict`, the optimizer's state, the step) where
 the JAX package writes an Orbax directory.  Flags whose code is not
 ported yet raise, naming where ROADMAP.md queues them; none is ignored.
+
+Run management, as in the JAX driver: `--copy-codebase` snapshots the
+package into `<run>/code`; `--remote-sync <dir or scheme://...>` mirrors
+the run directory (`utils.file_utils`), and `--resume latest` then also
+looks for a newer checkpoint in the mirror; `--report-to
+tensorboard,wandb` logs each logged step and each eval
+(`utils.trackers`); `--profile-dir` writes a `torch.profiler` trace of
+batches 2 to 5 of epoch 0 (`utils.profiler.TraceWindow`);
+`--matmul-precision` sets torch's fp32 matmul precision
+(`train.params.MATMUL_PRECISIONS`).
 """
 from __future__ import annotations
 
@@ -50,12 +60,14 @@ from leaf_tpu_torch.train.contrastive import evaluate_contrastive
 from leaf_tpu_torch.train.fused import FusedLeafStep
 from leaf_tpu_torch.train.loop import train_one_epoch_text_only
 from leaf_tpu_torch.train.optim import make_optimizer
-from leaf_tpu_torch.train.params import parse_args
+from leaf_tpu_torch.train.params import parse_args, set_matmul_precision
 from leaf_tpu_torch.train.schedules import make_scheduler
 from leaf_tpu_torch.train.step import (TrainState, make_anchor_encode,
                                        make_train_step)
+from leaf_tpu_torch.utils.file_utils import copy_codebase, start_run_mirror
 from leaf_tpu_torch.utils.logging_utils import setup_logging
 from leaf_tpu_torch.utils.results import ResultsLedger, TimingLedger
+from leaf_tpu_torch.utils.trackers import create_tracker
 
 LOG = logging.getLogger(__name__)
 
@@ -82,14 +94,7 @@ def build_run_name(args) -> str:
 def _not_ported(args) -> None:
     """Raise on every flag whose code the port does not have yet."""
     checks = [
-        (args.remote_sync or args.copy_codebase,
-         "--remote-sync / --copy-codebase (utils/file_utils.py)",
-         "Queue 1 item 14"),
-        (args.report_to, "--report-to (utils/trackers.py)",
-         "Queue 1 item 14"),
-        (args.profile_dir, "--profile-dir", "Queue 1 item 14"),
         (args.mesh_shape, "--mesh-shape (multiple GPUs)", "Queue 1 item 6"),
-        (args.matmul_precision, "--matmul-precision", "Queue 1 item 14"),
         (args.force_quick_gelu or args.force_patch_dropout is not None
          or args.force_image_size is not None or args.image_mean
          or args.image_std or args.image_interpolation
@@ -105,6 +110,24 @@ def _not_ported(args) -> None:
         if hit:
             raise NotImplementedError(
                 f"{what} is not ported to leaf_tpu_torch yet: ROADMAP {where}")
+
+
+def _discover_resume(args, ckpt_dir: str, run_name: str):
+    """`--resume`'s (epoch, path); with `--remote-sync` and `--resume
+    latest`, a newer checkpoint in the mirror's `<run>/checkpoints` wins
+    (the local run directory may be on a fresh machine).  A `scheme://`
+    mirror is not searched: checkpoints load from local paths."""
+    found = ckpt.resolve_resume(args.resume, ckpt_dir)
+    if args.remote_sync and args.resume == "latest":
+        remote = os.path.join(args.remote_sync, run_name, "checkpoints")
+        if "://" in remote:
+            LOG.warning("remote latest-discovery skipped: %s is not a "
+                        "local path (checkpoints load locally)", remote)
+        elif os.path.isdir(remote):
+            newer = ckpt.resolve_resume("latest", remote)
+            if newer is not None and (found is None or newer[0] > found[0]):
+                found = newer
+    return found
 
 
 def main(args=None) -> Dict:
@@ -126,6 +149,12 @@ def main(args=None) -> Dict:
             "are discarded); it drives the contrastive pretrainer")
     if args.lock_image is False:   # None (default) = locked
         raise ValueError("LEAF text-AT always locks the vision tower")
+    if args.remote_sync and args.resume == "latest" \
+            and args.save_most_recent:
+        raise ValueError(
+            "cannot use --save-most-recent with --remote-sync and "
+            "--resume latest (reference errors likewise)")
+    set_matmul_precision(args.matmul_precision)
     device = torch.device(args.device)
 
     run_name = build_run_name(args)
@@ -135,6 +164,11 @@ def main(args=None) -> Dict:
     setup_logging(log_file=os.path.join(out_dir, "out.log"),
                   level=logging.DEBUG if args.debug else logging.INFO)
     LOG.info("run: %s -> %s on %s", run_name, out_dir, device)
+    # codebase snapshot and remote mirror: one verified sync pass before
+    # training, then a background thread, a final sync at the end
+    if args.copy_codebase:
+        copy_codebase(out_dir)
+    sync_thread = start_run_mirror(args, out_dir, run_name)
 
     # model + frozen anchor tower -----------------------------------------
     precision = "bf16" if args.precision in ("bf16", "amp") else "fp32"
@@ -197,10 +231,13 @@ def main(args=None) -> Dict:
 
     timing = TimingLedger(os.path.join(out_dir,
                                        f"times_{args.use_charmer}.csv"))
+    tracker = create_tracker(args.report_to, out_dir, run_name,
+                             wandb_project=args.wandb_project_name,
+                             wandb_notes=args.wandb_notes, config=vars(args))
 
     # resume ---------------------------------------------------------------
     start_epoch = 0
-    resume = ckpt.resolve_resume(args.resume, ckpt_dir)
+    resume = _discover_resume(args, ckpt_dir, run_name)
     # a run that does not resume starts its ledger anew; a resumed one
     # keeps the rows up to the epoch it resumes from
     results = ResultsLedger(os.path.join(out_dir, "results.csv"),
@@ -297,6 +334,12 @@ def main(args=None) -> Dict:
                 row[col] = metrics[col]
         results.append(row)
 
+    def finish() -> None:
+        ckpt.wait_for_checkpoints()
+        if sync_thread is not None:
+            sync_thread.stop(final_sync=True)
+        tracker.finish()
+
     # epoch-0 snapshot; the reference writes train_loss=-1 for it
     if start_epoch == 0:
         metrics = run_eval(0)
@@ -307,6 +350,7 @@ def main(args=None) -> Dict:
 
     seconds: Dict[str, float] = {}
     if "train" not in data:
+        finish()
         return {"results": results.rows, "state": state, "model": model,
                 "frozen_text": frozen_text, "cfg": cfg, "out_dir": out_dir,
                 "eval_seconds": eval_seconds}
@@ -317,11 +361,13 @@ def main(args=None) -> Dict:
             tokenizer, vocab, data, epoch, args, constraint=constraint,
             timing=timing,
             rng=np.random.default_rng(args.seed + 1000 * epoch),
-            seconds=seconds, fused_step=fused_step)
+            seconds=seconds, fused_step=fused_step, tracker=tracker)
         completed = epoch + 1
         metrics = run_eval(completed)
         LOG.info("epoch %d eval: %s", completed, metrics)
         record(completed, log_data.get("train/loss", float("nan")), metrics)
+        tracker.log({f"val/{k}": v for k, v in metrics.items()
+                     if isinstance(v, (int, float))}, step=completed)
         if (args.save_frequency > 0
                 and completed % args.save_frequency == 0) \
                 or completed == args.epochs:
@@ -329,7 +375,7 @@ def main(args=None) -> Dict:
         if args.save_most_recent:
             ckpt.save_latest(ckpt_dir, completed, payload_now())
 
-    ckpt.wait_for_checkpoints()
+    finish()
     return {"results": results.rows, "state": state, "model": model,
             "frozen_text": frozen_text, "cfg": cfg, "out_dir": out_dir,
             "attack_times": timing.times, "attack_seconds": seconds,

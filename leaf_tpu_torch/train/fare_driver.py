@@ -12,8 +12,11 @@ checkpoints/epoch_<step>/state.pt` at 10 milestones and a rolling
 parameters, the optimizer's moments and the step); `--resume latest`
 continues from the newest of them.  A finished run deletes its fallbacks.
 
+`--report-to tensorboard,wandb` logs every step's metrics
+(`utils.trackers`), as the JAX driver does.
+
 Against the JAX command line: `--pretrained` takes a local checkpoint
-only; `--report-to` raises (ROADMAP Queue 1 item 14); the zero-shot
+only; the zero-shot
 classifier is built for `--loss ce_reg` too, where the JAX driver builds
 it for `ce` alone and then scores `ce_reg` against a one-column zero
 classifier.  `--eval-freq` is parsed and read by nothing, as in JAX.
@@ -41,6 +44,7 @@ from leaf_tpu_torch.models.zero_shot import (build_zero_shot_classifier,
 from leaf_tpu_torch.train import checkpoint as ckpt
 from leaf_tpu_torch.train import fare
 from leaf_tpu_torch.utils.logging_utils import setup_logging
+from leaf_tpu_torch.utils.trackers import create_tracker
 
 LOG = logging.getLogger(__name__)
 
@@ -84,7 +88,7 @@ def parse_args(argv=None):
     p.add_argument("--experiment-name", type=str, default="FARE")
     p.add_argument("--log-freq", type=int, default=10)
     p.add_argument("--report-to", default="", type=str,
-                   help="comma-sep: wandb,tensorboard (not ported yet)")
+                   help="comma-sep: wandb,tensorboard")
     p.add_argument("--wandb-project-name", type=str, default="clip-finetune")
     p.add_argument("--fallback-freq", type=int, default=20,
                    help="rolling crash-recovery checkpoint cadence in "
@@ -128,10 +132,6 @@ def _remove_fallbacks(ckpt_dir: str, keep: str = "") -> None:
 def main(argv=None):
     args = parse_args(argv)
     setup_logging()
-    if args.report_to:
-        raise NotImplementedError(
-            "--report-to (utils/trackers.py) is not ported to "
-            "leaf_tpu_torch yet: ROADMAP Queue 1 item 14")
     if args.resume and args.resume != "latest":
         raise ValueError("--resume only supports 'latest'")
     # fp32 master weights; the text tower (the classifier) computes in fp32
@@ -193,9 +193,18 @@ def main(argv=None):
         LOG.info("resuming FARE from %s (step %d)", path, start_step)
         init_state = ckpt.load_checkpoint(path)
 
+    tracker = create_tracker(args.report_to, out_dir, args.experiment_name,
+                             wandb_project=args.wandb_project_name,
+                             config=vars(args)) if args.report_to else None
+    on_step = None
+    if tracker is not None:
+        def on_step(step, metrics):
+            tracker.log({f"train/{k}": v for k, v in metrics.items()},
+                        step=step)
+
     out = fare.train_fare(visual, cfg, fcfg, repeat_forever(),
                           classifier=classifier, seed=args.seed,
-                          checkpoint_fn=checkpoint_fn,
+                          on_step=on_step, checkpoint_fn=checkpoint_fn,
                           fallback_fn=fallback_fn, init_state=init_state,
                           start_step=start_step)
     # the last milestone must be on disk before the fallbacks go, or a
@@ -203,6 +212,8 @@ def main(argv=None):
     ckpt.wait_for_checkpoints()
     if out["steps"] >= fcfg.steps:
         _remove_fallbacks(ckpt_dir)
+    if tracker is not None:
+        tracker.finish()
     LOG.info("FARE done: %d steps, final loss %.5g", out["steps"],
              out["final_loss"])
     return out

@@ -37,6 +37,7 @@ from leaf_tpu_torch.attacks.text import (attack_text_charmer_batched,
 from leaf_tpu_torch.models.clip import TextTower
 from leaf_tpu_torch.train.step import TrainState
 from leaf_tpu_torch.utils.meters import AverageMeter
+from leaf_tpu_torch.utils.profiler import TraceWindow
 from leaf_tpu_torch.utils.results import AsyncAttackTimer, TimingLedger
 
 LOG = logging.getLogger(__name__)
@@ -78,6 +79,7 @@ def train_one_epoch_text_only(
     rng: Optional[np.random.Generator] = None,
     seconds: Optional[dict] = None,
     fused_step=None,
+    tracker=None,
 ):
     """Run one epoch; returns (state, log_data).
 
@@ -91,7 +93,9 @@ def train_one_epoch_text_only(
     the host (edits and tokenizing) and in device scoring calls, summed
     over the epoch (see `attack_text_leaf` and
     `attack_text_charmer_batched`); the fused step keeps its own
-    (`FusedLeafStep.seconds`)."""
+    (`FusedLeafStep.seconds`).  Each logged step's `log_data` also goes
+    to `tracker`, and with `args.profile_dir` batches 2 to 5 of epoch 0
+    are traced (`utils.profiler.TraceWindow`)."""
     rng = rng or np.random.default_rng(args.seed + 1000 * epoch)
     _bucket = bucket_tokens if can_bucket(scorer.cfg) else np.asarray
     device = scorer.device
@@ -132,6 +136,8 @@ def train_one_epoch_text_only(
             "train/attack_seconds": rec["attack_seconds"],
             "train/step": rec["step"],
         }
+        if tracker is not None:
+            tracker.log(log_data, step=rec["step"])
 
     def put(tokens) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(tokens)).to(device)
@@ -142,9 +148,11 @@ def train_one_epoch_text_only(
     loader_it = iter(info.loader)
     batch = next(loader_it, None)
     prepared = None
+    trace = TraceWindow(getattr(args, "profile_dir", None), epoch)
     i = -1
     while batch is not None:
         i += 1
+        trace.step(i)
         images, texts = batch
         del images  # the text-only objective ignores images
         i_accum = i // args.accum_freq
@@ -218,6 +226,7 @@ def train_one_epoch_text_only(
             batch_time_m.reset()
             data_time_m.reset()
 
+    trace.close()
     _flush(pending_log)
     if attack_timer is not None:
         attack_timer.close()  # every step's row written, in step order

@@ -12,6 +12,8 @@ import argparse
 import ast
 from typing import List, Optional
 
+import torch
+
 
 class _ParseKwargs(argparse.Action):
     """key=value list → dict (reference `params_AT.py:26-35`)."""
@@ -208,6 +210,25 @@ def parse_args(args: Optional[List[str]] = None) -> argparse.Namespace:
     ns = p.parse_args(args)
     apply_default_hparams(ns)
     return ns
+
+
+# --matmul-precision: JAX's `jax_default_matmul_precision` values onto
+# `torch.set_float32_matmul_precision`.  JAX's "default" is its fastest
+# pass (bf16 inputs on the TPU), torch's "medium" (bf16 internally);
+# "high" is TF32 (or bf16x3) in both; "highest" is full fp32 in both.
+# Without the flag nothing is set, and torch's own default is "highest".
+# The setting reaches cuBLAS and cuDNN only: the hand kernels' fp32 paths
+# are scalar FMAs and never read it, and the fp32 parity limits of the
+# tests and `chip_smoke.py` assume TF32 off.
+MATMUL_PRECISIONS = {"default": "medium", "high": "high",
+                     "highest": "highest"}
+
+
+def set_matmul_precision(value: Optional[str]) -> None:
+    """Apply `--matmul-precision` (see `MATMUL_PRECISIONS`); None keeps
+    torch's setting."""
+    if value:
+        torch.set_float32_matmul_precision(MATMUL_PRECISIONS[value])
 
 
 def apply_default_hparams(ns: argparse.Namespace):

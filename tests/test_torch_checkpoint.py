@@ -294,8 +294,12 @@ def test_the_interop_loader_needs_no_safetensors_package(tmp_path, monkeypatch):
     assert sd.keys() == want.keys()
     assert all(torch.equal(sd[k], want[k]) for k in want)
     assert path.endswith("open_clip_model.safetensors")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconvert.save_state_dict({}, str(tmp_path), "hf")
+    # the HF format is written too (as `model.safetensors`); an unknown
+    # format is refused
+    assert tconvert.save_state_dict({}, str(tmp_path), "hf").endswith(
+        "model.safetensors")
+    with pytest.raises(ValueError, match="unknown format"):
+        tconvert.save_state_dict({}, str(tmp_path), "orbax")
 
 
 def test_export_round_trips_through_the_jax_package(tmp_path):
@@ -353,15 +357,21 @@ def test_export_round_trips_through_the_jax_package(tmp_path):
 
 
 def test_hf_checkpoint_message_names_no_jax_program(tmp_path):
-    """An HF-format checkpoint is refused with a message a machine without
-    the JAX package can act on: convert where the JAX package runs."""
+    """An HF-format checkpoint loads in the port itself, with no JAX program
+    to convert it first: a whole one gives the weights it was written from;
+    a truncated one fails on the first missing key, and the error names no
+    JAX program."""
+    model = create_model("ViT-tiny-test", seed=2, device="cpu")
+    want = model.module.state_dict()
+    hf = tinterop.params_to_hf(want, model.cfg)
     path = str(tmp_path / "model.safetensors")
+    safetensors_io.save_file(hf, path)
+    got = tinterop.load_pretrained(path, model.cfg)
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
     safetensors_io.save_file(
         {"text_model.embeddings.token_embedding.weight": torch.zeros(4, 2)},
         path)
-    cfg = create_model("ViT-tiny-test", device="cpu").cfg
-    with pytest.raises(NotImplementedError) as info:
-        tinterop.load_pretrained(path, cfg)
-    msg = str(info.value)
-    assert "where the JAX package runs" in msg and "Queue 1 item 13" in msg
-    assert "python -m leaf_tpu.convert" not in msg
+    with pytest.raises(KeyError) as info:
+        tinterop.load_pretrained(path, model.cfg)
+    assert "python -m leaf_tpu.convert" not in str(info.value)

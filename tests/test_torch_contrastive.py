@@ -21,6 +21,7 @@ import dataclasses
 import hashlib
 import io
 import os
+import sys
 import tarfile
 
 import numpy as np
@@ -490,13 +491,10 @@ def test_siglip_command_line_matches_jax(files, tmp_path):
     _assert_rows_close(_rows(tmp_path / "torch"), _rows(tmp_path / "jax"))
 
 
-def test_command_line_refusals(tmp_path):
+def test_command_line_refusals(tmp_path, monkeypatch):
     base = SYNTHETIC + ["--logs", str(tmp_path)]
     for extra, err, match in [
             (["--mesh-shape", "1"], NotImplementedError, "item 6"),
-            (["--report-to", "wandb"], NotImplementedError, "item 14"),
-            (["--remote-sync", "x"], NotImplementedError, "item 14"),
-            (["--copy-codebase"], NotImplementedError, "item 14"),
             (["--force-image-size", "32"], NotImplementedError, "item 11"),
             (["--pretrained", "openai"], NotImplementedError, "item 11"),
             (["--aug-cfg", "color_jitter_prob=0.8"], ValueError,
@@ -514,6 +512,21 @@ def test_command_line_refusals(tmp_path):
             tcdriver.main(base + extra)
     with pytest.raises(NotImplementedError, match="CoCa.*item 11"):
         tcdriver.main(["--model", "coca_ViT-B-32", "--device", "cpu"])
+    # ported since these cases were written, one case each: --report-to
+    # wandb without the package logs the JAX package's warning and trains
+    # untracked; --remote-sync mirrors the run; --copy-codebase snapshots
+    # the package
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    mirror = tmp_path / "mirror"
+    out = tcdriver.main(base + ["--report-to", "wandb", "--remote-sync",
+                                str(mirror), "--copy-codebase", "--name",
+                                "taken"])
+    run = tmp_path / "taken"
+    assert [r["epoch"] for r in out["results"]] == [0, 1]
+    assert (mirror / "taken" / "results.csv").read_text() == \
+        (run / "results.csv").read_text()
+    assert (mirror / "taken" / "checkpoints" / "epoch_1" / "state.pt").exists()
+    assert (run / "code" / "leaf_tpu_torch" / "serve.py").exists()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tcdriver.main(SYNTHETIC[:-2] + ["--logs", str(tmp_path)])

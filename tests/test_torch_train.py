@@ -8,6 +8,7 @@ numpy from a seed; the updated JAX parameters come back through
 """
 import copy
 import csv
+import importlib.util
 import os
 import subprocess
 import sys
@@ -467,6 +468,35 @@ def test_frozen_anchor_stays_fixed(tiny_run):
 ])
 def test_unported_flags_raise(flags, match, tmp_path):
     # later flags override the tiny run's own
+    if match in ("copy-codebase", "matmul-precision", "remote-sync",
+                 "report-to", "profile-dir"):
+        # ported since these cases were written: the flag is taken and does
+        # what the JAX driver does (paths moved under tmp_path)
+        flags = [str(tmp_path / "aux" / os.path.basename(f))
+                 if f.startswith("/tmp/") else f for f in flags]
+        saved = torch.get_float32_matmul_precision()
+        try:
+            out = tdriver.main(TINY_RUN + ["--logs", str(tmp_path), "--name",
+                                           "run"] + flags)
+        finally:
+            torch.set_float32_matmul_precision(saved)
+        run = tmp_path / "run"
+        assert [r["epoch"] for r in out["results"]] == [0, 1]
+        if match == "copy-codebase":
+            assert (run / "code" / "leaf_tpu_torch" / "serve.py").exists()
+        elif match == "remote-sync":
+            mirror = tmp_path / "aux" / "mirror" / "run"
+            assert (mirror / "results.csv").read_text() == \
+                (run / "results.csv").read_text()
+            assert (mirror / "checkpoints" / "epoch_1" / "state.pt").exists()
+        elif match == "report-to":
+            if importlib.util.find_spec("tensorboard") is not None:
+                assert list(run.glob("events.out.tfevents.*"))
+        elif match == "profile-dir":
+            # 4 batches: the window of batches 2 to 5 ends with the epoch
+            assert os.listdir(tmp_path / "aux" / "trace") == [
+                "trace_epoch0_batches2-3.json"]
+        return
     if match == "val-data":
         # ported since these cases were written: the flag is taken, and the
         # val eval over a shard that is not there (skipped with a warning,
@@ -539,10 +569,19 @@ def test_trainer_imports_no_jax():
         "import leaf_tpu_torch.benchmark.cli\n"
         "import leaf_tpu_torch.evals.pez, leaf_tpu_torch.evals.pez_driver\n"
         "import leaf_tpu_torch.evals.pez_metrics\n"
+        "import leaf_tpu_torch.evals.clipscore, leaf_tpu_torch.evals.fid\n"
+        "import leaf_tpu_torch.evals.text_to_image\n"
+        "import leaf_tpu_torch.push_to_hf_hub, leaf_tpu_torch.serve\n"
+        "import leaf_tpu_torch.models.export, leaf_tpu_torch.models.quantize\n"
+        "import leaf_tpu_torch.utils.file_utils, leaf_tpu_torch.utils.trackers\n"
+        "import leaf_tpu_torch.utils.profiler\n"
+        "import leaf_tpu_torch.train.contrastive_driver\n"
+        "import leaf_tpu_torch.train.fare_driver\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'flax', 'regex', 'PIL', 'leaf_tpu', "
         "'safetensors', 'orbax', 'nltk', 'datasets', 'h5py', 'sacrebleu', "
-        "'pandas'))\n"
+        "'pandas', 'transformers', 'diffusers', 'huggingface_hub', "
+        "'tensorboard', 'tensorboardX', 'wandb', 'torchvision', 'fsspec'))\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True,
