@@ -243,7 +243,32 @@ Phases, each printing its own lines:
       Every part
       holds the kernels' launches to its image and text encodes, decodes,
       generation caches and cached steps (`_coca_launches`); (c) has a
-      LayerNorm row at the cached step's shape.
+      LayerNorm row at the cached step's shape;
+  (r) the ViT-family zoo: first siglip-tiny-test, mci-vit-tiny-test and
+      fastvit-tiny-test in fp32, TF32 off, the card against the CPU from the
+      same seeded weights (image and text features within 1e-4); then at full
+      width and depth, bf16, random weights from seed 0: MobileCLIP-B
+      (MCi-ViT, 197 tokens, D 768; causal text at 77, D 512) through
+      `serve.main`, 2,048 seeded captions at batch 256 and 256 seeded 224 x
+      224 `.npy` images at batch 128; MobileCLIP-S2's `encode_image` on 128
+      seeded 256 x 256 images (the FastViT trunk runs `F.conv2d` and plain
+      attention: no kernel launch) and `encode_text` on 256 captions (77
+      tokens, not causal); ViT-SO400M-14-SigLIP-384 through `serve.main
+      --images` on 128 seeded 384 x 384 images at batch 64 (27 blocks of [64,
+      729, 1152], 16 heads of 72, no class token, the MAP head) and its
+      `encode_text` on 256 seeded rows of 64 ids (2 non-causal groups a
+      128-token row; its SentencePiece tokenizer is not ported); the two
+      served image sets also already decoded, straight to `encode_image`
+      (the host's decode against the device).  Each part
+      holds the kernels' launches to its encodes (`_zoo_launches`), prints
+      encodes/s, seconds and peak memory, and holds its first 8 rows' bf16
+      features to cosine >= 0.99 against the same model's fp32 ones on the
+      card, TF32 off.  (c) has rows at the zoo's shapes: both kernels and the
+      LayerNorm at [64, 729, 1152] bf16 (and [8, 729, 1152] fp32, where the
+      fp32 attention kernel reads K and V in place), [128, 128, 1152] bf16 in
+      groups of 64 not causal, [128, 197, 768] bf16 and [256, 77, 512] bf16
+      not causal, and the block's GEMMs at those shapes; the sweep has heads
+      of 72, rows of 728-730 tokens and the non-causal text groups.
 Any failure raises.  The line before the last is the kernels' JSON
 report (each kernel at its main-path shape; the line before it has the
 rows of every shape); the last is {"ok": true, "device": {...}}.  Without CUDA, or
@@ -319,6 +344,17 @@ SHAPES = [
     ("bench_vision_fp32", 64, 257, 257, False, 1024, 16, "float32"),
     ("bench_vision_bf16", 64, 257, 257, False, 1024, 16, "bfloat16"),
     ("pez_text_s77_fp32", 1, 77, 77, True, 768, 12, "float32"),
+    # the ViT-family zoo (r): ViT-SO400M-14-SigLIP-384's image batch of 64
+    # (27 x 27 = 729 tokens, no class token, 16 heads of 72) and its fp32
+    # parity slice of 8, whose visible keys overflow shared memory (the
+    # fp32 kernel reads them in place); its text, 256 rows of 64 ids packed
+    # 2 to a 128-token row, not causal; MobileCLIP-B's images (196 patches
+    # + the class token, D 768); MobileCLIP-S2's text, 77 tokens not causal
+    ("siglip_vision_bf16", 64, 729, 729, False, 1152, 16, "bfloat16"),
+    ("siglip_vision_fp32", 8, 729, 729, False, 1152, 16, "float32"),
+    ("siglip_text_s64_bf16", 128, 128, 64, False, 1152, 16, "bfloat16"),
+    ("mobileclip_b_vision_bf16", 128, 197, 197, False, 768, 12, "bfloat16"),
+    ("mobileclip_s2_text_s77_bf16", 256, 77, 77, False, 512, 8, "bfloat16"),
 ]
 # (name, M, K, N) of the fused block's two GEMMs on the main path; the
 # out-projections run again with their residual
@@ -341,7 +377,14 @@ GEMM_SHAPES = [("s16 qkv", 32 * 128, 768, 2304), ("s16 out", 32 * 128, 768, 768)
                ("b32 text qkv", 256 * 77, 512, 1536),
                ("b32 text out", 256 * 77, 512, 512),
                ("b32 vision qkv", 256 * 50, 768, 2304),
-               ("b32 vision out", 256 * 50, 768, 768)]
+               ("b32 vision out", 256 * 50, 768, 768),
+               # (r): M = 46,656 is no multiple of a 128-row tile
+               ("siglip vision qkv", 64 * 729, 1152, 3456),
+               ("siglip vision out", 64 * 729, 1152, 1152),
+               ("siglip text qkv", 128 * 128, 1152, 3456),
+               ("siglip text out", 128 * 128, 1152, 1152),
+               ("mobileclip-b vision qkv", 128 * 197, 768, 2304),
+               ("mobileclip-b vision out", 128 * 197, 768, 768)]
 # M = 3 rows of 77 tokens; N and K multiples of 8 and of no tile (64 k, 128
 # to 256 columns), one of them narrower than a single TMA box
 # the eval's fp32 vision GEMMs: the block's qkv and out projections
@@ -799,11 +842,14 @@ def phase_parts():
 
 # (group_len, groups per row, causal): groups that straddle the 16-query
 # tiles, every text bucket, the vision tower's 257 = 16 x 16 + 1 tokens, and
-# rows too long to stage whole (the ring of 64-key stages)
+# rows too long to stage whole (the ring of 64-key stages); the zoo's
+# non-causal text rows (SigLIP's 2 x 64 and 8 x 16, MobileCLIP-S2's 77)
 PACKED_SWEEP = [(13, 3, False), (13, 3, True), (16, 8, True), (24, 5, True),
                 (32, 4, True), (48, 2, True), (64, 2, True), (77, 1, True),
                 (80, 1, False), (257, 1, False), (200, 3, False),
-                (401, 1, True)]
+                (401, 1, True), (64, 2, False), (16, 8, False),
+                (77, 1, False)]
+SWEEP_HEAD_WIDTHS = (64, 72, 80)
 FLASH_SWEEP_S = (1, 15, 16, 17, 63, 65, 130, 257, 600)
 FLASH_SWEEP_D = (8, 40, 64, 80, 128)
 
@@ -823,7 +869,7 @@ def phase_sweep():
     worst, cases = 0.0, 0
     with torch.inference_mode():
         for S, G, causal in PACKED_SWEEP:
-            for hd in (64, 80):
+            for hd in SWEEP_HEAD_WIDTHS:
                 R, H = 3, 3
                 _schedule(G * S, S, causal)
                 qkv = normal(rng, R, G * S, 3 * H * hd)
@@ -833,19 +879,21 @@ def phase_sweep():
                     f"packed_attention S={S} G={G} causal={causal} hd={hd}"))
                 cases += 1
         # ViT-H-14's rows: 16 heads of width 80 over 257 tokens, and one
-        # token either side
-        for L in (256, 257, 258):
+        # token either side; SigLIP-384's: 16 heads of 72 over 729 tokens
+        # (a last tile of 9 queries, a last stage of 25 keys), one either side
+        for L, hd in ((256, 80), (257, 80), (258, 80), (728, 72), (729, 72),
+                      (730, 72)):
             _schedule(L, L, False)
-            qkv = normal(rng, 2, L, 3 * 16 * 80)
+            qkv = normal(rng, 2, L, 3 * 16 * hd)
             worst = max(worst, _close(
                 pa.packed_attention(qkv, 16, L, False),
                 pa._reference(qkv, 16, L, False),
-                f"packed_attention L={L} 16 x 80"))
+                f"packed_attention L={L} 16 x {hd}"))
             cases += 1
         say(f"(c) sweep packed_attention bf16: {cases} shapes "
             f"(group_len, groups, causal) in {PACKED_SWEEP} x head widths "
-            f"(64, 80) and 16 heads of 80 at 256-258 tokens, max_abs_err "
-            f"{worst:.3g}")
+            f"{SWEEP_HEAD_WIDTHS}, 16 heads of 80 at 256-258 tokens and of 72 "
+            f"at 728-730, max_abs_err {worst:.3g}")
         worst, cases = 0.0, 0
         for S in FLASH_SWEEP_S:
             for d in FLASH_SWEEP_D:
@@ -922,15 +970,17 @@ def _captions(rng, n: int, lo: int, hi: int):
 
 
 class _Rates(logging.Handler):
-    """Keeps the (count, seconds, rate) arguments of serve's log lines."""
+    """Keeps the (count, seconds, rate) arguments of serve's "text:" and
+    "image:" log lines."""
 
     def __init__(self):
         super().__init__()
-        self.text = []
+        self.text, self.image = [], []
 
     def emit(self, record):
-        if record.getMessage().startswith("text:"):
-            self.text.append(record.args)
+        for kind in ("text", "image"):
+            if record.getMessage().startswith(kind + ":"):
+                getattr(self, kind).append(record.args)
 
 
 def phase_serve(workdir: str):
@@ -4312,6 +4362,311 @@ def phase_coca(workdir: str):
     return {path: c.total for path, c in counters.items()}, out
 
 
+# ---------------------------------------------------------------------------
+# (r) the ViT-family zoo: SigLIP, MobileCLIP
+# ---------------------------------------------------------------------------
+
+ZOO_TINY = ("siglip-tiny-test", "mci-vit-tiny-test", "fastvit-tiny-test")
+ZOO_B, ZOO_S2, ZOO_SIGLIP = ("MobileCLIP-B", "MobileCLIP-S2",
+                             "ViT-SO400M-14-SigLIP-384")
+ZOO_PARITY_ROWS = 8     # the bf16 rows held against fp32 on the card
+
+
+def _zoo_launches(cfg, image=0, text=0):
+    """Launches of each packed kernel and of the LayerNorm op for `image`
+    image and `text` text encodes of `cfg`: a fused block per transformer
+    layer.  The LayerNorm op: `ln_2` per block and `ln_final` a text
+    encode; a ViT image encode `ln_2` per block, `ln_pre`, `ln_post` and
+    the MAP head's LN where the tower has them; an MCi-ViT image encode
+    `ln_2` per block and `ln_post`; FastViT launches none of them."""
+    from leaf_tpu_torch.models.mci import FastVitSpec
+    if isinstance(cfg.trunk, FastVitSpec):
+        blocks = ln = 0
+    elif cfg.trunk is not None:
+        blocks, ln = cfg.trunk.layers, cfg.trunk.layers + 1
+    else:
+        v = cfg.vision
+        blocks = v.layers
+        ln = v.layers + int(v.ln_pre) + 1 + int(v.attn_pool)
+    packed = blocks * image + cfg.text.layers * text
+    return {"packed_attention": packed, "fused_attention_block": packed,
+            "layer_norm": ln * image + (cfg.text.layers + 1) * text}
+
+
+class _ZooPart:
+    """One part of (r) on the card: the kernels' counters zeroed and the
+    memory's peak reset on entry; on exit the counters held to
+    `_zoo_launches` of the part's encodes and added to the totals, its
+    seconds and peak memory kept."""
+
+    def __init__(self, counters, cfg, tag: str, image: int = 0,
+                 text: int = 0):
+        self.counters, self.cfg, self.tag = counters, cfg, tag
+        self.image, self.text = image, text
+
+    def __enter__(self):
+        import torch
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        self.counters.zero()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        import torch
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - self.t0
+        if exc_type is not None:
+            return False
+        self.peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = _zoo_launches(self.cfg, self.image, self.text)
+        self.launches = {n: op.launches for n, op in self.counters.ops.items()}
+        say(f"(r) {self.tag}: {self.seconds:.2f} s, peak device memory "
+            f"{self.peak_gib:.2f} GiB; {self.image} image and {self.text} text "
+            f"encodes; launches {self.launches} = {want}")
+        require(self.launches == want,
+                f"(r) {self.tag}: launches {self.launches}, {want} expected")
+        for name in want:
+            self.counters.total[name] += want[name]
+        return False
+
+
+def _held_cosine(tag: str, low: np.ndarray, full: np.ndarray) -> float:
+    """bf16 features against fp32 ones of the same rows: cosine >= 0.99
+    per row."""
+    require(low.shape == full.shape and np.isfinite(low).all(),
+            f"(r) {tag}: {low.shape} against {full.shape}")
+    low = low.astype(np.float32)
+    cos = float((np.sum(low * full, -1) / (np.linalg.norm(low, axis=-1)
+                                          * np.linalg.norm(full, axis=-1))
+                 ).min())
+    require(cos >= 0.99, f"(r) {tag}: bf16 vs fp32 min cosine {cos} < 0.99")
+    return cos
+
+
+def _write_arrays(root: str, rng, n: int, size: int) -> str:
+    """`n` seeded HWC uint8 `.npy` images of `size` x `size` in `root`."""
+    os.makedirs(root)
+    for i in range(n):
+        np.save(os.path.join(root, f"{i:04d}.npy"),
+                rng.integers(0, 256, (size, size, 3), dtype=np.uint8))
+    return root
+
+
+def _preprocessed(root: str, cfg, n: int) -> np.ndarray:
+    """The first `n` images of `root` through the model's eval transform,
+    as serve reads them."""
+    from leaf_tpu_torch.models.preprocess import image_transform
+    pre = image_transform(cfg.vision.image_size, mean=cfg.image_mean,
+                          std=cfg.image_std)
+    return np.stack([pre(np.load(os.path.join(root, f"{i:04d}.npy")))
+                     for i in range(n)])
+
+
+def _features32(model, tokens=None, images=None):
+    """fp32 features on the card, TF32 off, normalised, as host arrays."""
+    import torch
+    from leaf_tpu_torch.evals.zero_shot import fp32_products
+    out = []
+    with fp32_products(), torch.inference_mode():
+        if tokens is not None:
+            out.append(model.encode_text(tokens, normalize=True))
+        if images is not None:
+            out.append(model.encode_image(images, normalize=True))
+    return [t.float().cpu().numpy() for t in out]
+
+
+def phase_zoo_parity(workdir: str):
+    """(r) tiny: siglip-tiny-test, mci-vit-tiny-test and fastvit-tiny-test
+    in fp32, TF32 off, the card (kernels) against the CPU (plain versions)
+    from the same seeded weights: image and text features within 1e-4; the
+    card's launches held to its encodes."""
+    import torch
+    from leaf_tpu_torch.evals.zero_shot import fp32_products
+    from leaf_tpu_torch.models.config import get_model_config
+    from leaf_tpu_torch.models.factory import create_model
+    counters, errs = _Counters(), {}
+    for name in ZOO_TINY:
+        cfg = get_model_config(name)
+        rng = np.random.default_rng(81)
+        size = cfg.vision.image_size
+        images = rng.standard_normal((4, size, size, 3)).astype(np.float32)
+        tokens = rng.integers(1, cfg.text.vocab_size,
+                              (8, cfg.text.context_length)).astype(np.int32)
+        feats = {}
+        for device in ("cpu", "cuda"):
+            model = create_model(name, precision="fp32", seed=0,
+                                 device=device)
+            with fp32_products(), torch.inference_mode(), (
+                    _ZooPart(counters, cfg, f"tiny {name}", image=1, text=1)
+                    if device == "cuda" else contextlib.nullcontext()):
+                feats[device] = [model.encode_image(images).float().cpu(),
+                                 model.encode_text(tokens).float().cpu()]
+        errs[name] = max(float((a - b).abs().max())
+                         for a, b in zip(feats["cpu"], feats["cuda"]))
+        require(errs[name] <= 1e-4,
+                f"(r) tiny {name}: card vs CPU max abs {errs[name]} > 1e-4")
+    say(f"(r) tiny zoo, fp32, TF32 off, card vs CPU (image and text "
+        f"features): max abs {errs}")
+    return errs
+
+
+def phase_zoo(workdir: str):
+    """(r) at full width and depth, bf16, random weights from seed 0:
+    MobileCLIP-B through `serve.main` (2,048 seeded captions at batch 256;
+    256 seeded 224 x 224 `.npy` images at batch 128); MobileCLIP-S2's
+    `encode_image` on 128 seeded 256 x 256 images (FastViT: no kernel
+    launch) and `encode_text` on 256 captions (77 tokens, not causal); ViT-
+    SO400M-14-SigLIP-384 through `serve.main --images` (128 seeded 384 x 384
+    images at batch 64) and its `encode_text` on 256 seeded rows of 64 ids
+    (SigLIP's tokenizer is not ported).  MobileCLIP-B's and SO400M's image
+    batches are also encoded decoded already (128 and 64 images from the
+    host, the copy included), to split serve's rate between the host's
+    decode and the device.  Each part holds the kernels' launches to its
+    encodes (serve: one warm-up batch and every batch), and its first rows'
+    bf16 features to cosine >= 0.99 against the same model's fp32 ones on
+    the card, TF32 off."""
+    import torch
+    from leaf_tpu_torch import serve
+    from leaf_tpu_torch.models.config import get_model_config
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+    root = os.path.join(workdir, "r")
+    os.makedirs(root)
+    rng = np.random.default_rng(83)
+    counters = {"zoo_mobileclip_b": _Counters(),
+                "zoo_mobileclip_s2": _Counters(), "zoo_siglip": _Counters()}
+    out = {}
+    handler = _Rates()
+    log = logging.getLogger("leaf_tpu_torch.serve")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    n = ZOO_PARITY_ROWS
+
+    def serve_part(key, name, cfg, flag, path, count, batch, kind):
+        batches = 1 + -(-count // batch)         # the warm-up batch and all
+        with _ZooPart(counters[key], cfg, f"{name} serve {flag}",
+                      **{kind: batches}) as part:
+            res = serve.main(["--model", name, flag, path, "--output",
+                              os.path.join(root, f"{key}_{kind}.npz"),
+                              "--batch-size", str(batch), "--precision",
+                              "bf16", "--device", "cuda"])
+        feats = res[f"{kind}_features"]
+        require(feats.shape == (count, cfg.embed_dim)
+                and np.isfinite(feats).all(),
+                f"(r) {name} {kind}: {feats.shape}")
+        np.testing.assert_allclose(np.linalg.norm(feats, axis=-1), 1.0,
+                                   atol=1e-2)
+        done, secs, rate = getattr(handler, kind)[-1]
+        row = {"seconds": part.seconds, "encodes_per_s": rate,
+               "window_s": secs, "peak_gib": part.peak_gib,
+               "launches": part.launches}
+        say(f"(r) {name} serve {kind}: {done} in {secs:.3f} s steady state, "
+            f"{rate:.1f} encodes/s; part {part.seconds:.2f} s (build, data, "
+            f"warm-up included), peak {part.peak_gib:.2f} GiB")
+        return feats, row
+
+    def timed_encodes(key, name, cfg, model, fn, x, kind):
+        with torch.inference_mode(), _ZooPart(
+                counters[key], cfg, f"{name} {kind} encodes",
+                **{kind: 2}) as part:
+            fn(x, normalize=True)                # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats = fn(x, normalize=True).float().cpu().numpy()
+            secs = time.perf_counter() - t0
+        require(feats.shape == (len(x), cfg.embed_dim)
+                and np.isfinite(feats).all(), f"(r) {name} {kind}")
+        row = {"encodes_per_s": len(x) / secs, "batch_s": secs,
+               "peak_gib": part.peak_gib, "launches": part.launches}
+        say(f"(r) {name} {kind}: a batch of {len(x)} in {secs:.4f} s, "
+            f"{len(x) / secs:.1f} encodes/s, peak {part.peak_gib:.2f} GiB")
+        return feats, row
+
+    try:
+        # ---- MobileCLIP-B through serve.main -------------------------------
+        cfg = get_model_config(ZOO_B)
+        caps = _captions(rng, 2048, 3, 20)
+        texts = os.path.join(root, "b_captions.txt")
+        with open(texts, "w") as f:
+            f.write("\n".join(caps) + "\n")
+        images = _write_arrays(os.path.join(root, "b_images"), rng, 256,
+                               cfg.vision.image_size)
+        t_feats, out[f"{ZOO_B} text"] = serve_part(
+            "zoo_mobileclip_b", ZOO_B, cfg, "--texts", texts, 2048, 256,
+            "text")
+        i_feats, out[f"{ZOO_B} image"] = serve_part(
+            "zoo_mobileclip_b", ZOO_B, cfg, "--images", images, 256, 128,
+            "image")
+        # the same images already decoded, on the device alone
+        model = create_model(ZOO_B, precision="bf16", seed=0, device="cuda")
+        _, out[f"{ZOO_B} image, decoded"] = timed_encodes(
+            "zoo_mobileclip_b", ZOO_B, cfg, model, model.encode_image,
+            _preprocessed(images, cfg, 128), "image")
+        del model
+        ref = create_model(ZOO_B, precision="fp32", seed=0, device="cuda")
+        full_t, full_i = _features32(
+            ref, np.asarray(get_tokenizer(ZOO_B)(caps[:n])),
+            _preprocessed(images, cfg, n))
+        out[f"{ZOO_B} cosine"] = [
+            _held_cosine(f"{ZOO_B} text", t_feats[:n], full_t),
+            _held_cosine(f"{ZOO_B} image", i_feats[:n], full_i)]
+        del ref
+
+        # ---- MobileCLIP-S2: encode_image, encode_text ----------------------
+        cfg = get_model_config(ZOO_S2)
+        model = create_model(ZOO_S2, precision="bf16", seed=0, device="cuda")
+        size = cfg.vision.image_size
+        images = rng.standard_normal((128, size, size, 3)).astype(np.float32)
+        tokens = np.asarray(get_tokenizer(ZOO_S2)(_captions(rng, 256, 3, 20)))
+        i_feats, out[f"{ZOO_S2} image"] = timed_encodes(
+            "zoo_mobileclip_s2", ZOO_S2, cfg, model, model.encode_image,
+            images, "image")
+        t_feats, out[f"{ZOO_S2} text"] = timed_encodes(
+            "zoo_mobileclip_s2", ZOO_S2, cfg, model, model.encode_text,
+            tokens, "text")
+        del model
+        ref = create_model(ZOO_S2, precision="fp32", seed=0, device="cuda")
+        full_t, full_i = _features32(ref, tokens[:n], images[:n])
+        out[f"{ZOO_S2} cosine"] = [
+            _held_cosine(f"{ZOO_S2} text", t_feats[:n], full_t),
+            _held_cosine(f"{ZOO_S2} image", i_feats[:n], full_i)]
+        del ref, images
+
+        # ---- ViT-SO400M-14-SigLIP-384 ---------------------------------------
+        cfg = get_model_config(ZOO_SIGLIP)
+        images = _write_arrays(os.path.join(root, "siglip_images"), rng, 128,
+                               cfg.vision.image_size)
+        i_feats, out[f"{ZOO_SIGLIP} image"] = serve_part(
+            "zoo_siglip", ZOO_SIGLIP, cfg, "--images", images, 128, 64,
+            "image")
+        model = create_model(ZOO_SIGLIP, precision="bf16", seed=0,
+                             device="cuda")
+        ids = rng.integers(1, cfg.text.vocab_size,
+                           (256, cfg.text.context_length)).astype(np.int32)
+        t_feats, out[f"{ZOO_SIGLIP} text"] = timed_encodes(
+            "zoo_siglip", ZOO_SIGLIP, cfg, model, model.encode_text, ids,
+            "text")
+        _, out[f"{ZOO_SIGLIP} image, decoded"] = timed_encodes(
+            "zoo_siglip", ZOO_SIGLIP, cfg, model, model.encode_image,
+            _preprocessed(images, cfg, 64), "image")
+        del model
+        ref = create_model(ZOO_SIGLIP, precision="fp32", seed=0,
+                           device="cuda")
+        full_t, full_i = _features32(ref, ids[:n],
+                                     _preprocessed(images, cfg, n))
+        out[f"{ZOO_SIGLIP} cosine"] = [
+            _held_cosine(f"{ZOO_SIGLIP} text", t_feats[:n], full_t),
+            _held_cosine(f"{ZOO_SIGLIP} image", i_feats[:n], full_i)]
+        del ref
+    finally:
+        log.removeHandler(handler)
+        shutil.rmtree(root, ignore_errors=True)
+    say(f"(r) bf16 vs fp32 on the card, min cosine per part (text, image): "
+        f"{ {k: v for k, v in out.items() if k.endswith('cosine')} }")
+    return {path: c.total for path, c in counters.items()}, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4385,6 +4740,8 @@ def main() -> int:
             t2i_launches, t2i_runs = _timed("p", phase_t2i_tooling, workdir)
         coca_parity = _timed("q parity", phase_coca_parity, workdir)
         coca_launches, coca_runs = _timed("q", phase_coca, workdir)
+        zoo_parity = _timed("r parity", phase_zoo_parity, workdir)
+        zoo_launches, zoo_runs = _timed("r", phase_zoo, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -4412,7 +4769,9 @@ def main() -> int:
                              **{path: t2i_launches[path]["packed_attention"]
                                 for path in t2i_launches},
                              **{path: coca_launches[path]["packed_attention"]
-                                for path in coca_launches}},
+                                for path in coca_launches},
+                             **{path: zoo_launches[path]["packed_attention"]
+                                for path in zoo_launches}},
         "fused_attention_block": {
             "serve": serve_launches["fused_attention_block"],
             "train": train_launches["fused_attention_block"],
@@ -4426,7 +4785,9 @@ def main() -> int:
             **{path: t2i_launches[path]["fused_attention_block"]
                for path in t2i_launches},
             **{path: coca_launches[path]["fused_attention_block"]
-               for path in coca_launches}},
+               for path in coca_launches},
+            **{path: zoo_launches[path]["fused_attention_block"]
+               for path in zoo_launches}},
         "flash_attention": {"op": flash_launches}}
     report = []
     for name, by_shape in rows.items():
@@ -4462,7 +4823,9 @@ def main() -> int:
                    **{path: t2i_launches[path]["layer_norm"]
                       for path in t2i_launches},
                    **{path: coca_launches[path]["layer_norm"]
-                      for path in coca_launches}}
+                      for path in coca_launches},
+                   **{path: zoo_launches[path]["layer_norm"]
+                      for path in zoo_launches}}
     for path, count in ln_launches.items():
         require(count > 0, f"layer_norm: no launch on the {path} path")
     require(report[1]["name"] == "fused_attention_block", "report order")
@@ -4482,7 +4845,8 @@ def main() -> int:
                       "benchmark_parity": bench_parity,
                       "benchmark": bench_runs, "t2i_parity": t2i_parity,
                       "t2i": t2i_runs, "coca_parity": coca_parity,
-                      "coca": coca_runs}, default=float))
+                      "coca": coca_runs, "zoo_parity": zoo_parity,
+                      "zoo": zoo_runs}, default=float))
     # every shape's row (ms, plain_ms, library_ms, bound_ms, bound_by,
     # max_abs_err) on a line of its own, so that the kernels line stays
     # short enough to read whole from the end of a captured output

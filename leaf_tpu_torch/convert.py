@@ -39,7 +39,22 @@ def params_to_openclip(sd: Mapping[str, torch.Tensor],
     """The port's `CLIP.state_dict()` -> OpenCLIP state dict (fp32 CPU
     tensors, contiguous): the reverse of `interop.openclip_to_params`.
     `nn.Linear` weights are [out, in] there, so every matmul weight is
-    transposed back."""
+    transposed back.  The CLIP-ViT towers only: the zoo's other parts
+    (MobileCLIP trunks, no class token or `ln_pre`, the SigLIP head, timm
+    heads, projection biases, `logit_bias`) raise (ROADMAP Queue 1 item
+    11)."""
+    other = [k for k in ("visual.patch_bias", "visual.proj_bias",
+                         "text.text_projection_bias", "logit_bias")
+             if k in sd]
+    other += [k for k in ("visual.class_embedding", "visual.ln_pre.scale",
+                          "visual.proj") if k not in sd]
+    other += sorted({k.split(".")[1] for k in sd
+                     if k.startswith(("visual.attn_pool.", "visual.head_mlp."))})
+    if cfg.trunk is not None or other:
+        what = ", ".join(other) if other else "a MobileCLIP trunk"
+        raise NotImplementedError(
+            f"{cfg.name}: the OpenCLIP export of this tower ({what}) is not "
+            "ported to leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
     out: Dict[str, torch.Tensor] = {}
 
     def put(key: str, value: torch.Tensor, transpose: bool = False) -> None:

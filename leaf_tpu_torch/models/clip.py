@@ -12,21 +12,30 @@ tower has the same `compute_dtype` for FARE, which trains it in bf16 on
 fp32 master weights; everywhere else it computes in its weights' dtype.
 
 Text: short sequences are packed G per row (`_pack_groups`, target 128
-tokens as in the JAX package) under a block-diagonal causal pattern;
-every block then runs the fused attention sub-block with
-`packed=(S, causal)`.  Vision: the CLIP-ViT branch (class token, ln_pre,
-token pool, projection) runs every block with `packed=(T, False)`, one
-sequence per row.  Images are NHWC, and the patch embedding is a reshape
-plus one matmul (the stride-p conv of OpenCLIP, `patchify`).
+tokens as in the JAX package) under a block-diagonal pattern, causal
+unless the config has `no_causal_mask` (SigLIP, CLIPA, MobileCLIP-S1/S2);
+every block then runs the fused attention sub-block with `packed=(S,
+causal)`.  The projection may carry a bias (`proj_bias`, SigLIP).
 
-Train-time patch dropout keeps the class token and a random subset of the
-patch tokens after the positional embedding (`keep_patches`, given the
-uniform scores that `patch_dropout_scores` draws).  `CLIP.forward` is the
-joint forward of the contrastive trainer.
+Vision: the ViT tower of every ViT family.  Its parts follow the config:
+an optional patch bias (timm towers), class token (none in SigLIP and the
+timm gap-ViT) and `ln_pre` (none in timm towers and CLIPA); every block
+runs with `packed=(T, False)`, one image per row; then the pool, one of
+the SigLIP MAP head (`AttnPool`), the class token ('tok'), the mean of all
+tokens ('avg') or of the tokens after the first ('avg_patch'), with
+`ln_post` before it or, for CLIPA (`final_ln_after_pool`), after it; last
+the head, which is whatever the weights carry, as in the JAX package: a
+projection with an optional bias, timm's MLP head (`head_mlp`), or none
+(features at the trunk's width).  Images are NHWC, and the patch
+embedding is a reshape plus one matmul (the stride-p conv of OpenCLIP,
+`patchify`).  A config with a `trunk` (MobileCLIP) builds its vision tower
+through `models/trunks.py` instead.
 
-Not ported yet (the port's configs cannot ask for them): the SigLIP
-attention-pool head, timm MLP heads, text projection biases and CLIPA's
-pool-then-LN ordering.
+Train-time patch dropout keeps the class token, where the tower has one,
+and a random subset of the patch tokens after the positional embedding
+(`keep_patches`, given the uniform scores that `patch_dropout_scores`
+draws).  `CLIP.forward` is the joint forward of the contrastive trainer;
+with a `logit_bias` (SigLIP) it returns it, and `get_logits` adds it.
 """
 from __future__ import annotations
 
@@ -117,6 +126,8 @@ class TextTower(nn.Module):
                                          _act(quick_gelu), cfg.ln_eps)
         self.ln_final = layers.LayerNorm(w, cfg.ln_eps)
         self.text_projection = nn.Parameter(torch.zeros(w, cfg.output_dim))
+        self.text_projection_bias = (nn.Parameter(torch.zeros(cfg.output_dim))
+                                     if cfg.proj_bias else None)
         # None: compute in the stored weights' dtype
         self.compute_dtype: Optional[torch.dtype] = None
 
@@ -152,13 +163,15 @@ class TextTower(nn.Module):
 
     def _text_tail(self, x: torch.Tensor, tokens: torch.Tensor,
                    normalize: bool) -> torch.Tensor:
-        """ln_final -> pool -> projection -> normalize, shared by the
+        """ln_final -> pool -> projection (+ bias) -> normalize, shared by the
         packed and unpacked paths."""
         x = self.ln_final(x)
         if x.shape[0] != tokens.shape[0]:
             x = x.reshape(tokens.shape[0], tokens.shape[1], x.shape[-1])
         pooled = text_pool(x, tokens, self.cfg.pool_type)
         pooled = pooled @ self.text_projection.to(pooled.dtype)
+        if self.text_projection_bias is not None:
+            pooled = pooled + self.text_projection_bias.to(pooled.dtype)
         return l2_normalize(pooled) if normalize else pooled
 
     def encode_text(self, tokens: torch.Tensor, normalize: bool = False,
@@ -196,16 +209,18 @@ def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
     return x.reshape(B, gh * gw, p * p * C)
 
 
-def keep_patches(x: torch.Tensor, rate: float,
-                 scores: torch.Tensor) -> torch.Tensor:
-    """Patch dropout of tokens [B, 1 + N, D] (class token first): the class
-    token and, per sample, the `max(1, int(N * (1 - rate)))` patches of
-    lowest `scores` [B, N], in that order of scores (the JAX package's
-    `patch_dropout` with its uniform draw passed in)."""
+def keep_patches(x: torch.Tensor, rate: float, scores: torch.Tensor,
+                 cls_token: bool = True) -> torch.Tensor:
+    """Patch dropout of tokens [B, 1 + N, D] (class token first), or [B, N,
+    D] without `cls_token`: the class token, if any, and, per sample, the
+    `max(1, int(N * (1 - rate)))` patches of lowest `scores` [B, N], in that
+    order of scores (the JAX package's `patch_dropout` with its uniform draw
+    passed in)."""
+    lead = 1 if cls_token else 0
     num_keep = max(1, int(scores.shape[1] * (1 - rate)))
-    keep = torch.argsort(scores, dim=-1, stable=True)[:, :num_keep] + 1
+    keep = torch.argsort(scores, dim=-1, stable=True)[:, :num_keep] + lead
     patches = torch.gather(x, 1, keep[..., None].expand(-1, -1, x.shape[-1]))
-    return torch.cat([x[:, :1], patches], dim=1)
+    return torch.cat([x[:, :1], patches], dim=1) if cls_token else patches
 
 
 def patch_dropout_scores(seed: int, step: int, batch: int, num_patches: int,
@@ -218,9 +233,59 @@ def patch_dropout_scores(seed: int, step: int, batch: int, num_patches: int,
     return torch.rand(batch, num_patches, generator=g, device=device)
 
 
+class AttnPool(nn.Module):
+    """The MAP attention-pooling head of SigLIP towers (timm's
+    `AttentionPoolLatent`, the JAX package's `attn_pool`): a learned probe
+    token cross-attends over all tokens with fp32 logits and softmax, then
+    an LN + GELU-MLP residual refines the pooled vector.  Plain PyTorch, as
+    the JAX package computes it outside any Pallas kernel; its LayerNorm is
+    the LayerNorm op.  The MLP inherits the trunk's `mlp_ratio` (SO400M:
+    4,304 hidden units)."""
+
+    def __init__(self, width: int, heads: int, mlp_ratio: float,
+                 ln_eps: float):
+        super().__init__()
+        self.n_heads = heads
+        self.probe = nn.Parameter(torch.zeros(1, width))
+        self.q_w = nn.Parameter(torch.zeros(width, width))
+        self.q_b = nn.Parameter(torch.zeros(width))
+        self.kv_w = nn.Parameter(torch.zeros(width, 2 * width))
+        self.kv_b = nn.Parameter(torch.zeros(2 * width))
+        self.proj_w = nn.Parameter(torch.zeros(width, width))
+        self.proj_b = nn.Parameter(torch.zeros(width))
+        self.ln = layers.LayerNorm(width, ln_eps)
+        self.mlp = layers.Mlp(width, int(width * mlp_ratio), layers.gelu)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        scale = self.probe.shape[1] ** -0.5
+        for t in (self.probe, self.q_w, self.kv_w, self.proj_w,
+                  self.mlp.fc_w, self.mlp.proj_w):
+            layers.normal_(t, scale, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Tokens [B, S, D] -> pooled [B, D]."""
+        B, S, D = x.shape
+        hd = D // self.n_heads
+        dt = x.dtype
+        q = self.probe.to(dt) @ self.q_w.to(dt) + self.q_b.to(dt)   # [1, D]
+        q = q.expand(B, D).reshape(B, 1, self.n_heads, hd)
+        k, v = (x @ self.kv_w.to(dt) + self.kv_b.to(dt)).split(D, dim=-1)
+        k = k.reshape(B, S, self.n_heads, hd)
+        v = v.reshape(B, S, self.n_heads, hd)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+            * (hd ** -0.5)
+        probs = torch.softmax(logits, dim=-1).to(dt)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, 1, D)
+        out = out @ self.proj_w.to(dt) + self.proj_b.to(dt)
+        out = out + self.mlp(self.ln(out))
+        return out[:, 0]
+
+
 class VisionTower(nn.Module):
-    """CLIP-ViT vision tower: patch embedding, class token, ln_pre,
-    transformer, ln_post, class-token pool, projection."""
+    """The ViT tower of every ViT family (the JAX package's
+    `encode_image`): patch embedding (+ bias), class token, positions,
+    ln_pre, transformer, then the pool and the head, each part as the
+    config and the weights have it (the module docstring)."""
 
     def __init__(self, cfg: VisionConfig, quick_gelu: bool = False):
         super().__init__()
@@ -228,14 +293,23 @@ class VisionTower(nn.Module):
         w = cfg.width
         self.patch_embedding = nn.Parameter(
             torch.zeros(cfg.patch_size * cfg.patch_size * 3, w))
-        self.class_embedding = nn.Parameter(torch.zeros(w))
+        self.patch_bias = (nn.Parameter(torch.zeros(w)) if cfg.patch_bias
+                           else None)
+        self.class_embedding = (nn.Parameter(torch.zeros(w)) if cfg.cls_token
+                                else None)
         self.positional_embedding = nn.Parameter(torch.zeros(cfg.num_tokens, w))
-        self.ln_pre = layers.LayerNorm(w, cfg.ln_eps)
+        self.ln_pre = layers.LayerNorm(w, cfg.ln_eps) if cfg.ln_pre else None
         self.blocks = layers.Transformer(w, cfg.layers, cfg.heads,
                                          int(w * cfg.mlp_ratio),
                                          _act(quick_gelu), cfg.ln_eps)
         self.ln_post = layers.LayerNorm(w, cfg.ln_eps)
+        self.attn_pool = (AttnPool(w, cfg.heads, cfg.mlp_ratio, cfg.ln_eps)
+                          if cfg.attn_pool else None)
+        # the head: the seeded init has the projection alone, as the JAX
+        # package's; a checkpoint brings its own (`_load_from_state_dict`)
         self.proj = nn.Parameter(torch.zeros(w, cfg.output_dim))
+        self.register_parameter("proj_bias", None)
+        self.head_mlp: Optional[nn.ParameterDict] = None
         # None: compute in the stored weights' dtype
         self.compute_dtype: Optional[torch.dtype] = None
 
@@ -247,10 +321,67 @@ class VisionTower(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         scale = self.cfg.width ** -0.5
         layers.normal_(self.patch_embedding, scale, generator)
-        layers.normal_(self.class_embedding, scale, generator)
+        if self.class_embedding is not None:
+            layers.normal_(self.class_embedding, scale, generator)
         layers.normal_(self.positional_embedding, scale, generator)
         self.blocks.init_weights(generator)
         layers.normal_(self.proj, scale, generator)
+        if self.attn_pool is not None:
+            self.attn_pool.init_weights(generator)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        """Take the head the weights carry: `proj` with or without
+        `proj_bias`, timm's `head_mlp.{fc_w, fc_b, proj_w[, proj_b]}`, or
+        none of them (features at the tower's width).  A head part whose
+        name and shape the weights share is kept as it is (an optimizer may
+        hold it)."""
+        like = self.patch_embedding
+
+        def param(t):
+            return nn.Parameter(torch.empty(t.shape, dtype=like.dtype,
+                                            device=like.device))
+
+        for name in ("proj", "proj_bias"):
+            t, cur = state_dict.get(prefix + name), getattr(self, name)
+            if t is None:
+                self.register_parameter(name, None)
+            elif cur is None or cur.shape != t.shape:
+                self.register_parameter(name, param(t))
+        mlp = {k[len(prefix) + len("head_mlp."):]: v
+               for k, v in state_dict.items()
+               if k.startswith(prefix + "head_mlp.")}
+        have = ({} if self.head_mlp is None else
+                {k: v.shape for k, v in self.head_mlp.items()})
+        if have != {k: v.shape for k, v in mlp.items()}:
+            self.head_mlp = (nn.ParameterDict({k: param(v) for k, v in
+                                               mlp.items()})
+                             if mlp else None)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def _pool(self, x: torch.Tensor) -> torch.Tensor:
+        if self.attn_pool is not None:
+            return self.attn_pool(x)
+        if self.cfg.pool_type == "tok":
+            return x[:, 0]
+        if self.cfg.pool_type == "avg":
+            return x.mean(dim=1)
+        if self.cfg.pool_type == "avg_patch":   # timm global_pool='avg'
+            return x[:, 1:].mean(dim=1)
+        raise ValueError(f"unsupported pool_type {self.cfg.pool_type!r}")
+
+    def _head(self, pooled: torch.Tensor) -> torch.Tensor:
+        dt = pooled.dtype
+        if self.head_mlp is not None:          # timm proj='mlp'
+            h = self.head_mlp
+            pooled = layers.gelu(pooled @ h["fc_w"].to(dt) + h["fc_b"].to(dt))
+            pooled = pooled @ h["proj_w"].to(dt)
+            if "proj_b" in h:
+                pooled = pooled + h["proj_b"].to(dt)
+        elif self.proj is not None:
+            pooled = pooled @ self.proj.to(dt)
+            if self.proj_bias is not None:
+                pooled = pooled + self.proj_bias.to(dt)
+        return pooled
 
     def encode_image(self, images: torch.Tensor, normalize: bool = False,
                      remat: bool = False,
@@ -262,13 +393,24 @@ class VisionTower(nn.Module):
         dtype = self.dtype
         x = patchify(images.to(dtype), self.cfg.patch_size) \
             @ self.patch_embedding.to(dtype)
-        cls = self.class_embedding.to(dtype).expand(x.shape[0], 1, x.shape[-1])
-        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)
+        if self.patch_bias is not None:
+            x = x + self.patch_bias.to(dtype)
+        if self.class_embedding is not None:
+            cls = self.class_embedding.to(dtype).expand(x.shape[0], 1,
+                                                        x.shape[-1])
+            x = torch.cat([cls, x], dim=1)
+        x = x + self.positional_embedding.to(dtype)
         if dropout is not None and self.cfg.patch_dropout > 0:
-            x = keep_patches(x, self.cfg.patch_dropout, dropout)
-        x = self.ln_pre(x)
+            x = keep_patches(x, self.cfg.patch_dropout, dropout,
+                             self.class_embedding is not None)
+        if self.ln_pre is not None:
+            x = self.ln_pre(x)
         x = self.blocks(x, packed=(x.shape[1], False), remat=remat)
-        pooled = self.ln_post(x)[:, 0] @ self.proj.to(dtype)
+        if self.cfg.final_ln_after_pool and self.attn_pool is None:
+            pooled = self.ln_post(self._pool(x))   # CLIPA
+        else:
+            pooled = self._pool(self.ln_post(x))
+        pooled = self._head(pooled)
         return l2_normalize(pooled) if normalize else pooled
 
 
@@ -281,8 +423,14 @@ class CLIP(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.text = TextTower(cfg.text, cfg.quick_gelu)
-        self.visual = VisionTower(cfg.vision, cfg.quick_gelu)
+        if cfg.trunk is not None:
+            from leaf_tpu_torch.models import trunks
+            self.visual = trunks.build(cfg.trunk)
+        else:
+            self.visual = VisionTower(cfg.vision, cfg.quick_gelu)
         self.logit_scale = nn.Parameter(torch.tensor(cfg.init_logit_scale))
+        self.logit_bias = (None if cfg.init_logit_bias is None else
+                           nn.Parameter(torch.tensor(float(cfg.init_logit_bias))))
 
     def init_weights(self, generator: torch.Generator) -> None:
         """The JAX package's init distributions, drawn from `generator`."""
@@ -302,21 +450,27 @@ class CLIP(nn.Module):
                 dropout: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """The joint forward: {image_features, text_features} (normalised,
-        each present when its input is) and `logit_scale` = exp of the
-        parameter.  `dropout`: `VisionTower.encode_image`'s patch scores."""
+        each present when its input is), `logit_scale` = exp of the
+        parameter and, where the model has one, `logit_bias`.  `dropout`:
+        `VisionTower.encode_image`'s patch scores."""
         out = {"logit_scale": self.logit_scale.exp()}
         if images is not None:
             out["image_features"] = self.visual.encode_image(
                 images, True, dropout=dropout)
         if tokens is not None:
             out["text_features"] = self.text.encode_text(tokens, True)
+        if self.logit_bias is not None:
+            out["logit_bias"] = self.logit_bias
         return out
 
     def get_logits(self, images: torch.Tensor, tokens: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(image logits [B_img, B_txt], text logits [B_txt, B_img]): the
-        scaled cosine similarities of the normalised features."""
+        scaled cosine similarities of the normalised features, plus the
+        logit bias where the model has one."""
         out = self(images, tokens)
         image_logits = (out["logit_scale"] * out["image_features"]
                         @ out["text_features"].T)
+        if "logit_bias" in out:
+            image_logits = image_logits + out["logit_bias"]
         return image_logits, image_logits.T

@@ -1,16 +1,23 @@
 """Model configuration registry (port of `leaf_tpu/models/config.py`).
 
-The same frozen dataclasses and the same plain-ViT registry entries
-(`ViT-tiny-test`, ViT-S/B/L/H/g/bigG and the OpenAI `-quickgelu`
-variants), with the fields the CLIP-ViT towers read.  Other families
-(ResNet, ConvNeXt, SigLIP, timm trunks, HF text towers) and the fields
-only they set (attention-pool heads, projection biases, per-model image
-statistics, ...) come with later slices of the port.
+The same frozen dataclasses and, for the families the port runs, the same
+registry entries: the plain ViTs (`ViT-tiny-test`, ViT-S/M/B/L/H/g/bigG/e
+and their `-quickgelu` variants), SigLIP (`ViT-*-SigLIP*`,
+`siglip-tiny-test`), CLIPA (`ViT-*-CLIPA*`), the timm gap-ViT
+(`vit_medium_patch16_gap_256`) and MobileCLIP (`MobileCLIP-{B,S1,S2}`,
+`mci-vit-tiny-test`, `fastvit-tiny-test`), registered through
+`config_from_open_clip_dict` as in the JAX package.
+
+The other families of the JAX registry (ModifiedResNet, ConvNeXt, EVA,
+Swin, RelPos-ViT, ViTamin and the HF text towers) are not ported:
+`get_model_config` raises a `KeyError` that names them and ROADMAP Queue 1
+item 11.  A config's `trunk` is a MobileCLIP spec (`models/mci.py`,
+dispatched by `models/trunks.py`) or None for a ViT tower.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,8 +31,15 @@ class TextConfig:
     mlp_ratio: float = 4.0
     output_dim: int = 512
     pool_type: str = "argmax"      # 'argmax' (EOT token) | 'first' | 'last'
+    proj_bias: bool = False
     no_causal_mask: bool = False
+    pad_id: int = 0
     ln_eps: float = 1e-5
+    # the HF tokenizer a tower was trained with (SigLIP's SentencePiece,
+    # CLIPA's BERT vocabulary) and its extra arguments as (key, value)
+    # pairs; `factory.get_tokenizer` raises for these (item 11)
+    hf_tokenizer_name: Optional[str] = None
+    tokenizer_kwargs: Optional[Tuple[Tuple[str, object], ...]] = None
 
     @property
     def head_dim(self) -> int:
@@ -42,9 +56,20 @@ class VisionConfig:
     head_width: int = 64
     mlp_ratio: float = 4.0
     output_dim: int = 512
+    # 'tok' (class token) | 'avg' (all tokens) | 'avg_patch' (patch tokens
+    # only: timm's global_pool='avg')
+    pool_type: str = "tok"
     ln_eps: float = 1e-5
     # share of the patch tokens dropped at train time (`--force-patch-dropout`)
     patch_dropout: float = 0.0
+    # timm ViT towers: biased patch embedding, no pre-transformer LayerNorm
+    patch_bias: bool = False
+    ln_pre: bool = True
+    # SigLIP towers: no class token, the MAP attention-pool head
+    cls_token: bool = True
+    attn_pool: bool = False
+    # CLIPA: pool first, then ln_post on the pooled vector
+    final_ln_after_pool: bool = False
 
     @property
     def heads(self) -> int:
@@ -56,7 +81,7 @@ class VisionConfig:
 
     @property
     def num_tokens(self) -> int:
-        return self.grid_size * self.grid_size + 1
+        return self.grid_size * self.grid_size + (1 if self.cls_token else 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +92,12 @@ class CLIPConfig:
     vision: VisionConfig
     quick_gelu: bool = False       # OpenAI-pretrained towers use QuickGELU
     init_logit_scale: float = 2.6592  # ln(1/0.07)
+    init_logit_bias: Optional[float] = None   # SigLIP's sigmoid-loss bias
+    # the statistics the tower was trained on; None: OpenAI CLIP's
+    image_mean: Optional[Tuple[float, float, float]] = None
+    image_std: Optional[Tuple[float, float, float]] = None
+    # a MobileCLIP trunk spec (`models/mci.py`); None: the ViT tower
+    trunk: Optional[object] = None
 
 
 def _cfg(name, embed_dim, v_layers, v_width, v_patch, t_width, t_heads, t_layers,
@@ -115,6 +146,18 @@ for base in ["ViT-B-32", "ViT-B-16", "ViT-L-14", "ViT-L-14-336"]:
     _REGISTRY[base + "-quickgelu"] = dataclasses.replace(
         _REGISTRY[base], name=base + "-quickgelu", quick_gelu=True)
 
+# name prefixes of the JAX registry's families that the port does not run
+_NOT_PORTED = (
+    (("RN",), "a ModifiedResNet tower (models/resnet.py)"),
+    (("convnext",), "a ConvNeXt tower (models/convnext.py)"),
+    (("EVA", "eva-"), "an EVA tower (models/eva.py)"),
+    (("swin",), "a Swin tower (models/swin.py)"),
+    (("vit_relpos", "relpos-"), "a RelPos-ViT tower (models/relpos_vit.py)"),
+    (("ViTamin", "vitamin-"), "a ViTamin tower (models/vitamin.py)"),
+    (("roberta-", "xlm-roberta-", "mt5-", "nllb-clip"),
+     "an HF text tower (models/hf_text.py)"),
+)
+
 
 def list_models() -> Tuple[str, ...]:
     """All registry names, sorted."""
@@ -123,6 +166,319 @@ def list_models() -> Tuple[str, ...]:
 
 def get_model_config(name: str) -> CLIPConfig:
     if name not in _REGISTRY:
+        for prefixes, family in _NOT_PORTED:
+            if name.startswith(prefixes):
+                raise KeyError(
+                    f"'{name}' has {family}, which is not ported to "
+                    "leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
         raise KeyError(
             f"Unknown model '{name}'. Available: {', '.join(list_models())}")
     return _REGISTRY[name]
+
+
+def register_model(config: CLIPConfig) -> None:
+    _REGISTRY[config.name] = config
+
+
+def config_from_open_clip_dict(name: str, d: dict) -> CLIPConfig:
+    """A CLIPConfig from an OpenCLIP model-config dict (the schema of
+    OpenCLIP's `model_configs/*.json` and of a hub checkpoint's
+    `open_clip_config.json` `model_cfg`), for the keys of the families
+    the port runs: a plain ViT, a timm ViT trunk or a MobileCLIP trunk,
+    and the native text tower.  ResNet layer lists, other timm trunks and
+    HF text towers raise (ROADMAP Queue 1 item 11)."""
+    v = dict(d.get("vision_cfg", {}))
+    t = dict(d.get("text_cfg", {}))
+    embed = d["embed_dim"]
+    trunk = None
+    if t.get("hf_model_name"):
+        raise NotImplementedError(
+            f"{name}: HF text towers (models/hf_text.py) are not ported to "
+            "leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
+    if isinstance(v.get("layers"), (list, tuple)):
+        raise NotImplementedError(
+            f"{name}: ModifiedResNet towers (models/resnet.py) are not "
+            "ported to leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
+    if v.get("timm_model_name"):
+        from leaf_tpu_torch.models.trunks import spec_for_timm_name
+        trunk = spec_for_timm_name(
+            v["timm_model_name"], embed, image_size=v.get("image_size"),
+            pool=v.get("timm_pool", "avg"), proj=v.get("timm_proj", "linear"))
+    if trunk is not None:
+        # a placeholder ViT config that carries image_size and output_dim
+        vision = VisionConfig(image_size=trunk.image_size,
+                              patch_size=getattr(trunk, "patch_size", 16),
+                              width=getattr(trunk, "width", 768),
+                              layers=getattr(trunk, "layers", 12),
+                              output_dim=embed)
+    elif v.get("timm_model_name"):
+        from leaf_tpu_torch.models.timm_vision import timm_vision_config
+        vision = timm_vision_config(
+            v["timm_model_name"], embed, image_size=v.get("image_size"),
+            pool=v.get("timm_pool", "avg"), proj=v.get("timm_proj", "linear"))
+    else:
+        vision = VisionConfig(
+            image_size=v.get("image_size", 224),
+            patch_size=v.get("patch_size", 16),
+            width=v.get("width", 768),
+            layers=v.get("layers", 12),
+            head_width=v.get("head_width", 64),
+            mlp_ratio=v.get("mlp_ratio", 4.0),
+            output_dim=embed,
+            patch_dropout=v.get("patch_dropout", 0.0),
+            pool_type={"avg": "avg_patch", "tok": "tok"}.get(
+                v.get("pool_type", "tok"), v.get("pool_type", "tok")),
+            ln_pre=not v.get("no_ln_pre", False),
+            final_ln_after_pool=v.get("final_ln_after_pool", False),
+            ln_eps=v.get("norm_kwargs", {}).get("eps", 1e-5),
+        )
+    text = TextConfig(
+        context_length=t.get("context_length", 77),
+        vocab_size=t.get("vocab_size", 49408),
+        width=t.get("width", 512),
+        heads=t.get("heads", 8),
+        layers=t.get("layers", 12),
+        mlp_ratio=t.get("mlp_ratio", 4.0),
+        output_dim=embed,
+        pool_type=t.get("pool_type", "argmax"),
+        proj_bias=t.get("proj_bias", False),
+        no_causal_mask=t.get("no_causal_mask", False),
+        pad_id=t.get("pad_id", 0),
+        hf_tokenizer_name=t.get("hf_tokenizer_name"),
+        tokenizer_kwargs=(tuple(sorted(t["tokenizer_kwargs"].items()))
+                          if t.get("tokenizer_kwargs") else None),
+        ln_eps=t.get("norm_kwargs", {}).get("eps", 1e-5),
+    )
+    return CLIPConfig(name=name, embed_dim=embed, text=text, vision=vision,
+                      quick_gelu=bool(d.get("quick_gelu", False)),
+                      init_logit_scale=d.get("init_logit_scale", 2.6592),
+                      init_logit_bias=d.get("init_logit_bias"), trunk=trunk)
+
+
+# -- SigLIP-family models -----------------------------------------------------
+# OpenCLIP's `model_configs/ViT-*-SigLIP*.json`: sigmoid loss (logit bias
+# -10), a class-token-less timm trunk with the MAP attention pool; text
+# without a causal mask, 'last' pool, biased projection, LN eps 1e-6, a
+# SentencePiece vocabulary of 32,000 (250,000 for i18n).
+def _register_siglip_models() -> None:
+    specs = {
+        # name: (trunk, embed, image, ctx, vocab, t_width, t_heads,
+        #        t_layers, t_mlp_ratio, tokenizer)
+        "ViT-B-16-SigLIP": ("vit_base_patch16_siglip_224", 768, 224, 64,
+                            32000, 768, 12, 12, 4.0,
+                            "timm/ViT-B-16-SigLIP"),
+        "ViT-B-16-SigLIP-256": ("vit_base_patch16_siglip_256", 768, 256,
+                                64, 32000, 768, 12, 12, 4.0,
+                                "timm/ViT-B-16-SigLIP"),
+        "ViT-B-16-SigLIP-384": ("vit_base_patch16_siglip_384", 768, 384,
+                                64, 32000, 768, 12, 12, 4.0,
+                                "timm/ViT-B-16-SigLIP"),
+        "ViT-B-16-SigLIP-512": ("vit_base_patch16_siglip_512", 768, 512,
+                                64, 32000, 768, 12, 12, 4.0,
+                                "timm/ViT-B-16-SigLIP"),
+        "ViT-B-16-SigLIP-i18n-256": ("vit_base_patch16_siglip_256", 768,
+                                     256, 64, 250000, 768, 12, 12, 4.0,
+                                     "timm/ViT-B-16-SigLIP-i18n-256"),
+        "ViT-L-16-SigLIP-256": ("vit_large_patch16_siglip_256", 1024,
+                                256, 64, 32000, 1024, 16, 24, 4.0,
+                                "timm/ViT-B-16-SigLIP"),
+        "ViT-L-16-SigLIP-384": ("vit_large_patch16_siglip_384", 1024,
+                                384, 64, 32000, 1024, 16, 24, 4.0,
+                                "timm/ViT-B-16-SigLIP"),
+        "ViT-SO400M-14-SigLIP": ("vit_so400m_patch14_siglip_224", 1152,
+                                 224, 16, 32000, 1152, 16, 27, 3.7362,
+                                 "timm/ViT-B-16-SigLIP"),
+        "ViT-SO400M-14-SigLIP-384": ("vit_so400m_patch14_siglip_384",
+                                     1152, 384, 64, 32000, 1152, 16, 27,
+                                     3.7362, "timm/ViT-B-16-SigLIP"),
+    }
+    for name, (trunk, embed, image, ctx, vocab, tw, th, tl, tmr,
+               tok) in specs.items():
+        cfg = config_from_open_clip_dict(name, {
+            "embed_dim": embed,
+            "init_logit_bias": -10,
+            "vision_cfg": {"image_size": image, "timm_model_name": trunk,
+                           "timm_pool": "map", "timm_proj": "none"},
+            "text_cfg": {"context_length": ctx, "vocab_size": vocab,
+                         "hf_tokenizer_name": tok,
+                         "tokenizer_kwargs": {"clean": "canonicalize"},
+                         "width": tw, "heads": th, "layers": tl,
+                         "mlp_ratio": tmr, "no_causal_mask": True,
+                         "proj_bias": True, "pool_type": "last",
+                         "norm_kwargs": {"eps": 1e-6}},
+        })
+        # SigLIP towers train on mean = std = (0.5, 0.5, 0.5)
+        register_model(dataclasses.replace(
+            cfg, image_mean=(0.5, 0.5, 0.5), image_std=(0.5, 0.5, 0.5)))
+    # test-size SigLIP-style model
+    register_model(CLIPConfig(
+        name="siglip-tiny-test", embed_dim=64,
+        init_logit_scale=1.0, init_logit_bias=-10.0,
+        image_mean=(0.5, 0.5, 0.5), image_std=(0.5, 0.5, 0.5),
+        text=TextConfig(context_length=16, vocab_size=512, width=64,
+                        heads=2, layers=2, output_dim=64,
+                        no_causal_mask=True, proj_bias=True,
+                        pool_type="last", ln_eps=1e-6),
+        vision=VisionConfig(image_size=64, patch_size=16, width=64,
+                            layers=2, head_width=32, output_dim=64,
+                            patch_bias=True, ln_pre=False,
+                            cls_token=False, attn_pool=True,
+                            ln_eps=1e-6)))
+
+
+_register_siglip_models()
+
+
+# -- CLIPA-family models ------------------------------------------------------
+# OpenCLIP's `model_configs/ViT-{L,H,bigG}-14-CLIPA*.json`: no ln_pre, 'avg'
+# pooling with ln_post after the pool; text without a causal mask,
+# 'last'-pooled, a BERT-uncased vocabulary of 32,000.
+def _register_clipa_models() -> None:
+    specs = {
+        # name: (embed, v_layers, v_width, v_head_width, image, t_width,
+        #        t_heads, t_layers, ctx)
+        "ViT-L-14-CLIPA": (768, 24, 1024, 64, 224, 768, 12, 12, 32),
+        "ViT-L-14-CLIPA-336": (768, 24, 1024, 64, 336, 768, 12, 12, 32),
+        "ViT-H-14-CLIPA": (1024, 32, 1280, 80, 224, 1024, 16, 24, 32),
+        "ViT-H-14-CLIPA-336": (1024, 32, 1280, 80, 336, 1024, 16, 24, 32),
+        "ViT-bigG-14-CLIPA": (1280, 48, 1664, 104, 224, 1280, 20, 32, 32),
+        "ViT-bigG-14-CLIPA-336": (1280, 48, 1664, 104, 336, 1280, 20, 32,
+                                  32),
+    }
+    for name, (embed, vl, vw, vhw, image, tw, th, tl, ctx) in \
+            specs.items():
+        mlp = 4.9231 if "bigG" in name else 4.0
+        register_model(config_from_open_clip_dict(name, {
+            "embed_dim": embed,
+            "vision_cfg": {"image_size": image, "layers": vl, "width": vw,
+                           "head_width": vhw, "mlp_ratio": mlp,
+                           "patch_size": 14, "no_ln_pre": True,
+                           "pool_type": "avg",
+                           "final_ln_after_pool": True},
+            "text_cfg": {"context_length": ctx, "vocab_size": 32000,
+                         "hf_tokenizer_name": "bert-base-uncased",
+                         "tokenizer_kwargs": {"strip_sep_token": True},
+                         "width": tw, "heads": th, "layers": tl,
+                         "pool_type": "last", "no_causal_mask": True},
+        }))
+
+
+_register_clipa_models()
+
+
+# -- the other plain ViT sizes of OpenCLIP's model_configs --------------------
+def _register_vit_variants() -> None:
+    for c in [
+        _cfg("ViT-S-16", 384, v_layers=12, v_width=384, v_patch=16,
+             t_width=384, t_heads=6, t_layers=12),
+        _cfg("ViT-S-16-alt", 256, v_layers=12, v_width=384, v_patch=16,
+             t_width=256, t_heads=4, t_layers=10),
+        _cfg("ViT-S-32-alt", 256, v_layers=12, v_width=384, v_patch=32,
+             t_width=256, t_heads=4, t_layers=10),
+        _cfg("ViT-M-16", 512, v_layers=12, v_width=512, v_patch=16,
+             t_width=512, t_heads=8, t_layers=12),
+        _cfg("ViT-M-16-alt", 384, v_layers=12, v_width=512, v_patch=16,
+             t_width=384, t_heads=6, t_layers=12),
+        _cfg("ViT-M-32", 512, v_layers=12, v_width=512, v_patch=32,
+             t_width=512, t_heads=8, t_layers=12),
+        _cfg("ViT-M-32-alt", 384, v_layers=12, v_width=512, v_patch=32,
+             t_width=384, t_heads=6, t_layers=12),
+        _cfg("ViT-B-16-plus", 640, v_layers=12, v_width=896, v_patch=16,
+             t_width=640, t_heads=10, t_layers=12),
+        _cfg("ViT-B-16-plus-240", 640, v_layers=12, v_width=896,
+             v_patch=16, t_width=640, t_heads=10, t_layers=12,
+             image_size=240),
+        _cfg("ViT-B-32-256", 512, v_layers=12, v_width=768, v_patch=32,
+             t_width=512, t_heads=8, t_layers=12, image_size=256),
+        _cfg("ViT-B-32-plus-256", 640, v_layers=12, v_width=896,
+             v_patch=32, t_width=640, t_heads=10, t_layers=12,
+             image_size=256),
+        _cfg("ViT-L-16", 768, v_layers=24, v_width=1024, v_patch=16,
+             t_width=768, t_heads=12, t_layers=12),
+        _cfg("ViT-L-16-320", 768, v_layers=24, v_width=1024, v_patch=16,
+             t_width=768, t_heads=12, t_layers=12, image_size=320),
+        _cfg("ViT-L-14-280", 768, v_layers=24, v_width=1024, v_patch=14,
+             t_width=768, t_heads=12, t_layers=12, image_size=280),
+        _cfg("ViT-H-16", 1024, v_layers=32, v_width=1280, v_patch=16,
+             t_width=1024, t_heads=16, t_layers=24, v_head_width=80),
+        _cfg("ViT-H-14-378-quickgelu", 1024, v_layers=32, v_width=1280,
+             v_patch=14, t_width=1024, t_heads=16, t_layers=24,
+             v_head_width=80, image_size=378, quick_gelu=True),
+        # PaLI's 4B-parameter "e" tower
+        _cfg("ViT-e-14", 1280, v_layers=56, v_width=1792, v_patch=14,
+             t_width=1280, t_heads=20, t_layers=36, v_head_width=112,
+             v_mlp_ratio=8.5715),
+    ]:
+        register_model(c)
+    # quickgelu aliases of the MetaCLIP and DFN tags
+    for base in ["ViT-H-14", "ViT-bigG-14"]:
+        register_model(dataclasses.replace(
+            _REGISTRY[base], name=base + "-quickgelu", quick_gelu=True))
+
+
+_register_vit_variants()
+
+# OpenCLIP's `vit_medium_patch16_gap_256.json`: the timm gap-ViT trunk (no
+# class token, mean over all tokens)
+register_model(config_from_open_clip_dict("vit_medium_patch16_gap_256", {
+    "embed_dim": 512,
+    "vision_cfg": {"timm_model_name": "vit_medium_patch16_gap_256",
+                   "timm_pool": "", "timm_proj": "linear",
+                   "image_size": 256},
+    "text_cfg": {"context_length": 77, "vocab_size": 49408,
+                 "width": 512, "heads": 8, "layers": 12},
+}))
+
+
+def _register_mobileclip_models() -> None:
+    """OpenCLIP's `model_configs/MobileCLIP-{B,S1,S2}.json`: MCi hybrid-ViT
+    and FastViT trunks whose classifier is the projection; the S1/S2 text
+    towers have no causal mask.  MobileCLIP trains without input
+    normalization: mean (0, 0, 0), std (1, 1, 1)."""
+    def register_mc(cfg):
+        register_model(dataclasses.replace(
+            cfg, image_mean=(0.0, 0.0, 0.0), image_std=(1.0, 1.0, 1.0)))
+
+    register_mc(config_from_open_clip_dict("MobileCLIP-B", {
+        "embed_dim": 512,
+        "vision_cfg": {"timm_model_name": "vit_base_mci_224",
+                       "timm_pool": "token", "timm_proj": None,
+                       "image_size": 224},
+        "text_cfg": {"context_length": 77, "vocab_size": 49408,
+                     "width": 512, "heads": 8, "layers": 12,
+                     "no_causal_mask": False},
+    }))
+    for name, trunk in (("MobileCLIP-S1", "fastvit_mci1"),
+                        ("MobileCLIP-S2", "fastvit_mci2")):
+        register_mc(config_from_open_clip_dict(name, {
+            "embed_dim": 512,
+            "vision_cfg": {"timm_model_name": trunk, "timm_pool": "avg",
+                           "timm_proj": None, "image_size": 256},
+            "text_cfg": {"context_length": 77, "vocab_size": 49408,
+                         "width": 512, "heads": 8, "layers": 12,
+                         "no_causal_mask": True},
+        }))
+    # test-size variants
+    from leaf_tpu_torch.models.mci import FastVitSpec, MciViTSpec
+    register_model(CLIPConfig(
+        name="mci-vit-tiny-test", embed_dim=64,
+        text=TextConfig(context_length=16, vocab_size=512, width=64,
+                        heads=2, layers=2, output_dim=64),
+        vision=VisionConfig(image_size=32, patch_size=16, width=32,
+                            layers=2, output_dim=64),
+        trunk=MciViTSpec(name="mci-vit-tiny", image_size=32, width=32,
+                         layers=2, heads=2, stem_channels=(8, 8, 32),
+                         stem_kernels=(4, 2, 2), output_dim=64)))
+    register_model(CLIPConfig(
+        name="fastvit-tiny-test", embed_dim=64,
+        text=TextConfig(context_length=16, vocab_size=512, width=64,
+                        heads=2, layers=2, output_dim=64),
+        vision=VisionConfig(image_size=32, patch_size=4, width=8,
+                            layers=4, output_dim=64),
+        trunk=FastVitSpec(name="fastvit-tiny", image_size=32,
+                          dims=(8, 16, 32, 64), depths=(1, 2, 2, 1),
+                          mlp_ratio=2.0, attn_head_dim=8,
+                          output_dim=64)))
+
+
+_register_mobileclip_models()

@@ -1,5 +1,5 @@
 """Model factory: name -> model, transforms and tokenizer (port of
-`leaf_tpu/models/factory.py` for CLIP-ViT and CoCa configs).
+`leaf_tpu/models/factory.py` for the ViT families, MobileCLIP and CoCa).
 
 Weights are made on the CPU, from the given checkpoint or from a seeded
 `torch.Generator` with the JAX package's init distributions, then moved
@@ -118,6 +118,21 @@ def local_checkpoint(path: Optional[str], flag: str = "--pretrained"
     return path or None
 
 
+def require_trainable(model_name: str) -> None:
+    """Refuse, before a trainer builds it, a model whose training is not
+    ported: a MobileCLIP trunk (its backward) or SigLIP's sigmoid loss with
+    the model's own logit bias (ROADMAP Queue 1 item 11 step 4)."""
+    if model_name in coca.COCA_CONFIGS:
+        return
+    cfg = get_model_config(model_name)
+    if cfg.trunk is not None or cfg.init_logit_bias is not None:
+        what = ("a MobileCLIP trunk" if cfg.trunk is not None
+                else "SigLIP's logit bias")
+        raise NotImplementedError(
+            f"training {model_name} ({what}) is not ported to "
+            "leaf_tpu_torch yet: ROADMAP Queue 1 item 11 step 4")
+
+
 def _adopt_activation(cfg: CLIPConfig, model_name: str, pretrained: str,
                       force_quick_gelu: bool) -> CLIPConfig:
     """The activation the checkpoint declares (`interop.
@@ -162,6 +177,10 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
     config's train-time `patch_dropout`.  `int8_mlp` stores every MLP
     weight as int8 with per-column scales (`models.quantize`), quantized
     from the fp32 weights before the cast to `precision`.
+
+    A config with a `trunk` (MobileCLIP) builds its vision tower through
+    `models/trunks.py`; one with `init_logit_bias` (SigLIP) has a
+    `logit_bias`.
 
     A CoCa name (`coca.COCA_CONFIGS`) gives a `CoCaModel`: fp32 weights
     that compute in `precision`, from `pretrained` (an OpenCLIP CoCa file)
@@ -222,10 +241,14 @@ def create_model_and_transforms(
                          device=device, master_weights=master_weights,
                          force_patch_dropout=force_patch_dropout,
                          int8_mlp=int8_mlp)
-    size = model.cfg.vision.image_size
-    preprocess = image_transform(size)
+    # the statistics the tower was trained on (MobileCLIP: none, SigLIP:
+    # 0.5); None is OpenAI CLIP's
+    size, mean, std = (model.cfg.vision.image_size, model.cfg.image_mean,
+                       model.cfg.image_std)
+    preprocess = image_transform(size, mean=mean, std=std)
     if aug_cfg:
-        return model, train_image_transform(size, aug_cfg=aug_cfg,
+        return model, train_image_transform(size, mean=mean, std=std,
+                                            aug_cfg=aug_cfg,
                                             seed=seed), preprocess
     return model, preprocess, preprocess
 
@@ -233,11 +256,23 @@ def create_model_and_transforms(
 @functools.lru_cache()
 def get_tokenizer(model_name: str = ""):
     """Tokenizer for a model name: the CLIP byte-BPE tokenizer, at the
-    model's text context (76 for CoCa, whose CLS fills slot 77).  A CoCa
-    config with an HF text tower raises: its tokenizer (`tokenizer/hf.py`)
-    is not ported."""
+    model's text context (76 for CoCa, whose CLS fills slot 77; 77 for the
+    CLIP families, MobileCLIP's included).  A config that names an HF
+    tokenizer (SigLIP's SentencePiece, CLIPA's BERT vocabulary) and a CoCa
+    config with an HF text tower raise: `tokenizer/hf.py`'s tokenizers and
+    their vocabularies are not ported (ROADMAP Queue 1 item 11 step 3)."""
     if model_name in coca.COCA_CONFIGS:
         cfg = coca.get_coca_config(model_name)
         coca.require_native_text(cfg)
         return _get_bpe(cfg.text.context_length)
+    try:
+        cfg = get_model_config(model_name) if model_name else None
+    except KeyError:
+        cfg = None
+    if cfg is not None and cfg.text.hf_tokenizer_name:
+        raise NotImplementedError(
+            f"{model_name}: its tokenizer is {cfg.text.hf_tokenizer_name!r}, "
+            "an HF tokenizer (tokenizer/hf.py), which is not ported to "
+            "leaf_tpu_torch yet, nor is its vocabulary in the repository: "
+            "ROADMAP Queue 1 item 11 step 3; encode token ids directly")
     return _get_bpe()

@@ -1,7 +1,9 @@
-"""Checkpoint interop (port of the CLIP-ViT parts of
-`leaf_tpu/models/interop.py`): HF `CLIPModel` and OpenCLIP state dicts
-to the port's state_dict and back to HF, the activation a checkpoint
-declares, and the position-grid resize.
+"""Checkpoint interop (port of `leaf_tpu/models/interop.py` for the
+families the port runs): HF `CLIPModel` and OpenCLIP state dicts to the
+port's state_dict and back to HF, the activation a checkpoint declares,
+and the position-grid resize.  OpenCLIP checkpoints with a timm trunk
+(`visual.trunk.*`: timm ViTs, SigLIP, MobileCLIP) and a `text.`-prefixed
+tower are routed as in the JAX package.
 
 Every converter returns the port's `state_dict`: a flat dict of fp32
 tensors named like the JAX pytree, with each tower's `[layers, ...]`
@@ -17,7 +19,10 @@ package:
     matmul weight [p*p*3, width] in (ph, pw, c) pixel order
     (`clip.patchify`);
   * HF splits the attention input projection into q, k and v; the port
-    keeps them fused as the column blocks of `attn.qkv_w` [D, 3D].
+    keeps them fused as the column blocks of `attn.qkv_w` [D, 3D];
+  * the JAX package's convolution kernels (MobileCLIP trunks) are HWIO;
+    the port's are OIHW (`models/mci.py`): `params_from_jax` transposes
+    every 4-D leaf of the vision tower.
 """
 from __future__ import annotations
 
@@ -59,17 +64,27 @@ def _leaf(x) -> np.ndarray:
     return a if np.issubdtype(a.dtype, np.integer) else _np(a)
 
 
+def _oihw(name: str, arr: np.ndarray) -> np.ndarray:
+    """A vision tower's 4-D leaf is a convolution kernel: the JAX
+    package's HWIO becomes the port's OIHW."""
+    return arr.transpose(3, 2, 0, 1) if (
+        arr.ndim == 4 and name.startswith("visual.")) else arr
+
+
 def params_from_jax(tree: Mapping[str, Any]) -> StateDict:
-    """The JAX package's parameter pytree (nested dicts of arrays) -> the
-    port's state_dict.  Leaves under a `blocks` key carry a leading layer
-    axis, which is un-stacked into `blocks.<i>.`.  An int8-quantized
-    pytree (`fc_w`/`proj_w` int8 beside their `_scale`) keeps its int8
-    leaves."""
+    """The JAX package's parameter pytree (nested dicts and lists of
+    arrays) -> the port's state_dict.  Leaves under a `blocks` key carry a
+    leading layer axis, which is un-stacked into `blocks.<i>.`; list items
+    become `<i>.`; the vision tower's convolution kernels go from HWIO to
+    OIHW (`_oihw`).  An int8-quantized pytree (`fc_w`/`proj_w` int8 beside
+    their `_scale`) keeps its int8 leaves."""
     out: StateDict = {}
 
     def leaves(node, prefix):
-        for k, v in node.items():
-            if isinstance(v, Mapping):
+        items = (node.items() if isinstance(node, Mapping)
+                 else enumerate(node))
+        for k, v in items:
+            if isinstance(v, (Mapping, list, tuple)):
                 yield from leaves(v, f"{prefix}{k}.")
             else:
                 yield f"{prefix}{k}", v
@@ -80,9 +95,9 @@ def params_from_jax(tree: Mapping[str, Any]) -> StateDict:
             arr = _leaf(value)
             for i in range(arr.shape[0]):
                 out[f"{head}blocks.{i}.{rest}"] = torch.from_numpy(
-                    np.array(arr[i], order="C", copy=True))
+                    np.array(_oihw(name, arr[i]), order="C", copy=True))
         else:
-            out[name] = _tensor(value)
+            out[name] = _tensor(_oihw(name, _leaf(value)))
     return out
 
 
@@ -252,37 +267,75 @@ def _openclip_blocks(sd: Mapping[str, Any], prefix: str, layers: int,
         out[dst + "mlp.proj_b"] = _tensor(sd[src + "mlp.c_proj.bias"])
 
 
+def _openclip_text(sd: Mapping[str, Any], cfg: CLIPConfig, tp: str,
+                   out: StateDict) -> None:
+    """The native text tower of an OpenCLIP state dict (its keys under
+    `tp`) -> `text.*`: a `text_projection` matrix, or a Linear projection
+    with its bias (SigLIP)."""
+    out["text.token_embedding"] = _tensor(sd[tp + "token_embedding.weight"])
+    out["text.positional_embedding"] = _tensor(sd[tp + "positional_embedding"])
+    _openclip_blocks(sd, tp + "transformer", cfg.text.layers, "text.blocks",
+                     out)
+    out["text.ln_final.scale"] = _tensor(sd[tp + "ln_final.weight"])
+    out["text.ln_final.bias"] = _tensor(sd[tp + "ln_final.bias"])
+    if tp + "text_projection.weight" in sd:
+        out["text.text_projection"] = _tensor(
+            _np(sd[tp + "text_projection.weight"]).T)
+        if tp + "text_projection.bias" in sd:
+            out["text.text_projection_bias"] = _tensor(
+                sd[tp + "text_projection.bias"])
+    else:
+        out["text.text_projection"] = _tensor(sd[tp + "text_projection"])
+
+
 def openclip_to_params(sd: Mapping[str, Any], cfg: CLIPConfig) -> StateDict:
-    """OpenCLIP `CLIP.state_dict()` (CLIP-ViT: ViT vision tower, native
-    text tower) -> the port's state_dict.  A `module.` prefix (DDP
-    training checkpoints) is dropped."""
+    """OpenCLIP `CLIP.state_dict()` or `CustomTextCLIP.state_dict()` -> the
+    port's state_dict, the vision tower detected from the keys: a timm
+    trunk (`visual.trunk.*`) goes through `trunks.from_timm` for a
+    MobileCLIP config and through `timm_vision.timm_vit_to_params` for a
+    ViT (its head, linear or MLP, from the keys); otherwise the CLIP ViT
+    (`visual.conv1.weight`; `ln_pre` only where the weights have it, as
+    CLIPA's do not).  The text tower may sit under `text.`; a
+    `logit_bias` (SigLIP) is carried.  A `module.` prefix (DDP training
+    checkpoints) is dropped; a ModifiedResNet checkpoint raises (ROADMAP
+    Queue 1 item 11)."""
     sd = {k[len("module."):] if k.startswith("module.") else k: v
           for k, v in sd.items()}
-    if "visual.conv1.weight" not in sd:
+    tp = "text." if "text.token_embedding.weight" in sd else ""
+    if any(k.startswith("visual.trunk.") for k in sd):
+        if cfg.trunk is not None:
+            from leaf_tpu_torch.models import trunks
+            visual = trunks.from_timm(sd, cfg.trunk)
+        else:
+            from leaf_tpu_torch.models.timm_vision import timm_vit_to_params
+            proj = "mlp" if any(k.startswith("visual.head.mlp.")
+                                for k in sd) else "linear"
+            visual = timm_vit_to_params(sd, cfg.vision, proj=proj)
+        out = params_from_jax({"visual": visual})
+    elif "visual.conv1.weight" in sd:
+        out = {}
+        conv = _np(sd["visual.conv1.weight"])             # [D, 3, p, p]
+        out["visual.patch_embedding"] = _tensor(
+            conv.transpose(2, 3, 1, 0).reshape(-1, conv.shape[0]))
+        out["visual.class_embedding"] = _tensor(sd["visual.class_embedding"])
+        out["visual.positional_embedding"] = _tensor(
+            sd["visual.positional_embedding"])
+        for ln in ("ln_pre", "ln_post"):
+            if f"visual.{ln}.weight" in sd:      # CLIPA has no ln_pre
+                out[f"visual.{ln}.scale"] = _tensor(sd[f"visual.{ln}.weight"])
+                out[f"visual.{ln}.bias"] = _tensor(sd[f"visual.{ln}.bias"])
+        _openclip_blocks(sd, "visual.transformer", cfg.vision.layers,
+                         "visual.blocks", out)
+        out["visual.proj"] = _tensor(sd["visual.proj"])
+    else:
         raise NotImplementedError(
-            "not an OpenCLIP CLIP-ViT state dict (no visual.conv1.weight); "
-            "ResNet, timm-trunk and custom-text checkpoints are not ported "
-            "to leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
-    out: StateDict = {}
-    conv = _np(sd["visual.conv1.weight"])             # [D, 3, p, p]
-    out["visual.patch_embedding"] = _tensor(
-        conv.transpose(2, 3, 1, 0).reshape(-1, conv.shape[0]))
-    out["visual.class_embedding"] = _tensor(sd["visual.class_embedding"])
-    out["visual.positional_embedding"] = _tensor(sd["visual.positional_embedding"])
-    for ln in ("ln_pre", "ln_post"):
-        out[f"visual.{ln}.scale"] = _tensor(sd[f"visual.{ln}.weight"])
-        out[f"visual.{ln}.bias"] = _tensor(sd[f"visual.{ln}.bias"])
-    _openclip_blocks(sd, "visual.transformer", cfg.vision.layers,
-                     "visual.blocks", out)
-    out["visual.proj"] = _tensor(sd["visual.proj"])
-
-    out["text.token_embedding"] = _tensor(sd["token_embedding.weight"])
-    out["text.positional_embedding"] = _tensor(sd["positional_embedding"])
-    _openclip_blocks(sd, "transformer", cfg.text.layers, "text.blocks", out)
-    out["text.ln_final.scale"] = _tensor(sd["ln_final.weight"])
-    out["text.ln_final.bias"] = _tensor(sd["ln_final.bias"])
-    out["text.text_projection"] = _tensor(sd["text_projection"])
+            "not an OpenCLIP ViT or timm-trunk state dict (no "
+            "visual.conv1.weight, no visual.trunk.*); ResNet checkpoints "
+            "are not ported to leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
+    _openclip_text(sd, cfg, tp, out)
     out["logit_scale"] = _tensor(_np(sd["logit_scale"]).reshape(()))
+    if "logit_bias" in sd:               # SigLIP's sigmoid-loss bias
+        out["logit_bias"] = _tensor(_np(sd["logit_bias"]).reshape(()))
     return out
 
 
@@ -395,10 +448,12 @@ def _resize_weights(n_in: int, n_out: int) -> torch.Tensor:
 def resize_vision_pos_embed(sd: StateDict, cfg: CLIPConfig) -> StateDict:
     """Resize a loaded ViT position-embedding grid to the config's
     resolution (cubic, antialiased, as `jax.image.resize(..., "cubic",
-    antialias=True)`; the class token passes through).  No-op when the
-    length already matches."""
+    antialias=True)`; the class token, where the tower has one, passes
+    through).  No-op when the length already matches, and for a trunk
+    (MobileCLIP), whose positions have their own conventions, as in the
+    JAX package."""
     pe = sd.get("visual.positional_embedding")
-    if pe is None:
+    if pe is None or cfg.trunk is not None:
         return sd
     grid = cfg.vision.image_size // cfg.vision.patch_size
     extra = 1 if "visual.class_embedding" in sd else 0

@@ -33,7 +33,10 @@
 // word against bank conflicts); each warp takes one query at a time, logits
 // through shared memory with one key per lane, the exact two-pass softmax,
 // then PV with each lane on its own columns.  It is bound by the fp32 FMA rate
-// and the shared-memory reads that feed it.
+// and the shared-memory reads that feed it.  Where the visible rows do not
+// fit in shared memory (a SigLIP-384 row: 729 keys of 72 columns take 420 KB)
+// the warps read K and V from global memory instead, through L1 and L2, and
+// shared memory holds only each warp's query and logits.
 #include <math.h>
 
 #include "attention_mma.cuh"
@@ -48,7 +51,10 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kQueryTile = 64;
 constexpr int kMaxHeadDim = 128;
+constexpr size_t kSmemLimit = 227 * 1024;  // dynamic shared memory of a block, sm_90
 
+// kStaged: K and V rows staged in shared memory (else read in place)
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 packed_attention_fp32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
                              int L, int n_heads, int head_dim, int group_len,
@@ -56,11 +62,6 @@ packed_attention_fp32_kernel(const float* __restrict__ qkv, float* __restrict__ 
   constexpr int kLaneCols = kMaxHeadDim / 32;  // PV columns per lane, at most
 
   extern __shared__ float smem[];
-  const int stride = head_dim + 1;  // padded row
-  float* ks = smem;
-  float* vs = ks + key_cap * stride;
-  float* scratch = vs + key_cap * stride;
-
   const int row = blockIdx.z, head = blockIdx.y;
   const int q0 = blockIdx.x * kQueryTile;
   const int q1 = min(q0 + kQueryTile, L);
@@ -72,13 +73,27 @@ packed_attention_fp32_kernel(const float* __restrict__ qkv, float* __restrict__ 
 
   const int qcol = head * head_dim;
   const int kcol = qcol + D, vcol = qcol + 2 * D;
-  for (int idx = threadIdx.x; idx < (k1 - k0) * head_dim; idx += kThreads) {
-    const int j = idx / head_dim, w = idx - j * head_dim;
-    const float* src = base + (size_t)(k0 + j) * ld;
-    ks[j * stride + w] = src[kcol + w];
-    vs[j * stride + w] = src[vcol + w];
+  // K and V rows from key k0 on: staged in shared memory (rows padded by one
+  // word), or read in place from qkv
+  const float* ks = base + (size_t)k0 * ld + kcol;
+  const float* vs = base + (size_t)k0 * ld + vcol;
+  size_t stride = ld;
+  float* scratch = smem;
+  if constexpr (kStaged) {
+    stride = head_dim + 1;
+    float* ks_s = smem;
+    float* vs_s = ks_s + key_cap * stride;
+    scratch = vs_s + key_cap * stride;
+    for (int idx = threadIdx.x; idx < (k1 - k0) * head_dim; idx += kThreads) {
+      const int j = idx / head_dim, w = idx - j * head_dim;
+      const float* src = base + (size_t)(k0 + j) * ld;
+      ks_s[j * stride + w] = src[kcol + w];
+      vs_s[j * stride + w] = src[vcol + w];
+    }
+    __syncthreads();
+    ks = ks_s;
+    vs = vs_s;
   }
-  __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* qf = scratch + warp * (head_dim + key_cap);  // this warp's query, fp32
@@ -144,16 +159,20 @@ cudaError_t launch_fp32(const float* qkv, float* out, int R, int L, int n_heads,
     key_range(q0, q1, L, group_len, causal, &k0, &k1);
     key_cap = k1 - k0 > key_cap ? k1 - k0 : key_cap;
   }
-  const size_t stride = head_dim + 1;
-  const size_t smem = sizeof(float) * (2 * key_cap * stride +
-                                       (size_t)kWarps * (head_dim + key_cap));
+  // the warps' queries and logits, and the staged K and V rows where they fit
+  const size_t scratch = sizeof(float) * (size_t)kWarps * (head_dim + key_cap);
+  const size_t rows = sizeof(float) * 2 * (size_t)key_cap * (head_dim + 1);
+  const bool staged = scratch + rows <= kSmemLimit;
+  const size_t smem = staged ? scratch + rows : scratch;
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  void (*kernel)(const float*, float*, int, int, int, int, int, int, float) =
+      staged ? packed_attention_fp32_kernel<true> : packed_attention_fp32_kernel<false>;
   cudaError_t err =
-      cudaFuncSetAttribute(packed_attention_fp32_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + kQueryTile - 1) / kQueryTile, n_heads, R);
-  packed_attention_fp32_kernel<<<grid, kThreads, smem, stream>>>(
-      qkv, out, L, n_heads, head_dim, group_len, causal, key_cap, scale);
+  kernel<<<grid, kThreads, smem, stream>>>(qkv, out, L, n_heads, head_dim, group_len,
+                                           causal, key_cap, scale);
   return cudaGetLastError();
 }
 

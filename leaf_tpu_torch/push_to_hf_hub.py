@@ -34,9 +34,10 @@ LOG = logging.getLogger("leaf_tpu_torch.push_to_hf_hub")
 
 def config_to_open_clip_dict(cfg: CLIPConfig) -> Dict[str, Any]:
     """CLIPConfig -> the `model_cfg` JSON schema of open_clip's
-    `model_configs/*.json`, for the CLIP-ViT configs of the port's
-    registry: only the keys that differ from open_clip's defaults, as
-    the JAX package writes them."""
+    `model_configs/*.json`, for the configs of the port's registry: only
+    the keys that differ from open_clip's defaults, as the JAX package
+    writes them (a trunk's config writes its placeholder ViT fields, as
+    there)."""
     v, t = cfg.vision, cfg.text
     vision: Dict[str, Any] = {
         "image_size": v.image_size, "patch_size": v.patch_size,
@@ -45,6 +46,14 @@ def config_to_open_clip_dict(cfg: CLIPConfig) -> Dict[str, Any]:
     }
     if v.patch_dropout:
         vision["patch_dropout"] = v.patch_dropout
+    # the CLIPA and SigLIP deltas, which config_from_open_clip_dict reads
+    if v.pool_type != "tok":
+        vision["pool_type"] = {"avg_patch": "avg"}.get(v.pool_type,
+                                                       v.pool_type)
+    if not v.ln_pre:
+        vision["no_ln_pre"] = True
+    if v.final_ln_after_pool:
+        vision["final_ln_after_pool"] = True
     if v.ln_eps != 1e-5:
         vision["norm_kwargs"] = {"eps": v.ln_eps}
     text: Dict[str, Any] = {
@@ -55,16 +64,26 @@ def config_to_open_clip_dict(cfg: CLIPConfig) -> Dict[str, Any]:
         text["mlp_ratio"] = t.mlp_ratio
     if t.pool_type != "argmax":
         text["pool_type"] = t.pool_type
+    if t.proj_bias:
+        text["proj_bias"] = True
     if t.no_causal_mask:
         text["no_causal_mask"] = True
+    if t.pad_id:
+        text["pad_id"] = t.pad_id
     if t.ln_eps != 1e-5:
         text["norm_kwargs"] = {"eps": t.ln_eps}
+    if t.hf_tokenizer_name:
+        text["hf_tokenizer_name"] = t.hf_tokenizer_name
+    if t.tokenizer_kwargs:
+        text["tokenizer_kwargs"] = dict(t.tokenizer_kwargs)
     d: Dict[str, Any] = {"embed_dim": cfg.embed_dim,
                          "vision_cfg": vision, "text_cfg": text}
     if cfg.quick_gelu:
         d["quick_gelu"] = True
     if cfg.init_logit_scale != 2.6592:
         d["init_logit_scale"] = cfg.init_logit_scale
+    if cfg.init_logit_bias is not None:
+        d["init_logit_bias"] = cfg.init_logit_bias
     return d
 
 
@@ -115,6 +134,14 @@ def generate_readme(model_card: Dict[str, Any], model_name: str) -> str:
     return "\n".join(out) + "\n"
 
 
+def preprocess_cfg(cfg: CLIPConfig) -> Dict[str, Any]:
+    """The hub config's `preprocess_cfg`: the statistics the model was
+    trained on (SigLIP 0.5, MobileCLIP 0 and 1), OpenAI CLIP's where the
+    config has none, so that the model reloads with them."""
+    return {"mean": list(cfg.image_mean or OPENAI_DATASET_MEAN),
+            "std": list(cfg.image_std or OPENAI_DATASET_STD)}
+
+
 def save_for_hub(sd: Mapping[str, torch.Tensor], cfg: CLIPConfig,
                  save_directory: str,
                  model_card: Optional[Dict[str, Any]] = None,
@@ -124,8 +151,7 @@ def save_for_hub(sd: Mapping[str, torch.Tensor], cfg: CLIPConfig,
     os.makedirs(save_directory, exist_ok=True)
     save_state_dict(params_to_openclip(sd, cfg), save_directory, "openclip")
     hub_cfg = {"model_cfg": config_to_open_clip_dict(cfg),
-               "preprocess_cfg": {"mean": list(OPENAI_DATASET_MEAN),
-                                  "std": list(OPENAI_DATASET_STD)}}
+               "preprocess_cfg": preprocess_cfg(cfg)}
     with open(os.path.join(save_directory, "open_clip_config.json"),
               "w") as f:
         json.dump(hub_cfg, f, indent=2)

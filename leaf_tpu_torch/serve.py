@@ -147,6 +147,9 @@ def main(argv=None):
     from leaf_tpu_torch.models.factory import (create_model_and_transforms,
                                                get_tokenizer)
 
+    # the tokenizer first: a config whose tokenizer is not ported refuses
+    # before its model is built
+    tokenizer = get_tokenizer(args.model) if args.texts else None
     model, _, preprocess = create_model_and_transforms(
         args.model, args.pretrained, precision=args.precision,
         device=args.device, int8_mlp=args.int8_mlp)
@@ -162,7 +165,6 @@ def main(argv=None):
     with torch.inference_mode():
         if args.texts:
             from leaf_tpu_torch.attacks.engine import bucket_tokens, can_bucket
-            tokenizer = get_tokenizer(args.model)
             with open(args.texts) as f:
                 texts = [line.rstrip("\n") for line in f if line.strip()]
             if not texts:

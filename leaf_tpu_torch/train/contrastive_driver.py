@@ -55,7 +55,8 @@ from leaf_tpu_torch.models.coca import (COCA_CONFIGS, get_coca_config,
                                         require_native_text)
 from leaf_tpu_torch.models.factory import (create_model,
                                            create_model_and_transforms,
-                                           get_tokenizer, local_checkpoint)
+                                           get_tokenizer, local_checkpoint,
+                                           require_trainable)
 from leaf_tpu_torch.models.loss import distill_clip_loss
 from leaf_tpu_torch.models.preprocess import AugmentationCfg, image_transform
 from leaf_tpu_torch.train import checkpoint as ckpt
@@ -182,6 +183,7 @@ def main(args=None) -> Dict:
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
     # the contrastive pipeline always random-resized-crops at train time;
     # parse() turns the flag's dict, possibly empty, into the default cfg
+    require_trainable(args.model)
     model, preprocess_train, preprocess_val = create_model_and_transforms(
         args.model, local_checkpoint(args.pretrained, "--pretrained"),
         precision=precision, seed=args.seed, device=device,

@@ -53,7 +53,8 @@ from leaf_tpu_torch.attacks.image import _normalize_images
 from leaf_tpu_torch.convert import params_to_openclip, save_state_dict
 from leaf_tpu_torch.data import get_data
 from leaf_tpu_torch.evals.zero_shot import zero_shot_eval
-from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+from leaf_tpu_torch.models.factory import (create_model, get_tokenizer,
+                                           require_trainable)
 from leaf_tpu_torch.models.preprocess import image_transform
 from leaf_tpu_torch.train import checkpoint as ckpt
 from leaf_tpu_torch.train.contrastive import evaluate_contrastive
@@ -172,6 +173,7 @@ def main(args=None) -> Dict:
 
     # model + frozen anchor tower -----------------------------------------
     precision = "bf16" if args.precision in ("bf16", "amp") else "fp32"
+    require_trainable(args.model)
     model = create_model(args.model, args.pretrained or None,
                          precision=precision, seed=args.seed, device=device,
                          master_weights=True)

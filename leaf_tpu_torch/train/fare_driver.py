@@ -35,7 +35,7 @@ import torch
 from leaf_tpu_torch.attacks.engine import CandidateScorer
 from leaf_tpu_torch.data.imagenet import get_imagenet
 from leaf_tpu_torch.models.factory import (create_model, get_tokenizer,
-                                           local_checkpoint)
+                                           local_checkpoint, require_trainable)
 from leaf_tpu_torch.models.preprocess import image_transform
 from leaf_tpu_torch.models.zero_shot import (build_zero_shot_classifier,
                                              imagenet_classnames,
@@ -136,6 +136,7 @@ def main(argv=None):
         raise ValueError("--resume only supports 'latest'")
     # fp32 master weights; the text tower (the classifier) computes in fp32
     # as the JAX driver's scorer does, the vision tower in --precision
+    require_trainable(args.model)
     model = create_model(args.model,
                          local_checkpoint(args.pretrained, "--pretrained"),
                          precision="fp32", seed=args.seed, device=args.device,

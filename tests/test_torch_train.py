@@ -578,6 +578,10 @@ def test_trainer_imports_no_jax():
         "import leaf_tpu_torch.train.contrastive_driver\n"
         "import leaf_tpu_torch.train.fare_driver\n"
         "import leaf_tpu_torch.models.coca, leaf_tpu_torch.models.coca_interop\n"
+        "import leaf_tpu_torch.models.mci, leaf_tpu_torch.models.trunks\n"
+        "import leaf_tpu_torch.models.timm_vision, leaf_tpu_torch.tokenizer.hf\n"
+        "from leaf_tpu_torch.models.config import get_model_config\n"
+        "get_model_config('MobileCLIP-S2'), get_model_config('siglip-tiny-test')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'flax', 'regex', 'PIL', 'leaf_tpu', "
         "'safetensors', 'orbax', 'nltk', 'datasets', 'h5py', 'sacrebleu', "
