@@ -268,7 +268,31 @@ Phases, each printing its own lines:
       fp32 attention kernel reads K and V in place), [128, 128, 1152] bf16 in
       groups of 64 not causal, [128, 197, 768] bf16 and [256, 77, 512] bf16
       not causal, and the block's GEMMs at those shapes; the sweep has heads
-      of 72, rows of 728-730 tokens and the non-causal text groups.
+      of 72, rows of 728-730 tokens and the non-causal text groups;
+  (s) the ModifiedResNet, ConvNeXt, EVA and ViTamin towers: first a tiny
+      ModifiedResNet (one bottleneck a stage, width 8, 64 px),
+      convnext-tiny-test, eva-tiny-test and vitamin-tiny-test in fp32, TF32
+      off, the card against the CPU from the same seeded weights (image and
+      text features within 1e-4); then at full width and depth, bf16,
+      random weights from seed 0: RN50 through `serve.main` (2,048 seeded
+      captions at batch 256, 256 seeded 224 x 224 `.npy` images at batch
+      128; cuDNN bottlenecks and the plain attention pool: no kernel launch
+      for images), and 128 of the images decoded already; convnext_base_w's
+      `encode_image` on 128 seeded 256 x 256 images at batch 64 (41
+      LayerNorm launches an encode, NHWC rows from 262,144 x 128 down) and
+      `encode_text` on 256 captions (D 640, 10 heads); EVA02-L-14 through
+      `serve.main --images` (128 at batch 64; plain rope attention, 97
+      LayerNorms an encode, `mlp.ln` at D 2730), then `encode_text` on 256
+      captions and a decoded batch of 64; ViTamin-L's `encode_image` on 128
+      at batch 64 (102 LayerNorms an encode, the stem's over 802,816 rows of
+      160) and `encode_text` on 256 captions.  Each part holds the kernels'
+      launches to its encodes (`_convnet_launches`), prints encodes/s,
+      seconds and peak memory, and holds its first 8 rows' bf16 features to
+      cosine >= 0.99 against the same model's fp32 ones on the card, TF32
+      off.  (c) has rows at the new shapes: both kernels and the LayerNorm
+      at [256, 77, 640] causal bf16, the block's GEMMs at 19,712 x 640 x
+      1920 and x 640, and the LayerNorm at 262,144 x 128, 16,448 x 2730
+      (and 2,056 x 2730 fp32) and 802,816 x 160.
 Any failure raises.  The line before the last is the kernels' JSON
 report (each kernel at its main-path shape; the line before it has the
 rows of every shape); the last is {"ok": true, "device": {...}}.  Without CUDA, or
@@ -355,6 +379,9 @@ SHAPES = [
     ("siglip_text_s64_bf16", 128, 128, 64, False, 1152, 16, "bfloat16"),
     ("mobileclip_b_vision_bf16", 128, 197, 197, False, 768, 12, "bfloat16"),
     ("mobileclip_s2_text_s77_bf16", 256, 77, 77, False, 512, 8, "bfloat16"),
+    # (s): convnext_base_w's text tower (and RN50x4's), D 640 in 10 heads of
+    # 64, a batch of 256 captions at bucket 77, causal
+    ("convnext_text_s77_bf16", 256, 77, 77, True, 640, 10, "bfloat16"),
 ]
 # (name, M, K, N) of the fused block's two GEMMs on the main path; the
 # out-projections run again with their residual
@@ -384,7 +411,10 @@ GEMM_SHAPES = [("s16 qkv", 32 * 128, 768, 2304), ("s16 out", 32 * 128, 768, 768)
                ("siglip text qkv", 128 * 128, 1152, 3456),
                ("siglip text out", 128 * 128, 1152, 1152),
                ("mobileclip-b vision qkv", 128 * 197, 768, 2304),
-               ("mobileclip-b vision out", 128 * 197, 768, 768)]
+               ("mobileclip-b vision out", 128 * 197, 768, 768),
+               # (s): the text tower at D 640, K 640 and N 1920
+               ("d640 text qkv", 256 * 77, 640, 1920),
+               ("d640 text out", 256 * 77, 640, 640)]
 # M = 3 rows of 77 tokens; N and K multiples of 8 and of no tile (64 k, 128
 # to 256 columns), one of them narrower than a single TMA box
 # the eval's fp32 vision GEMMs: the block's qkv and out projections
@@ -397,7 +427,16 @@ EVAL_FP32_GEMM_SHAPES = [("eval vision qkv fp32", 128 * 257, 1024, 3072),
 # (name, M, D, dtype name) of the LayerNorm op beyond SHAPES' rows: CoCa's
 # cached captioning step (q), one position of each of 64 images x 6 beams:
 # 73 LayerNorms a step, 2,117 of a beam-search batch's 2,157 at coca_ViT-L-14
-LN_SHAPES = [("coca_decode_step_fp32", 64 * 6, 768, "float32")]
+# and (s)'s towers, batches of 64 images: ConvNeXt's stem LN over 64 x 64
+# pixels of 128 channels (convnext_base_w at 256 px), EVA02-L's `mlp.ln` at
+# D 2730, no multiple of a 16-byte piece (the general kernel; also fp32 on
+# the parity slice of 8 images), ViTamin-L's stem LN over 112 x 112 pixels
+# of 160 channels
+LN_SHAPES = [("coca_decode_step_fp32", 64 * 6, 768, "float32"),
+             ("convnext_stem_bf16", 64 * 64 * 64, 128, "bfloat16"),
+             ("eva02_mlp_ln_bf16", 64 * 257, 2730, "bfloat16"),
+             ("eva02_mlp_ln_fp32", 8 * 257, 2730, "float32"),
+             ("vitamin_stem_bf16", 64 * 112 * 112, 160, "bfloat16")]
 RAGGED_GEMM_SHAPES = [("ragged 231x72x200", 231, 72, 200),
                       ("ragged 231x776x1096", 231, 776, 1096),
                       ("ragged 231x8x40", 231, 8, 40)]
@@ -4394,15 +4433,17 @@ def _zoo_launches(cfg, image=0, text=0):
 
 
 class _ZooPart:
-    """One part of (r) on the card: the kernels' counters zeroed and the
-    memory's peak reset on entry; on exit the counters held to
-    `_zoo_launches` of the part's encodes and added to the totals, its
-    seconds and peak memory kept."""
+    """One part of (r) or (s) on the card: the kernels' counters zeroed and
+    the memory's peak reset on entry; on exit the counters held to
+    `launches` (`_zoo_launches`, `_convnet_launches`) of the part's encodes
+    and added to the totals, its seconds and peak memory kept."""
 
     def __init__(self, counters, cfg, tag: str, image: int = 0,
-                 text: int = 0):
+                 text: int = 0, launches=None, phase: str = "r"):
         self.counters, self.cfg, self.tag = counters, cfg, tag
         self.image, self.text = image, text
+        self.expected = launches or _zoo_launches
+        self.phase = phase
 
     def __enter__(self):
         import torch
@@ -4420,13 +4461,14 @@ class _ZooPart:
         if exc_type is not None:
             return False
         self.peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        want = _zoo_launches(self.cfg, self.image, self.text)
+        want = self.expected(self.cfg, self.image, self.text)
         self.launches = {n: op.launches for n, op in self.counters.ops.items()}
-        say(f"(r) {self.tag}: {self.seconds:.2f} s, peak device memory "
-            f"{self.peak_gib:.2f} GiB; {self.image} image and {self.text} text "
-            f"encodes; launches {self.launches} = {want}")
+        say(f"({self.phase}) {self.tag}: {self.seconds:.2f} s, peak device "
+            f"memory {self.peak_gib:.2f} GiB; {self.image} image and "
+            f"{self.text} text encodes; launches {self.launches} = {want}")
         require(self.launches == want,
-                f"(r) {self.tag}: launches {self.launches}, {want} expected")
+                f"({self.phase}) {self.tag}: launches {self.launches}, {want} "
+                "expected")
         for name in want:
             self.counters.total[name] += want[name]
         return False
@@ -4436,12 +4478,12 @@ def _held_cosine(tag: str, low: np.ndarray, full: np.ndarray) -> float:
     """bf16 features against fp32 ones of the same rows: cosine >= 0.99
     per row."""
     require(low.shape == full.shape and np.isfinite(low).all(),
-            f"(r) {tag}: {low.shape} against {full.shape}")
+            f"{tag}: {low.shape} against {full.shape}")
     low = low.astype(np.float32)
     cos = float((np.sum(low * full, -1) / (np.linalg.norm(low, axis=-1)
                                           * np.linalg.norm(full, axis=-1))
                  ).min())
-    require(cos >= 0.99, f"(r) {tag}: bf16 vs fp32 min cosine {cos} < 0.99")
+    require(cos >= 0.99, f"{tag}: bf16 vs fp32 min cosine {cos} < 0.99")
     return cos
 
 
@@ -4609,8 +4651,8 @@ def phase_zoo(workdir: str):
             ref, np.asarray(get_tokenizer(ZOO_B)(caps[:n])),
             _preprocessed(images, cfg, n))
         out[f"{ZOO_B} cosine"] = [
-            _held_cosine(f"{ZOO_B} text", t_feats[:n], full_t),
-            _held_cosine(f"{ZOO_B} image", i_feats[:n], full_i)]
+            _held_cosine(f"(r) {ZOO_B} text", t_feats[:n], full_t),
+            _held_cosine(f"(r) {ZOO_B} image", i_feats[:n], full_i)]
         del ref
 
         # ---- MobileCLIP-S2: encode_image, encode_text ----------------------
@@ -4629,8 +4671,8 @@ def phase_zoo(workdir: str):
         ref = create_model(ZOO_S2, precision="fp32", seed=0, device="cuda")
         full_t, full_i = _features32(ref, tokens[:n], images[:n])
         out[f"{ZOO_S2} cosine"] = [
-            _held_cosine(f"{ZOO_S2} text", t_feats[:n], full_t),
-            _held_cosine(f"{ZOO_S2} image", i_feats[:n], full_i)]
+            _held_cosine(f"(r) {ZOO_S2} text", t_feats[:n], full_t),
+            _held_cosine(f"(r) {ZOO_S2} image", i_feats[:n], full_i)]
         del ref, images
 
         # ---- ViT-SO400M-14-SigLIP-384 ---------------------------------------
@@ -4656,13 +4698,302 @@ def phase_zoo(workdir: str):
         full_t, full_i = _features32(ref, ids[:n],
                                      _preprocessed(images, cfg, n))
         out[f"{ZOO_SIGLIP} cosine"] = [
-            _held_cosine(f"{ZOO_SIGLIP} text", t_feats[:n], full_t),
-            _held_cosine(f"{ZOO_SIGLIP} image", i_feats[:n], full_i)]
+            _held_cosine(f"(r) {ZOO_SIGLIP} text", t_feats[:n], full_t),
+            _held_cosine(f"(r) {ZOO_SIGLIP} image", i_feats[:n], full_i)]
         del ref
     finally:
         log.removeHandler(handler)
         shutil.rmtree(root, ignore_errors=True)
     say(f"(r) bf16 vs fp32 on the card, min cosine per part (text, image): "
+        f"{ {k: v for k, v in out.items() if k.endswith('cosine')} }")
+    return {path: c.total for path, c in counters.items()}, out
+
+
+# ---------------------------------------------------------------------------
+# (s) the convolutional and EVA towers: ModifiedResNet, ConvNeXt, EVA,
+# ViTamin
+# ---------------------------------------------------------------------------
+
+CONV_TINY = ("rn-tiny-smoke", "convnext-tiny-test", "eva-tiny-test",
+             "vitamin-tiny-test")
+CONV_RN, CONV_CONVNEXT, CONV_EVA, CONV_VITAMIN = (
+    "RN50", "convnext_base_w", "EVA02-L-14", "ViTamin-L")
+
+
+def _convnet_launches(cfg, image=0, text=0):
+    """Launches of each packed kernel and of the LayerNorm op for `image`
+    image and `text` text encodes of a ModifiedResNet, ConvNeXt, EVA or
+    ViTamin config, read from the JAX package's towers.  Text: a fused
+    block per layer, `ln_2` per layer and `ln_final`.  No vision tower here
+    packs: a ModifiedResNet launches nothing (BatchNorm, plain attention
+    pool); a ConvNeXt the stem's LN, each downsample's and each block's, and
+    `head_norm` (41 at convnext_base); an EVA `ln_1`, `ln_2` and, where it
+    has them, `ln_inner` and `mlp.ln` per block, and `ln_post` (97 at
+    EVA02-L); a ViTamin the stem's LN, each MBConv block's, the embedding's,
+    `ln_1`, `ln_2` and the MLP's per ViT block, and `fc_norm` (102 at
+    ViTamin-L)."""
+    from leaf_tpu_torch.models.eva import EvaVisionSpec
+    from leaf_tpu_torch.models.vitamin import ViTaminVisionSpec
+    t = cfg.trunk
+    if cfg.resnet is not None:
+        ln = 0
+    elif cfg.convnext is not None:
+        depths = cfg.convnext.depths
+        ln = 1 + (len(depths) - 1) + sum(depths) + 1
+    elif isinstance(t, EvaVisionSpec):
+        ln = t.layers * (2 + int(t.inner_attn_ln) + int(t.mlp_ln)) + 1
+    elif isinstance(t, ViTaminVisionSpec):
+        ln = 1 + sum(t.depths) + 1 + 3 * t.vit_depth + 1
+    else:
+        raise ValueError(f"{cfg.name}: not a tower of (s)")
+    packed = cfg.text.layers * text
+    return {"packed_attention": packed, "fused_attention_block": packed,
+            "layer_norm": ln * image + (cfg.text.layers + 1) * text}
+
+
+@contextlib.contextmanager
+def _tiny_resnet():
+    """`rn-tiny-smoke`, a ModifiedResNet CLIP at test size (one bottleneck
+    a stage, width 8, 64 px), in the registry for the block."""
+    from leaf_tpu_torch.models import config
+    c = config
+    config.register_model(c.CLIPConfig(
+        name="rn-tiny-smoke", embed_dim=64,
+        text=c.TextConfig(context_length=16, vocab_size=512, width=64,
+                          heads=2, layers=2, output_dim=64),
+        vision=c.VisionConfig(image_size=64, patch_size=32, width=128,
+                              layers=4, output_dim=64),
+        resnet=c.ResNetVisionSpec(layers=(1, 1, 1, 1), width=8,
+                                  image_size=64, output_dim=64)))
+    try:
+        yield
+    finally:
+        del config._REGISTRY["rn-tiny-smoke"]
+
+
+def phase_convnet_parity(workdir: str):
+    """(s) tiny: the ModifiedResNet of `_tiny_resnet`, convnext-tiny-test,
+    eva-tiny-test and vitamin-tiny-test in fp32, TF32 off, the card
+    (kernels, cuDNN) against the CPU (plain versions) from the same seeded
+    weights: image and text features within 1e-4; the card's launches
+    held to its encodes."""
+    import torch
+    from leaf_tpu_torch.evals.zero_shot import fp32_products
+    from leaf_tpu_torch.models.config import get_model_config
+    from leaf_tpu_torch.models.factory import create_model
+    counters, errs = _Counters(), {}
+    with _tiny_resnet():
+        for name in CONV_TINY:
+            cfg = get_model_config(name)
+            rng = np.random.default_rng(91)
+            size = cfg.vision.image_size
+            images = rng.standard_normal((4, size, size, 3)).astype(
+                np.float32)
+            tokens = rng.integers(1, cfg.text.vocab_size,
+                                  (8, cfg.text.context_length)).astype(
+                np.int32)
+            feats = {}
+            for device in ("cpu", "cuda"):
+                model = create_model(name, precision="fp32", seed=0,
+                                     device=device)
+                with fp32_products(), torch.inference_mode(), (
+                        _ZooPart(counters, cfg, f"tiny {name}", image=1,
+                                 text=1, launches=_convnet_launches,
+                                 phase="s")
+                        if device == "cuda" else contextlib.nullcontext()):
+                    feats[device] = [
+                        model.encode_image(images).float().cpu(),
+                        model.encode_text(tokens).float().cpu()]
+            errs[name] = max(float((a - b).abs().max())
+                             for a, b in zip(feats["cpu"], feats["cuda"]))
+            require(errs[name] <= 1e-4,
+                    f"(s) tiny {name}: card vs CPU max abs {errs[name]} > "
+                    "1e-4")
+    say(f"(s) tiny convnets, fp32, TF32 off, card vs CPU (image and text "
+        f"features): max abs {errs}")
+    return errs
+
+
+def phase_convnets(workdir: str):
+    """(s) at full width and depth, bf16, random weights from seed 0: RN50
+    through `serve.main` (2,048 seeded captions at batch 256, 256 seeded
+    224 x 224 `.npy` images at batch 128), then 128 of its images decoded
+    already, at batch 128; convnext_base_w's `encode_image` on 128 seeded
+    256 x 256 images at batch 64 and `encode_text` on 256 captions (D 640,
+    10 heads); EVA02-L-14 through `serve.main --images` (128 seeded 224 x
+    224 images at batch 64), then `encode_text` on 256 captions and a
+    decoded image batch of 64; ViTamin-L's `encode_image` on 128 seeded
+    224 x 224 images at batch 64 and `encode_text` on 256 captions.  Each
+    part holds the kernels' launches to its encodes (`_convnet_launches`;
+    serve: one warm-up batch and every batch; the batched encodes: one
+    warm-up batch and every batch), and its first rows' bf16 features to
+    cosine >= 0.99 against the same model's fp32 ones on the card, TF32
+    off."""
+    import torch
+    from leaf_tpu_torch import serve
+    from leaf_tpu_torch.models.config import get_model_config
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+    root = os.path.join(workdir, "s")
+    os.makedirs(root)
+    rng = np.random.default_rng(93)
+    counters = {"conv_rn50": _Counters(), "conv_convnext": _Counters(),
+                "conv_eva02": _Counters(), "conv_vitamin": _Counters()}
+    out = {}
+    handler = _Rates()
+    log = logging.getLogger("leaf_tpu_torch.serve")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    n = ZOO_PARITY_ROWS
+
+    def part(key, cfg, tag, **encodes):
+        return _ZooPart(counters[key], cfg, tag, launches=_convnet_launches,
+                        phase="s", **encodes)
+
+    def serve_part(key, name, cfg, flag, path, count, batch, kind):
+        batches = 1 + -(-count // batch)         # the warm-up batch and all
+        with part(key, cfg, f"{name} serve {flag}", **{kind: batches}) as p:
+            res = serve.main(["--model", name, flag, path, "--output",
+                              os.path.join(root, f"{key}_{kind}.npz"),
+                              "--batch-size", str(batch), "--precision",
+                              "bf16", "--device", "cuda"])
+        feats = res[f"{kind}_features"]
+        require(feats.shape == (count, cfg.embed_dim)
+                and np.isfinite(feats).all(),
+                f"(s) {name} {kind}: {feats.shape}")
+        np.testing.assert_allclose(np.linalg.norm(feats, axis=-1), 1.0,
+                                   atol=1e-2)
+        done, secs, rate = getattr(handler, kind)[-1]
+        row = {"seconds": p.seconds, "encodes_per_s": rate,
+               "window_s": secs, "peak_gib": p.peak_gib,
+               "launches": p.launches}
+        say(f"(s) {name} serve {kind}: {done} in {secs:.3f} s steady state, "
+            f"{rate:.1f} encodes/s; part {p.seconds:.2f} s (build, data, "
+            f"warm-up included), peak {p.peak_gib:.2f} GiB")
+        return feats, row
+
+    def batched(key, name, cfg, fn, x, bs, kind):
+        """A warm-up batch, then `x` in batches of `bs`, timed to the
+        features' copy to the host."""
+        with torch.inference_mode(), part(
+                key, cfg, f"{name} {kind} encodes",
+                **{kind: 1 + -(-len(x) // bs)}) as p:
+            fn(x[:bs], normalize=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats = np.concatenate([
+                fn(x[i:i + bs], normalize=True).float().cpu().numpy()
+                for i in range(0, len(x), bs)])
+            secs = time.perf_counter() - t0
+        require(feats.shape == (len(x), cfg.embed_dim)
+                and np.isfinite(feats).all(), f"(s) {name} {kind}")
+        row = {"encodes_per_s": len(x) / secs, "seconds": secs,
+               "batch": bs, "peak_gib": p.peak_gib, "launches": p.launches}
+        say(f"(s) {name} {kind}: {len(x)} at batch {bs} in {secs:.4f} s, "
+            f"{len(x) / secs:.1f} encodes/s, peak {p.peak_gib:.2f} GiB")
+        return feats, row
+
+    def held(name, pairs):
+        out[f"{name} cosine"] = [_held_cosine(f"(s) {name} {kind}", low, full)
+                                 for kind, low, full in pairs]
+
+    try:
+        # ---- RN50 through serve.main ---------------------------------------
+        cfg = get_model_config(CONV_RN)
+        caps = _captions(rng, 2048, 3, 20)
+        texts = os.path.join(root, "rn_captions.txt")
+        with open(texts, "w") as f:
+            f.write("\n".join(caps) + "\n")
+        images = _write_arrays(os.path.join(root, "rn_images"), rng, 256,
+                               cfg.vision.image_size)
+        t_feats, out[f"{CONV_RN} text"] = serve_part(
+            "conv_rn50", CONV_RN, cfg, "--texts", texts, 2048, 256, "text")
+        i_feats, out[f"{CONV_RN} image"] = serve_part(
+            "conv_rn50", CONV_RN, cfg, "--images", images, 256, 128, "image")
+        # the same images already decoded, on the device alone
+        model = create_model(CONV_RN, precision="bf16", seed=0, device="cuda")
+        _, out[f"{CONV_RN} image, decoded"] = batched(
+            "conv_rn50", CONV_RN, cfg, model.encode_image,
+            _preprocessed(images, cfg, 128), 128, "image")
+        del model
+        ref = create_model(CONV_RN, precision="fp32", seed=0, device="cuda")
+        full_t, full_i = _features32(
+            ref, np.asarray(get_tokenizer(CONV_RN)(caps[:n])),
+            _preprocessed(images, cfg, n))
+        held(CONV_RN, [("text", t_feats[:n], full_t),
+                       ("image", i_feats[:n], full_i)])
+        del ref
+
+        # ---- convnext_base_w: encode_image, encode_text ---------------------
+        cfg = get_model_config(CONV_CONVNEXT)
+        model = create_model(CONV_CONVNEXT, precision="bf16", seed=0,
+                             device="cuda")
+        size = cfg.vision.image_size
+        images = rng.standard_normal((128, size, size, 3)).astype(np.float32)
+        tokens = np.asarray(get_tokenizer(CONV_CONVNEXT)(
+            _captions(rng, 256, 3, 20)))
+        i_feats, out[f"{CONV_CONVNEXT} image"] = batched(
+            "conv_convnext", CONV_CONVNEXT, cfg, model.encode_image, images,
+            64, "image")
+        t_feats, out[f"{CONV_CONVNEXT} text"] = batched(
+            "conv_convnext", CONV_CONVNEXT, cfg, model.encode_text, tokens,
+            256, "text")
+        del model
+        ref = create_model(CONV_CONVNEXT, precision="fp32", seed=0,
+                           device="cuda")
+        full_t, full_i = _features32(ref, tokens[:n], images[:n])
+        held(CONV_CONVNEXT, [("text", t_feats[:n], full_t),
+                             ("image", i_feats[:n], full_i)])
+        del ref, images
+
+        # ---- EVA02-L-14 -----------------------------------------------------
+        cfg = get_model_config(CONV_EVA)
+        images = _write_arrays(os.path.join(root, "eva_images"), rng, 128,
+                               cfg.vision.image_size)
+        i_feats, out[f"{CONV_EVA} image"] = serve_part(
+            "conv_eva02", CONV_EVA, cfg, "--images", images, 128, 64, "image")
+        model = create_model(CONV_EVA, precision="bf16", seed=0,
+                             device="cuda")
+        tokens = np.asarray(get_tokenizer(CONV_EVA)(
+            _captions(rng, 256, 3, 20)))
+        t_feats, out[f"{CONV_EVA} text"] = batched(
+            "conv_eva02", CONV_EVA, cfg, model.encode_text, tokens, 256,
+            "text")
+        _, out[f"{CONV_EVA} image, decoded"] = batched(
+            "conv_eva02", CONV_EVA, cfg, model.encode_image,
+            _preprocessed(images, cfg, 64), 64, "image")
+        del model
+        ref = create_model(CONV_EVA, precision="fp32", seed=0, device="cuda")
+        full_t, full_i = _features32(ref, tokens[:n],
+                                     _preprocessed(images, cfg, n))
+        held(CONV_EVA, [("text", t_feats[:n], full_t),
+                        ("image", i_feats[:n], full_i)])
+        del ref
+
+        # ---- ViTamin-L: encode_image, encode_text --------------------------
+        cfg = get_model_config(CONV_VITAMIN)
+        model = create_model(CONV_VITAMIN, precision="bf16", seed=0,
+                             device="cuda")
+        size = cfg.vision.image_size
+        images = rng.standard_normal((128, size, size, 3)).astype(np.float32)
+        tokens = np.asarray(get_tokenizer(CONV_VITAMIN)(
+            _captions(rng, 256, 3, 20)))
+        i_feats, out[f"{CONV_VITAMIN} image"] = batched(
+            "conv_vitamin", CONV_VITAMIN, cfg, model.encode_image, images, 64,
+            "image")
+        t_feats, out[f"{CONV_VITAMIN} text"] = batched(
+            "conv_vitamin", CONV_VITAMIN, cfg, model.encode_text, tokens, 256,
+            "text")
+        del model
+        ref = create_model(CONV_VITAMIN, precision="fp32", seed=0,
+                           device="cuda")
+        full_t, full_i = _features32(ref, tokens[:n], images[:n])
+        held(CONV_VITAMIN, [("text", t_feats[:n], full_t),
+                            ("image", i_feats[:n], full_i)])
+        del ref, images
+    finally:
+        log.removeHandler(handler)
+        shutil.rmtree(root, ignore_errors=True)
+    say(f"(s) bf16 vs fp32 on the card, min cosine per part: "
         f"{ {k: v for k, v in out.items() if k.endswith('cosine')} }")
     return {path: c.total for path, c in counters.items()}, out
 
@@ -4742,6 +5073,9 @@ def main() -> int:
         coca_launches, coca_runs = _timed("q", phase_coca, workdir)
         zoo_parity = _timed("r parity", phase_zoo_parity, workdir)
         zoo_launches, zoo_runs = _timed("r", phase_zoo, workdir)
+        conv_parity = _timed("s parity", phase_convnet_parity, workdir)
+        conv_launches, conv_runs = _timed("s", phase_convnets, workdir)
+        zoo_launches = {**zoo_launches, **conv_launches}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -4846,7 +5180,8 @@ def main() -> int:
                       "benchmark": bench_runs, "t2i_parity": t2i_parity,
                       "t2i": t2i_runs, "coca_parity": coca_parity,
                       "coca": coca_runs, "zoo_parity": zoo_parity,
-                      "zoo": zoo_runs}, default=float))
+                      "zoo": zoo_runs, "convnets_parity": conv_parity,
+                      "convnets": conv_runs}, default=float))
     # every shape's row (ms, plain_ms, library_ms, bound_ms, bound_by,
     # max_abs_err) on a line of its own, so that the kernels line stays
     # short enough to read whole from the end of a captured output

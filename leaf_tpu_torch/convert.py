@@ -16,8 +16,10 @@ Against the JAX package: the HF directory is written here, not by
 `transformers` (which the card machine lacks): `config.json` holds the
 configuration `transformers.CLIPModel.from_pretrained` reads, and
 `model.safetensors` the weights, through the port's own safetensors
-writer.  The ResNet and ConvNeXt towers are not ported (ROADMAP Queue 1
-item 11).
+writer.  A ModifiedResNet or ConvNeXt model exports to OpenCLIP's keys
+(ConvNeXt's with timm's spellings); `--to hf` refuses them, because
+`transformers`' CLIPModel has no such vision tower, as the JAX package
+refuses them.
 """
 from __future__ import annotations
 
@@ -39,22 +41,28 @@ def params_to_openclip(sd: Mapping[str, torch.Tensor],
     """The port's `CLIP.state_dict()` -> OpenCLIP state dict (fp32 CPU
     tensors, contiguous): the reverse of `interop.openclip_to_params`.
     `nn.Linear` weights are [out, in] there, so every matmul weight is
-    transposed back.  The CLIP-ViT towers only: the zoo's other parts
-    (MobileCLIP trunks, no class token or `ln_pre`, the SigLIP head, timm
-    heads, projection biases, `logit_bias`) raise (ROADMAP Queue 1 item
-    11)."""
-    other = [k for k in ("visual.patch_bias", "visual.proj_bias",
-                         "text.text_projection_bias", "logit_bias")
+    transposed back.  The CLIP-ViT, ModifiedResNet and ConvNeXt towers
+    (the latter two with the text tower at the top level, as the JAX
+    package writes them); the zoo's other parts (timm trunks, no class
+    token or `ln_pre`, the SigLIP head, timm heads, projection biases,
+    `logit_bias`) raise (ROADMAP Queue 1 item 11)."""
+    other = [k for k in ("text.text_projection_bias", "logit_bias")
              if k in sd]
-    other += [k for k in ("visual.class_embedding", "visual.ln_pre.scale",
-                          "visual.proj") if k not in sd]
-    other += sorted({k.split(".")[1] for k in sd
-                     if k.startswith(("visual.attn_pool.", "visual.head_mlp."))})
-    if cfg.trunk is not None or other:
-        what = ", ".join(other) if other else "a MobileCLIP trunk"
+    if cfg.trunk is not None:
+        other.insert(0, f"a {type(cfg.trunk).__name__} trunk")
+    elif cfg.resnet is None and cfg.convnext is None:
+        other += [k for k in ("visual.patch_bias", "visual.proj_bias")
+                  if k in sd]
+        other += [k for k in ("visual.class_embedding",
+                              "visual.ln_pre.scale", "visual.proj")
+                  if k not in sd]
+        other += sorted({k.split(".")[1] for k in sd if k.startswith(
+            ("visual.attn_pool.", "visual.head_mlp."))})
+    if other:
         raise NotImplementedError(
-            f"{cfg.name}: the OpenCLIP export of this tower ({what}) is not "
-            "ported to leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
+            f"{cfg.name}: the OpenCLIP export of this tower "
+            f"({', '.join(other)}) is not ported to leaf_tpu_torch yet: "
+            "ROADMAP Queue 1 item 11")
     out: Dict[str, torch.Tensor] = {}
 
     def put(key: str, value: torch.Tensor, transpose: bool = False) -> None:
@@ -68,19 +76,27 @@ def params_to_openclip(sd: Mapping[str, torch.Tensor],
     put("text_projection", sd["text.text_projection"])
     put("logit_scale", sd["logit_scale"])
 
-    p = cfg.vision.patch_size
-    conv = sd["visual.patch_embedding"].reshape(p, p, 3, cfg.vision.width)
-    put("visual.conv1.weight", conv.permute(3, 2, 0, 1))
-    put("visual.class_embedding", sd["visual.class_embedding"])
-    put("visual.positional_embedding", sd["visual.positional_embedding"])
-    for ln in ("ln_pre", "ln_post"):
-        put(f"visual.{ln}.weight", sd[f"visual.{ln}.scale"])
-        put(f"visual.{ln}.bias", sd[f"visual.{ln}.bias"])
-    put("visual.proj", sd["visual.proj"])
+    towers = [("text", "transformer", cfg.text.layers)]
+    if cfg.resnet is not None:
+        from leaf_tpu_torch.models.resnet import params_to_openclip_resnet
+        out.update(params_to_openclip_resnet(sd))
+    elif cfg.convnext is not None:
+        from leaf_tpu_torch.models.convnext import params_to_timm_convnext
+        out.update(params_to_timm_convnext(sd, cfg.convnext))
+    else:
+        p = cfg.vision.patch_size
+        conv = sd["visual.patch_embedding"].reshape(p, p, 3,
+                                                    cfg.vision.width)
+        put("visual.conv1.weight", conv.permute(3, 2, 0, 1))
+        put("visual.class_embedding", sd["visual.class_embedding"])
+        put("visual.positional_embedding", sd["visual.positional_embedding"])
+        for ln in ("ln_pre", "ln_post"):
+            put(f"visual.{ln}.weight", sd[f"visual.{ln}.scale"])
+            put(f"visual.{ln}.bias", sd[f"visual.{ln}.bias"])
+        put("visual.proj", sd["visual.proj"])
+        towers.append(("visual", "visual.transformer", cfg.vision.layers))
 
-    for tower, prefix, n_layers in (
-            ("text", "transformer", cfg.text.layers),
-            ("visual", "visual.transformer", cfg.vision.layers)):
+    for tower, prefix, n_layers in towers:
         for i in range(n_layers):
             src, dst = f"{tower}.blocks.{i}.", f"{prefix}.resblocks.{i}."
             put(dst + "attn.in_proj_weight", sd[src + "attn.qkv_w"], True)
@@ -95,6 +111,17 @@ def params_to_openclip(sd: Mapping[str, torch.Tensor],
             put(dst + "mlp.c_proj.weight", sd[src + "mlp.proj_w"], True)
             put(dst + "mlp.c_proj.bias", sd[src + "mlp.proj_b"])
     return out
+
+
+def require_hf_exportable(cfg: CLIPConfig) -> None:
+    """`transformers`' CLIPModel has a ViT vision tower only: refuse a
+    ModifiedResNet or ConvNeXt model, as the JAX package does."""
+    if cfg.resnet is not None or cfg.convnext is not None:
+        raise ValueError(
+            f"{cfg.name}: transformers' CLIPModel has no "
+            f"{'ModifiedResNet' if cfg.resnet else 'ConvNeXt'} vision "
+            "tower (the HF export requires a ViT tower); export with --to "
+            "openclip instead")
 
 
 def hf_config_dict(cfg: CLIPConfig) -> Dict[str, Any]:
@@ -145,6 +172,7 @@ def save_hf_pretrained(sd: Mapping[str, torch.Tensor], cfg: CLIPConfig,
     """Write an HF model directory (`config.json` + `model.safetensors`)
     that `transformers.CLIPModel.from_pretrained(output_dir)` loads;
     returns the directory."""
+    require_hf_exportable(cfg)
     hf = interop.params_to_hf(sd, cfg)
     if verify:
         verify_parity(sd, cfg, hf, "hf", device=device)
@@ -207,11 +235,9 @@ def main(argv=None) -> str:
         raise RuntimeError(f"device {device} requested but CUDA is not "
                            "available")
 
-    if args.model.startswith("RN") or "convnext" in args.model.lower():
-        raise NotImplementedError(
-            f"{args.model}: ResNet and ConvNeXt towers are not ported to "
-            "leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
     cfg = get_model_config(args.model)
+    if args.to == "hf":
+        require_hf_exportable(cfg)
     sd = interop.load_pretrained(args.input, cfg)
     if args.to == "hf":
         path = save_hf_pretrained(sd, cfg, args.output, verify=args.verify,

@@ -28,8 +28,12 @@ the head, which is whatever the weights carry, as in the JAX package: a
 projection with an optional bias, timm's MLP head (`head_mlp`), or none
 (features at the trunk's width).  Images are NHWC, and the patch
 embedding is a reshape plus one matmul (the stride-p conv of OpenCLIP,
-`patchify`).  A config with a `trunk` (MobileCLIP) builds its vision tower
-through `models/trunks.py` instead.
+`patchify`).  The other towers are built from the config, as the JAX
+package's `init_clip` and `encode_image_model` dispatch: a ModifiedResNet
+where `cfg.resnet` is set (`models/resnet.py`), a ConvNeXt where
+`cfg.convnext` is (`models/convnext.py`), and a timm trunk (MobileCLIP,
+EVA, ViTamin) where `cfg.trunk` is, through `models/trunks.py`; each has
+the same `encode_image`.
 
 Train-time patch dropout keeps the class token, where the tower has one,
 and a random subset of the patch tokens after the positional embedding
@@ -423,7 +427,13 @@ class CLIP(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.text = TextTower(cfg.text, cfg.quick_gelu)
-        if cfg.trunk is not None:
+        if cfg.resnet is not None:
+            from leaf_tpu_torch.models.resnet import ModifiedResNet
+            self.visual = ModifiedResNet(cfg.resnet)
+        elif cfg.convnext is not None:
+            from leaf_tpu_torch.models.convnext import ConvNeXt
+            self.visual = ConvNeXt(cfg.convnext)
+        elif cfg.trunk is not None:
             from leaf_tpu_torch.models import trunks
             self.visual = trunks.build(cfg.trunk)
         else:

@@ -4,15 +4,21 @@ The same frozen dataclasses and, for the families the port runs, the same
 registry entries: the plain ViTs (`ViT-tiny-test`, ViT-S/M/B/L/H/g/bigG/e
 and their `-quickgelu` variants), SigLIP (`ViT-*-SigLIP*`,
 `siglip-tiny-test`), CLIPA (`ViT-*-CLIPA*`), the timm gap-ViT
-(`vit_medium_patch16_gap_256`) and MobileCLIP (`MobileCLIP-{B,S1,S2}`,
-`mci-vit-tiny-test`, `fastvit-tiny-test`), registered through
-`config_from_open_clip_dict` as in the JAX package.
+(`vit_medium_patch16_gap_256`), MobileCLIP (`MobileCLIP-{B,S1,S2}`,
+`mci-vit-tiny-test`, `fastvit-tiny-test`), OpenAI's ModifiedResNets
+(`RN50`, `RN101`, `RN50x4`, their `-quickgelu` variants, `RN50x16`,
+`RN50x64`), ConvNeXt (`convnext_*`, `convnext-tiny-test`), EVA
+(`EVA01-*`, `EVA02-*`, `eva-tiny-test`) and ViTamin (`ViTamin-*`,
+`vitamin-tiny-test`), registered through `config_from_open_clip_dict` as
+in the JAX package.
 
-The other families of the JAX registry (ModifiedResNet, ConvNeXt, EVA,
-Swin, RelPos-ViT, ViTamin and the HF text towers) are not ported:
-`get_model_config` raises a `KeyError` that names them and ROADMAP Queue 1
-item 11.  A config's `trunk` is a MobileCLIP spec (`models/mci.py`,
-dispatched by `models/trunks.py`) or None for a ViT tower.
+The other families of the JAX registry (Swin, RelPos-ViT and the HF text
+towers) are not ported: `get_model_config` raises a `KeyError` that names
+them and ROADMAP Queue 1 item 11.  A config's vision tower is a
+ModifiedResNet where `resnet` is set (`models/resnet.py`), a ConvNeXt
+where `convnext` is (`models/convnext.py`), a timm trunk where `trunk` is
+(MobileCLIP, EVA, ViTamin: a spec of `models/{mci,eva,vitamin}.py`,
+dispatched by `models/trunks.py`), and the ViT tower otherwise.
 """
 from __future__ import annotations
 
@@ -85,6 +91,20 @@ class VisionConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ResNetVisionSpec:
+    """ModifiedResNet tower spec (OpenCLIP's `model_configs/RN50*.json`:
+    the vision layers given as a 4-tuple)."""
+    layers: Tuple[int, ...] = (3, 4, 6, 3)
+    width: int = 64
+    image_size: int = 224
+    output_dim: int = 1024
+
+    @property
+    def heads(self) -> int:
+        return self.width * 32 // 64
+
+
+@dataclasses.dataclass(frozen=True)
 class CLIPConfig:
     name: str
     embed_dim: int
@@ -93,10 +113,13 @@ class CLIPConfig:
     quick_gelu: bool = False       # OpenAI-pretrained towers use QuickGELU
     init_logit_scale: float = 2.6592  # ln(1/0.07)
     init_logit_bias: Optional[float] = None   # SigLIP's sigmoid-loss bias
+    resnet: Optional[ResNetVisionSpec] = None  # set: a ModifiedResNet tower
+    # set: a ConvNeXt tower (a `models.convnext.ConvNeXtVisionSpec`)
+    convnext: Optional[object] = None
     # the statistics the tower was trained on; None: OpenAI CLIP's
     image_mean: Optional[Tuple[float, float, float]] = None
     image_std: Optional[Tuple[float, float, float]] = None
-    # a MobileCLIP trunk spec (`models/mci.py`); None: the ViT tower
+    # a timm trunk spec (MobileCLIP, EVA, ViTamin: `models/trunks.py`)
     trunk: Optional[object] = None
 
 
@@ -146,14 +169,38 @@ for base in ["ViT-B-32", "ViT-B-16", "ViT-L-14", "ViT-L-14-336"]:
     _REGISTRY[base + "-quickgelu"] = dataclasses.replace(
         _REGISTRY[base], name=base + "-quickgelu", quick_gelu=True)
 
+
+def _register_resnet_models() -> None:
+    """OpenCLIP's `model_configs/RN50*.json` and `RN101.json`: the
+    ModifiedResNet towers.  OpenAI's RN checkpoints use QuickGELU: RN50x16
+    and RN50x64 are registered with it, the others also as `-quickgelu`
+    variants."""
+    for name, layers, width, image, embed, t_width, t_heads, t_layers in [
+        ("RN50", (3, 4, 6, 3), 64, 224, 1024, 512, 8, 12),
+        ("RN101", (3, 4, 23, 3), 64, 224, 512, 512, 8, 12),
+        ("RN50x4", (4, 6, 10, 6), 80, 288, 640, 640, 10, 12),
+        ("RN50x16", (6, 8, 18, 8), 96, 384, 768, 768, 12, 12),
+        ("RN50x64", (3, 15, 36, 10), 128, 448, 1024, 1024, 16, 12),
+    ]:
+        quick_gelu = name in ("RN50x16", "RN50x64")
+        register_model(CLIPConfig(
+            name=name, embed_dim=embed, quick_gelu=quick_gelu,
+            text=TextConfig(width=t_width, heads=t_heads, layers=t_layers,
+                            output_dim=embed),
+            vision=VisionConfig(image_size=image, patch_size=32,
+                                width=width * 16, layers=sum(layers),
+                                output_dim=embed),
+            resnet=ResNetVisionSpec(layers=layers, width=width,
+                                    image_size=image, output_dim=embed)))
+        if not quick_gelu:
+            register_model(dataclasses.replace(
+                _REGISTRY[name], name=name + "-quickgelu", quick_gelu=True))
+
+
 # name prefixes of the JAX registry's families that the port does not run
 _NOT_PORTED = (
-    (("RN",), "a ModifiedResNet tower (models/resnet.py)"),
-    (("convnext",), "a ConvNeXt tower (models/convnext.py)"),
-    (("EVA", "eva-"), "an EVA tower (models/eva.py)"),
     (("swin",), "a Swin tower (models/swin.py)"),
     (("vit_relpos", "relpos-"), "a RelPos-ViT tower (models/relpos_vit.py)"),
-    (("ViTamin", "vitamin-"), "a ViTamin tower (models/vitamin.py)"),
     (("roberta-", "xlm-roberta-", "mt5-", "nllb-clip"),
      "an HF text tower (models/hf_text.py)"),
 )
@@ -180,29 +227,30 @@ def register_model(config: CLIPConfig) -> None:
     _REGISTRY[config.name] = config
 
 
+_register_resnet_models()
+
+
 def config_from_open_clip_dict(name: str, d: dict) -> CLIPConfig:
     """A CLIPConfig from an OpenCLIP model-config dict (the schema of
     OpenCLIP's `model_configs/*.json` and of a hub checkpoint's
     `open_clip_config.json` `model_cfg`), for the keys of the families
-    the port runs: a plain ViT, a timm ViT trunk or a MobileCLIP trunk,
-    and the native text tower.  ResNet layer lists, other timm trunks and
-    HF text towers raise (ROADMAP Queue 1 item 11)."""
+    the port runs: a plain ViT, a ModifiedResNet (vision `layers` a list),
+    a ConvNeXt, a timm ViT trunk or a timm trunk family (MobileCLIP, EVA,
+    ViTamin), and the native text tower.  Other timm trunks and HF text
+    towers raise (ROADMAP Queue 1 item 11)."""
     v = dict(d.get("vision_cfg", {}))
     t = dict(d.get("text_cfg", {}))
     embed = d["embed_dim"]
-    trunk = None
+    resnet = convnext = trunk = None
     if t.get("hf_model_name"):
         raise NotImplementedError(
             f"{name}: HF text towers (models/hf_text.py) are not ported to "
             "leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
-    if isinstance(v.get("layers"), (list, tuple)):
-        raise NotImplementedError(
-            f"{name}: ModifiedResNet towers (models/resnet.py) are not "
-            "ported to leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
-    if v.get("timm_model_name"):
+    timm_name = v.get("timm_model_name")
+    if timm_name:
         from leaf_tpu_torch.models.trunks import spec_for_timm_name
         trunk = spec_for_timm_name(
-            v["timm_model_name"], embed, image_size=v.get("image_size"),
+            timm_name, embed, image_size=v.get("image_size"),
             pool=v.get("timm_pool", "avg"), proj=v.get("timm_proj", "linear"))
     if trunk is not None:
         # a placeholder ViT config that carries image_size and output_dim
@@ -211,11 +259,26 @@ def config_from_open_clip_dict(name: str, d: dict) -> CLIPConfig:
                               width=getattr(trunk, "width", 768),
                               layers=getattr(trunk, "layers", 12),
                               output_dim=embed)
-    elif v.get("timm_model_name"):
+    elif str(timm_name).startswith("convnext"):
+        from leaf_tpu_torch.models.convnext import convnext_spec
+        convnext = convnext_spec(
+            timm_name, embed, image_size=v.get("image_size", 256),
+            proj=v.get("timm_proj", "linear") or "none")
+        vision = VisionConfig(image_size=convnext.image_size, patch_size=32,
+                              width=convnext.dims[-1],
+                              layers=sum(convnext.depths), output_dim=embed)
+    elif timm_name:
         from leaf_tpu_torch.models.timm_vision import timm_vision_config
         vision = timm_vision_config(
-            v["timm_model_name"], embed, image_size=v.get("image_size"),
+            timm_name, embed, image_size=v.get("image_size"),
             pool=v.get("timm_pool", "avg"), proj=v.get("timm_proj", "linear"))
+    elif isinstance(v.get("layers"), (list, tuple)):
+        width, image_size = v.get("width", 64), v.get("image_size", 224)
+        resnet = ResNetVisionSpec(layers=tuple(v["layers"]), width=width,
+                                  image_size=image_size, output_dim=embed)
+        vision = VisionConfig(image_size=image_size, patch_size=32,
+                              width=width * 16, layers=sum(v["layers"]),
+                              output_dim=embed)
     else:
         vision = VisionConfig(
             image_size=v.get("image_size", 224),
@@ -252,7 +315,8 @@ def config_from_open_clip_dict(name: str, d: dict) -> CLIPConfig:
     return CLIPConfig(name=name, embed_dim=embed, text=text, vision=vision,
                       quick_gelu=bool(d.get("quick_gelu", False)),
                       init_logit_scale=d.get("init_logit_scale", 2.6592),
-                      init_logit_bias=d.get("init_logit_bias"), trunk=trunk)
+                      init_logit_bias=d.get("init_logit_bias"),
+                      resnet=resnet, convnext=convnext, trunk=trunk)
 
 
 # -- SigLIP-family models -----------------------------------------------------
@@ -482,3 +546,135 @@ def _register_mobileclip_models() -> None:
 
 
 _register_mobileclip_models()
+
+
+def _register_convnext_models() -> None:
+    """OpenCLIP's `model_configs/convnext_*.json`: timm ConvNeXt trunks
+    with the trunk's own average pool and head norm (`timm_pool: ""`) and
+    OpenCLIP's linear or MLP projection head."""
+    for name, trunk, embed, image, proj, tw, th, tl in [
+        ("convnext_base", "convnext_base", 512, 224, "linear", 512, 8, 12),
+        ("convnext_base_w", "convnext_base", 640, 256, "linear", 640, 10, 12),
+        ("convnext_base_w_320", "convnext_base", 640, 320, "linear", 640, 10,
+         12),
+        ("convnext_large_d", "convnext_large", 768, 256, "mlp", 768, 12, 16),
+        ("convnext_large_d_320", "convnext_large", 768, 320, "mlp", 768, 12,
+         16),
+        ("convnext_xxlarge", "convnext_xxlarge", 1024, 256, "linear", 1024,
+         16, 24),
+        ("convnext_tiny", "convnext_tiny", 1024, 224, "linear", 512, 8, 12),
+        ("convnext_small", "convnext_small", 512, 224, "linear", 512, 8, 12),
+        ("convnext_large", "convnext_large", 768, 224, "linear", 768, 12, 12),
+        ("convnext_xlarge", "convnext_xlarge", 1024, 256, "linear", 1024, 16,
+         20),
+        ("convnext_xxlarge_320", "convnext_xxlarge", 1024, 320, "linear",
+         1024, 16, 24),
+    ]:
+        register_model(config_from_open_clip_dict(name, {
+            "embed_dim": embed,
+            "vision_cfg": {"timm_model_name": trunk, "timm_pool": "",
+                           "timm_proj": proj, "image_size": image},
+            "text_cfg": {"context_length": 77, "vocab_size": 49408,
+                         "width": tw, "heads": th, "layers": tl},
+        }))
+    # test-size variant
+    from leaf_tpu_torch.models.convnext import ConvNeXtVisionSpec
+    register_model(CLIPConfig(
+        name="convnext-tiny-test", embed_dim=64,
+        text=TextConfig(context_length=16, width=64, heads=2, layers=2,
+                        output_dim=64),
+        vision=VisionConfig(image_size=64, patch_size=32, width=128,
+                            layers=5, output_dim=64),
+        convnext=ConvNeXtVisionSpec(depths=(1, 1, 2, 1),
+                                    dims=(16, 32, 64, 128), image_size=64,
+                                    output_dim=64, proj="linear")))
+
+
+_register_convnext_models()
+
+
+def _register_eva_models() -> None:
+    """OpenCLIP's `model_configs/EVA01-g-14*.json` and `EVA02-*.json`: timm
+    EVA trunks, token pool, the trunk's classifier as the projection
+    (`timm_proj: null`), the native CLIP text tower."""
+    for name, trunk, embed, image, tw, th, tl in [
+        ("EVA01-g-14", "eva_giant_patch14_224", 1024, 224, 768, 12, 12),
+        ("EVA01-g-14-plus", "eva_giant_patch14_224", 1024, 224, 1024, 16,
+         24),
+        ("EVA02-B-16", "eva02_base_patch16_clip_224", 512, 224, 512, 8, 12),
+        ("EVA02-L-14", "eva02_large_patch14_clip_224", 768, 224, 768, 12,
+         12),
+        ("EVA02-L-14-336", "eva02_large_patch14_clip_336", 768, 336, 768, 12,
+         12),
+        ("EVA02-E-14", "eva02_enormous_patch14_clip_224", 1024, 224, 1024,
+         16, 24),
+        ("EVA02-E-14-plus", "eva02_enormous_patch14_clip_224", 1024, 224,
+         1280, 20, 32),
+    ]:
+        register_model(config_from_open_clip_dict(name, {
+            "embed_dim": embed,
+            "vision_cfg": {"timm_model_name": trunk, "timm_pool": "token",
+                           "timm_proj": None, "image_size": image},
+            "text_cfg": {"context_length": 77, "vocab_size": 49408,
+                         "width": tw, "heads": th, "layers": tl},
+        }))
+    # test-size EVA02-style variant: rope, SwiGLU and the sub-LNs
+    from leaf_tpu_torch.models.eva import EvaVisionSpec
+    register_model(CLIPConfig(
+        name="eva-tiny-test", embed_dim=64,
+        text=TextConfig(context_length=16, vocab_size=512, width=64,
+                        heads=2, layers=2, output_dim=64),
+        vision=VisionConfig(image_size=32, patch_size=8, width=64,
+                            layers=2, output_dim=64),
+        trunk=EvaVisionSpec(name="eva-tiny", image_size=32, patch_size=8,
+                            width=64, layers=2, heads=2, mlp_hidden=128,
+                            output_dim=64, swiglu=True, rope=True,
+                            inner_attn_ln=True, mlp_ln=True,
+                            fused_qkv=False, ref_feat_size=4)))
+
+
+_register_eva_models()
+
+
+def _register_vitamin_models() -> None:
+    """OpenCLIP's `model_configs/ViTamin-*.json`: timm ViTamin trunks with
+    their own average pool and `fc_norm` (`timm_pool: ""`) and OpenCLIP's
+    linear projection head."""
+    for name, trunk, embed, image, tw, th, tl in [
+        ("ViTamin-S", "vitamin_small_224", 384, 224, 384, 6, 12),
+        ("ViTamin-S-LTT", "vitamin_small_224", 768, 224, 768, 12, 12),
+        ("ViTamin-B", "vitamin_base_224", 512, 224, 512, 8, 12),
+        ("ViTamin-B-LTT", "vitamin_base_224", 768, 224, 768, 12, 12),
+        ("ViTamin-L", "vitamin_large_224", 768, 224, 768, 12, 12),
+        ("ViTamin-L-256", "vitamin_large_256", 768, 256, 768, 12, 12),
+        ("ViTamin-L-336", "vitamin_large_336", 768, 336, 768, 12, 12),
+        ("ViTamin-L2", "vitamin_large2_224", 1024, 224, 1024, 16, 24),
+        ("ViTamin-L2-256", "vitamin_large2_256", 1024, 256, 1024, 16, 24),
+        ("ViTamin-L2-336", "vitamin_large2_336", 1024, 336, 1024, 16, 24),
+        ("ViTamin-XL-256", "vitamin_xlarge_256", 1152, 256, 1152, 16, 27),
+        ("ViTamin-XL-336", "vitamin_xlarge_336", 1152, 336, 1152, 16, 27),
+        # OpenCLIP's config has image_size 256 though its trunk name says
+        # 384; the config's size wins, as in OpenCLIP's TimmModel
+        ("ViTamin-XL-384", "vitamin_xlarge_384", 1152, 256, 1152, 16, 27),
+    ]:
+        register_model(config_from_open_clip_dict(name, {
+            "embed_dim": embed,
+            "vision_cfg": {"timm_model_name": trunk, "timm_pool": "",
+                           "timm_proj": "linear", "image_size": image},
+            "text_cfg": {"context_length": 77, "vocab_size": 49408,
+                         "width": tw, "heads": th, "layers": tl},
+        }))
+    # test-size variant
+    from leaf_tpu_torch.models.vitamin import ViTaminVisionSpec
+    register_model(CLIPConfig(
+        name="vitamin-tiny-test", embed_dim=64,
+        text=TextConfig(context_length=16, vocab_size=512, width=64,
+                        heads=2, layers=2, output_dim=64),
+        vision=VisionConfig(image_size=32, patch_size=16, width=32,
+                            layers=2, output_dim=64),
+        trunk=ViTaminVisionSpec(name="vitamin-tiny", image_size=32,
+                                dims=(8, 16, 32), depths=(1, 2),
+                                vit_depth=2, heads=2, output_dim=64)))
+
+
+_register_vitamin_models()

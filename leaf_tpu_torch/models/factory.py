@@ -1,15 +1,16 @@
 """Model factory: name -> model, transforms and tokenizer (port of
-`leaf_tpu/models/factory.py` for the ViT families, MobileCLIP and CoCa).
+`leaf_tpu/models/factory.py` for the ViT families, the ModifiedResNet,
+ConvNeXt, EVA, ViTamin and MobileCLIP towers, and CoCa).
 
 Weights are made on the CPU, from the given checkpoint or from a seeded
 `torch.Generator` with the JAX package's init distributions, then moved
 to the requested device, so a CPU copy and a CUDA copy of one seed hold
 identical weights.  Precision then casts the matrix weights and
-embeddings to the working dtype once; LayerNorm parameters (and the
-logit scale) stay fp32, as the JAX package casts at each use.  That one
-rounding is right for serving and wrong for an optimizer whose updates
-are smaller than a bf16 step: with `master_weights` the text tower keeps
-its fp32 weights and casts them where it uses them.
+embeddings to the working dtype once; LayerNorm and BatchNorm parameters
+(and the logit scale) stay fp32, as the JAX package casts at each use.
+That one rounding is right for serving and wrong for an optimizer whose
+updates are smaller than a bf16 step: with `master_weights` the text tower
+keeps its fp32 weights and casts them where it uses them.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from leaf_tpu_torch.models.config import CLIPConfig, get_model_config
 from leaf_tpu_torch.models.layers import LayerNorm
 from leaf_tpu_torch.models.preprocess import (image_transform,
                                               train_image_transform)
+from leaf_tpu_torch.models.resnet import BatchNorm
 from leaf_tpu_torch.tokenizer import get_tokenizer as _get_bpe
 
 PRECISIONS = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -96,10 +98,10 @@ class CoCaModel:
 
 def _cast_weights(module: torch.nn.Module, dtype: torch.dtype) -> None:
     """Matrix weights, biases and embeddings of `module` and its
-    submodules to `dtype`; LayerNorm parameters and the CLIP-level
-    scalars stay fp32."""
+    submodules to `dtype`; LayerNorm and BatchNorm parameters and the
+    CLIP-level scalars stay fp32."""
     for m in module.modules():
-        if isinstance(m, (LayerNorm, CLIP)):
+        if isinstance(m, (LayerNorm, BatchNorm, CLIP)):
             continue
         for p in m.parameters(recurse=False):
             p.data = p.data.to(dtype)
@@ -120,14 +122,19 @@ def local_checkpoint(path: Optional[str], flag: str = "--pretrained"
 
 def require_trainable(model_name: str) -> None:
     """Refuse, before a trainer builds it, a model whose training is not
-    ported: a MobileCLIP trunk (its backward) or SigLIP's sigmoid loss with
-    the model's own logit bias (ROADMAP Queue 1 item 11 step 4)."""
+    ported: a ModifiedResNet (BatchNorm in train mode), ConvNeXt or timm
+    trunk tower (MobileCLIP, EVA, ViTamin: their backward) or SigLIP's
+    sigmoid loss with the model's own logit bias (ROADMAP Queue 1 item 11
+    step 4)."""
     if model_name in coca.COCA_CONFIGS:
         return
     cfg = get_model_config(model_name)
-    if cfg.trunk is not None or cfg.init_logit_bias is not None:
-        what = ("a MobileCLIP trunk" if cfg.trunk is not None
-                else "SigLIP's logit bias")
+    what = ("a ModifiedResNet tower" if cfg.resnet is not None else
+            "a ConvNeXt tower" if cfg.convnext is not None else
+            f"a {type(cfg.trunk).__name__} trunk" if cfg.trunk is not None
+            else "SigLIP's logit bias" if cfg.init_logit_bias is not None
+            else None)
+    if what is not None:
         raise NotImplementedError(
             f"training {model_name} ({what}) is not ported to "
             "leaf_tpu_torch yet: ROADMAP Queue 1 item 11 step 4")
@@ -178,9 +185,9 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
     weight as int8 with per-column scales (`models.quantize`), quantized
     from the fp32 weights before the cast to `precision`.
 
-    A config with a `trunk` (MobileCLIP) builds its vision tower through
-    `models/trunks.py`; one with `init_logit_bias` (SigLIP) has a
-    `logit_bias`.
+    A config with `resnet`, `convnext` or a `trunk` (MobileCLIP, EVA,
+    ViTamin) builds that vision tower (`clip.CLIP`); one with
+    `init_logit_bias` (SigLIP) has a `logit_bias`.
 
     A CoCa name (`coca.COCA_CONFIGS`) gives a `CoCaModel`: fp32 weights
     that compute in `precision`, from `pretrained` (an OpenCLIP CoCa file)

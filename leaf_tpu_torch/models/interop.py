@@ -1,9 +1,10 @@
 """Checkpoint interop (port of `leaf_tpu/models/interop.py` for the
 families the port runs): HF `CLIPModel` and OpenCLIP state dicts to the
 port's state_dict and back to HF, the activation a checkpoint declares,
-and the position-grid resize.  OpenCLIP checkpoints with a timm trunk
-(`visual.trunk.*`: timm ViTs, SigLIP, MobileCLIP) and a `text.`-prefixed
-tower are routed as in the JAX package.
+and the position-grid resize.  OpenCLIP checkpoints with a ModifiedResNet
+(`visual.attnpool.*`), a timm trunk (`visual.trunk.*`: ConvNeXt, timm
+ViTs, SigLIP, MobileCLIP, EVA, ViTamin) and a `text.`-prefixed tower are
+routed as in the JAX package.
 
 Every converter returns the port's `state_dict`: a flat dict of fp32
 tensors named like the JAX pytree, with each tower's `[layers, ...]`
@@ -20,9 +21,11 @@ package:
     (`clip.patchify`);
   * HF splits the attention input projection into q, k and v; the port
     keeps them fused as the column blocks of `attn.qkv_w` [D, 3D];
-  * the JAX package's convolution kernels (MobileCLIP trunks) are HWIO;
-    the port's are OIHW (`models/mci.py`): `params_from_jax` transposes
-    every 4-D leaf of the vision tower.
+  * the JAX package's convolution kernels (ResNet, ConvNeXt, ViTamin,
+    MobileCLIP) are HWIO; the port's are OIHW: `params_from_jax`
+    transposes every 4-D leaf of the vision tower, a stacked block's
+    included.  BatchNorm statistics (`mean`, `var`) are buffers of the
+    port's tower, carried like its parameters.
 """
 from __future__ import annotations
 
@@ -290,20 +293,30 @@ def _openclip_text(sd: Mapping[str, Any], cfg: CLIPConfig, tp: str,
 
 def openclip_to_params(sd: Mapping[str, Any], cfg: CLIPConfig) -> StateDict:
     """OpenCLIP `CLIP.state_dict()` or `CustomTextCLIP.state_dict()` -> the
-    port's state_dict, the vision tower detected from the keys: a timm
-    trunk (`visual.trunk.*`) goes through `trunks.from_timm` for a
-    MobileCLIP config and through `timm_vision.timm_vit_to_params` for a
-    ViT (its head, linear or MLP, from the keys); otherwise the CLIP ViT
-    (`visual.conv1.weight`; `ln_pre` only where the weights have it, as
-    CLIPA's do not).  The text tower may sit under `text.`; a
-    `logit_bias` (SigLIP) is carried.  A `module.` prefix (DDP training
-    checkpoints) is dropped; a ModifiedResNet checkpoint raises (ROADMAP
-    Queue 1 item 11)."""
+    port's state_dict, the vision tower detected from the keys: a
+    ModifiedResNet (`visual.attnpool.*`) goes through
+    `resnet.resnet_openclip_to_params`; a timm trunk (`visual.trunk.*`)
+    through `convnext.timm_convnext_to_params` for a ConvNeXt config,
+    `trunks.from_timm` for a trunk config (MobileCLIP, EVA, ViTamin) and
+    `timm_vision.timm_vit_to_params` for a ViT (its head, linear or MLP,
+    from the keys); otherwise the CLIP ViT (`visual.conv1.weight`; `ln_pre`
+    only where the weights have it, as CLIPA's do not).  The text tower may
+    sit under `text.`; a `logit_bias` (SigLIP) is carried.  A `module.`
+    prefix (DDP training checkpoints) is dropped."""
     sd = {k[len("module."):] if k.startswith("module.") else k: v
           for k, v in sd.items()}
     tp = "text." if "text.token_embedding.weight" in sd else ""
-    if any(k.startswith("visual.trunk.") for k in sd):
-        if cfg.trunk is not None:
+    if "visual.attnpool.positional_embedding" in sd:
+        if cfg.resnet is None:
+            raise ValueError(f"the checkpoint has a ModifiedResNet tower but "
+                             f"{cfg.name}'s config does not")
+        from leaf_tpu_torch.models.resnet import resnet_openclip_to_params
+        out = params_from_jax({"visual": resnet_openclip_to_params(sd)})
+    elif any(k.startswith("visual.trunk.") for k in sd):
+        if cfg.convnext is not None:
+            from leaf_tpu_torch.models.convnext import timm_convnext_to_params
+            visual = timm_convnext_to_params(sd, cfg.convnext)
+        elif cfg.trunk is not None:
             from leaf_tpu_torch.models import trunks
             visual = trunks.from_timm(sd, cfg.trunk)
         else:
@@ -328,10 +341,9 @@ def openclip_to_params(sd: Mapping[str, Any], cfg: CLIPConfig) -> StateDict:
                          "visual.blocks", out)
         out["visual.proj"] = _tensor(sd["visual.proj"])
     else:
-        raise NotImplementedError(
-            "not an OpenCLIP ViT or timm-trunk state dict (no "
-            "visual.conv1.weight, no visual.trunk.*); ResNet checkpoints "
-            "are not ported to leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
+        raise ValueError(
+            "not an OpenCLIP state dict: no visual.conv1.weight (ViT), "
+            "visual.attnpool.* (ModifiedResNet) or visual.trunk.* (timm)")
     _openclip_text(sd, cfg, tp, out)
     out["logit_scale"] = _tensor(_np(sd["logit_scale"]).reshape(()))
     if "logit_bias" in sd:               # SigLIP's sigmoid-loss bias
@@ -449,11 +461,13 @@ def resize_vision_pos_embed(sd: StateDict, cfg: CLIPConfig) -> StateDict:
     """Resize a loaded ViT position-embedding grid to the config's
     resolution (cubic, antialiased, as `jax.image.resize(..., "cubic",
     antialias=True)`; the class token, where the tower has one, passes
-    through).  No-op when the length already matches, and for a trunk
-    (MobileCLIP), whose positions have their own conventions, as in the
-    JAX package."""
+    through).  No-op when the length already matches, and for the towers
+    whose positions have their own conventions, as in the JAX package: a
+    trunk (MobileCLIP, EVA, ViTamin), a ConvNeXt (none) and a
+    ModifiedResNet (its attention pool's, never resized on load)."""
     pe = sd.get("visual.positional_embedding")
-    if pe is None or cfg.trunk is not None:
+    if pe is None or cfg.trunk is not None or cfg.convnext is not None \
+            or cfg.resnet is not None:
         return sd
     grid = cfg.vision.image_size // cfg.vision.patch_size
     extra = 1 if "visual.class_embedding" in sd else 0

@@ -28,6 +28,10 @@ bounds it), never the plain elementwise version.  The MLP's two GEMMs
 with their bias adds and the activation stay `torch.matmul` and plain
 PyTorch, as the JAX package leaves them to XLA; its weights may be int8
 with per-column scales (`models.quantize`), dequantized where used.
+
+The convolutional towers (ResNet, ConvNeXt, ViTamin) share `conv_nhwc`
+and `avg_pool_nhwc`, which keep their activations NHWC as the JAX package
+does; the zoo's towers share `refuse_training` and `adopt_optional`.
 """
 from __future__ import annotations
 
@@ -63,6 +67,50 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.scale, self.bias, self.eps)
+
+
+def conv_nhwc(x: torch.Tensor, w: torch.Tensor,
+              b: Optional[torch.Tensor] = None, stride: int = 1,
+              padding: int = 0, groups: int = 1) -> torch.Tensor:
+    """Convolution of NHWC `x` by an OIHW kernel, in x's dtype, for the
+    convolutional towers (ResNet, ConvNeXt, ViTamin), which keep their
+    activations NHWC as the JAX package does.  The NCHW view
+    `x.permute(0, 3, 1, 2)` of a contiguous NHWC tensor is a channels-last
+    tensor, which cuDNN (and the CPU) convolve without a copy into a
+    channels-last result: permuted back, it is a contiguous NHWC tensor, as
+    the LayerNorm op requires."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype),
+                 None if b is None else b.to(x.dtype), stride, padding, 1,
+                 groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def avg_pool_nhwc(x: torch.Tensor, k: int) -> torch.Tensor:
+    """k x k average pool with stride k over NHWC x (floor, no padding)."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), k).permute(0, 2, 3, 1)
+
+
+def refuse_training(family: str, remat: bool, dropout) -> None:
+    """Raise for the training arguments of a tower whose training is not
+    ported."""
+    if remat or dropout is not None:
+        raise NotImplementedError(
+            f"training {family} towers (remat, patch dropout) is not ported "
+            "to leaf_tpu_torch yet: ROADMAP Queue 1 item 11 step 4")
+
+
+def adopt_optional(params: nn.ParameterDict, name: str, state_dict,
+                   key: str) -> None:
+    """Give `params[name]` the presence and shape it has in the weights
+    being loaded (`key` of `state_dict`); an entry they share is kept."""
+    t = state_dict.get(key)
+    if t is None:
+        if name in params:
+            del params[name]
+    elif name not in params or params[name].shape != t.shape:
+        like = next(iter(params.values()))
+        params[name] = nn.Parameter(torch.empty(t.shape, dtype=like.dtype,
+                                                device=like.device))
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

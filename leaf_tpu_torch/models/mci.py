@@ -157,20 +157,6 @@ def _dw_identity_(t: torch.Tensor) -> None:
         t[:, 0, k // 2, k // 2] += 1.0
 
 
-def _adopt_optional(params: nn.ParameterDict, name: str, state_dict,
-                    key: str) -> None:
-    """Give `params[name]` the presence and shape it has in the weights
-    being loaded (`key` of `state_dict`); an entry they share is kept."""
-    t = state_dict.get(key)
-    if t is None:
-        if name in params:
-            del params[name]
-    elif name not in params or params[name].shape != t.shape:
-        like = next(iter(params.values()))
-        params[name] = nn.Parameter(torch.empty(t.shape, dtype=like.dtype,
-                                                device=like.device))
-
-
 class _SE(nn.Module):
     """Squeeze-excite: mean over the grid, 1x1 -> relu -> 1x1 -> sigmoid."""
 
@@ -215,13 +201,6 @@ class _Mob(nn.Module):
         if self.se is not None:
             y = self.se(y)
         return layers.gelu(y) if self.act else y
-
-
-def _trunk_training(remat: bool, dropout) -> None:
-    if remat or dropout is not None:
-        raise NotImplementedError(
-            "training MobileCLIP trunks (remat, patch dropout) is not ported "
-            "to leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
 
 
 def _finish(pooled: torch.Tensor, normalize: bool) -> torch.Tensor:
@@ -272,7 +251,7 @@ class MciViT(nn.Module):
     def encode_image(self, images: torch.Tensor, normalize: bool = False,
                      remat: bool = False, dropout=None) -> torch.Tensor:
         """NHWC [B, H, W, 3] -> [B, output_dim]."""
-        _trunk_training(remat, dropout)
+        layers.refuse_training("MobileCLIP", remat, dropout)
         dtype = self.dtype
         x = images.to(dtype).permute(0, 3, 1, 2)
         for st in self.stem:            # kernel == stride, pad 0, GELU
@@ -364,7 +343,8 @@ class _AttnBlock(nn.Module):
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         # timm's attention may or may not carry a qkv bias
-        _adopt_optional(self.attn, "qkv_b", state_dict, prefix + "attn.qkv_b")
+        layers.adopt_optional(self.attn, "qkv_b", state_dict,
+                              prefix + "attn.qkv_b")
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def _attention(self, x: torch.Tensor) -> torch.Tensor:
@@ -468,7 +448,7 @@ class FastVit(nn.Module):
     def encode_image(self, images: torch.Tensor, normalize: bool = False,
                      remat: bool = False, dropout=None) -> torch.Tensor:
         """NHWC [B, H, W, 3] -> [B, output_dim]."""
-        _trunk_training(remat, dropout)
+        layers.refuse_training("MobileCLIP", remat, dropout)
         dtype = self.dtype
         x = images.to(dtype).permute(0, 3, 1, 2)
         for m in list(self.stem) + list(self.stages) + [self.final]:

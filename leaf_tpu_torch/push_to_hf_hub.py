@@ -36,26 +36,39 @@ def config_to_open_clip_dict(cfg: CLIPConfig) -> Dict[str, Any]:
     """CLIPConfig -> the `model_cfg` JSON schema of open_clip's
     `model_configs/*.json`, for the configs of the port's registry: only
     the keys that differ from open_clip's defaults, as the JAX package
-    writes them (a trunk's config writes its placeholder ViT fields, as
-    there)."""
+    writes them: a ModifiedResNet's layer list, a ConvNeXt's timm name and
+    head, and a trunk's placeholder ViT fields, as there)."""
     v, t = cfg.vision, cfg.text
-    vision: Dict[str, Any] = {
-        "image_size": v.image_size, "patch_size": v.patch_size,
-        "width": v.width, "layers": v.layers,
-        "head_width": v.head_width, "mlp_ratio": v.mlp_ratio,
-    }
-    if v.patch_dropout:
-        vision["patch_dropout"] = v.patch_dropout
-    # the CLIPA and SigLIP deltas, which config_from_open_clip_dict reads
-    if v.pool_type != "tok":
-        vision["pool_type"] = {"avg_patch": "avg"}.get(v.pool_type,
-                                                       v.pool_type)
-    if not v.ln_pre:
-        vision["no_ln_pre"] = True
-    if v.final_ln_after_pool:
-        vision["final_ln_after_pool"] = True
-    if v.ln_eps != 1e-5:
-        vision["norm_kwargs"] = {"eps": v.ln_eps}
+    if cfg.resnet is not None:
+        vision: Dict[str, Any] = {"layers": list(cfg.resnet.layers),
+                                  "width": cfg.resnet.width,
+                                  "image_size": cfg.resnet.image_size}
+    elif cfg.convnext is not None:
+        from leaf_tpu_torch.models.convnext import CONVNEXT_DIMS
+        c = cfg.convnext
+        size = next((s for s, (d, dims) in CONVNEXT_DIMS.items()
+                     if d == c.depths and dims == c.dims), None)
+        if size is None:
+            raise ValueError(f"{cfg.name}: no timm convnext trunk has the "
+                             f"depths {c.depths} and widths {c.dims}")
+        vision = {"timm_model_name": f"convnext_{size}", "timm_pool": "",
+                  "timm_proj": c.proj, "image_size": c.image_size}
+    else:
+        vision = {"image_size": v.image_size, "patch_size": v.patch_size,
+                  "width": v.width, "layers": v.layers,
+                  "head_width": v.head_width, "mlp_ratio": v.mlp_ratio}
+        if v.patch_dropout:
+            vision["patch_dropout"] = v.patch_dropout
+        # the CLIPA and SigLIP deltas, which config_from_open_clip_dict reads
+        if v.pool_type != "tok":
+            vision["pool_type"] = {"avg_patch": "avg"}.get(v.pool_type,
+                                                           v.pool_type)
+        if not v.ln_pre:
+            vision["no_ln_pre"] = True
+        if v.final_ln_after_pool:
+            vision["final_ln_after_pool"] = True
+        if v.ln_eps != 1e-5:
+            vision["norm_kwargs"] = {"eps": v.ln_eps}
     text: Dict[str, Any] = {
         "context_length": t.context_length, "vocab_size": t.vocab_size,
         "width": t.width, "heads": t.heads, "layers": t.layers,

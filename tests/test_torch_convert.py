@@ -314,7 +314,7 @@ def test_verify_catches_a_broken_conversion(weights):
 
 def test_convert_refusals(weights, tmp_path):
     src = _write_openclip(weights[0], tmp_path / "src")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="CLIPModel has no ModifiedResNet"):
         tconvert.main(["--model", "RN50", "--input", src, "--output",
                        str(tmp_path / "o"), "--to", "hf", "--device", "cpu"])
     if not torch.cuda.is_available():
@@ -330,8 +330,14 @@ def test_convert_refusals(weights, tmp_path):
 
 @pytest.mark.parametrize("name", tconfig.list_models())
 def test_config_to_open_clip_dict_matches_jax(name):
-    assert thub.config_to_open_clip_dict(tconfig.get_model_config(name)) == \
-        jhub.config_to_open_clip_dict(jconfig.get_model_config(name))
+    try:
+        want = jhub.config_to_open_clip_dict(jconfig.get_model_config(name))
+    except StopIteration:      # a test-size ConvNeXt has no timm name
+        with pytest.raises(ValueError, match="no timm convnext trunk"):
+            thub.config_to_open_clip_dict(tconfig.get_model_config(name))
+        return
+    assert thub.config_to_open_clip_dict(tconfig.get_model_config(name)) \
+        == want
 
 
 def test_save_for_hub_writes_what_jax_writes(weights, tmp_path):

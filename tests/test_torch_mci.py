@@ -87,13 +87,16 @@ def test_seeded_init_and_factory():
     assert b.module.visual.stem[0].w.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("name", ["fastvit-tiny-test", "siglip-tiny-test"])
+@pytest.mark.parametrize("name", ["fastvit-tiny-test", "siglip-tiny-test",
+                                  "RN50", "convnext-tiny-test",
+                                  "eva-tiny-test", "vitamin-tiny-test"])
 @pytest.mark.parametrize("trainer", ["driver", "fare_driver",
                                      "contrastive_driver"])
 def test_trainers_refuse_zoo_training(trainer, name, tmp_path):
-    """Training MobileCLIP trunks and SigLIP's sigmoid loss with its own
-    logit bias are not ported: each trainer refuses them by name before it
-    builds the model."""
+    """Training MobileCLIP, EVA and ViTamin trunks, ModifiedResNet and
+    ConvNeXt towers, and SigLIP's sigmoid loss with its own logit bias are
+    not ported: each trainer refuses them by name before it builds the
+    model."""
     import importlib
     main = importlib.import_module(f"leaf_tpu_torch.train.{trainer}").main
     args = {"driver": ["--dataset-type", "synthetic", "--logs",
@@ -110,8 +113,8 @@ def test_trunk_training_and_unported_trunks_refused():
     module = tclip.CLIP(tconfig.get_model_config("fastvit-tiny-test"))
     with pytest.raises(NotImplementedError, match="item 11"):
         module.visual.encode_image(torch.zeros(1, 32, 32, 3), remat=True)
-    for name in ("eva02_base_patch16_clip_224", "vitamin_small_224",
-                 "swin_base_patch4_window7_224", "convnext_base"):
+    for name in ("swin_base_patch4_window7_224",
+                 "vit_relpos_medium_patch16_cls_224"):
         with pytest.raises(NotImplementedError, match="item 11"):
             trunks.spec_for_timm_name(name, 512)
     with pytest.raises(ValueError, match="unsupported MobileCLIP trunk"):

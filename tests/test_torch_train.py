@@ -551,6 +551,8 @@ def test_trainer_imports_no_jax():
         "import leaf_tpu_torch.train.fused, leaf_tpu_torch.train.checkpoint\n"
         "import leaf_tpu_torch.convert, leaf_tpu_torch.attacks.constraint\n"
         "import leaf_tpu_torch.tokenizer.native_binding\n"
+        "import leaf_tpu_torch.models.resnet, leaf_tpu_torch.models.convnext\n"
+        "import leaf_tpu_torch.models.eva, leaf_tpu_torch.models.vitamin\n"
         "import leaf_tpu_torch.utils.safetensors_io\n"
         "import leaf_tpu_torch.data.wds, leaf_tpu_torch.data.imagenet\n"
         "import leaf_tpu_torch.data.csv_data, leaf_tpu_torch.data.textcls\n"

@@ -88,21 +88,25 @@ def test_registry_matches_jax():
         diff = {"text": _same_fields(j.text, t.text),
                 "vision": _same_fields(j.vision, t.vision),
                 "top": {k: v for k, v in _same_fields(j, t).items()
-                        if k not in ("text", "vision", "trunk")}}
+                        if k not in ("text", "vision", "trunk", "resnet",
+                                     "convnext")}}
         assert not any(diff.values()), (name, diff)
-        assert type(j.trunk).__name__ == type(t.trunk).__name__, name
-        if t.trunk is not None:
-            assert dataclasses.asdict(j.trunk) == \
-                dataclasses.asdict(t.trunk), name
+        for field in ("trunk", "resnet", "convnext"):
+            a, b = getattr(j, field), getattr(t, field)
+            assert type(a).__name__ == type(b).__name__, (name, field)
+            if b is not None:
+                assert dataclasses.asdict(a) == dataclasses.asdict(b), name
     assert sorted(ported) == sorted(tconfig.list_models())
     for name in ("ViT-SO400M-14-SigLIP-384", "siglip-tiny-test",
                  "ViT-bigG-14-CLIPA-336", "vit_medium_patch16_gap_256",
                  "ViT-e-14", "MobileCLIP-B", "MobileCLIP-S2",
-                 "mci-vit-tiny-test", "fastvit-tiny-test"):
-        assert name in ported
-    for name in ("RN50", "convnext_base", "EVA02-L-14", "ViTamin-L",
-                 "swin_base_patch4_window7_224", "nllb-clip-base-siglip",
+                 "mci-vit-tiny-test", "fastvit-tiny-test", "RN50",
+                 "convnext_base", "EVA02-L-14", "ViTamin-L",
                  "eva-tiny-test"):
+        assert name in ported
+    for name in ("swin_base_patch4_window7_224", "swin-tiny-test",
+                 "vit_relpos_medium_patch16_cls_224", "relpos-tiny-test",
+                 "nllb-clip-base-siglip", "roberta-ViT-B-32"):
         assert name in refused
     with pytest.raises(KeyError, match="Unknown model"):
         tconfig.get_model_config("ViT-nonexistent")
@@ -120,9 +124,8 @@ def test_timm_vision_config_matches_jax(name, pool):
 
 
 def test_unported_open_clip_dicts_raise_by_name():
-    for vision in ({"timm_model_name": "convnext_base"},
-                   {"timm_model_name": "eva02_base_patch16_clip_224"},
-                   {"layers": [3, 4, 6, 3], "width": 64}):
+    for vision in ({"timm_model_name": "swin_base_patch4_window7_224"},
+                   {"timm_model_name": "vit_relpos_medium_patch16_cls_224"}):
         with pytest.raises(NotImplementedError, match="item 11"):
             tconfig.config_from_open_clip_dict("x", {
                 "embed_dim": 512, "vision_cfg": vision, "text_cfg": {}})
@@ -134,15 +137,20 @@ def test_unported_open_clip_dicts_raise_by_name():
 
 @pytest.mark.parametrize("module", [
     "leaf_tpu_torch.models.mci", "leaf_tpu_torch.models.timm_vision",
-    "leaf_tpu_torch.models.trunks", "leaf_tpu_torch.models.config"])
+    "leaf_tpu_torch.models.trunks", "leaf_tpu_torch.models.config",
+    "leaf_tpu_torch.models.resnet", "leaf_tpu_torch.models.convnext",
+    "leaf_tpu_torch.models.eva", "leaf_tpu_torch.models.vitamin"])
 def test_each_module_imports_first(module):
     """The registry builds the zoo's configs while it is imported, through
-    `trunks`, `mci` and `timm_vision`: whichever of them a process imports
-    first, the imports resolve."""
+    `trunks` and the family modules (`mci`, `eva`, `vitamin`, `convnext`)
+    and `timm_vision`: whichever of them a process imports first, the
+    imports resolve."""
     code = (f"import {module}\n"
             "from leaf_tpu_torch.models.config import get_model_config\n"
             "get_model_config('MobileCLIP-S2'), "
-            "get_model_config('ViT-B-16-SigLIP')\n")
+            "get_model_config('ViT-B-16-SigLIP'), get_model_config('RN50'), "
+            "get_model_config('convnext_base_w'), "
+            "get_model_config('EVA02-L-14'), get_model_config('ViTamin-L')\n")
     subprocess.run([sys.executable, "-c", code], check=True,
                    cwd=os.path.dirname(os.path.dirname(__file__)))
 
