@@ -160,7 +160,7 @@ Phases, each printing its own lines:
       `train.contrastive_driver.main` on 2,048 seeded 256 x 256 `.npy`
       image-caption pairs in 8 tar shards: 8 plain steps (cosine after 2
       warm-up steps) with `--val-data` over one more shard before and
-      after, saved; `--resume latest` for 2 more; 4 steps each with
+      after, saved; `--resume latest` for 2 more; 2 steps each with
       `--siglip`, `--accum-freq 2`, `--distill-model ViT-B-32` and
       `--lock-image` (the vision tower unchanged bit for bit).  Per step
       its span on the device (CUDA events), the loader's wait, the loop's
@@ -185,7 +185,7 @@ Phases, each printing its own lines:
       5 captions), a SugarCrepe JSON (64 records), the linear probe on
       8-class folders (256 / 64 images, 100 epochs) and with `--fewshot-k
       8`; `build` and `reformat` over the JSONs; `evals.pez_driver.main`
-      on 2 seeded captions (300 iterations; the default is 3,000) and on 2
+      on 2 seeded captions (150 iterations; the default is 3,000) and on 2
       target images (16 slots, 100 iterations), `pez_metrics.main`, and
       20 PEZ steps under `torch.profiler`.  Each part prints its seconds by
       part (model build, waits for the host's images, encodes), images/s,
@@ -292,7 +292,23 @@ Phases, each printing its own lines:
       off.  (c) has rows at the new shapes: both kernels and the LayerNorm
       at [256, 77, 640] causal bf16, the block's GEMMs at 19,712 x 640 x
       1920 and x 640, and the LayerNorm at 262,144 x 128, 16,448 x 2730
-      (and 2,056 x 2730 fp32) and 802,816 x 160.
+      (and 2,056 x 2730 fp32) and 802,816 x 160;
+  (t) the rest of the served zoo: first swin-tiny-test, relpos-tiny-test,
+      tiny RoBERTa, mT5 and M2M100 `HFTextTower`s and
+      coca-roberta-tiny-test in fp32, TF32 off, the card against the CPU
+      from the same seeded weights (features within 1e-4, greedy ids
+      equal); then at full width and depth, random weights from seed 0:
+      swin_base_patch4_window7_224 and vit_relpos_medium_patch16_cls_224
+      through `serve.main` in bf16 (texts and images), nllb-clip-base,
+      xlm-roberta-base-ViT-B-32 and mt5-base-ViT-B-32 (the HF tower fp32,
+      as the JAX package builds it; the ViT-B-32 in bf16) on seeded
+      77-token ids with ragged padding and seeded images, and
+      coca_roberta-ViT-B-32's features (its generation fails on its own
+      shapes, as in OpenCLIP and the JAX package).  Each part holds its
+      launches (`_rt_launches`) and its bf16 rows to cosine >= 0.995
+      against fp32.  (c) has LayerNorm rows at Swin-B's 200,704 x 128 and
+      3,136 x 2048 (bf16) and the HF towers' 19,712 x 1024 and x 768
+      (fp32).
 Any failure raises.  The line before the last is the kernels' JSON
 report (each kernel at its main-path shape; the line before it has the
 rows of every shape); the last is {"ok": true, "device": {...}}.  Without CUDA, or
@@ -436,7 +452,16 @@ LN_SHAPES = [("coca_decode_step_fp32", 64 * 6, 768, "float32"),
              ("convnext_stem_bf16", 64 * 64 * 64, 128, "bfloat16"),
              ("eva02_mlp_ln_bf16", 64 * 257, 2730, "bfloat16"),
              ("eva02_mlp_ln_fp32", 8 * 257, 2730, "float32"),
-             ("vitamin_stem_bf16", 64 * 112 * 112, 160, "bfloat16")]
+             ("vitamin_stem_bf16", 64 * 112 * 112, 160, "bfloat16"),
+             # (t): Swin-B's patch norm and stage-0 LNs over 56 x 56 pixels
+             # of 128 channels, its last patch merge's 2048-wide rows (7 x
+             # 7 a image: the general kernel, above 1024), serve's batch of
+             # 64; NLLB's M2M100 text rows at D 1024 and XLM-R's at 768,
+             # fp32 as the HF towers run, 256 rows of 77 ids
+             ("swin_stage0_bf16", 64 * 56 * 56, 128, "bfloat16"),
+             ("swin_merge3_bf16", 64 * 7 * 7, 2048, "bfloat16"),
+             ("m2m100_text_fp32", 256 * 77, 1024, "float32"),
+             ("xlmr_text_fp32", 256 * 77, 768, "float32")]
 RAGGED_GEMM_SHAPES = [("ragged 231x72x200", 231, 72, 200),
                       ("ragged 231x776x1096", 231, 776, 1096),
                       ("ragged 231x8x40", 231, 8, 40)]
@@ -2063,13 +2088,20 @@ class _Part:
         self.scorers = []
         part = self
 
+        depth = dict.fromkeys(self.clock, 0)
+
         def timed(inner, kind):
+            # a timed call inside another of its kind counts once
+            # (`create_model_and_transforms` calls `create_model`)
             def wrapper(*args, **kwargs):
                 t0 = time.perf_counter()
+                depth[kind] += 1
                 try:
                     return inner(*args, **kwargs)
                 finally:
-                    part.clock[kind] += time.perf_counter() - t0
+                    depth[kind] -= 1
+                    if not depth[kind]:
+                        part.clock[kind] += time.perf_counter() - t0
             return wrapper
 
         from torch._subclasses.fake_tensor import is_fake
@@ -2107,9 +2139,11 @@ class _Part:
             setattr(CandidateScorer, name,
                     timed(getattr(CandidateScorer, name), "scoring"))
         from leaf_tpu_torch.train import driver
-        for module in (factory, driver):   # the driver imported its own name
-            self.saved.append((module, "create_model", module.create_model))
-            module.create_model = timed(module.create_model, "build")
+        # train.driver imported its own name
+        for module, name in ((factory, "create_model"),
+                             (driver, "create_model_and_transforms")):
+            self.saved.append((module, name, getattr(module, name)))
+            setattr(module, name, timed(getattr(module, name), "build"))
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3050,8 +3084,8 @@ def phase_contrastive(workdir: str):
     weights, seed 0; bf16 on fp32 master weights; batch 256) on 2,048
     seeded image-caption pairs in 8 tar shards: 8 plain steps with
     `--val-data` (one more shard) before and after, a resume for 2 more,
-    then 4 steps each with `--siglip`, `--accum-freq 2`, `--distill-model
-    ViT-B-32` and `--lock-image`.  Per step: the device's seconds, the
+    then 2 steps each (4 until phase (t) needed the room) with `--siglip`,
+    `--accum-freq 2`, `--distill-model ViT-B-32` and `--lock-image`.  Per step: the device's seconds, the
     loader's wait, samples/s, launches held; per cell the peak memory."""
     import torch
     from leaf_tpu_torch.models.factory import create_model
@@ -3075,15 +3109,15 @@ def phase_contrastive(workdir: str):
                         str(pairs), "--epochs", "1"], 8, 1),
              ("resumed", ["--val-data", val, "--train-num-samples", "512",
                           "--epochs", "2", "--resume", "latest"], 2, 1),
-             ("siglip", ["--siglip", "--train-num-samples", "1024",
-                         "--epochs", "1"], 4, 1),
+             ("siglip", ["--siglip", "--train-num-samples", "512",
+                         "--epochs", "1"], 2, 1),
              ("accum 2", ["--accum-freq", "2", "--train-num-samples",
-                          str(pairs), "--epochs", "1"], 4, 4),
+                          str(pairs // 2), "--epochs", "1"], 2, 4),
              ("distill", ["--distill-model", CLIP_MODEL,
-                          "--train-num-samples", "1024", "--epochs", "1"],
-              4, 2),
-             ("lock-image", ["--lock-image", "--train-num-samples", "1024",
-                             "--epochs", "1"], 4, 1)]
+                          "--train-num-samples", "512", "--epochs", "1"],
+              2, 2),
+             ("lock-image", ["--lock-image", "--train-num-samples", "512",
+                             "--epochs", "1"], 2, 1)]
     counters = _Counters()
     total = dict.fromkeys(counters.NAMES, 0)
     results = {"device_steps_s": device_steps}
@@ -3184,7 +3218,9 @@ def phase_contrastive(workdir: str):
 
 BENCH_BATCH = 64          # the benchmark command line's default batch
 CIFAR_IMAGES, APGD_IMAGES = 1024, 32
-PEZ_ITERS, PEZ_IMAGE_ITERS = 300, 100   # the command line's default: 3,000
+# the command line's default: 3,000; the captions' were cut from 300 to 150
+# to make room for phase (t) in the script's time limit
+PEZ_ITERS, PEZ_IMAGE_ITERS = 150, 100
 
 
 def _write_cifar(root: str, rng, n: int) -> str:
@@ -3423,7 +3459,7 @@ def phase_benchmark(workdir: str):
     probe on 8-class folders (256 / 64 images, 100 epochs) and with
     `--fewshot-k 8`; `build` and `reformat` over the JSONs; then
     `pez_driver.main` on 2 seeded captions (3-10 and 20-30 words, prompt
-    length "match", 300 iterations where the default is 3,000), one image
+    length "match", 150 iterations where the default is 3,000), one image
     target of 2 `.npy` images (16 slots, 100 iterations), `pez_metrics.main`
     over the results, and 20 PEZ steps under `torch.profiler` (the device's
     idle share).  Each part prints its seconds by part (model build, the
@@ -4474,16 +4510,18 @@ class _ZooPart:
         return False
 
 
-def _held_cosine(tag: str, low: np.ndarray, full: np.ndarray) -> float:
-    """bf16 features against fp32 ones of the same rows: cosine >= 0.99
-    per row."""
+def _held_cosine(tag: str, low: np.ndarray, full: np.ndarray,
+                 minimum: float = 0.99) -> float:
+    """bf16 features against fp32 ones of the same rows: cosine >=
+    `minimum` per row."""
     require(low.shape == full.shape and np.isfinite(low).all(),
             f"{tag}: {low.shape} against {full.shape}")
     low = low.astype(np.float32)
     cos = float((np.sum(low * full, -1) / (np.linalg.norm(low, axis=-1)
                                           * np.linalg.norm(full, axis=-1))
                  ).min())
-    require(cos >= 0.99, f"{tag}: bf16 vs fp32 min cosine {cos} < 0.99")
+    require(cos >= minimum,
+            f"{tag}: bf16 vs fp32 min cosine {cos} < {minimum}")
     return cos
 
 
@@ -4998,6 +5036,372 @@ def phase_convnets(workdir: str):
     return {path: c.total for path, c in counters.items()}, out
 
 
+# ---------------------------------------------------------------------------
+# (t) the rest of the served zoo: Swin, RelPos-ViT, the HF text towers
+# (M2M100, RoBERTa/XLM-R, mT5) with CustomTextCLIP, and coca_roberta
+# ---------------------------------------------------------------------------
+
+HF_TINY = {   # test-size HF text towers, as config.json dicts
+    "roberta": dict(model_type="roberta", vocab_size=120, hidden_size=64,
+                    num_hidden_layers=2, num_attention_heads=2,
+                    intermediate_size=128, max_position_embeddings=40,
+                    type_vocab_size=1, layer_norm_eps=1e-5, pad_token_id=1),
+    "mt5": dict(model_type="mt5", vocab_size=120, d_model=64, d_kv=16,
+                d_ff=96, num_layers=2, num_heads=4, pad_token_id=0),
+    "m2m_100": dict(model_type="m2m_100", vocab_size=120, d_model=64,
+                    encoder_layers=2, encoder_ffn_dim=128,
+                    encoder_attention_heads=4, max_position_embeddings=64,
+                    pad_token_id=1),
+}
+RT_TINY = ("swin-tiny-test", "relpos-tiny-test")
+RT_SWIN, RT_RELPOS = "swin_base_patch4_window7_224", \
+    "vit_relpos_medium_patch16_cls_224"
+RT_HF = ("nllb-clip-base", "xlm-roberta-base-ViT-B-32", "mt5-base-ViT-B-32")
+RT_COCA, RT_COCA_TINY = "coca_roberta-ViT-B-32", "coca-roberta-tiny-test"
+RT_COSINE = 0.995       # bf16 against fp32, where bf16 applies
+
+
+def _hf_ln(config) -> int:
+    """LayerNorm-op launches of one HF encoder pass: RoBERTa's embedding LN
+    and 2 a layer; M2M100's 2 a layer and the final one; T5's RMS norms are
+    plain PyTorch."""
+    mt = config.model_type
+    if mt in ("roberta", "xlm-roberta"):
+        return 1 + 2 * config.num_hidden_layers
+    if mt == "m2m_100":
+        return 2 * config.encoder_layers + 1
+    return 0
+
+
+def _rt_launches(cfg, image=0, text=0):
+    """Launches of each packed kernel and of the LayerNorm op for `image`
+    image and `text` text encodes of a (t) CLIP config.  Swin: the patch
+    norm, ln_1 and ln_2 a block, a patch-merge norm a later stage and
+    ln_post (53 at Swin-B); RelPos-ViT: ln_1 and ln_2 a block and ln_post
+    (25); a ViT tower as `_zoo_launches`; no packed kernel in a trunk.  An
+    HF text tower launches `_hf_ln` LayerNorms and no packed kernel; the
+    native text tower a fused block and ln_2 a layer and ln_final."""
+    from leaf_tpu_torch.models.hf_text import resolve_hf_config
+    from leaf_tpu_torch.models.relpos_vit import RelPosViTSpec
+    from leaf_tpu_torch.models.swin import SwinVisionSpec
+    t = cfg.trunk
+    if isinstance(t, SwinVisionSpec):
+        blocks, ln = 0, 1 + 2 * sum(t.depths) + len(t.depths) - 1 + 1
+    elif isinstance(t, RelPosViTSpec):
+        blocks, ln = 0, 2 * t.layers + 1
+    else:
+        base = _zoo_launches(cfg, image=1)
+        blocks, ln = base["packed_attention"], base["layer_norm"]
+    if cfg.text.hf_model_name:
+        tblocks, tln = 0, _hf_ln(resolve_hf_config(cfg.text.hf_model_name))
+    else:
+        tblocks, tln = cfg.text.layers, cfg.text.layers + 1
+    packed = blocks * image + tblocks * text
+    return {"packed_attention": packed, "fused_attention_block": packed,
+            "layer_norm": ln * image + tln * text}
+
+
+def _rt_ids(rng, n: int, vocab: int, pad: int, S: int = 77) -> np.ndarray:
+    """`n` seeded rows of `S` ids in [3, vocab) with ragged padding: row i
+    keeps 5 to S tokens, the rest is `pad`."""
+    ids = rng.integers(3, vocab, (n, S)).astype(np.int64)
+    for i, keep in enumerate(rng.integers(5, S + 1, n)):
+        ids[i, keep:] = pad
+    return ids
+
+
+def _coca_hf_launches(cfg, tower_cfg, image=0, text=0, decode=0):
+    """A CoCa with an HF text tower: `_coca_launches` for its vision tower
+    and decoder, `_hf_ln` for each text encode."""
+    want = _coca_launches(cfg, image=image, decode=decode)
+    want["layer_norm"] += _hf_ln(tower_cfg) * text
+    return want
+
+
+def phase_rest_parity(workdir: str):
+    """(t) tiny, fp32, TF32 off, the card (kernels) against the CPU (plain
+    versions) from the same seeded weights, each within 1e-4 with its
+    launches held: swin-tiny-test and relpos-tiny-test (image and text
+    features); tiny RoBERTa, mT5 and M2M100 `HFTextTower`s (ragged ids,
+    mean and cls poolers); coca-roberta-tiny-test's features and 8 greedy
+    ids (identical), the generation re-encoding its whole prefix at each
+    step."""
+    import copy
+    import torch
+    from leaf_tpu_torch.evals.zero_shot import fp32_products
+    from leaf_tpu_torch.models import coca
+    from leaf_tpu_torch.models.config import get_model_config
+    from leaf_tpu_torch.models.factory import create_model
+    from leaf_tpu_torch.models.hf_text import HFTextTower
+    counters, errs = _Counters(), {}
+
+    def held(name, a, b):
+        errs[name] = max(float((x - y).abs().max()) for x, y in zip(a, b))
+        require(errs[name] <= 1e-4,
+                f"(t) tiny {name}: card vs CPU max abs {errs[name]} > 1e-4")
+
+    for name in RT_TINY:
+        cfg = get_model_config(name)
+        rng = np.random.default_rng(101)
+        size = cfg.vision.image_size
+        images = rng.standard_normal((4, size, size, 3)).astype(np.float32)
+        tokens = rng.integers(1, cfg.text.vocab_size,
+                              (8, cfg.text.context_length)).astype(np.int32)
+        feats = {}
+        for device in ("cpu", "cuda"):
+            model = create_model(name, precision="fp32", seed=0,
+                                 device=device)
+            with fp32_products(), torch.inference_mode(), (
+                    _ZooPart(counters, cfg, f"tiny {name}", image=1, text=1,
+                             launches=_rt_launches, phase="t")
+                    if device == "cuda" else contextlib.nullcontext()):
+                feats[device] = [model.encode_image(images).float().cpu(),
+                                 model.encode_text(tokens).float().cpu()]
+        held(name, feats["cpu"], feats["cuda"])
+
+    for kind, d in HF_TINY.items():
+        for pooler in ("mean_pooler", "cls_pooler"):
+            tower = HFTextTower(d, 32, pooler, seed=0).eval()
+            ids = torch.from_numpy(_rt_ids(np.random.default_rng(102), 6,
+                                           d["vocab_size"], d["pad_token_id"],
+                                           S=24))
+            card = copy.deepcopy(tower).cuda()
+            with fp32_products(), torch.inference_mode():
+                want = tower.call_with_tokens(ids)
+                with _ZooPart(counters, None, f"tiny {kind} {pooler}",
+                              text=1, phase="t",
+                              launches=lambda _c, image, text, c=tower.config:
+                              {"packed_attention": 0,
+                               "fused_attention_block": 0,
+                               "layer_norm": _hf_ln(c) * text}):
+                    got = card.call_with_tokens(ids.cuda())
+            held(f"{kind} {pooler}", want, [t.cpu() for t in got])
+
+    cfg = coca.get_coca_config(RT_COCA_TINY)
+    rng = np.random.default_rng(103)
+    images = torch.from_numpy(rng.standard_normal((2, 64, 64, 3)).astype(
+        np.float32))
+    tokens = torch.from_numpy(_rt_ids(rng, 4, 100, 1, S=16))
+    special = dict(sot_token_id=0, eos_token_id=2, pad_id=1)
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = coca.create_coca_model(RT_COCA_TINY, seed=0, device=device)
+        tower_cfg = model.text.config
+        steps = 7          # seq_len 8 counts the SOT slot
+        with fp32_products(), torch.inference_mode(), (
+                _ZooPart(counters, cfg, f"tiny {RT_COCA_TINY}", image=2,
+                         text=1 + steps, phase="t",
+                         launches=lambda c, image, text:
+                         _coca_hf_launches(c, tower_cfg, image=image,
+                                           text=text, decode=steps))
+                if device == "cuda" else contextlib.nullcontext()):
+            x, t = images.to(device), tokens.to(device)
+            out[device] = [model.encode_image(x)[0].cpu(),
+                           model.encode_text(t)[0].cpu(),
+                           coca.generate(model, x, seq_len=8, **special)
+                           .cpu()]
+    held(RT_COCA_TINY, out["cpu"][:2], out["cuda"][:2])
+    require(torch.equal(out["cpu"][2], out["cuda"][2]),
+            f"(t) tiny {RT_COCA_TINY}: greedy ids {out['cuda'][2].tolist()} "
+            f"!= {out['cpu'][2].tolist()} on the CPU")
+    say(f"(t) tiny, fp32, TF32 off, card vs CPU: max abs {errs}; "
+        f"{RT_COCA_TINY} greedy ids equal: {out['cuda'][2].tolist()}")
+    return errs
+
+
+def phase_rest(workdir: str):
+    """(t) at full width and depth, random weights from seed 0, each model
+    built once: swin_base_patch4_window7_224 and
+    vit_relpos_medium_patch16_cls_224 through `serve.main` in bf16 (1,024
+    seeded captions at batch 256, 128 seeded 224 x 224 `.npy` images at
+    batch 64); nllb-clip-base, xlm-roberta-base-ViT-B-32 and
+    mt5-base-ViT-B-32 (the HF text tower fp32 as in the JAX package, the
+    ViT-B-32 in bf16): `encode_text` on 512 seeded 77-token id rows with
+    ragged padding at batch 256, `encode_image` on 128 seeded images at
+    batch 64; coca_roberta-ViT-B-32's image and text features.  Each part
+    holds the kernels' launches to its encodes (a warm-up batch and every
+    batch), the bf16 rows to cosine >= 0.995 against fp32 on the card
+    (TF32 off), the HF towers' card rows to the CPU's (cosine >= 0.9999),
+    and coca_roberta-ViT-B-32's generation to fail as it does in OpenCLIP
+    and the JAX package (its 768-wide decoder cannot take the pooler's
+    512-wide image embeddings; greedy ids are held in the tiny part)."""
+    import copy
+    import torch
+    from leaf_tpu_torch import serve
+    from leaf_tpu_torch.evals.zero_shot import fp32_products
+    from leaf_tpu_torch.models import coca
+    from leaf_tpu_torch.models.config import get_model_config
+    from leaf_tpu_torch.models.factory import (_cast_weights, create_model,
+                                               get_tokenizer)
+    root = os.path.join(workdir, "t")
+    os.makedirs(root)
+    rng = np.random.default_rng(104)
+    counters = {"rest_swin": _Counters(), "rest_relpos": _Counters(),
+                "rest_hf_text": _Counters(), "rest_coca_roberta": _Counters()}
+    out = {}
+    handler = _Rates()
+    log = logging.getLogger("leaf_tpu_torch.serve")
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    n = ZOO_PARITY_ROWS
+
+    def part(key, cfg, tag, **encodes):
+        return _ZooPart(counters[key], cfg, tag, launches=_rt_launches,
+                        phase="t", **encodes)
+
+    def held(name, pairs):
+        out[f"{name} cosine"] = [
+            _held_cosine(f"(t) {name} {kind}", low, full, RT_COSINE)
+            for kind, low, full in pairs]
+
+    def batched(key, name, cfg, fn, x, bs, kind):
+        with torch.inference_mode(), part(
+                key, cfg, f"{name} {kind} encodes",
+                **{kind: 1 + -(-len(x) // bs)}) as p:
+            fn(x[:bs], normalize=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats = np.concatenate([
+                fn(x[i:i + bs], normalize=True).float().cpu().numpy()
+                for i in range(0, len(x), bs)])
+            secs = time.perf_counter() - t0
+        require(feats.shape == (len(x), cfg.embed_dim)
+                and np.isfinite(feats).all(), f"(t) {name} {kind}")
+        row = {"encodes_per_s": len(x) / secs, "seconds": secs, "batch": bs,
+               "peak_gib": p.peak_gib, "launches": p.launches}
+        say(f"(t) {name} {kind}: {len(x)} at batch {bs} in {secs:.4f} s, "
+            f"{len(x) / secs:.1f} encodes/s, peak {p.peak_gib:.2f} GiB")
+        return feats, row
+
+    try:
+        # ---- Swin-B and RelPos-ViT through serve.main ---------------------
+        caps = _captions(rng, 1024, 3, 20)
+        texts = os.path.join(root, "captions.txt")
+        with open(texts, "w") as f:
+            f.write("\n".join(caps) + "\n")
+        for key, name in (("rest_swin", RT_SWIN), ("rest_relpos", RT_RELPOS)):
+            cfg = get_model_config(name)
+            images = _write_arrays(os.path.join(root, key), rng, 128,
+                                   cfg.vision.image_size)
+            feats = {}
+            for flag, path, count, batch, kind in (
+                    ("--texts", texts, 1024, 256, "text"),
+                    ("--images", images, 128, 64, "image")):
+                with part(key, cfg, f"{name} serve {flag}",
+                          **{kind: 1 + -(-count // batch)}) as p:
+                    res = serve.main(["--model", name, flag, path,
+                                      "--output",
+                                      os.path.join(root, f"{key}_{kind}.npz"),
+                                      "--batch-size", str(batch),
+                                      "--precision", "bf16",
+                                      "--device", "cuda"])
+                feats[kind] = res[f"{kind}_features"]
+                require(feats[kind].shape == (count, cfg.embed_dim)
+                        and np.isfinite(feats[kind]).all(),
+                        f"(t) {name} {kind}: {feats[kind].shape}")
+                done, secs, rate = getattr(handler, kind)[-1]
+                out[f"{name} {kind}"] = {
+                    "seconds": p.seconds, "encodes_per_s": rate,
+                    "window_s": secs, "peak_gib": p.peak_gib,
+                    "launches": p.launches}
+                say(f"(t) {name} serve {kind}: {done} in {secs:.3f} s "
+                    f"steady state, {rate:.1f} encodes/s; part "
+                    f"{p.seconds:.2f} s (build, data, warm-up included), "
+                    f"peak {p.peak_gib:.2f} GiB")
+            ref = create_model(name, precision="fp32", seed=0, device="cuda")
+            full_t, full_i = _features32(
+                ref, np.asarray(get_tokenizer(name)(caps[:n])),
+                _preprocessed(images, cfg, n))
+            held(name, [("text", feats["text"][:n], full_t),
+                         ("image", feats["image"][:n], full_i)])
+            del ref
+
+        # ---- the HF text towers beside ViT-B-32 ---------------------------
+        for name in RT_HF:
+            cfg = get_model_config(name)
+            t0 = time.perf_counter()
+            model = create_model(name, precision="fp32", seed=0,
+                                 device="cuda")
+            build_s = time.perf_counter() - t0
+            tower = model.module.text
+            c = tower.config
+            ids = _rt_ids(rng, 512, c.vocab_size, c.pad_token_id or 0)
+            size = cfg.vision.image_size
+            images = rng.standard_normal((128, size, size, 3)).astype(
+                np.float32)
+            full_i, = _features32(model, images=images[:n])
+            with fp32_products():
+                t_feats, out[f"{name} text"] = batched(
+                    "rest_hf_text", name, cfg, model.encode_text, ids, 256,
+                    "text")
+            require(t_feats.dtype == np.float32, f"(t) {name} text dtype")
+            # the fp32 tower's rows against the same weights on the CPU
+            with fp32_products(), torch.inference_mode():
+                cpu = copy.deepcopy(tower).cpu()
+                want = cpu(torch.from_numpy(ids[:4]), normalize=True).numpy()
+                del cpu
+            cos = float(np.sum(want * t_feats[:4], -1).min())
+            require(cos >= 0.9999,
+                    f"(t) {name} text: card vs CPU min cosine {cos}")
+            out[f"{name} text card vs CPU cosine"] = cos
+            _cast_weights(model.module, torch.bfloat16)   # the ViT to bf16
+            require(all(p.dtype == torch.float32 for p in tower.parameters()),
+                    f"(t) {name}: the HF tower left fp32")
+            i_feats, out[f"{name} image"] = batched(
+                "rest_hf_text", name, cfg, model.encode_image, images, 64,
+                "image")
+            held(name, [("image", i_feats[:n], full_i)])
+            out[f"{name} build_s"] = build_s
+            say(f"(t) {name}: built in {build_s:.1f} s; text card vs CPU "
+                f"cosine {cos:.6f}")
+            del model, tower
+
+        # ---- coca_roberta-ViT-B-32 ----------------------------------------
+        cfg = coca.get_coca_config(RT_COCA)
+        model = coca.create_coca_model(RT_COCA, seed=0, device="cuda")
+        size = cfg.vision.image_size
+        images = torch.from_numpy(rng.standard_normal(
+            (64, size, size, 3)).astype(np.float32)).cuda()
+        ids = torch.from_numpy(_rt_ids(rng, 256, model.text.vocab_size,
+                                       1)).cuda()
+        feats = {}
+        for dt in (torch.float32, torch.bfloat16):
+            model.set_compute_dtype(dt)
+            with fp32_products(), torch.inference_mode(), _ZooPart(
+                    counters["rest_coca_roberta"], cfg,
+                    f"{RT_COCA} features {dt}", image=1, text=1, phase="t",
+                    launches=lambda c, image, text, tc=model.text.config:
+                    _coca_hf_launches(c, tc, image=image, text=text)) as p:
+                feats[dt] = [model.encode_image(images)[0].float().cpu()
+                             .numpy(),
+                             model.encode_text(ids)[0].float().cpu().numpy()]
+            out[f"{RT_COCA} features {str(dt)[6:]}"] = {
+                "seconds": p.seconds, "peak_gib": p.peak_gib,
+                "launches": p.launches}
+        held(RT_COCA, [("image", feats[torch.bfloat16][0][:n],
+                        feats[torch.float32][0][:n]),
+                       ("text", feats[torch.bfloat16][1][:n],
+                        feats[torch.float32][1][:n])])
+        try:
+            with torch.inference_mode():
+                coca.generate(model, images[:1], seq_len=6)
+            require(False, f"(t) {RT_COCA}: generation ran on shapes that "
+                    "OpenCLIP and the JAX package refuse")
+        except ValueError as e:
+            # ln_1_kv (768) on the pooler's 512-wide image embeddings
+            require("expected (512,)" in str(e),
+                    f"(t) {RT_COCA}: generation failed otherwise: {e}")
+            out[f"{RT_COCA} generation"] = f"refused: {e}"
+            say(f"(t) {RT_COCA} generation refused as upstream: {e}")
+        del model
+    finally:
+        log.removeHandler(handler)
+        shutil.rmtree(root, ignore_errors=True)
+    say(f"(t) bf16 vs fp32 on the card, min cosine per part: "
+        f"{ {k: v for k, v in out.items() if k.endswith('cosine')} }")
+    return {path: c.total for path, c in counters.items()}, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5075,7 +5479,9 @@ def main() -> int:
         zoo_launches, zoo_runs = _timed("r", phase_zoo, workdir)
         conv_parity = _timed("s parity", phase_convnet_parity, workdir)
         conv_launches, conv_runs = _timed("s", phase_convnets, workdir)
-        zoo_launches = {**zoo_launches, **conv_launches}
+        rest_parity = _timed("t parity", phase_rest_parity, workdir)
+        rest_launches, rest_runs = _timed("t", phase_rest, workdir)
+        zoo_launches = {**zoo_launches, **conv_launches, **rest_launches}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -5181,7 +5587,8 @@ def main() -> int:
                       "t2i": t2i_runs, "coca_parity": coca_parity,
                       "coca": coca_runs, "zoo_parity": zoo_parity,
                       "zoo": zoo_runs, "convnets_parity": conv_parity,
-                      "convnets": conv_runs}, default=float))
+                      "convnets": conv_runs, "rest_parity": rest_parity,
+                      "rest": rest_runs}, default=float))
     # every shape's row (ms, plain_ms, library_ms, bound_ms, bound_by,
     # max_abs_err) on a line of its own, so that the kernels line stays
     # short enough to read whole from the end of a captured output

@@ -31,10 +31,11 @@ parameters and never read that dtype, so it computes in fp32 whatever the
 flag (the port's default); the logits are fp32 with TF32 off either way.
 `reformat` keeps the rows with an empty index cell (a clean result has no
 `eps`), which the JAX command line's pandas pivot drops; it needs no
-pandas.  Not ported, and raising by name: HF-text CoCa models
-(`coca_roberta-*`, ROADMAP Queue 1 item 11), `--model-type hf_clip` (it
-names a hub repo, and the hub registry is item 11), registry and hub
-`--pretrained` tags (item 11).
+pandas.  `--model-type hf_clip` (the model an HF repo id) and registry or
+`hf-hub:` `--pretrained` tags load from the local checkpoint cache
+(`models/pretrained.py`); nothing is fetched.  Models whose tokenizer is
+an HF one (`coca_roberta-*`, the HF-text and SigLIP/CLIPA towers) raise at
+`get_tokenizer`: `transformers` and their vocabulary files are absent.
 """
 from __future__ import annotations
 
@@ -102,17 +103,16 @@ def _load_model(args, model_name: str, pretrained: str):
             raise ValueError(
                 "--model-type hf_clip takes the HF repo id as --model; "
                 "--pretrained must be empty")
-        raise NotImplementedError(
-            "--model-type hf_clip loads an HF hub repo id through the "
-            "pretrained registry (models/pretrained.py), which is not "
-            "ported to leaf_tpu_torch yet: ROADMAP Queue 1 item 11; a "
-            "local HF-format directory loads with --model-type open_clip "
-            "--pretrained <dir>")
+        # the repo id names the model: its config and weights come from
+        # the local snapshot (`pretrained.download_pretrained_from_hf`)
+        if not model_name.startswith("hf-hub:"):
+            model_name = "hf-hub:" + model_name
     if args.precision not in PRECISIONS:
         raise ValueError(f"--precision {args.precision!r}: one of "
                          f"{sorted(PRECISIONS)}")
     model = create_model(model_name,
-                         local_checkpoint(pretrained or None, "--pretrained"),
+                         local_checkpoint(pretrained or None, "--pretrained",
+                                          model_name),
                          precision="fp32", seed=args.seed,
                          device=args.device, master_weights=True)
     module, cfg = model.module, model.cfg
@@ -217,7 +217,8 @@ def _run_captioning(args, dataset_name: str, model_name: str,
     clock = seconds if seconds is not None else {}
     t0 = time.perf_counter()
     model = create_coca_model(
-        model_name, local_checkpoint(pretrained or None, "--pretrained"),
+        model_name, local_checkpoint(pretrained or None, "--pretrained",
+                                     model_name),
         seed=args.seed, device=args.device)
     model.set_compute_dtype(PRECISIONS[args.precision])
     clock["build"] = clock.get("build", 0.0) + time.perf_counter() - t0

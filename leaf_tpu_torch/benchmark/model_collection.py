@@ -3,8 +3,7 @@
 
 A registry of (model, pretrained) lists addressable by name, and the
 comma-separated file format of `model,pretrained` lines.  `openclip_all`
-enumerates the pretrained registry, which is not ported yet: it raises
-naming ROADMAP Queue 1 item 11.
+enumerates the pretrained registry (`models/pretrained.py`).
 """
 from __future__ import annotations
 
@@ -15,10 +14,8 @@ ModelSpec = Tuple[str, str]
 
 
 def _all_pretrained() -> List[ModelSpec]:
-    raise NotImplementedError(
-        "the 'openclip_all' collection enumerates the pretrained registry "
-        "(models/pretrained.py), which is not ported to leaf_tpu_torch yet: "
-        "ROADMAP Queue 1 item 11")
+    from leaf_tpu_torch.models.pretrained import list_pretrained
+    return [tuple(x) for x in list_pretrained()]
 
 
 MODEL_COLLECTIONS = {

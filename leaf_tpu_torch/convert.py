@@ -43,14 +43,16 @@ def params_to_openclip(sd: Mapping[str, torch.Tensor],
     `nn.Linear` weights are [out, in] there, so every matmul weight is
     transposed back.  The CLIP-ViT, ModifiedResNet and ConvNeXt towers
     (the latter two with the text tower at the top level, as the JAX
-    package writes them); the zoo's other parts (timm trunks, no class
-    token or `ln_pre`, the SigLIP head, timm heads, projection biases,
-    `logit_bias`) raise (ROADMAP Queue 1 item 11)."""
+    package writes them); the ViT zoo's other parts (no class token or
+    `ln_pre`, the SigLIP head, timm heads, projection biases,
+    `logit_bias`) raise (ROADMAP Queue 1 item 11).  A timm trunk (MobileCLIP,
+    EVA, ViTamin, Swin, RelPos-ViT) or an HF text tower has no OpenCLIP
+    export in the JAX package either (its `params_to_openclip` reads the
+    CLIP ViT and text tower's keys, which these lack): they raise so."""
+    require_openclip_exportable(cfg)
     other = [k for k in ("text.text_projection_bias", "logit_bias")
              if k in sd]
-    if cfg.trunk is not None:
-        other.insert(0, f"a {type(cfg.trunk).__name__} trunk")
-    elif cfg.resnet is None and cfg.convnext is None:
+    if cfg.resnet is None and cfg.convnext is None:
         other += [k for k in ("visual.patch_bias", "visual.proj_bias")
                   if k in sd]
         other += [k for k in ("visual.class_embedding",
@@ -111,6 +113,18 @@ def params_to_openclip(sd: Mapping[str, torch.Tensor],
             put(dst + "mlp.c_proj.weight", sd[src + "mlp.proj_w"], True)
             put(dst + "mlp.c_proj.bias", sd[src + "mlp.proj_b"])
     return out
+
+
+def require_openclip_exportable(cfg: CLIPConfig) -> None:
+    """A timm trunk or an HF text tower has no OpenCLIP export, in the JAX
+    package's convert as here."""
+    towers = ([f"a {type(cfg.trunk).__name__} trunk"] if cfg.trunk
+              is not None else []) + (["an HF text tower"]
+                                      if cfg.text.hf_model_name else [])
+    if towers:
+        raise NotImplementedError(
+            f"{cfg.name}: {' and '.join(towers)} has no OpenCLIP export, in "
+            "the JAX package's convert as here")
 
 
 def require_hf_exportable(cfg: CLIPConfig) -> None:
@@ -236,6 +250,8 @@ def main(argv=None) -> str:
                            "available")
 
     cfg = get_model_config(args.model)
+    if cfg.text.hf_model_name:
+        require_openclip_exportable(cfg)
     if args.to == "hf":
         require_hf_exportable(cfg)
     sd = interop.load_pretrained(args.input, cfg)

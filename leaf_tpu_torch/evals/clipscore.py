@@ -183,7 +183,8 @@ def main(argv=None) -> Dict[str, object]:
     from leaf_tpu_torch.models.factory import (create_model, get_tokenizer,
                                                local_checkpoint)
     model = create_model(args.model,
-                         local_checkpoint(args.pretrained, "--pretrained"),
+                         local_checkpoint(args.pretrained, "--pretrained",
+                                          args.model),
                          device=args.device)
     tokenizer = get_tokenizer(args.model)
     with open(args.captions) as f:

@@ -93,7 +93,8 @@ def main(argv=None, seconds: Optional[Dict[str, float]] = None):
         return time.perf_counter()
 
     model = create_model(args.model,
-                         local_checkpoint(args.pretrained, "--pretrained"),
+                         local_checkpoint(args.pretrained, "--pretrained",
+                                          args.model),
                          precision="fp32", seed=args.seed, device=args.device,
                          master_weights=True)
     cfg, device = model.cfg, model.device

@@ -142,7 +142,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                                get_tokenizer,
                                                local_checkpoint)
     model, _, preprocess = create_model_and_transforms(
-        args.model, local_checkpoint(args.pretrained or None, "--pretrained"),
+        args.model, local_checkpoint(args.pretrained or None,
+                                     "--pretrained", args.model),
         seed=args.seed, device=args.device)
     module = model.module
     tokenizer = get_tokenizer(args.model)

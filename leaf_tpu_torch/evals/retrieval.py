@@ -179,7 +179,8 @@ def main(argv=None):
     setup_logging()
 
     model = create_model(args.model,
-                         local_checkpoint(args.pretrained, "--pretrained"),
+                         local_checkpoint(args.pretrained, "--pretrained",
+                                          args.model),
                          precision=args.precision, device=args.device,
                          master_weights=True)
     tokenizer = get_tokenizer(args.model)

@@ -390,7 +390,8 @@ def main(argv=None) -> List[str]:
 
     logging.basicConfig(level=logging.INFO)
     model = create_model(args.model,
-                         local_checkpoint(args.pretrained, "--pretrained"),
+                         local_checkpoint(args.pretrained, "--pretrained",
+                                          args.model),
                          precision=args.precision, device=args.device,
                          master_weights=True)
     tokenizer = get_tokenizer(args.model)
@@ -398,7 +399,8 @@ def main(argv=None) -> List[str]:
     text2 = scorer2 = None
     if args.model2:
         model2 = create_model(
-            args.model2, local_checkpoint(args.pretrained2, "--pretrained2"),
+            args.model2, local_checkpoint(args.pretrained2, "--pretrained2",
+                                          args.model2),
             precision=args.precision, device=args.device,
             master_weights=True)
         text2 = model2.module.text

@@ -172,8 +172,10 @@ def main(argv=None) -> Dict[str, float]:
     args = p.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
-    pretrained = local_checkpoint(args.pretrained, "--pretrained")
-    clean_pre = local_checkpoint(args.clean_pretrained, "--clean-pretrained")
+    pretrained = local_checkpoint(args.pretrained, "--pretrained",
+                                  args.model)
+    clean_pre = local_checkpoint(args.clean_pretrained,
+                                 "--clean-pretrained", args.model)
     model = create_model(args.model, pretrained, precision=args.precision,
                          device=args.device, master_weights=True)
     # the same source gives the same weights: one model serves as both

@@ -135,7 +135,8 @@ def main(argv=None) -> Dict[str, float]:
 
     logging.basicConfig(level=logging.INFO)
     model = create_model(args.model,
-                         local_checkpoint(args.pretrained, "--pretrained"),
+                         local_checkpoint(args.pretrained, "--pretrained",
+                                          args.model),
                          precision=args.precision, device=args.device,
                          master_weights=True)
     # the anchor images reach `class_anchor_features` un-normalised: it

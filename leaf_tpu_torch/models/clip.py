@@ -32,8 +32,11 @@ embedding is a reshape plus one matmul (the stride-p conv of OpenCLIP,
 package's `init_clip` and `encode_image_model` dispatch: a ModifiedResNet
 where `cfg.resnet` is set (`models/resnet.py`), a ConvNeXt where
 `cfg.convnext` is (`models/convnext.py`), and a timm trunk (MobileCLIP,
-EVA, ViTamin) where `cfg.trunk` is, through `models/trunks.py`; each has
-the same `encode_image`.
+EVA, ViTamin, Swin, RelPos-ViT) where `cfg.trunk` is, through
+`models/trunks.py`; each has the same `encode_image`.  The text tower is
+an HF encoder with its pooler and head (`models/hf_text.HFTextTower`,
+fp32, the JAX package's CustomTextCLIP route) where `cfg.text.
+hf_model_name` is set; `encode_text` dispatches to it.
 
 Train-time patch dropout keeps the class token, where the tower has one,
 and a random subset of the patch tokens after the positional embedding
@@ -426,7 +429,14 @@ class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
         self.cfg = cfg
-        self.text = TextTower(cfg.text, cfg.quick_gelu)
+        if cfg.text.hf_model_name:
+            # CustomTextCLIP: an HF encoder, its pooler and head, fp32
+            from leaf_tpu_torch.models.hf_text import HFTextTower
+            self.text = HFTextTower(cfg.text.hf_model_name, cfg.embed_dim,
+                                    cfg.text.hf_pooler_type,
+                                    cfg.text.hf_proj_type)
+        else:
+            self.text = TextTower(cfg.text, cfg.quick_gelu)
         if cfg.resnet is not None:
             from leaf_tpu_torch.models.resnet import ModifiedResNet
             self.visual = ModifiedResNet(cfg.resnet)

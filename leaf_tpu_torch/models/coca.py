@@ -31,8 +31,11 @@ both the text tower and the decoder are causal in their token positions
 is exact.  `generate` (greedy, top-k, top-p) and `generate_beamsearch`
 (group beam search) run a Python loop over the fixed number of positions,
 as JAX's scan does, on preallocated caches, with no read of a device value
-inside the loop.  HF text towers (`coca_roberta-*`) are not ported: their
-configs stay in the registry and raise by name.
+inside the loop.  An HF text tower (`coca_roberta-*`: RoBERTa,
+`models/hf_text.py`, fp32, mean-pooled over its bidirectional encoder) is
+not prefix-stable, so its configs re-encode the whole sequence at every
+step, as the JAX package's `use_cache=False` does.  No module-level tower
+cache is kept: each `CoCa` owns its tower.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ from leaf_tpu_torch.models import layers
 from leaf_tpu_torch.models.clip import (TextTower, VisionTower, _act,
                                         l2_normalize, patchify)
 from leaf_tpu_torch.models.config import TextConfig, VisionConfig
+from leaf_tpu_torch.models.hf_text import HFTextTower
 
 LOG = logging.getLogger(__name__)
 
@@ -77,7 +81,7 @@ class CoCaConfig:
     # generation's special ids (the CLIP BPE's; roberta's are 0 / 2 / 1)
     sot_token_id: int = 49406
     eos_token_id: int = 49407
-    # set: the text tower is a HuggingFace model (not ported)
+    # set: the text tower is this HF model (`models/hf_text.py`)
     hf_text_name: Optional[str] = None
     hf_pooler: str = "mean_pooler"
     hf_proj: Optional[str] = "linear"
@@ -123,7 +127,11 @@ def coca_base() -> CoCaConfig:
 
 
 def coca_roberta_vit_b_32() -> CoCaConfig:
-    """roberta-base text tower: needs `hf_text`, not ported."""
+    """roberta-base text tower, ViT-B-32 vision, width-768 decoder.  As in
+    OpenCLIP (and the JAX package), the decoder's cross-attention is
+    768 wide while the pooler emits 512-wide image embeddings, so the
+    captioning forward and generation fail on the shapes; the contrastive
+    towers work."""
     return CoCaConfig(
         name="coca_roberta-ViT-B-32", embed_dim=512,
         text=TextConfig(context_length=76, width=768, heads=12, layers=12,
@@ -137,7 +145,8 @@ def coca_roberta_vit_b_32() -> CoCaConfig:
 
 
 def coca_roberta_tiny_test() -> CoCaConfig:
-    """A 2-layer roberta tower at test size: needs `hf_text`, not ported."""
+    """A 2-layer roberta tower at test size, with widths that agree (embed
+    = decoder width = HF hidden size), so captioning runs."""
     return CoCaConfig(
         name="coca-roberta-tiny-test", embed_dim=64,
         text=TextConfig(context_length=16, width=64, heads=2, layers=2,
@@ -167,16 +176,6 @@ COCA_CONFIGS = {"coca_ViT-B-32": coca_vit_b_32, "coca_ViT-L-14": coca_vit_l_14,
                 "coca_base": coca_base, "coca-tiny-test": coca_tiny_test,
                 "coca_roberta-ViT-B-32": coca_roberta_vit_b_32,
                 "coca-roberta-tiny-test": coca_roberta_tiny_test}
-
-
-def require_native_text(cfg: CoCaConfig) -> None:
-    """Raise for a config whose text tower is an HF model: `hf_text` and
-    its tokenizer are not ported."""
-    if cfg.hf_text_name:
-        raise NotImplementedError(
-            f"the CoCa model {cfg.name!r}: its HF text tower "
-            "(models/hf_text.py, tokenizer/hf.py) is not ported to "
-            "leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
 
 
 def get_coca_config(name: str) -> CoCaConfig:
@@ -342,6 +341,27 @@ class CoCaTextTower(TextTower):
         return self.encode(tokens, normalize)[0]
 
 
+class CoCaHFText(HFTextTower):
+    """An HF text tower in a CoCa (the JAX package's `encode_text_coca` for
+    `hf_text_name` configs): the pooled latent, normalised, and the token
+    states, both cast to the CoCa's compute dtype."""
+
+    def __init__(self, cfg: CoCaConfig):
+        super().__init__(cfg.hf_text_name, output_dim=cfg.embed_dim,
+                         pooler_type=cfg.hf_pooler, proj_type=cfg.hf_proj)
+
+    def encode(self, tokens: torch.Tensor, normalize: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        pooled, token_embs = self.call_with_tokens(tokens)
+        if normalize:
+            pooled = l2_normalize(pooled)
+        return pooled.to(self.dtype), token_embs.to(self.dtype)
+
+    def encode_text(self, tokens: torch.Tensor,
+                    normalize: bool = False) -> torch.Tensor:
+        return self.encode(tokens, normalize)[0]
+
+
 class CrossBlock(layers.ResidualBlock):
     """A decoder layer's cross-attention block: queries from `ln_1(h)`,
     keys and values from `ln_1_kv(image embeddings)` (the q / k / v column
@@ -414,9 +434,8 @@ class MultimodalDecoder(nn.Module):
 class CoCa(nn.Module):
     def __init__(self, cfg: CoCaConfig):
         super().__init__()
-        require_native_text(cfg)
         self.cfg = cfg
-        self.text = CoCaTextTower(cfg)
+        self.text = CoCaHFText(cfg) if cfg.hf_text_name else CoCaTextTower(cfg)
         self.visual = CoCaVisionTower(cfg)
         self.text_decoder = MultimodalDecoder(cfg)
         self.logit_scale = nn.Parameter(torch.tensor(cfg.init_logit_scale))
@@ -535,6 +554,27 @@ def decode_one(model: CoCa, tok: torch.Tensor, pos: int, cache: tuple
     return (x @ dec.text_projection.to(x.dtype))[:, 0]
 
 
+def _next_logits(model: CoCa, tokens: torch.Tensor, pos: int,
+                 cache: Optional[tuple], image_embs: torch.Tensor
+                 ) -> torch.Tensor:
+    """The logits [N, V] of position `pos` given tokens [N, S] whose slots
+    < pos are written: one cached step (`decode_one`), or, with no cache
+    (an HF text tower), the whole sequence re-encoded and decoded."""
+    if cache is not None:
+        return decode_one(model, tokens[:, pos - 1], pos - 1, cache)
+    _, token_embs = model.encode_text(tokens)
+    return model.decode(image_embs, token_embs)[:, pos - 1]
+
+
+def _generation_cache(model: CoCa, image_embs: torch.Tensor
+                      ) -> Optional[tuple]:
+    """`init_generation_cache`, or None where the text tower is not
+    prefix-stable (HF)."""
+    if model.cfg.hf_text_name:
+        return None
+    return init_generation_cache(model, image_embs)
+
+
 def top_p_filter(logits: torch.Tensor, top_p: float,
                  min_tokens_to_keep: int = 1) -> torch.Tensor:
     """Nucleus filtering with HF's TopPLogitsWarper semantics: ascending
@@ -608,14 +648,14 @@ def generate(model: CoCa, images: torch.Tensor,
     if generator is None and (top_k > 1 or top_p is not None):
         generator = torch.Generator(device=device).manual_seed(0)
     _, image_embs = model.encode_image(images)
-    cache = init_generation_cache(model, image_embs)
+    cache = _generation_cache(model, image_embs)
     tokens = torch.full((B, S), pad, dtype=torch.long, device=device)
     tokens[:, 0] = sot
     seen = torch.zeros(B, V, dtype=torch.bool, device=device)
     seen[:, sot] = True
     done = torch.zeros(B, dtype=torch.bool, device=device)
     for pos in range(1, seq_len):
-        cur = decode_one(model, tokens[:, pos - 1], pos - 1, cache)
+        cur = _next_logits(model, tokens, pos, cache, image_embs)
         if repetition_penalty != 1.0:
             cur = _repetition_penalty(cur, seen, repetition_penalty)
         if pos < min_seq_len:
@@ -698,8 +738,8 @@ def generate_beamsearch(model: CoCa, images: torch.Tensor,
     steps = min(seq_len, S) - 1          # the SOT slot counts
     final_len, lp = steps + 1, length_penalty
     _, image_embs = model.encode_image(images)
-    cache = init_generation_cache(model,
-                                  image_embs.repeat_interleave(K, dim=0))
+    image_embs = image_embs.repeat_interleave(K, dim=0)
+    cache = _generation_cache(model, image_embs)
 
     def full(shape, value, dtype):
         return torch.full(shape, value, dtype=dtype, device=device)
@@ -719,8 +759,8 @@ def generate_beamsearch(model: CoCa, images: torch.Tensor,
     lanes = torch.arange(bg, device=device)
 
     for pos in range(1, steps + 1):
-        cur = decode_one(model, tokens[..., pos - 1].reshape(B * K),
-                         pos - 1, cache).float().reshape(B, G, bg, V)
+        cur = _next_logits(model, tokens.reshape(B * K, S), pos, cache,
+                           image_embs).float().reshape(B, G, bg, V)
         if pos < min_seq_len:
             cur[..., eos] -= float("inf")
         if repetition_penalty != 1.0:
@@ -763,7 +803,7 @@ def generate_beamsearch(model: CoCa, images: torch.Tensor,
         seen = seen.reshape(B * K, V).index_select(0, rows) \
             .reshape(B, G, bg, V)
         seen.scatter_(-1, nb_tok[..., None], True)
-        for c in cache[:4]:
+        for c in (cache or ())[:4]:
             c[:, :, :, :pos + 1] = c[:, :, :, :pos + 1].index_select(1, rows)
         scores = nb_s
 

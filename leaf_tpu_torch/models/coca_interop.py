@@ -8,6 +8,9 @@ OpenCLIP's CoCa keys: `text.*` (the text transformer with `cls_emb`),
 `text_decoder.*` (`resblocks.<i>` self-attention blocks, `cross_attn.<i>`
 blocks with `ln_1_kv`).  The mapping rules are `interop`'s: `nn.Linear`
 weights transposed to `y = x @ w`, the stride-p conv to the patch matmul.
+A CoCa with an HF text tower (`coca_roberta-*`) has `text.transformer.<HF
+torch keys>` and the bias-free `text.proj.weight` instead of the native
+text tower: the port's `HFTextTower` keeps HF's keys (`text.hf.<key>`).
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from leaf_tpu_torch.models.coca import CoCaConfig, require_native_text
+from leaf_tpu_torch.models.coca import CoCaConfig
 from leaf_tpu_torch.models.interop import (StateDict, _np, _openclip_blocks,
                                            _tensor, params_from_jax)
 
@@ -30,14 +33,9 @@ def coca_openclip_to_params(sd: Mapping[str, Any],
                             cfg: CoCaConfig) -> StateDict:
     """OpenCLIP `CoCa.state_dict()` -> the port's state_dict; a `module.`
     prefix (DDP checkpoints) is dropped."""
-    require_native_text(cfg)
     sd = {k[len("module."):] if k.startswith("module.") else k: v
           for k, v in sd.items()}
     out: StateDict = {
-        "text.token_embedding": _tensor(sd["text.token_embedding.weight"]),
-        "text.positional_embedding": _tensor(sd["text.positional_embedding"]),
-        "text.cls_emb": _tensor(sd["text.cls_emb"]),
-        "text.text_projection": _tensor(sd["text.text_projection"]),
         "visual.class_embedding": _tensor(sd["visual.class_embedding"]),
         "visual.positional_embedding": _tensor(
             sd["visual.positional_embedding"]),
@@ -46,9 +44,22 @@ def coca_openclip_to_params(sd: Mapping[str, Any],
             sd["text_decoder.text_projection"]),
         "logit_scale": _tensor(_np(sd["logit_scale"]).reshape(())),
     }
-    _ln(sd, "text.ln_final", "text.ln_final", out)
-    _openclip_blocks(sd, "text.transformer", cfg.text.layers, "text.blocks",
-                     out)
+    if cfg.hf_text_name:
+        tp = "text.transformer."
+        out.update({"text.hf." + k[len(tp):]: _tensor(v)
+                    for k, v in sd.items() if k.startswith(tp)})
+        if "text.proj.weight" in sd:
+            out["text.proj.w"] = _tensor(_np(sd["text.proj.weight"]).T)
+    else:
+        out.update({
+            "text.token_embedding": _tensor(sd["text.token_embedding.weight"]),
+            "text.positional_embedding": _tensor(
+                sd["text.positional_embedding"]),
+            "text.cls_emb": _tensor(sd["text.cls_emb"]),
+            "text.text_projection": _tensor(sd["text.text_projection"])})
+        _ln(sd, "text.ln_final", "text.ln_final", out)
+        _openclip_blocks(sd, "text.transformer", cfg.text.layers,
+                         "text.blocks", out)
     conv = _np(sd["visual.conv1.weight"])             # [D, 3, p, p]
     out["visual.patch_embedding"] = _tensor(
         conv.transpose(2, 3, 1, 0).reshape(-1, conv.shape[0]))

@@ -1,24 +1,27 @@
 """Model configuration registry (port of `leaf_tpu/models/config.py`).
 
-The same frozen dataclasses and, for the families the port runs, the same
-registry entries: the plain ViTs (`ViT-tiny-test`, ViT-S/M/B/L/H/g/bigG/e
-and their `-quickgelu` variants), SigLIP (`ViT-*-SigLIP*`,
-`siglip-tiny-test`), CLIPA (`ViT-*-CLIPA*`), the timm gap-ViT
-(`vit_medium_patch16_gap_256`), MobileCLIP (`MobileCLIP-{B,S1,S2}`,
-`mci-vit-tiny-test`, `fastvit-tiny-test`), OpenAI's ModifiedResNets
-(`RN50`, `RN101`, `RN50x4`, their `-quickgelu` variants, `RN50x16`,
-`RN50x64`), ConvNeXt (`convnext_*`, `convnext-tiny-test`), EVA
-(`EVA01-*`, `EVA02-*`, `eva-tiny-test`) and ViTamin (`ViTamin-*`,
-`vitamin-tiny-test`), registered through `config_from_open_clip_dict` as
-in the JAX package.
+The same frozen dataclasses and the same registry entries: the plain ViTs
+(`ViT-tiny-test`, ViT-S/M/B/L/H/g/bigG/e and their `-quickgelu` variants),
+SigLIP (`ViT-*-SigLIP*`, `siglip-tiny-test`), CLIPA (`ViT-*-CLIPA*`), the
+timm gap-ViT (`vit_medium_patch16_gap_256`), MobileCLIP
+(`MobileCLIP-{B,S1,S2}`, `mci-vit-tiny-test`, `fastvit-tiny-test`),
+OpenAI's ModifiedResNets (`RN50`, `RN101`, `RN50x4`, their `-quickgelu`
+variants, `RN50x16`, `RN50x64`), ConvNeXt (`convnext_*`,
+`convnext-tiny-test`), EVA (`EVA01-*`, `EVA02-*`, `eva-tiny-test`),
+ViTamin (`ViTamin-*`, `vitamin-tiny-test`), Swin
+(`swin_base_patch4_window7_224`, `swin-tiny-test`), RelPos-ViT
+(`vit_relpos_medium_patch16_cls_224`, `relpos-tiny-test`) and the HF text
+towers (`roberta-ViT-B-32`, `xlm-roberta-{base-ViT-B-32,large-ViT-H-14}`,
+`mt5-{base-ViT-B-32,xl-ViT-H-14}`, `nllb-clip-{base,large}[-siglip]`),
+registered through `config_from_open_clip_dict` as in the JAX package.
 
-The other families of the JAX registry (Swin, RelPos-ViT and the HF text
-towers) are not ported: `get_model_config` raises a `KeyError` that names
-them and ROADMAP Queue 1 item 11.  A config's vision tower is a
-ModifiedResNet where `resnet` is set (`models/resnet.py`), a ConvNeXt
-where `convnext` is (`models/convnext.py`), a timm trunk where `trunk` is
-(MobileCLIP, EVA, ViTamin: a spec of `models/{mci,eva,vitamin}.py`,
-dispatched by `models/trunks.py`), and the ViT tower otherwise.
+A config's vision tower is a ModifiedResNet where `resnet` is set
+(`models/resnet.py`), a ConvNeXt where `convnext` is
+(`models/convnext.py`), a timm trunk where `trunk` is (MobileCLIP, EVA,
+ViTamin, Swin, RelPos-ViT: a spec of `models/{mci,eva,vitamin,swin,
+relpos_vit}.py`, dispatched by `models/trunks.py`), and the ViT tower
+otherwise.  Its text tower is an HF model (`models/hf_text.py`) where
+`text.hf_model_name` is set, and the native CLIP text tower otherwise.
 """
 from __future__ import annotations
 
@@ -43,9 +46,14 @@ class TextConfig:
     ln_eps: float = 1e-5
     # the HF tokenizer a tower was trained with (SigLIP's SentencePiece,
     # CLIPA's BERT vocabulary) and its extra arguments as (key, value)
-    # pairs; `factory.get_tokenizer` raises for these (item 11)
+    # pairs; `factory.get_tokenizer` raises for these (no vocabulary files)
     hf_tokenizer_name: Optional[str] = None
     tokenizer_kwargs: Optional[Tuple[Tuple[str, object], ...]] = None
+    # set: the text tower is this HF model (`models/hf_text.HFTextTower`)
+    # with its pooler and projection head, not the CLIP text transformer
+    hf_model_name: Optional[str] = None
+    hf_pooler_type: str = "mean_pooler"
+    hf_proj_type: Optional[str] = "linear"
 
     @property
     def head_dim(self) -> int:
@@ -119,7 +127,13 @@ class CLIPConfig:
     # the statistics the tower was trained on; None: OpenAI CLIP's
     image_mean: Optional[Tuple[float, float, float]] = None
     image_std: Optional[Tuple[float, float, float]] = None
-    # a timm trunk spec (MobileCLIP, EVA, ViTamin: `models/trunks.py`)
+    # the preprocess geometry a hub checkpoint carries (interpolation
+    # bicubic | bilinear | nearest, resize_mode shortest | longest |
+    # squash); None: bicubic, shortest
+    image_interpolation: Optional[str] = None
+    image_resize_mode: Optional[str] = None
+    # a timm trunk spec (MobileCLIP, EVA, ViTamin, Swin, RelPos-ViT:
+    # `models/trunks.py`)
     trunk: Optional[object] = None
 
 
@@ -197,15 +211,6 @@ def _register_resnet_models() -> None:
                 _REGISTRY[name], name=name + "-quickgelu", quick_gelu=True))
 
 
-# name prefixes of the JAX registry's families that the port does not run
-_NOT_PORTED = (
-    (("swin",), "a Swin tower (models/swin.py)"),
-    (("vit_relpos", "relpos-"), "a RelPos-ViT tower (models/relpos_vit.py)"),
-    (("roberta-", "xlm-roberta-", "mt5-", "nllb-clip"),
-     "an HF text tower (models/hf_text.py)"),
-)
-
-
 def list_models() -> Tuple[str, ...]:
     """All registry names, sorted."""
     return tuple(sorted(_REGISTRY))
@@ -213,11 +218,6 @@ def list_models() -> Tuple[str, ...]:
 
 def get_model_config(name: str) -> CLIPConfig:
     if name not in _REGISTRY:
-        for prefixes, family in _NOT_PORTED:
-            if name.startswith(prefixes):
-                raise KeyError(
-                    f"'{name}' has {family}, which is not ported to "
-                    "leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
         raise KeyError(
             f"Unknown model '{name}'. Available: {', '.join(list_models())}")
     return _REGISTRY[name]
@@ -234,18 +234,14 @@ def config_from_open_clip_dict(name: str, d: dict) -> CLIPConfig:
     """A CLIPConfig from an OpenCLIP model-config dict (the schema of
     OpenCLIP's `model_configs/*.json` and of a hub checkpoint's
     `open_clip_config.json` `model_cfg`), for the keys of the families
-    the port runs: a plain ViT, a ModifiedResNet (vision `layers` a list),
-    a ConvNeXt, a timm ViT trunk or a timm trunk family (MobileCLIP, EVA,
-    ViTamin), and the native text tower.  Other timm trunks and HF text
-    towers raise (ROADMAP Queue 1 item 11)."""
+    of the JAX package: a plain ViT, a ModifiedResNet (vision `layers` a
+    list), a ConvNeXt, a timm ViT trunk or a timm trunk family
+    (MobileCLIP, EVA, ViTamin, Swin, RelPos-ViT), and the native text
+    tower or an HF one (`hf_model_name`, with its pooler and head)."""
     v = dict(d.get("vision_cfg", {}))
     t = dict(d.get("text_cfg", {}))
     embed = d["embed_dim"]
     resnet = convnext = trunk = None
-    if t.get("hf_model_name"):
-        raise NotImplementedError(
-            f"{name}: HF text towers (models/hf_text.py) are not ported to "
-            "leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
     timm_name = v.get("timm_model_name")
     if timm_name:
         from leaf_tpu_torch.models.trunks import spec_for_timm_name
@@ -311,12 +307,48 @@ def config_from_open_clip_dict(name: str, d: dict) -> CLIPConfig:
         tokenizer_kwargs=(tuple(sorted(t["tokenizer_kwargs"].items()))
                           if t.get("tokenizer_kwargs") else None),
         ln_eps=t.get("norm_kwargs", {}).get("eps", 1e-5),
+        hf_model_name=t.get("hf_model_name"),
+        hf_pooler_type=t.get("hf_pooler_type", "mean_pooler"),
+        hf_proj_type=t.get("hf_proj_type", "linear"),
     )
     return CLIPConfig(name=name, embed_dim=embed, text=text, vision=vision,
                       quick_gelu=bool(d.get("quick_gelu", False)),
                       init_logit_scale=d.get("init_logit_scale", 2.6592),
                       init_logit_bias=d.get("init_logit_bias"),
                       resnet=resnet, convnext=convnext, trunk=trunk)
+
+
+def config_from_hf_dict(name: str, d: dict) -> CLIPConfig:
+    """A CLIPConfig from an HF `CLIPConfig` config.json (the schema of
+    LEAF's released `LEAF-CLIP/*` repos)."""
+    tv = d.get("text_config", {})
+    vv = d.get("vision_config", {})
+    embed = d.get("projection_dim", 512)
+    quick = (tv.get("hidden_act", d.get("hidden_act", "")) == "quick_gelu")
+    vision = VisionConfig(
+        image_size=vv.get("image_size", 224),
+        patch_size=vv.get("patch_size", 16),
+        width=vv.get("hidden_size", 768),
+        layers=vv.get("num_hidden_layers", 12),
+        head_width=(vv.get("hidden_size", 768)
+                    // vv.get("num_attention_heads", 12)),
+        mlp_ratio=(vv.get("intermediate_size", 3072)
+                   / vv.get("hidden_size", 768)),
+        output_dim=embed,
+    )
+    text = TextConfig(
+        context_length=tv.get("max_position_embeddings", 77),
+        vocab_size=tv.get("vocab_size", 49408),
+        width=tv.get("hidden_size", 512),
+        heads=tv.get("num_attention_heads", 8),
+        layers=tv.get("num_hidden_layers", 12),
+        mlp_ratio=(tv.get("intermediate_size", 2048)
+                   / tv.get("hidden_size", 512)),
+        output_dim=embed,
+    )
+    return CLIPConfig(name=name, embed_dim=embed, text=text, vision=vision,
+                      quick_gelu=quick,
+                      init_logit_scale=d.get("logit_scale_init_value", 2.6592))
 
 
 # -- SigLIP-family models -----------------------------------------------------
@@ -636,6 +668,54 @@ def _register_eva_models() -> None:
 _register_eva_models()
 
 
+def _register_relpos_swin_models() -> None:
+    """OpenCLIP's `model_configs/swin_base_patch4_window7_224.json` and
+    `vit_relpos_medium_patch16_cls_224.json`: the two timm-trunk
+    singletons, with the native CLIP text tower."""
+    register_model(config_from_open_clip_dict(
+        "swin_base_patch4_window7_224", {
+            "embed_dim": 640,
+            "vision_cfg": {"timm_model_name": "swin_base_patch4_window7_224",
+                           "timm_pool": "", "timm_proj": "linear",
+                           "image_size": 224},
+            "text_cfg": {"context_length": 77, "vocab_size": 49408,
+                         "width": 640, "heads": 10, "layers": 12},
+        }))
+    register_model(config_from_open_clip_dict(
+        "vit_relpos_medium_patch16_cls_224", {
+            "embed_dim": 512,
+            "vision_cfg": {
+                "timm_model_name": "vit_relpos_medium_patch16_cls_224",
+                "timm_pool": "", "timm_proj": "linear", "image_size": 224},
+            "text_cfg": {"context_length": 77, "vocab_size": 49408,
+                         "width": 512, "heads": 8, "layers": 12},
+        }))
+    # test-size variants
+    from leaf_tpu_torch.models.relpos_vit import RelPosViTSpec
+    from leaf_tpu_torch.models.swin import SwinVisionSpec
+    register_model(CLIPConfig(
+        name="swin-tiny-test", embed_dim=64,
+        text=TextConfig(context_length=16, vocab_size=512, width=64,
+                        heads=2, layers=2, output_dim=64),
+        vision=VisionConfig(image_size=32, patch_size=4, width=16,
+                            layers=4, output_dim=64),
+        trunk=SwinVisionSpec(name="swin-tiny", image_size=32, patch_size=4,
+                             embed_dim=16, depths=(2, 2), heads=(2, 4),
+                             window=4, output_dim=64)))
+    register_model(CLIPConfig(
+        name="relpos-tiny-test", embed_dim=64,
+        text=TextConfig(context_length=16, vocab_size=512, width=64,
+                        heads=2, layers=2, output_dim=64),
+        vision=VisionConfig(image_size=32, patch_size=8, width=64,
+                            layers=2, output_dim=64),
+        trunk=RelPosViTSpec(name="relpos-tiny", image_size=32, patch_size=8,
+                            width=64, layers=2, heads=2, rel_pos_dim=16,
+                            output_dim=64)))
+
+
+_register_relpos_swin_models()
+
+
 def _register_vitamin_models() -> None:
     """OpenCLIP's `model_configs/ViTamin-*.json`: timm ViTamin trunks with
     their own average pool and `fc_norm` (`timm_pool: ""`) and OpenCLIP's
@@ -678,3 +758,57 @@ def _register_vitamin_models() -> None:
 
 
 _register_vitamin_models()
+
+
+def _register_hf_text_models() -> None:
+    """OpenCLIP's `model_configs/{roberta,xlm-roberta,mt5,nllb-clip}-*.json`:
+    an HF text tower (`models/hf_text.py`: the encoder, its pooler and a
+    bias-free projection) beside a ViT or SigLIP vision tower."""
+    vit_b_32 = {"image_size": 224, "layers": 12, "width": 768,
+                "patch_size": 32}
+    vit_h_14 = {"image_size": 224, "layers": 32, "width": 1280,
+                "head_width": 80, "patch_size": 14}
+    specs = {
+        # name: (embed, vision dict, hf_model, pooler, proj, quick_gelu)
+        "roberta-ViT-B-32": (512, vit_b_32, "roberta-base", "mean_pooler",
+                             "linear", True),
+        "xlm-roberta-base-ViT-B-32": (512, vit_b_32, "xlm-roberta-base",
+                                      "mean_pooler", "linear", False),
+        "xlm-roberta-large-ViT-H-14": (1024, vit_h_14, "xlm-roberta-large",
+                                       "mean_pooler", "linear", False),
+        "mt5-base-ViT-B-32": (512, vit_b_32, "google/mt5-base",
+                              "mean_pooler", "linear", False),
+        "mt5-xl-ViT-H-14": (1024, vit_h_14, "google/mt5-xl", "mean_pooler",
+                            "linear", False),
+        "nllb-clip-base": (512, vit_b_32, "facebook/nllb-200-distilled-600M",
+                           "cls_pooler", "linear", False),
+        "nllb-clip-large": (1024, vit_h_14,
+                            "facebook/nllb-200-distilled-1.3B", "cls_pooler",
+                            "linear", False),
+        "nllb-clip-base-siglip": (
+            768, {"image_size": 384,
+                  "timm_model_name": "vit_base_patch16_siglip_384",
+                  "timm_pool": "map", "timm_proj": "none"},
+            "facebook/nllb-200-distilled-600M", "cls_pooler", "linear",
+            False),
+        "nllb-clip-large-siglip": (
+            1152, {"image_size": 384,
+                   "timm_model_name": "vit_so400m_patch14_siglip_384",
+                   "timm_pool": "map", "timm_proj": "none"},
+            "facebook/nllb-200-distilled-1.3B", "cls_pooler", "linear",
+            False),
+    }
+    for name, (embed, vision, hf, pooler, proj, qg) in specs.items():
+        d = {"embed_dim": embed, "quick_gelu": qg, "vision_cfg": vision,
+             "text_cfg": {"hf_model_name": hf, "hf_tokenizer_name": hf,
+                          "hf_pooler_type": pooler, "hf_proj_type": proj}}
+        if "siglip" in name:
+            d["init_logit_bias"] = -10
+        cfg = config_from_open_clip_dict(name, d)
+        if "siglip" in name:
+            cfg = dataclasses.replace(cfg, image_mean=(0.5, 0.5, 0.5),
+                                      image_std=(0.5, 0.5, 0.5))
+        register_model(cfg)
+
+
+_register_hf_text_models()

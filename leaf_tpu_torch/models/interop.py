@@ -74,13 +74,54 @@ def _oihw(name: str, arr: np.ndarray) -> np.ndarray:
         arr.ndim == 4 and name.startswith("visual.")) else arr
 
 
+def hf_text_params_from_jax(tree: Mapping[str, Any]) -> StateDict:
+    """The JAX package's `HFTextTower` params, `{"hf": <encoder tree>,
+    "proj": {...}}` as numpy -> `hf_text.HFTextTower`'s state_dict.  A Flax
+    `transformers` tree (RoBERTa/XLM-R, T5/mT5) becomes HF's torch keys:
+    the path joined by dots (layer keys `"0"`, ... kept), `kernel` [in,
+    out] transposed into `weight` [out, in], `scale` (a LayerNorm's) and
+    `embedding` renamed `weight`.  The native M2M100 tree un-stacks its
+    `layers` axis (`m2m100.m2m100_state_dict`)."""
+    hf = tree["hf"]
+    if "embed_tokens" in hf and "layers" in hf:
+        from leaf_tpu_torch.models.m2m100 import m2m100_state_dict
+        enc = m2m100_state_dict(hf)
+    else:
+        enc = {}
+
+        def walk(node, path):
+            for k, v in node.items():
+                if isinstance(v, Mapping):
+                    walk(v, path + (str(k),))
+                    continue
+                arr, last = _np(v), str(k)
+                if last == "kernel":
+                    arr, last = arr.T, "weight"
+                elif last in ("scale", "embedding"):
+                    last = "weight"
+                enc[".".join(path + (last,))] = _tensor(arr)
+
+        walk(hf, ())
+    out = {f"hf.{k}": v for k, v in enc.items()}
+    for k, v in tree.get("proj", {}).items():
+        out[f"proj.{k}"] = _tensor(v)
+    return out
+
+
 def params_from_jax(tree: Mapping[str, Any]) -> StateDict:
     """The JAX package's parameter pytree (nested dicts and lists of
     arrays) -> the port's state_dict.  Leaves under a `blocks` key carry a
     leading layer axis, which is un-stacked into `blocks.<i>.`; list items
     become `<i>.`; the vision tower's convolution kernels go from HWIO to
     OIHW (`_oihw`).  An int8-quantized pytree (`fc_w`/`proj_w` int8 beside
-    their `_scale`) keeps its int8 leaves."""
+    their `_scale`) keeps its int8 leaves.  An HF text tower (`text` holding
+    `hf`) goes through `hf_text_params_from_jax`."""
+    text = tree.get("text") if isinstance(tree, Mapping) else None
+    if isinstance(text, Mapping) and "hf" in text:
+        rest = params_from_jax({k: v for k, v in tree.items()
+                                if k != "text"})
+        return {**rest, **{f"text.{k}": v for k, v in
+                           hf_text_params_from_jax(text).items()}}
     out: StateDict = {}
 
     def leaves(node, prefix):

@@ -31,7 +31,8 @@ with per-column scales (`models.quantize`), dequantized where used.
 
 The convolutional towers (ResNet, ConvNeXt, ViTamin) share `conv_nhwc`
 and `avg_pool_nhwc`, which keep their activations NHWC as the JAX package
-does; the zoo's towers share `refuse_training` and `adopt_optional`.
+does; the zoo's towers share `refuse_training`, `adopt_optional` and
+`adopt_optional_param`.
 """
 from __future__ import annotations
 
@@ -111,6 +112,19 @@ def adopt_optional(params: nn.ParameterDict, name: str, state_dict,
         like = next(iter(params.values()))
         params[name] = nn.Parameter(torch.empty(t.shape, dtype=like.dtype,
                                                 device=like.device))
+
+
+def adopt_optional_param(module: nn.Module, name: str, state_dict,
+                         key: str) -> None:
+    """`adopt_optional` for a plain attribute parameter `module.<name>`
+    (None where absent), such as a head's optional bias."""
+    t, cur = state_dict.get(key), getattr(module, name)
+    if t is None:
+        module.register_parameter(name, None)
+    elif cur is None or cur.shape != t.shape:
+        like = next(module.parameters())
+        module.register_parameter(name, nn.Parameter(torch.empty(
+            t.shape, dtype=like.dtype, device=like.device)))
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

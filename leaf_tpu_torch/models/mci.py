@@ -34,7 +34,7 @@ timm's train-form keys (`conv_kxk.0.{conv,bn}`, `conv_scale`, `identity`,
 (`reparam_conv`).  They return the JAX package's pytree (HWIO).
 
 Training these trunks (their backward, `remat`, patch dropout) is not
-ported: `encode_image` raises for it (ROADMAP Queue 1 item 11).
+ported: `encode_image` raises for it (ROADMAP Queue 1 item 11 step 4).
 """
 from __future__ import annotations
 

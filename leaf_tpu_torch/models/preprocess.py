@@ -1,6 +1,9 @@
 """Host-side image preprocessing: resize, center crop, normalize, and the
-contrastive trainer's augmentation (port of `leaf_tpu/models/preprocess.py`,
-eval geometry "shortest").
+contrastive trainer's augmentation (port of `leaf_tpu/models/preprocess.py`).
+The eval geometry is the JAX package's three `resize_mode`s (shortest side
+resized then centre-cropped, longest side fitted then zero-padded, squash
+to the square) with its interpolations (bicubic, bilinear, and random:
+bicubic at eval, a draw of either per image at train time).
 
 Returns NHWC float32 numpy ready for upload.  The train transform
 (`train_image_transform`) is the JAX package's: a random resized crop
@@ -10,8 +13,8 @@ jitter and gray scale, each written in numpy to give Pillow's pixels:
 `ImageEnhance`'s Brightness, Contrast and Color are Pillow's `blend` in
 float32, hue shifts go through Pillow's HSV conversions, and gray is its
 integer `L`.  The card machine has no
-Pillow, so the bicubic resize is numpy's own: Pillow's 8-bit
-`Image.resize(BICUBIC)` step for step (`resample_bicubic`).  Pillow is
+Pillow, so the resize is numpy's own: Pillow's 8-bit `Image.resize` with
+its BICUBIC or BILINEAR filter step for step (`resample`).  Pillow is
 needed only to decode a JPEG/PNG file or byte string (`pil_image`,
 `read_image`); `.npy` uint8 arrays need nothing.
 """
@@ -29,7 +32,6 @@ OPENAI_DATASET_STD = (0.26862954, 0.26130258, 0.27577711)
 # Pillow's fixed point for 8-bit resampling (libImaging/Resample.c)
 _PRECISION_BITS = 32 - 8 - 2
 _BICUBIC_A = -0.5
-_BICUBIC_SUPPORT = 2.0
 
 
 def pil_image():
@@ -75,20 +77,31 @@ def _bicubic_filter(x: np.ndarray) -> np.ndarray:
                     np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
 
 
-def _coefficients(in_size: int, out_size: int):
+def _bilinear_filter(x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+# Pillow's filters: (function, support)
+FILTERS = {"bicubic": (_bicubic_filter, 2.0),
+           "bilinear": (_bilinear_filter, 1.0)}
+
+
+def _coefficients(in_size: int, out_size: int, filt: str = "bicubic"):
     """Pillow's `precompute_coeffs` + `normalize_coeffs_8bpc` for one axis:
     (first input index [out], fixed-point weights [out, ksize])."""
+    fn, base_support = FILTERS[filt]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = _BICUBIC_SUPPORT * filterscale   # widened when shrinking
+    support = base_support * filterscale   # widened when shrinking
     ksize = int(math.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
     xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64),
                       in_size) - xmin
     x = np.arange(ksize)
-    w = _bicubic_filter((x[None] + xmin[:, None] - center[:, None] + 0.5)
-                        * (1.0 / filterscale))
+    w = fn((x[None] + xmin[:, None] - center[:, None] + 0.5)
+           * (1.0 / filterscale))
     w = np.where(x[None] < xmax[:, None], w, 0.0)
     ww = np.cumsum(w, axis=1)[:, -1:]          # summed in order, as in C
     w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
@@ -97,11 +110,12 @@ def _coefficients(in_size: int, out_size: int):
     return xmin, k
 
 
-def _resample_axis(arr: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample_axis(arr: np.ndarray, out_size: int, axis: int,
+                   filt: str = "bicubic") -> np.ndarray:
     """One pass along `axis` (0: rows, 1: columns) of an [H, W, C] uint8
     array, with Pillow's rounding and clipping to uint8."""
     in_size = arr.shape[axis]
-    xmin, k = _coefficients(in_size, out_size)
+    xmin, k = _coefficients(in_size, out_size, filt)
     idx = np.minimum(xmin[:, None] + np.arange(k.shape[1])[None], in_size - 1)
     src = np.moveaxis(arr, axis, 0).astype(np.int64)   # [in, other, C]
     acc = np.einsum("okxc,ok->oxc", src[idx], k) + (1 << (_PRECISION_BITS - 1))
@@ -109,28 +123,75 @@ def _resample_axis(arr: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.moveaxis(out, 0, axis)
 
 
-def resample_bicubic(arr: np.ndarray, size) -> np.ndarray:
+def resample(arr: np.ndarray, size, filt: str = "bicubic") -> np.ndarray:
     """[H, W, C] uint8 -> [h, w, C] uint8 for `size` = (w, h): what
-    Pillow's `Image.resize(size, BICUBIC)` gives, horizontal pass first
-    (each pass skipped where its side keeps its length)."""
+    Pillow's `Image.resize(size, BICUBIC | BILINEAR)` gives, horizontal
+    pass first (each pass skipped where its side keeps its length)."""
     w, h = size
     if w != arr.shape[1]:
-        arr = _resample_axis(arr, w, 1)
+        arr = _resample_axis(arr, w, 1, filt)
     if h != arr.shape[0]:
-        arr = _resample_axis(arr, h, 0)
+        arr = _resample_axis(arr, h, 0, filt)
     return arr
 
 
-def resize_shorter(arr: np.ndarray, size: int) -> np.ndarray:
-    """Bicubic resize of an [H, W, C] uint8 array's shorter side to
-    `size`; an array whose shorter side is `size` already is returned as
-    it is."""
+def resample_bicubic(arr: np.ndarray, size) -> np.ndarray:
+    """`resample` with Pillow's BICUBIC filter."""
+    return resample(arr, size, "bicubic")
+
+
+def resize_shorter(arr: np.ndarray, size: int,
+                   filt: str = "bicubic") -> np.ndarray:
+    """Resize of an [H, W, C] uint8 array's shorter side to `size`; an
+    array whose shorter side is `size` already is returned as it is."""
     h, w = arr.shape[:2]
     if w < h:
         new = (size, max(1, round(h * size / w)))
     else:
         new = (max(1, round(w * size / h)), size)
-    return resample_bicubic(arr, new)
+    return resample(arr, new, filt)
+
+
+RESIZE_MODES = ("shortest", "longest", "squash")
+INTERPOLATIONS = ("bicubic", "bilinear", "random")
+
+
+def _interp(interpolation: str, rng=None) -> str:
+    """The filter of an interpolation: 'random' draws bicubic or bilinear
+    from `rng` (the JAX package's draw)."""
+    if interpolation not in INTERPOLATIONS:
+        raise ValueError(f"unknown interpolation {interpolation!r}; "
+                         f"expected one of {INTERPOLATIONS}")
+    if interpolation == "random":
+        idx = int(rng.integers(2)) if rng is not None \
+            else np.random.randint(2)
+        return ("bicubic", "bilinear")[idx]
+    return interpolation
+
+
+def geometry(arr: np.ndarray, image_size: int, resize_mode: str,
+             filt: str = "bicubic") -> np.ndarray:
+    """The eval geometry of an [H, W, 3] uint8 array -> [image_size,
+    image_size, 3] float32 in [0, 1]: 'shortest' resizes the shorter side
+    and centre-crops, 'longest' fits the longer side and zero-pads around
+    the centre, 'squash' resizes to the square."""
+    h, w = arr.shape[:2]
+    if resize_mode == "squash":
+        return resample(arr, (image_size, image_size), filt) \
+            .astype(np.float32) / 255.0
+    if resize_mode == "longest":
+        scale = image_size / max(w, h)
+        nw, nh = max(1, round(w * scale)), max(1, round(h * scale))
+        fit = resample(arr, (nw, nh), filt).astype(np.float32) / 255.0
+        out = np.zeros((image_size, image_size, 3), np.float32)
+        top, left = (image_size - nh) // 2, (image_size - nw) // 2
+        out[top:top + nh, left:left + nw] = fit
+        return out
+    if resize_mode != "shortest":
+        raise ValueError(f"unknown resize_mode {resize_mode!r}; expected "
+                         f"one of {RESIZE_MODES}")
+    arr = resize_shorter(arr, image_size, filt)
+    return center_crop(arr.astype(np.float32) / 255.0, image_size)
 
 
 def center_crop(arr: np.ndarray, size: int) -> np.ndarray:
@@ -155,25 +216,19 @@ def image_transform(image_size: int, do_normalize: bool = True,
                     interpolation: str = "bicubic",
                     resize_mode: str = "shortest"):
     """Return fn: PIL image / uint8 array -> NHWC float32 [H, W, 3]: the
-    shorter side resized to `image_size` (bicubic), center crop, scale to
-    [0, 1], then (optionally) normalize with `mean`/`std` (default: the
-    OpenAI CLIP statistics).  'random' interpolation is bicubic at eval,
-    as in the JAX package; the other interpolations and resize modes are
-    not ported."""
-    if resize_mode != "shortest":
-        raise NotImplementedError(
-            f"resize_mode {resize_mode!r} (--image-resize-mode) is not ported "
-            "to leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
-    if interpolation not in ("bicubic", "random"):
-        raise NotImplementedError(
-            f"interpolation {interpolation!r} (--image-interpolation) is not "
-            "ported to leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
+    `resize_mode` geometry (`geometry`) with `interpolation` ('random' is
+    bicubic at eval, as in the JAX package), scaled to [0, 1], then
+    (optionally) normalized with `mean`/`std` (default: the OpenAI CLIP
+    statistics)."""
+    filt = "bicubic" if interpolation == "random" else _interp(interpolation)
+    if resize_mode not in RESIZE_MODES:
+        raise ValueError(f"unknown resize_mode {resize_mode!r}; expected "
+                         f"one of {RESIZE_MODES}")
     mean = OPENAI_DATASET_MEAN if mean is None else tuple(mean)
     std = OPENAI_DATASET_STD if std is None else tuple(std)
 
     def transform(img) -> np.ndarray:
-        arr = resize_shorter(to_rgb_uint8(img), image_size)
-        arr = center_crop(arr.astype(np.float32) / 255.0, image_size)
+        arr = geometry(to_rgb_uint8(img), image_size, resize_mode, filt)
         return normalize(arr, mean, std) if do_normalize else arr
 
     return transform
@@ -326,16 +381,14 @@ def train_image_transform(image_size: int, do_normalize: bool = True,
                           aug_cfg=None, interpolation: str = "bicubic",
                           seed: int = 0, rank: int = 0):
     """Return fn: PIL image / uint8 array -> NHWC float32 [image_size,
-    image_size, 3]: `crop_box` resized bicubically to `image_size`,
+    image_size, 3]: `crop_box` resized to `image_size` with
+    `interpolation` ('random' draws bicubic or bilinear per image first),
     `color_jitter` with `color_jitter_prob`, gray scale with
     `gray_scale_prob`, [0, 1], then (optionally) normalize.  Each thread that calls it draws from its own
     `np.random.default_rng((seed, rank, thread number))`, the threads
     numbered in the order of their first call."""
     aug = AugmentationCfg.parse(aug_cfg)
-    if interpolation != "bicubic":
-        raise NotImplementedError(
-            f"interpolation {interpolation!r} (--image-interpolation) is not "
-            "ported to leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
+    _interp(interpolation, np.random.default_rng(0))     # refuse unknowns
     if aug.color_jitter_prob and (aug.color_jitter is None
                                   or len(aug.color_jitter) != 4):
         raise ValueError("color_jitter_prob needs color_jitter=(b, c, s, "
@@ -358,10 +411,11 @@ def train_image_transform(image_size: int, do_normalize: bool = True,
     def transform(img) -> np.ndarray:
         rng = _rng()
         arr = to_rgb_uint8(img)
+        filt = _interp(interpolation, rng)
         left, top, right, bottom = crop_box(arr.shape[1], arr.shape[0],
                                             aug.scale, aug.ratio, rng)
-        arr = resample_bicubic(arr[top:bottom, left:right],
-                               (image_size, image_size))
+        arr = resample(arr[top:bottom, left:right],
+                       (image_size, image_size), filt)
         if aug.color_jitter_prob:
             arr = color_jitter(arr, aug.color_jitter, aug.color_jitter_prob,
                                rng)

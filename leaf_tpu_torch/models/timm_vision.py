@@ -46,8 +46,8 @@ def parse_timm_vit_name(model_name: str):
     if not m:
         raise ValueError(
             f"unsupported timm model {model_name!r}: only the ViT "
-            "family maps onto the port's ViT tower (the other timm trunks "
-            "of the JAX package are ROADMAP Queue 1 item 11)")
+            "family maps onto the port's ViT tower (ConvNeXt trunks are "
+            "models/convnext.py's, the trunk families models/trunks.py's)")
     width, layers, head_width, mlp_ratio = _VIT_DIMS[m.group(1)]
     patch = int(m.group(2))
     tags = set(filter(None, (m.group(3) or "").split("_")))

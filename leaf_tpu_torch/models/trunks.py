@@ -9,12 +9,12 @@ draws the seeded init, its `encode_image` maps NHWC images to features),
 an OpenCLIP `timm_model_name` to a spec, or to None for the ViT mapping of
 `models/timm_vision.py`.
 
-The port's families are MobileCLIP's (`models/mci.py`), EVA's
-(`models/eva.py`) and ViTamin's (`models/vitamin.py`).  ConvNeXt is no
-trunk family but a config field of its own (`CLIPConfig.convnext`,
-`models/convnext.py`), as in the JAX package: its names resolve to None
-here.  The JAX package's Swin and RelPos-ViT families raise by name
-(ROADMAP Queue 1 item 11).
+The port's families are those of the JAX package: MobileCLIP's
+(`models/mci.py`), EVA's (`models/eva.py`), ViTamin's
+(`models/vitamin.py`), Swin's (`models/swin.py`) and RelPos-ViT's
+(`models/relpos_vit.py`).  ConvNeXt is no trunk family but a config field
+of its own (`CLIPConfig.convnext`, `models/convnext.py`), as in the JAX
+package: its names resolve to None here.
 """
 from __future__ import annotations
 
@@ -22,11 +22,6 @@ from typing import Callable, Optional
 
 _FAMILIES = []          # (spec_cls, build_fn, from_timm_fn)
 _MATCHERS = []          # fn(name, embed_dim, image_size, pool, proj) -> spec|None
-
-# timm name prefixes of the JAX package's trunk families the port lacks
-_NOT_PORTED = (("swin", "models/swin.py"),
-               ("vit_relpos", "models/relpos_vit.py"))
-
 
 def register_trunk(spec_cls, build_fn: Callable,
                    from_timm_fn: Optional[Callable] = None,
@@ -40,6 +35,8 @@ def _load_families() -> None:
     # importing a family's module registers it
     import leaf_tpu_torch.models.eva  # noqa: F401
     import leaf_tpu_torch.models.mci  # noqa: F401
+    import leaf_tpu_torch.models.relpos_vit  # noqa: F401
+    import leaf_tpu_torch.models.swin  # noqa: F401
     import leaf_tpu_torch.models.vitamin  # noqa: F401
 
 
@@ -48,11 +45,6 @@ def spec_for_timm_name(name: str, embed_dim: int,
                        pool: str = "", proj: str = "linear"):
     """Resolve an OpenCLIP `timm_model_name` to a family spec, or None
     when it is a ViT for `models/timm_vision.py` or a ConvNeXt."""
-    for prefix, module in _NOT_PORTED:
-        if name.startswith(prefix):
-            raise NotImplementedError(
-                f"timm trunk {name!r} ({module}) is not ported to "
-                "leaf_tpu_torch yet: ROADMAP Queue 1 item 11")
     _load_families()
     for match in _MATCHERS:
         spec = match(name, embed_dim, image_size=image_size, pool=pool,

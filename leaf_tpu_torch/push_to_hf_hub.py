@@ -89,6 +89,10 @@ def config_to_open_clip_dict(cfg: CLIPConfig) -> Dict[str, Any]:
         text["hf_tokenizer_name"] = t.hf_tokenizer_name
     if t.tokenizer_kwargs:
         text["tokenizer_kwargs"] = dict(t.tokenizer_kwargs)
+    if t.hf_model_name:
+        text["hf_model_name"] = t.hf_model_name
+        text["hf_pooler_type"] = t.hf_pooler_type
+        text["hf_proj_type"] = t.hf_proj_type
     d: Dict[str, Any] = {"embed_dim": cfg.embed_dim,
                          "vision_cfg": vision, "text_cfg": text}
     if cfg.quick_gelu:

@@ -4,10 +4,11 @@ of `leaf_tpu/tokenizer/hf.py`).
 `canonicalize_text` is big_vision's prompt canonicalizer, SigLIP's
 `clean='canonicalize'`; `get_clean_fn` picks a cleaner by name.  The
 tokenizers themselves (`HFTokenizer`, `SigLipTokenizer`) need the
-`transformers` package and the SentencePiece or BERT vocabularies, which
-neither the repository nor the card machine has: they wait with
-`models/hf_text.py` (ROADMAP Queue 1 item 11 step 3), and
-`models.factory.get_tokenizer` raises for a config that names one.
+`transformers` package and the SentencePiece, BERT, RoBERTa, XLM-R, mT5
+or NLLB vocabularies, which neither the repository nor the card machine
+has: they wait for those files (ROADMAP, "waiting for files"), and
+`models.factory.get_tokenizer` raises for a config that names one.  The
+towers themselves (`models/hf_text.py`) take token ids.
 """
 from __future__ import annotations
 

@@ -51,8 +51,7 @@ from leaf_tpu_torch.data import get_data
 from leaf_tpu_torch.data.imagenet import get_imagenet
 from leaf_tpu_torch.evals.zero_shot import imagenet_zero_shot_clean
 from leaf_tpu_torch.models.clip import CLIP
-from leaf_tpu_torch.models.coca import (COCA_CONFIGS, get_coca_config,
-                                        require_native_text)
+from leaf_tpu_torch.models.coca import COCA_CONFIGS
 from leaf_tpu_torch.models.factory import (create_model,
                                            create_model_and_transforms,
                                            get_tokenizer, local_checkpoint,
@@ -87,15 +86,8 @@ RESULT_COLUMNS = [
 
 def _not_ported(args) -> None:
     """Raise on every flag whose code the port does not have yet."""
-    if args.model in COCA_CONFIGS:
-        require_native_text(get_coca_config(args.model))
     checks = [
         (args.mesh_shape, "--mesh-shape (multiple GPUs)", "Queue 1 item 6"),
-        (args.force_quick_gelu or args.force_image_size is not None
-         or args.image_mean or args.image_std or args.image_interpolation
-         or args.image_resize_mode,
-         "--force-quick-gelu / --force-image-size / --image-* model "
-         "overrides (models/factory.py)", "Queue 1 item 11"),
     ]
     for hit, what, where in checks:
         if hit:
@@ -185,9 +177,15 @@ def main(args=None) -> Dict:
     # parse() turns the flag's dict, possibly empty, into the default cfg
     require_trainable(args.model)
     model, preprocess_train, preprocess_val = create_model_and_transforms(
-        args.model, local_checkpoint(args.pretrained, "--pretrained"),
+        args.model, local_checkpoint(args.pretrained, "--pretrained",
+                                     args.model),
         precision=precision, seed=args.seed, device=device,
-        master_weights=True, force_patch_dropout=args.force_patch_dropout,
+        master_weights=True, force_quick_gelu=args.force_quick_gelu,
+        force_patch_dropout=args.force_patch_dropout,
+        force_image_size=args.force_image_size,
+        image_mean=args.image_mean, image_std=args.image_std,
+        image_interpolation=args.image_interpolation,
+        image_resize_mode=args.image_resize_mode,
         aug_cfg=AugmentationCfg.parse(args.aug_cfg or None))
     cfg, module = model.cfg, model.module
     # both towers compute in the run's dtype on fp32 master weights
@@ -203,7 +201,8 @@ def main(args=None) -> Dict:
     if args.distill_model:
         teacher = create_model(
             args.distill_model,
-            local_checkpoint(args.distill_pretrained, "--distill-pretrained"),
+            local_checkpoint(args.distill_pretrained, "--distill-pretrained",
+                             args.distill_model),
             precision=precision, seed=args.seed, device=device)
         teacher.module.requires_grad_(False)
         if teacher.cfg.vision.image_size != cfg.vision.image_size:
@@ -225,8 +224,10 @@ def main(args=None) -> Dict:
     args.imagenet_val = imagenet_val
     if imagenet_val:
         data["imagenet-val"] = get_imagenet(
-            imagenet_val, image_transform(cfg.vision.image_size,
-                                          do_normalize=False),
+            imagenet_val, image_transform(
+                cfg.vision.image_size, do_normalize=False,
+                interpolation=args.image_interpolation or "bicubic",
+                resize_mode=args.image_resize_mode or "shortest"),
             "val", args.batch_size, n_val=args.n_val_imagenet,
             seed=args.seed)
     if "train" not in data:

@@ -53,7 +53,8 @@ from leaf_tpu_torch.attacks.image import _normalize_images
 from leaf_tpu_torch.convert import params_to_openclip, save_state_dict
 from leaf_tpu_torch.data import get_data
 from leaf_tpu_torch.evals.zero_shot import zero_shot_eval
-from leaf_tpu_torch.models.factory import (create_model, get_tokenizer,
+from leaf_tpu_torch.models.factory import (create_model_and_transforms,
+                                           get_tokenizer, local_checkpoint,
                                            require_trainable)
 from leaf_tpu_torch.models.preprocess import image_transform
 from leaf_tpu_torch.train import checkpoint as ckpt
@@ -96,16 +97,6 @@ def _not_ported(args) -> None:
     """Raise on every flag whose code the port does not have yet."""
     checks = [
         (args.mesh_shape, "--mesh-shape (multiple GPUs)", "Queue 1 item 6"),
-        (args.force_quick_gelu or args.force_patch_dropout is not None
-         or args.force_image_size is not None or args.image_mean
-         or args.image_std or args.image_interpolation
-         or args.image_resize_mode,
-         "--force-* / --image-* model overrides (models/factory.py)",
-         "Queue 1 item 11"),
-        (args.pretrained and not os.path.exists(args.pretrained),
-         f"--pretrained {args.pretrained!r}: registry tags and hub ids "
-         "(models/pretrained.py); pass a local checkpoint",
-         "Queue 1 item 11"),
     ]
     for hit, what, where in checks:
         if hit:
@@ -174,9 +165,16 @@ def main(args=None) -> Dict:
     # model + frozen anchor tower -----------------------------------------
     precision = "bf16" if args.precision in ("bf16", "amp") else "fp32"
     require_trainable(args.model)
-    model = create_model(args.model, args.pretrained or None,
-                         precision=precision, seed=args.seed, device=device,
-                         master_weights=True)
+    model, _, _ = create_model_and_transforms(
+        args.model, local_checkpoint(args.pretrained, "--pretrained",
+                                     args.model),
+        precision=precision, seed=args.seed, device=device,
+        master_weights=True, force_quick_gelu=args.force_quick_gelu,
+        force_patch_dropout=args.force_patch_dropout,
+        force_image_size=args.force_image_size,
+        image_mean=args.image_mean, image_std=args.image_std,
+        image_interpolation=args.image_interpolation,
+        image_resize_mode=args.image_resize_mode)
     cfg = model.cfg
     text = model.module.text
     # the vision tower is never trained (LEAF text-AT locks it); it is
@@ -193,8 +191,10 @@ def main(args=None) -> Dict:
 
     # data ----------------------------------------------------------------
     # attacks operate in pixel space: datasets yield un-normalised images
-    preprocess_nonorm = image_transform(cfg.vision.image_size,
-                                        do_normalize=False)
+    preprocess_nonorm = image_transform(
+        cfg.vision.image_size, do_normalize=False,
+        interpolation=args.image_interpolation or "bicubic",
+        resize_mode=args.image_resize_mode or "shortest")
     data = get_data(args, preprocess_nonorm, text_only=args.text_only)
 
     # optimizer ------------------------------------------------------------

@@ -138,7 +138,8 @@ def main(argv=None):
     # as the JAX driver's scorer does, the vision tower in --precision
     require_trainable(args.model)
     model = create_model(args.model,
-                         local_checkpoint(args.pretrained, "--pretrained"),
+                         local_checkpoint(args.pretrained, "--pretrained",
+                                          args.model),
                          precision="fp32", seed=args.seed, device=args.device,
                          master_weights=True)
     cfg = model.cfg

@@ -83,7 +83,10 @@ def profile_model(model_name: str, batch_size: int = 1,
     module.requires_grad_(False)
     tokens = torch.zeros((batch_size, cfg.text.context_length),
                          dtype=torch.int32, device=model.device)
-    tokens[:, 0], tokens[:, 1] = 49406, 49407
+    # the CLIP BPE's SOT and EOT, clamped to an HF tower's vocabulary as
+    # the JAX package's gather clamps them
+    vocab = getattr(module.text, "vocab_size", cfg.text.vocab_size)
+    tokens[:, 0], tokens[:, 1] = min(49406, vocab - 1), min(49407, vocab - 1)
     size = cfg.vision.image_size
     images = torch.zeros((batch_size, size, size, 3), dtype=model.dtype,
                          device=model.device)

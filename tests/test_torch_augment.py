@@ -117,8 +117,10 @@ def test_train_transform_matches_jax(aug):
 def test_augmentation_refusals():
     with pytest.raises(ValueError, match="color_jitter=.b, c, s, hue"):
         tpre.train_image_transform(32, aug_cfg={"color_jitter_prob": 0.8})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tpre.train_image_transform(32, interpolation="bilinear")
+    # bilinear and random are ported (tests/test_torch_pretrained.py);
+    # an unknown interpolation raises
+    with pytest.raises(ValueError, match="interpolation"):
+        tpre.train_image_transform(32, interpolation="lanczos")
     with pytest.raises(TypeError):
         tpre.AugmentationCfg.parse({"nope": 1})
     assert tpre.AugmentationCfg.parse(None).scale == (0.9, 1.0)

@@ -437,8 +437,10 @@ def test_model_collection_file_and_registry(tmp_path):
     f.write_text("# comment\nViT-B-32,laion2b\n\nRN50\n")
     assert tmc.expand_models([str(f)]) == jmc.expand_models([str(f)]) \
         == [("ViT-B-32", "laion2b"), ("RN50", "")]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tmc.expand_models(["openclip_all"])
+    # the pretrained registry is ported since this case was written:
+    # openclip_all enumerates it (tests/test_torch_pretrained.py)
+    assert tmc.expand_models(["openclip_all"]) == jmc.expand_models(
+        ["openclip_all"])
 
 
 def test_tfrecord_codec_matches_jax(tmp_path):
@@ -798,15 +800,22 @@ def test_cli_build_and_reformat_match_jax(tmp_path):
 @pytest.mark.parametrize("flags,error,match", [
     (["--model-type", "hf_clip", "--pretrained", "openai"], ValueError,
      "hf_clip"),
-    (["--model-type", "hf_clip"], NotImplementedError, "item 11"),
+    # since the registry was ported, a hub repo and a registry tag load
+    # from the local checkpoint cache, empty here; coca-roberta's tokenizer
+    # needs transformers and its vocabulary
+    (["--model-type", "hf_clip"], RuntimeError, "hf-hub:ViT-tiny-test"),
     (["--model-type", "ja_clip"], ImportError, "japanese_clip"),
-    (["--pretrained", "laion2b_s32b_b82k"], NotImplementedError, "item 11"),
+    (["--pretrained", "laion2b_s32b_b82k"], FileNotFoundError,
+     "registry tag"),
     (["--task", "captioning", "--model", "coca-roberta-tiny-test"],
-     NotImplementedError, "item 11"),
+     NotImplementedError, "vocabulary files"),
     (["--precision", "bf16", "--attack", "apgd"], ValueError, "float32"),
     (["--interpolate"], ValueError, "interpolate-ckpt"),
 ])
-def test_cli_refusals(layouts, flags, error, match):
+def test_cli_refusals(layouts, flags, error, match, monkeypatch, tmp_path):
+    # the checkpoint cache: an empty directory of the test's own
+    from leaf_tpu_torch.models import pretrained
+    monkeypatch.setattr(pretrained, "DEFAULT_CACHE_DIR", str(tmp_path))
     with pytest.raises(error, match=match):
         tcli.main(["eval", "--model", MODEL, "--dataset", "imagefolder",
                    "--dataset-root", layouts["imagefolder"], "--device",

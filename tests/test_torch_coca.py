@@ -391,10 +391,19 @@ def test_factory_bundle_and_tokenizer():
 @pytest.mark.parametrize("name", ["coca_roberta-ViT-B-32",
                                   "coca-roberta-tiny-test"])
 def test_hf_text_coca_raises_by_name(name):
+    """The HF-text CoCa configs build since `hf_text` was ported (held to
+    JAX in tests/test_torch_hf_text.py); their tokenizer (RoBERTa's) still
+    raises by name: `transformers` and its vocabulary are absent."""
     assert name in tcoca.COCA_CONFIGS
-    for fn in (tcoca.create_coca_model, factory.get_tokenizer):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            fn(name)
+    cfg = tcoca.get_coca_config(name)
+    if name == "coca-roberta-tiny-test":
+        module = tcoca.create_coca_model(name)
+        assert isinstance(module.text, tcoca.HFTextTower)
+        assert module.text.config.hidden_size == cfg.multimodal.width
+    else:
+        assert (cfg.hf_text_name, cfg.pad_id) == ("roberta-base", 1)
+    with pytest.raises(NotImplementedError, match="vocabulary files"):
+        factory.get_tokenizer(name)
 
 
 # ---------------------------------------------------------------------------

@@ -497,8 +497,13 @@ def test_command_line_refusals(tmp_path, monkeypatch):
     base = SYNTHETIC + ["--logs", str(tmp_path)]
     for extra, err, match in [
             (["--mesh-shape", "1"], NotImplementedError, "item 6"),
-            (["--force-image-size", "32"], NotImplementedError, "item 11"),
-            (["--pretrained", "openai"], NotImplementedError, "item 11"),
+            # the overrides and registry tags are taken since these cases
+            # were written: --force-image-size refuses CoCa as in JAX, and
+            # a tag resolves from the local checkpoint cache, where
+            # 'openai' has no ViT-tiny-test file
+            (["--force-image-size", "32", "--model", "coca-tiny-test"],
+             ValueError, "CoCa"),
+            (["--pretrained", "openai"], FileNotFoundError, "registry tag"),
             (["--aug-cfg", "color_jitter_prob=0.8"], ValueError,
              "color_jitter"),
             (["--no-gather-with-grad"], ValueError, "gather"),
@@ -513,8 +518,9 @@ def test_command_line_refusals(tmp_path, monkeypatch):
         with pytest.raises(err, match=match):
             tcdriver.main(base + extra)
     # CoCa trains since these cases were written (tests/test_torch_coca.py);
-    # its HF-text configs still raise
-    with pytest.raises(NotImplementedError, match="CoCa.*item 11"):
+    # its HF-text configs build and serve, and training them is the zoo's
+    # training, still to port
+    with pytest.raises(NotImplementedError, match="HF text.*item 11 step 4"):
         tcdriver.main(["--model", "coca-roberta-tiny-test", "--device", "cpu"])
     # ported since these cases were written, one case each: --report-to
     # wandb without the package logs the JAX package's warning and trains
@@ -524,9 +530,15 @@ def test_command_line_refusals(tmp_path, monkeypatch):
     mirror = tmp_path / "mirror"
     out = tcdriver.main(base + ["--report-to", "wandb", "--remote-sync",
                                 str(mirror), "--copy-codebase", "--name",
-                                "taken"])
+                                "taken", "--force-image-size", "32",
+                                "--force-quick-gelu", "--image-mean", "0.5",
+                                "0.5", "0.5", "--image-interpolation",
+                                "bilinear", "--image-resize-mode", "squash"])
     run = tmp_path / "taken"
     assert [r["epoch"] for r in out["results"]] == [0, 1]
+    cfg = out["model"].cfg
+    assert (cfg.vision.image_size, cfg.quick_gelu, cfg.image_mean) == (
+        32, True, (0.5, 0.5, 0.5))
     assert (mirror / "taken" / "results.csv").read_text() == \
         (run / "results.csv").read_text()
     assert (mirror / "taken" / "checkpoints" / "epoch_1" / "state.pt").exists()

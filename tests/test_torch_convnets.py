@@ -763,7 +763,7 @@ def test_trunk_exports_refused_by_name(name, tmp_path):
     package), and `--to hf` has no such tower."""
     cfg = tconfig.get_model_config(name)
     sd = tclip.CLIP(cfg).state_dict()
-    with pytest.raises(NotImplementedError, match="trunk.*item 11"):
+    with pytest.raises(NotImplementedError, match="trunk.*JAX package"):
         tconvert.params_to_openclip(sd, cfg)
     with pytest.raises(ValueError, match="pre_layrnorm"):
         tconvert.save_hf_pretrained(sd, cfg, str(tmp_path / "hf"))

@@ -382,8 +382,17 @@ def test_image_transform_matches_jax_and_refuses_other_modes():
                 tpre.image_transform(32, do_normalize=norm)(a),
                 jpre.image_transform(32, do_normalize=norm)(a),
                 rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="resize_mode"):
-        tpre.image_transform(32, resize_mode="squash")
-    with pytest.raises(NotImplementedError, match="interpolation"):
-        tpre.image_transform(32, interpolation="bilinear")
+    # the other resize modes and interpolations are ported since this
+    # test was written (every pair against Pillow's pixels in
+    # tests/test_torch_pretrained.py); unknown names raise
+    a = rng.integers(0, 256, (50, 70, 3), dtype=np.uint8)
+    np.testing.assert_allclose(
+        tpre.image_transform(32, resize_mode="squash",
+                             interpolation="bilinear")(a),
+        jpre.image_transform(32, resize_mode="squash",
+                             interpolation="bilinear")(a), rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="resize_mode"):
+        tpre.image_transform(32, resize_mode="fit")
+    with pytest.raises(ValueError, match="interpolation"):
+        tpre.image_transform(32, interpolation="lanczos")
 

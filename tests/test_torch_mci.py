@@ -89,14 +89,16 @@ def test_seeded_init_and_factory():
 
 @pytest.mark.parametrize("name", ["fastvit-tiny-test", "siglip-tiny-test",
                                   "RN50", "convnext-tiny-test",
-                                  "eva-tiny-test", "vitamin-tiny-test"])
+                                  "eva-tiny-test", "vitamin-tiny-test",
+                                  "swin-tiny-test", "relpos-tiny-test",
+                                  "nllb-clip-base"])
 @pytest.mark.parametrize("trainer", ["driver", "fare_driver",
                                      "contrastive_driver"])
 def test_trainers_refuse_zoo_training(trainer, name, tmp_path):
-    """Training MobileCLIP, EVA and ViTamin trunks, ModifiedResNet and
-    ConvNeXt towers, and SigLIP's sigmoid loss with its own logit bias are
-    not ported: each trainer refuses them by name before it builds the
-    model."""
+    """Training MobileCLIP, EVA, ViTamin, Swin and RelPos-ViT trunks,
+    ModifiedResNet and ConvNeXt towers, HF text towers and SigLIP's sigmoid
+    loss with its own logit bias are not ported: each trainer refuses them
+    by name before it builds the model."""
     import importlib
     main = importlib.import_module(f"leaf_tpu_torch.train.{trainer}").main
     args = {"driver": ["--dataset-type", "synthetic", "--logs",
@@ -113,10 +115,11 @@ def test_trunk_training_and_unported_trunks_refused():
     module = tclip.CLIP(tconfig.get_model_config("fastvit-tiny-test"))
     with pytest.raises(NotImplementedError, match="item 11"):
         module.visual.encode_image(torch.zeros(1, 32, 32, 3), remat=True)
-    for name in ("swin_base_patch4_window7_224",
-                 "vit_relpos_medium_patch16_cls_224"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            trunks.spec_for_timm_name(name, 512)
+    # Swin and RelPos-ViT, refused here before they were ported, resolve
+    for name, spec in (("swin_base_patch4_window7_224", "SwinVisionSpec"),
+                       ("vit_relpos_medium_patch16_cls_224",
+                        "RelPosViTSpec")):
+        assert type(trunks.spec_for_timm_name(name, 512)).__name__ == spec
     with pytest.raises(ValueError, match="unsupported MobileCLIP trunk"):
         trunks.spec_for_timm_name("fastvit_sa12", 512)
 

@@ -288,15 +288,16 @@ def test_custom_op_formulas_count_what_the_plain_versions_compute(pair):
 
 def test_profiler_main_writes_csv_and_refuses_coca(tmp_path, capsys):
     """CoCa rows since CoCa is ported (held to JAX's in
-    tests/test_torch_coca.py); its HF-text configs are refused."""
+    tests/test_torch_coca.py); its HF-text configs, refused before
+    `hf_text` was ported, get a row too; an unknown name fails alone."""
     rows = tprofiler.main(["--model", f"{MODEL},coca-tiny-test,"
-                           "coca-roberta-tiny-test", "--results",
-                           str(tmp_path / "p.csv"), "--device", "cpu"])
-    assert [r["model"] for r in rows] == [MODEL, "coca-tiny-test"]
-    assert "coca-roberta-tiny-test: FAILED" in capsys.readouterr().out
-    assert "item 11" in str(pytest.raises(
-        NotImplementedError, tprofiler.profile_model,
-        "coca-roberta-tiny-test").value)
+                           "coca-roberta-tiny-test,no-such-model",
+                           "--results", str(tmp_path / "p.csv"),
+                           "--device", "cpu"])
+    assert [r["model"] for r in rows] == [MODEL, "coca-tiny-test",
+                                          "coca-roberta-tiny-test"]
+    assert "no-such-model: FAILED" in capsys.readouterr().out
+    assert rows[2]["gflops_text"] > 0
     with open(tmp_path / "p.csv") as f:
         assert f.readline().startswith("model,image_size")
 

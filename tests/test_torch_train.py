@@ -497,6 +497,27 @@ def test_unported_flags_raise(flags, match, tmp_path):
             assert os.listdir(tmp_path / "aux" / "trace") == [
                 "trace_epoch0_batches2-3.json"]
         return
+    if match in ("force-", "image-"):
+        # ported since these cases were written: the JAX package's
+        # overrides, taken by the model and the data pipeline
+        out = tdriver.main(TINY_RUN + ["--logs", str(tmp_path)] + flags)
+        assert [r["epoch"] for r in out["results"]] == [0, 1]
+        cfg, flag = out["model"].cfg, flags[0]
+        if flag == "--force-quick-gelu":
+            assert cfg.quick_gelu
+        elif flag == "--force-patch-dropout":
+            assert cfg.vision.patch_dropout == 0.5
+        elif flag == "--force-image-size":
+            assert cfg.vision.image_size == 32
+        elif flag == "--image-mean":
+            assert cfg.image_mean == (0.5, 0.5, 0.5)
+        return
+    if match == "pretrained":
+        # ported since this case was written: a registry tag resolves from
+        # the local checkpoint cache; 'openai' names no ViT-tiny-test file
+        with pytest.raises(FileNotFoundError, match="registry tag"):
+            tdriver.main(TINY_RUN + ["--logs", str(tmp_path)] + flags)
+        return
     if match == "val-data":
         # ported since these cases were written: the flag is taken, and the
         # val eval over a shard that is not there (skipped with a warning,
@@ -582,13 +603,21 @@ def test_trainer_imports_no_jax():
         "import leaf_tpu_torch.models.coca, leaf_tpu_torch.models.coca_interop\n"
         "import leaf_tpu_torch.models.mci, leaf_tpu_torch.models.trunks\n"
         "import leaf_tpu_torch.models.timm_vision, leaf_tpu_torch.tokenizer.hf\n"
+        "import leaf_tpu_torch.models.swin, leaf_tpu_torch.models.relpos_vit\n"
+        "import leaf_tpu_torch.models.m2m100, leaf_tpu_torch.models.hf_text\n"
+        "import leaf_tpu_torch.models.hf_encoders\n"
+        "import leaf_tpu_torch.models.pretrained\n"
         "from leaf_tpu_torch.models.config import get_model_config\n"
         "get_model_config('MobileCLIP-S2'), get_model_config('siglip-tiny-test')\n"
+        "get_model_config('swin-tiny-test'), get_model_config('nllb-clip-base')\n"
+        "from leaf_tpu_torch.models.hf_text import HFTextTower\n"
+        "HFTextTower('_tiny_roberta_test', 8, 'cls_pooler', seed=0)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'flax', 'regex', 'PIL', 'leaf_tpu', "
         "'safetensors', 'orbax', 'nltk', 'datasets', 'h5py', 'sacrebleu', "
         "'pandas', 'transformers', 'diffusers', 'huggingface_hub', "
-        "'tensorboard', 'tensorboardX', 'wandb', 'torchvision', 'fsspec'))\n"
+        "'tensorboard', 'tensorboardX', 'wandb', 'torchvision', 'fsspec', "
+        "'sentencepiece', 'timm', 'tokenizers'))\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True,

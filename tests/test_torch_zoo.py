@@ -73,17 +73,12 @@ def _same_fields(j, t):
 
 def test_registry_matches_jax():
     """Every name the JAX package registers resolves in the port with equal
-    fields, or belongs to a family the port does not run and raises by name
-    (ROADMAP item 11); the port registers nothing the JAX package lacks."""
-    ported, refused = [], []
+    fields (the Swin, RelPos-ViT and HF-text families too, since they were
+    ported); the port registers nothing the JAX package lacks."""
+    ported = []
     for name in jconfig.list_models(include_coca=False):
         j = jconfig.get_model_config(name)
-        try:
-            t = tconfig.get_model_config(name)
-        except KeyError as e:
-            assert "item 11" in str(e), (name, e)
-            refused.append(name)
-            continue
+        t = tconfig.get_model_config(name)
         ported.append(name)
         diff = {"text": _same_fields(j.text, t.text),
                 "vision": _same_fields(j.vision, t.vision),
@@ -107,7 +102,7 @@ def test_registry_matches_jax():
     for name in ("swin_base_patch4_window7_224", "swin-tiny-test",
                  "vit_relpos_medium_patch16_cls_224", "relpos-tiny-test",
                  "nllb-clip-base-siglip", "roberta-ViT-B-32"):
-        assert name in refused
+        assert name in ported
     with pytest.raises(KeyError, match="Unknown model"):
         tconfig.get_model_config("ViT-nonexistent")
 
@@ -124,15 +119,24 @@ def test_timm_vision_config_matches_jax(name, pool):
 
 
 def test_unported_open_clip_dicts_raise_by_name():
-    for vision in ({"timm_model_name": "swin_base_patch4_window7_224"},
-                   {"timm_model_name": "vit_relpos_medium_patch16_cls_224"}):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tconfig.config_from_open_clip_dict("x", {
-                "embed_dim": 512, "vision_cfg": vision, "text_cfg": {}})
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """The Swin, RelPos-ViT and HF-text dicts that raised here before they
+    were ported now give the JAX package's configs."""
+    for d in ({"embed_dim": 512, "text_cfg": {}, "vision_cfg": {
+                   "timm_model_name": "swin_base_patch4_window7_224"}},
+              {"embed_dim": 512, "text_cfg": {}, "vision_cfg": {
+                   "timm_model_name": "vit_relpos_medium_patch16_cls_224"}},
+              {"embed_dim": 512, "vision_cfg": {},
+               "text_cfg": {"hf_model_name": "roberta-base"}}):
+        j = jconfig.config_from_open_clip_dict("x", d)
+        t = tconfig.config_from_open_clip_dict("x", d)
+        assert not _same_fields(j.text, t.text)
+        assert not _same_fields(j.vision, t.vision)
+        assert (None if j.trunk is None else dataclasses.asdict(j.trunk)) \
+            == (None if t.trunk is None else dataclasses.asdict(t.trunk))
+    with pytest.raises(ValueError, match="unsupported swin trunk"):
         tconfig.config_from_open_clip_dict("x", {
-            "embed_dim": 512, "vision_cfg": {},
-            "text_cfg": {"hf_model_name": "roberta-base"}})
+            "embed_dim": 512, "text_cfg": {},
+            "vision_cfg": {"timm_model_name": "swin_tiny_patch4_window7_224"}})
 
 
 @pytest.mark.parametrize("module", [
@@ -511,7 +515,7 @@ def test_serve_siglip_checkpoint_matches_jax(tmp_path):
                                **TOL_HEAD)
     texts = tmp_path / "t.txt"
     texts.write_text("a photo of a cat\n")
-    with pytest.raises(NotImplementedError, match="item 11 step 3"):
+    with pytest.raises(NotImplementedError, match="vocabulary files"):
         tserve.main(["--model", "ViT-B-16-SigLIP", "--texts", str(texts),
                      "--output", str(tmp_path / "x.npz"), "--device", "cpu"])
 
@@ -524,7 +528,7 @@ def test_tokenizers():
     from leaf_tpu_torch.models.factory import get_tokenizer
     for name in ("ViT-B-16-SigLIP", "ViT-SO400M-14-SigLIP-384",
                  "ViT-L-14-CLIPA"):
-        with pytest.raises(NotImplementedError, match="item 11 step 3"):
+        with pytest.raises(NotImplementedError, match="vocabulary files"):
             get_tokenizer(name)
     tok = get_tokenizer("MobileCLIP-B")
     assert np.asarray(tok(["a photo of a dog"])).shape == (1, 77)
@@ -554,11 +558,15 @@ def test_transforms_use_the_configs_statistics(name, mean):
 @pytest.mark.parametrize("name", ["siglip-tiny-test", "mci-vit-tiny-test"])
 def test_openclip_export_of_zoo_towers_refused(name):
     """The OpenCLIP export writes CLIP-ViT towers only; the zoo's other
-    parts raise by name instead of failing on a missing key."""
+    parts raise by name instead of failing on a missing key: the ViT parts
+    citing their ROADMAP item, a trunk as having no export in the JAX
+    package either."""
     from leaf_tpu_torch.convert import params_to_openclip
     cfg = tconfig.get_model_config(name)
     module = tclip.CLIP(cfg)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="item 11" if cfg.trunk is None
+                       else "trunk.*JAX package"):
         params_to_openclip(module.state_dict(), cfg)
 
 
