@@ -129,7 +129,8 @@ Phases, each printing its own lines:
       seed 0; D 1280, 16 heads of width 80, GELU): `fare_driver.main` with
       `scripts/train_fare_vith.sh`'s flags (bf16 on fp32 master weights,
       batch 128, PGD-10 L-inf at eps 2/255, AdamW at lr 1e-5, wd 1e-4;
-      3 steps after 1 warm-up step where the recipe has 10,000 after 700)
+      1 step with remat (3 until phase (u) needed the room) where the
+      recipe has 10,000 after 700 warm-up steps)
       on 256 seeded 256 x 256 `.npy` arrays in 8 classes, with block remat,
       then 1 step with `--no-remat`: per step the device's seconds split
       into anchor, attack and update, images/s, the loader's wait and the
@@ -158,9 +159,10 @@ Phases, each printing its own lines:
       wd 0.2, `--local-loss`, `--workers 4`): the plain step with its
       batch already on the card (CUDA events), then
       `train.contrastive_driver.main` on 2,048 seeded 256 x 256 `.npy`
-      image-caption pairs in 8 tar shards: 8 plain steps (cosine after 2
-      warm-up steps) with `--val-data` over one more shard before and
-      after, saved; `--resume latest` for 2 more; 2 steps each with
+      image-caption pairs in 8 tar shards: 4 plain steps (8 until phase
+      (u) needed the room; cosine after 2 warm-up steps) with `--val-data`
+      over one more shard before and after, saved; `--resume latest` for 2
+      more; 2 steps each with
       `--siglip`, `--accum-freq 2`, `--distill-model ViT-B-32` and
       `--lock-image` (the vision tower unchanged bit for bit).  Per step
       its span on the device (CUDA events), the loader's wait, the loop's
@@ -234,7 +236,8 @@ Phases, each printing its own lines:
       after the build, ms a generated position, peak memory, BLEU-4 in
       [0, 1] and CIDEr-D >= 0 over 64 samples; `contrastive_driver.main
       --model coca_ViT-B-32` with (n)'s flags on its tar shards (bf16 on
-      fp32 masters, batch 256), 4 steps and a resume for 1: device seconds
+      fp32 masters, batch 256), 2 steps (4 until phase (u) needed the
+      room) and a resume for 1: device seconds
       a step (CUDA events), pairs/s, the loader's wait, peak memory, finite
       losses, the resume at the saved step; `utils.profiler.main --model
       coca_ViT-L-14` on the card within 1% of the CPU count; one beam
@@ -309,6 +312,25 @@ Phases, each printing its own lines:
       against fp32.  (c) has LayerNorm rows at Swin-B's 200,704 x 128 and
       3,136 x 2048 (bf16) and the HF towers' 19,712 x 1024 and x 768
       (fp32).
+  (u) training the zoo: first, tiny, fp32, TF32 off, the card against
+      the CPU from the same seeded weights, one step each: the contrastive
+      step on every vision family (SigLIP with its sigmoid loss and logit
+      bias, MobileCLIP's MCi-ViT and FastViT, ConvNeXt, EVA, ViTamin, Swin,
+      RelPos-ViT, a CLIPA-shaped ViT, a tiny ModifiedResNet whose BatchNorm
+      statistics stay put) and coca-roberta-tiny-test's CoCa step; the
+      fused LEAF step on a SigLIP-style, a CLIPA-style and a 640-wide text
+      tower (the same adversarial sentences); the in-training eval's PGD
+      through every vision family; a FARE step at siglip-tiny-test and the
+      CLIPA shape (losses and parameters within 1e-4); then at full width
+      and depth, bf16 on fp32 master weights, two steps a cell:
+      `train.driver.main` at convnext_base_w (batch 32, rho 20, the fused
+      step; its zero-shot eval before and after the epoch, PGD-10 through
+      the ConvNeXt tower on 16 seeded images); the contrastive step at RN50
+      (BatchNorm statistics bit for bit), EVA02-L-14 and ViT-B-16-SigLIP
+      (the sigmoid loss, seeded ids), batch 32; FARE on the SigLIP tower
+      with remat, PGD-10, batch 32.  Each cell's launches are held to the
+      count its config gives; losses finite; seconds a step and peak
+      memory printed.
 Any failure raises.  The line before the last is the kernels' JSON
 report (each kernel at its main-path shape; the line before it has the
 rows of every shape); the last is {"ok": true, "device": {...}}.  Without CUDA, or
@@ -398,6 +420,16 @@ SHAPES = [
     # (s): convnext_base_w's text tower (and RN50x4's), D 640 in 10 heads of
     # 64, a batch of 256 captions at bucket 77, causal
     ("convnext_text_s77_bf16", 256, 77, 77, True, 640, 10, "bfloat16"),
+    # (u), training the zoo: the LEAF trainer at convnext_base_w scores a
+    # half batch's 16 x 20 = 320 candidates at bucket 16 (8 a row, D 640);
+    # ViT-B-16-SigLIP's contrastive and FARE batches of 32 images (196
+    # patches, no class token) and its 32 captions of 64 ids, 2 a row, not
+    # causal
+    ("zoo_leaf_s16_d640_bf16", 40, 128, 16, True, 640, 10, "bfloat16"),
+    ("zoo_siglip_b16_vision_bf16", 32, 196, 196, False, 768, 12,
+     "bfloat16"),
+    ("zoo_siglip_b16_text_s64_bf16", 16, 128, 64, False, 768, 12,
+     "bfloat16"),
 ]
 # (name, M, K, N) of the fused block's two GEMMs on the main path; the
 # out-projections run again with their residual
@@ -461,7 +493,11 @@ LN_SHAPES = [("coca_decode_step_fp32", 64 * 6, 768, "float32"),
              ("swin_stage0_bf16", 64 * 56 * 56, 128, "bfloat16"),
              ("swin_merge3_bf16", 64 * 7 * 7, 2048, "bfloat16"),
              ("m2m100_text_fp32", 256 * 77, 1024, "float32"),
-             ("xlmr_text_fp32", 256 * 77, 768, "float32")]
+             ("xlmr_text_fp32", 256 * 77, 768, "float32"),
+             # (u): EVA02-L's `mlp.ln` in a contrastive batch of 32; the
+             # LEAF eval's ConvNeXt stem in fp32 on 16 images of 256 px
+             ("eva02_train_mlp_ln_bf16", 32 * 257, 2730, "bfloat16"),
+             ("convnext_eval_stem_fp32", 16 * 64 * 64, 128, "float32")]
 RAGGED_GEMM_SHAPES = [("ragged 231x72x200", 231, 72, 200),
                       ("ragged 231x776x1096", 231, 776, 1096),
                       ("ragged 231x8x40", 231, 8, 40)]
@@ -2407,10 +2443,10 @@ def phase_text_attacks(workdir: str):
 # ---------------------------------------------------------------------------
 
 FARE_MODEL = "ViT-H-14"
-FARE_IMAGES, FARE_CLASSES, FARE_STEPS = 256, 8, 3
+FARE_IMAGES, FARE_CLASSES, FARE_STEPS = 256, 8, 1
 ROBUST_IMAGES = 32
-# scripts/train_fare_vith.sh's flags, but for the schedule: 3 steps after 1
-# warm-up step where the recipe warms up for 700 of its 10,000
+# scripts/train_fare_vith.sh's flags, but for the schedule: 1 step (3 until
+# phase (u) needed the room) where the recipe warms up for 700 of its 10,000
 FARE_FLAGS = ["--model", FARE_MODEL, "--precision", "bf16", "--batch-size",
               "128", "--loss", "l2", "--inner-loss", "l2", "--opt", "adamw",
               "--lr", "1e-5", "--wd", "1e-4", "--attack", "pgd", "--norm",
@@ -2627,7 +2663,7 @@ def _dir_gb(path: str) -> float:
 
 def phase_fare(workdir: str):
     """`fare_driver.main` with the recipe's flags at ViT-H-14's full width
-    (depth cut, `DEPTH_CUTS`; random weights, seed 0): 3 steps with remat, then 1 with
+    (depth cut, `DEPTH_CUTS`; random weights, seed 0): 1 step with remat, then 1 with
     `--no-remat`; each step's seconds and launches, the peak device memory,
     each checkpoint's seconds and size."""
     import torch
@@ -3082,8 +3118,9 @@ def _device_steps(n: int = 3):
 def phase_contrastive(workdir: str):
     """`contrastive_driver.main` at ViT-B-32's full width and depth (random
     weights, seed 0; bf16 on fp32 master weights; batch 256) on 2,048
-    seeded image-caption pairs in 8 tar shards: 8 plain steps with
-    `--val-data` (one more shard) before and after, a resume for 2 more,
+    seeded image-caption pairs in 8 tar shards: 4 plain steps (8 until
+    phase (u) needed the room) with `--val-data` (one more shard) before
+    and after, a resume for 2 more,
     then 2 steps each (4 until phase (t) needed the room) with `--siglip`,
     `--accum-freq 2`, `--distill-model ViT-B-32` and `--lock-image`.  Per step: the device's seconds, the
     loader's wait, samples/s, launches held; per cell the peak memory."""
@@ -3106,7 +3143,7 @@ def phase_contrastive(workdir: str):
     base = CLIP_FLAGS + ["--train-data", train, "--logs", logs]
     pairs = CLIP_SHARDS * CLIP_PER_SHARD
     cells = [("plain", ["--val-data", val, "--train-num-samples",
-                        str(pairs), "--epochs", "1"], 8, 1),
+                        str(pairs // 2), "--epochs", "1"], 4, 1),
              ("resumed", ["--val-data", val, "--train-num-samples", "512",
                           "--epochs", "2", "--resume", "latest"], 2, 1),
              ("siglip", ["--siglip", "--train-num-samples", "512",
@@ -3182,10 +3219,10 @@ def phase_contrastive(workdir: str):
         rows = out["results"]
         extra_say = ""
         if tag == "resumed":
-            require(out["state"].step == 10 and [
+            require(out["state"].step == 6 and [
                 str(r["epoch"]) for r in rows] == ["0", "1", "2"],
                 f"(n) resume: step {out['state'].step}, rows {rows}")
-            extra_say = ", resumed at step 8 to step 10"
+            extra_say = ", resumed at step 4 to step 6"
         if tag == "lock-image":
             init = create_model(CLIP_MODEL, seed=0, device="cpu",
                                 master_weights=True).module.visual
@@ -4098,7 +4135,7 @@ def phase_t2i_tooling(workdir: str):
 COCA_TINY = "coca-tiny-test"
 COCA_CAPTION_MODEL, COCA_TRAIN_MODEL = "coca_ViT-L-14", "coca_ViT-B-32"
 COCA_IMAGES = 64        # COCO's 5,000 Karpathy test images cut to a call
-COCA_STEPS = 4
+COCA_STEPS = 2     # 4 until phase (u) needed the room
 COCA_FLAGS = [COCA_TRAIN_MODEL if x == CLIP_MODEL else x for x in CLIP_FLAGS]
 
 
@@ -4285,7 +4322,7 @@ def phase_coca(workdir: str):
     seeded 224 x 224 `.npy` images with 5 captions each, with the default
     beam search (K 6, G 3, seq_len 30) and with `--generation-type top_k`;
     `contrastive_driver.main --model coca_ViT-B-32` (bf16 on fp32 masters,
-    batch 256, (n)'s flags and tar shards) for 4 steps and a resume for
+    batch 256, (n)'s flags and tar shards) for 2 steps and a resume for
     1; `utils.profiler.main --model coca_ViT-L-14` on the card against the
     CPU count.  Each part holds its launches to its calls.  Between them,
     one generation of each kind under `torch.profiler`: the device's busy
@@ -5402,6 +5439,544 @@ def phase_rest(workdir: str):
     return {path: c.total for path, c in counters.items()}, out
 
 
+# ---------------------------------------------------------------------------
+# (u) training the zoo
+# ---------------------------------------------------------------------------
+
+U_CONTRASTIVE_TINY = ("siglip-tiny-test", "mci-vit-tiny-test",
+                      "fastvit-tiny-test", "convnext-tiny-test",
+                      "eva-tiny-test", "vitamin-tiny-test", "swin-tiny-test",
+                      "relpos-tiny-test", "clipa-tiny-smoke", "rn-tiny-smoke")
+U_LEAF_TINY = ("siglip-text-smoke", "clipa-tiny-smoke", "d640-text-smoke")
+U_FARE_TINY = ("siglip-tiny-test", "clipa-tiny-smoke")
+U_LEAF, U_RN, U_EVA, U_SIGLIP = ("convnext_base_w", "RN50", "EVA02-L-14",
+                                 "ViT-B-16-SigLIP")
+U_LEAF_BATCH, U_LEAF_RHO, U_LEAF_STEPS, U_EVAL_IMAGES = 32, 20, 2, 16
+U_BATCH, U_STEPS = 32, 2
+U_CAPTIONS = ["a photo of a cat", "stocks rally on earnings",
+              "the match ended in a draw", "hello world"]
+
+
+@contextlib.contextmanager
+def _u_tiny_configs():
+    """The tiny configs of (u) that neither registry has, registered for
+    the block: `rn-tiny-smoke` (`_tiny_resnet`); `clipa-tiny-smoke`,
+    ViT-tiny-test CLIPA-shaped (no `ln_pre`, mean pool then `ln_post`,
+    non-causal 'last'-pooled text); `siglip-text-smoke`, ViT-tiny-test with
+    siglip-tiny-test's text tower (non-causal, 'last'-pooled, a projection
+    bias) at the CLIP BPE's vocabulary and context; `d640-text-smoke`, with
+    convnext_base_w's 640-wide text tower cut to two layers."""
+    import dataclasses
+    from leaf_tpu_torch.models import config
+    base = config.get_model_config("ViT-tiny-test")
+    siglip = config.get_model_config("siglip-tiny-test").text
+    d640 = config.get_model_config("convnext_base_w").text
+    extra = [
+        dataclasses.replace(
+            base, name="clipa-tiny-smoke",
+            text=dataclasses.replace(base.text, no_causal_mask=True,
+                                     pool_type="last"),
+            vision=dataclasses.replace(base.vision, pool_type="avg",
+                                       ln_pre=False,
+                                       final_ln_after_pool=True)),
+        dataclasses.replace(base, name="siglip-text-smoke",
+                            text=dataclasses.replace(
+                                siglip, vocab_size=49408,
+                                context_length=77)),
+        dataclasses.replace(base, name="d640-text-smoke",
+                            embed_dim=d640.output_dim,
+                            text=dataclasses.replace(d640, layers=2))]
+    with _tiny_resnet():
+        for cfg in extra:
+            config.register_model(cfg)
+        try:
+            yield
+        finally:
+            for cfg in extra:
+                del config._REGISTRY[cfg.name]
+
+
+def _key_bias(name: str, n: int):
+    """The slice of an attention's key bias in a parameter of `n` values,
+    or None: its true gradient is zero, so Adam turns each device's
+    rounding noise there into a step of up to lr (ROADMAP Queue 3)."""
+    if name.endswith("qkv_b"):
+        return slice(n // 3, 2 * n // 3)
+    if name.endswith("kv_b"):
+        return slice(0, n // 2)
+    if name.endswith(".k_b"):
+        return slice(0, n)
+    return None
+
+
+def _u_params_err(cpu: dict, card: dict, lr: float, steps: int = 1):
+    """(max abs difference of the parameters, key biases aside; of the key
+    biases), each key bias held to 2 lr a step."""
+    worst = bias = 0.0
+    for k, a in cpu.items():
+        d = (card[k].float() - a.float()).abs().reshape(-1)
+        kb = _key_bias(k, d.numel()) if d.numel() > 1 else None
+        if kb is not None:
+            bias = max(bias, float(d[kb].max()))
+            d = d.clone()
+            d[kb] = 0
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+    require(bias <= 2 * steps * lr, f"(u) key bias differs by {bias}")
+    return worst, bias
+
+
+def _u_host(sd: dict) -> dict:
+    return {k: v.detach().float().cpu().clone() for k, v in sd.items()}
+
+
+def phase_zoo_train_parity(workdir: str):
+    """(u) tiny, fp32, TF32 off, the card (kernels forward, recompute
+    backward) against the CPU (plain versions) from the same seeded
+    weights, one step each at lr 1e-4: the contrastive step on every vision
+    family (SigLIP's with its sigmoid loss and logit bias; a ModifiedResNet
+    whose BatchNorm statistics must not move) and coca-roberta-tiny-test's
+    CoCa step on seeded ids; the fused LEAF step on a SigLIP-style, a
+    CLIPA-style and a 640-wide text tower (the same adversarial sentences);
+    the in-training eval's PGD through every vision family (3 sign steps
+    from one start: at most 1% of pixels apart by more than 1e-6, a sign
+    flip on a near-zero gradient); one FARE step at siglip-tiny-test and
+    the CLIPA-shaped config.  Losses and parameters within 1e-4, each key
+    bias within 2 lr."""
+    import copy
+    import torch
+    from leaf_tpu_torch.attacks.image import attack_image_classification
+    from leaf_tpu_torch.evals.zero_shot import fp32_products
+    from leaf_tpu_torch.models.config import get_model_config
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+    from leaf_tpu_torch.train import fare
+    from leaf_tpu_torch.train.contrastive import (
+        ContrastiveState, make_coca_train_step, make_contrastive_train_step)
+    from leaf_tpu_torch.train.fused import FusedLeafStep
+    from leaf_tpu_torch.train.optim import make_optimizer
+    from leaf_tpu_torch.train.step import TrainState
+    lr, out = 1e-4, {}
+
+    def held(tag, runs, extra=""):
+        (cl, cp), (gl, gp) = runs["cpu"], runs["cuda"]
+        err, bias = _u_params_err(cp, gp, lr)
+        loss_err = abs(gl - cl) / max(1.0, abs(cl))
+        require(np.isfinite(gl) and loss_err <= 1e-4 and err <= 1e-4,
+                f"(u) tiny {tag}: loss card {gl} CPU {cl}; parameters "
+                f"differ by {err}")
+        out[tag] = {"loss": gl, "loss_err": loss_err, "param_err": err,
+                    "key_bias_err": bias}
+        say(f"(u) tiny {tag}: loss {gl:.6g} (CPU {cl:.6g}), parameters "
+            f"within {err:.3g}, key bias {bias:.3g}{extra}")
+
+    with fp32_products(), _u_tiny_configs():
+        for name in U_CONTRASTIVE_TINY:
+            cfg = get_model_config(name)
+            rng = np.random.default_rng(111)
+            size = cfg.vision.image_size
+            images = rng.standard_normal((4, size, size, 3)).astype(
+                np.float32)
+            tokens = rng.integers(1, cfg.text.vocab_size, (
+                4, cfg.text.context_length)).astype(np.int32)
+            runs = {}
+            for device in ("cpu", "cuda"):
+                module = create_model(name, precision="fp32", seed=0,
+                                      device=device,
+                                      master_weights=True).module.train()
+                stats = _u_host(dict(module.named_buffers()))
+                state = ContrastiveState(module, make_optimizer(
+                    module.named_parameters(), lambda s: lr))
+                _, m = make_contrastive_train_step(
+                    siglip=cfg.init_logit_bias is not None)(
+                    state, torch.from_numpy(images).to(device),
+                    torch.from_numpy(tokens).to(device))
+                after = _u_host(dict(module.named_buffers()))
+                require(all(torch.equal(after[k], stats[k]) for k in stats),
+                        f"(u) tiny {name}: a buffer moved")
+                runs[device] = (float(m["loss"]), _u_host(module.state_dict()))
+            bn = [k for k in stats if k.endswith((".mean", ".var"))]
+            held(f"contrastive {name}", runs,
+                 f"; {len(bn)} BatchNorm statistics unchanged" if bn else "")
+        name = "coca-roberta-tiny-test"
+        rng = np.random.default_rng(112)
+        images = rng.standard_normal((3, 64, 64, 3)).astype(np.float32)
+        tokens = rng.integers(3, 99, (3, 16)).astype(np.int32)
+        runs = {}
+        for device in ("cpu", "cuda"):
+            module = create_model(name, precision="fp32", seed=0,
+                                  device=device).module.train()
+            state = ContrastiveState(module, make_optimizer(
+                module.named_parameters(), lambda s: lr))
+            _, m = make_coca_train_step()(
+                state, torch.from_numpy(images).to(device),
+                torch.from_numpy(tokens).to(device))
+            runs[device] = (float(m["loss"]), _u_host(module.state_dict()))
+        held(f"CoCa {name} (HF text tower)", runs)
+
+        tok = get_tokenizer("ViT-tiny-test")
+        for name in U_LEAF_TINY:
+            runs, adv, grads = {}, {}, {}
+            for device in ("cpu", "cuda"):
+                model = create_model(name, precision="fp32", seed=0,
+                                     device=device, master_weights=True)
+                text = model.module.text
+                frozen = copy.deepcopy(text).requires_grad_(False)
+                state = TrainState.create(text, make_optimizer(
+                    text.named_parameters(), lambda s: lr))
+                grads[device] = g = {}
+                update = state.optimizer.update
+
+                def keep_grads(step, text=text, g=g, update=update):
+                    g.update(_u_host({n: p.grad for n, p in
+                                      text.named_parameters()}))
+                    return update(step)
+                state.optimizer.update = keep_grads
+                fs = FusedLeafStep(model.cfg, tok, rho=5, device=device)
+                state, info = fs(state, frozen, U_CAPTIONS,
+                                 np.random.default_rng(7))
+                adv[device] = fs.adv_sentences(U_CAPTIONS, info)
+                runs[device] = (float(info["metrics"]["loss"]),
+                                _u_host(text.state_dict()))
+            require(adv["cpu"] == adv["cuda"],
+                    f"(u) tiny LEAF {name}: sentences {adv}")
+            # the step's gradients within 1e-4 of their scale; after Adam,
+            # an element whose gradient is near zero may step up to lr
+            # either way on each device (its g / (|g| + eps) of rounding
+            # noise; a large loss, as the 640-wide tower's, has more such
+            # elements), so the parameters are held to 2 lr
+            scale = max(float(v.abs().max()) for v in grads["cpu"].values())
+            grad_err = max(float((grads["cuda"][k] - v).abs().max())
+                           for k, v in grads["cpu"].items()) / scale
+            (cl, cp), (gl, gp) = runs["cpu"], runs["cuda"]
+            err = max(float((gp[k] - v).abs().max()) for k, v in cp.items())
+            loss_err = abs(gl - cl) / max(1.0, abs(cl))
+            require(loss_err <= 1e-4 and grad_err <= 1e-4 and err <= 2 * lr,
+                    f"(u) tiny LEAF {name}: loss card {gl} CPU {cl}, "
+                    f"gradients {grad_err} of their scale, parameters "
+                    f"{err}")
+            out[f"LEAF {name}"] = {"loss": gl, "loss_err": loss_err,
+                                   "grad_err": grad_err, "param_err": err}
+            say(f"(u) tiny LEAF {name}: loss {gl:.6g} (CPU {cl:.6g}), "
+                f"gradients within {grad_err:.3g} of their scale "
+                f"{scale:.3g}, parameters after Adam within {err:.3g}; the "
+                f"same {len(adv['cpu'])} adversarial sentences")
+
+        for name in U_CONTRASTIVE_TINY:
+            cfg = get_model_config(name)
+            rng = np.random.default_rng(113)
+            size = cfg.vision.image_size
+            images = rng.uniform(0, 1, (3, size, size, 3)).astype(np.float32)
+            clf = rng.standard_normal((cfg.embed_dim, 5)).astype(np.float32)
+            clf /= np.linalg.norm(clf, axis=0, keepdims=True)
+            start = (2 / 255 * (2 * rng.uniform(0, 1, images.shape) - 1)
+                     ).astype(np.float32)
+            adv = {}
+            for device in ("cpu", "cuda"):
+                module = create_model(name, precision="fp32", seed=0,
+                                      device=device).module
+                module.requires_grad_(False)
+                adv[device] = attack_image_classification(
+                    module.visual, cfg, torch.from_numpy(images).to(device),
+                    torch.from_numpy(clf).to(device),
+                    torch.tensor([0, 3, 4], device=device), n_steps=3,
+                    delta=torch.from_numpy(start).to(device)).cpu().numpy()
+            apart = float(np.mean(np.abs(adv["cuda"] - adv["cpu"]) > 1e-6))
+            require(apart <= 0.01 and np.abs(adv["cuda"] - images).max()
+                    <= 2 / 255 + 1e-6, f"(u) tiny PGD {name}: {apart} of "
+                    "the pixels apart")
+            out[f"PGD {name}"] = {"pixels_apart": apart}
+        say(f"(u) tiny in-training eval PGD, card vs CPU, share of pixels "
+            f"apart by more than 1e-6: "
+            f"{ {k[4:]: v['pixels_apart'] for k, v in out.items() if k.startswith('PGD')} }")
+
+        for name in U_FARE_TINY:
+            cfg = get_model_config(name)
+            rng = np.random.default_rng(114)
+            images = rng.uniform(0.2, 0.8, (2, 64, 64, 3)).astype(np.float32)
+            start = (8 / 255 * (2 * rng.uniform(0, 1, images.shape) - 1)
+                     ).astype(np.float32)
+            fcfg = fare.FareConfig(steps=1, warmup=1, lr=lr, eps=8 / 255,
+                                   iterations_adv=2, stepsize_adv=4 / 255,
+                                   clean_weight=0.5, log_freq=1)
+            runs = {}
+            for device in ("cpu", "cuda"):
+                visual = create_model(name, precision="fp32", seed=0,
+                                      device=device,
+                                      master_weights=True).module.visual
+                res = fare.train_fare(
+                    visual, cfg, fcfg, iter([(images, None)]),
+                    starts=iter([torch.from_numpy(start).to(device)]))
+                runs[device] = (float(res["final_loss"]),
+                                _u_host(visual.state_dict()))
+            held(f"FARE {name}", runs)
+    return out
+
+
+def _u_contrastive_launches(cfg, steps: int):
+    """A contrastive step's launches: one forward of each tower
+    (`_convnet_launches` for a ModifiedResNet or EVA tower, `_zoo_launches`
+    for a ViT); the backward recomputes through the plain versions."""
+    per = (_zoo_launches(cfg, 1, 1) if cfg.resnet is None
+           and cfg.trunk is None else _convnet_launches(cfg, 1, 1))
+    return {k: v * steps for k, v in per.items()}
+
+
+def _u_fare_launches(cfg, steps: int, iterations: int, remat: bool):
+    """A FARE step's launches at clean weight 0: the frozen tower's anchor
+    encode, `iterations` PGD encodes and the update's encode, the last
+    `iterations + 1` differentiated (their blocks twice under remat); the
+    LayerNorm op's `ln_2` with every block and, once an encode, `ln_pre`,
+    `ln_post` and the MAP head's where the tower has them."""
+    v = cfg.vision
+    diff = iterations + 1
+    blocks = v.layers * (1 + (2 if remat else 1) * diff)
+    outside = int(v.ln_pre) + 1 + int(v.attn_pool)
+    return {"packed_attention": steps * blocks,
+            "fused_attention_block": steps * blocks,
+            "layer_norm": steps * (blocks + outside * (1 + diff))}
+
+
+class _ReadAround:
+    """Wraps `obj.name`: the kernels' counters are read just before and
+    just after each call (not zeroed), the differences kept in `calls`."""
+
+    def __init__(self, obj, name: str, counters):
+        self.obj, self.name, self.counters = obj, name, counters
+        self.inner = getattr(obj, name)
+        self.calls = []
+
+    def _read(self):
+        return {k: op.launches for k, op in self.counters.ops.items()}
+
+    def __call__(self, *args, **kw):
+        import torch
+        before = self._read()
+        out = self.inner(*args, **kw)
+        torch.cuda.synchronize()
+        after = self._read()
+        self.calls.append({k: after[k] - before[k] for k in after})
+        return out
+
+    def __enter__(self):
+        setattr(self.obj, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.inner)
+
+
+def phase_zoo_train(workdir: str):
+    """(u) at full width and depth, bf16 on fp32 master weights, random
+    weights from seed 0, two steps a cell, each model built once:
+    `train.driver.main` at convnext_base_w (the LEAF trainer's fused step on
+    the synthetic caption, batch 32, rho 20; its zero-shot eval before and
+    after the epoch on 16 seeded 256 x 256 `.npy` images, PGD-10 through the
+    ConvNeXt tower); the contrastive step at RN50 (its BatchNorm statistics
+    bit for bit the same after), EVA02-L-14 (a trunk) and ViT-B-16-SigLIP
+    (the sigmoid loss with its logit bias, seeded ids: its SentencePiece
+    tokenizer is not ported), batch 32 each; then FARE on the SigLIP tower
+    with remat, PGD-10, batch 32.  Each cell's launches are held exactly
+    to the count its config gives; loss finite, peak memory and seconds a
+    step printed."""
+    import torch
+    from leaf_tpu_torch.models.config import get_model_config
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+    from leaf_tpu_torch.train import driver, fare
+    from leaf_tpu_torch.train.contrastive import (
+        ContrastiveState, make_contrastive_train_step)
+    from leaf_tpu_torch.train.optim import make_optimizer
+
+    root = os.path.join(workdir, "u")
+    os.makedirs(root)
+    rng = np.random.default_rng(115)
+    counters = {f"zoo_train_{k}": _Counters() for k in
+                ("leaf_convnext", "contrastive_rn50", "contrastive_eva",
+                 "contrastive_siglip", "fare_siglip")}
+    out = {}
+
+    def hold(path, got, want, tag):
+        say(f"(u) {tag}: launches {got} = {want}")
+        require(got == want, f"(u) {tag}: launches {got}, {want} expected")
+        for k in want:
+            counters[path].total[k] += want[k]
+
+    # ---- LEAF at convnext_base_w through driver.main
+    cfg = get_model_config(U_LEAF)
+    folder = _write_image_folder(os.path.join(root, "imagenet"), rng,
+                                 U_EVAL_IMAGES, 2, cfg.vision.image_size)
+    flags = ["--model", U_LEAF, "--precision", "bf16", "--dataset-type",
+             "synthetic", "--batch-size", str(U_LEAF_BATCH), "--rho",
+             str(U_LEAF_RHO), "--k_adv", "1", "--lr", "1e-5", "--wd", "1e-4",
+             "--warmup", "1", "--lr-scheduler", "const", "--epochs", "1",
+             "--train-num-samples", str(U_LEAF_BATCH * U_LEAF_STEPS),
+             "--imagenet-val", folder, "--n_val_imagenet",
+             str(U_EVAL_IMAGES), "--zeroshot-frequency", "1",
+             "--log-every-n-steps", "1", "--seed", "0", "--logs", root,
+             "--name", "leaf", "--device", "cuda"]
+    handler = _Steps()
+    log = logging.getLogger("leaf_tpu_torch.train.loop")
+    log.addHandler(handler)
+    c = counters["zoo_train_leaf_convnext"]
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        c.zero()
+        t0 = time.perf_counter()
+        with _ReadAround(driver, "zero_shot_eval", c) as evals:
+            res = driver.main(flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = {k: op.launches for k, op in c.ops.items()}
+    finally:
+        log.removeHandler(handler)
+    L = cfg.text.layers
+    # per step 2 probe + 2 candidate scoring encodes and the train
+    # forward's 2 half encodes; the one caption's anchors once
+    encodes = 6 * U_LEAF_STEPS + 1
+    steps_got = {k: total[k] - sum(e[k] for e in evals.calls) for k in total}
+    hold("zoo_train_leaf_convnext", steps_got,
+         {"packed_attention": L * encodes, "fused_attention_block": L * encodes,
+          "layer_norm": (L + 1) * encodes},
+         f"LEAF {U_LEAF}, {U_LEAF_STEPS} fused steps ({encodes} text encodes)")
+    # an eval: 100 classifier encodes of 10 classes x 80 templates; per
+    # image batch the clean encode, 10 PGD steps and the adversarial one
+    image_enc = -(-U_EVAL_IMAGES // U_LEAF_BATCH) * (10 + 2)
+    per_eval = _convnet_launches(cfg, image=image_enc, text=100)
+    require(len(evals.calls) == 2, f"(u) {len(evals.calls)} evals")
+    for i, got in enumerate(evals.calls):
+        hold("zoo_train_leaf_convnext", got, per_eval,
+             f"LEAF {U_LEAF}, eval {i} (100 classifier and {image_enc} "
+             "ConvNeXt image encodes)")
+    steps = list(handler.steps)
+    losses = [a[8] for a in steps]
+    require(len(steps) == U_LEAF_STEPS and all(
+        np.isfinite(v) and v > 0 for v in losses), f"(u) LEAF losses {losses}")
+    rows = _csv_rows(os.path.join(res["out_dir"], "results.csv"))
+    adv = [float(r["imagenet-zeroshot-val-top1-adv"]) for r in rows]
+    require(len(rows) == 2 and all(0 <= a <= 1 for a in adv),
+            f"(u) LEAF results.csv {rows}")
+    parts = res["eval_seconds"]
+    out["leaf_convnext_base_w"] = {
+        "wall_s": wall, "step_s": [a[5] for a in steps], "losses": losses,
+        "eval_s": {e: sum(p.values()) for e, p in parts.items()},
+        "pgd_s": [p.get("pgd") for p in parts.values()],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    say(f"(u) LEAF {U_LEAF}: driver.main {wall:.1f} s; steps "
+        f"{[round(a[5], 3) for a in steps]} s, losses "
+        f"{[round(v, 5) for v in losses]}; evals "
+        f"{ {e: round(v, 2) for e, v in out['leaf_convnext_base_w']['eval_s'].items()} } s "
+        f"(PGD {[round(p or 0, 2) for p in out['leaf_convnext_base_w']['pgd_s']]}); "
+        f"top-1 adv {adv}; peak "
+        f"{out['leaf_convnext_base_w']['peak_gib']:.1f} GiB")
+    del res
+    shutil.rmtree(os.path.join(root, "leaf"), ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- the contrastive step at RN50, EVA02-L-14 and ViT-B-16-SigLIP
+    siglip_module = None
+    for name, path in ((U_RN, "zoo_train_contrastive_rn50"),
+                       (U_EVA, "zoo_train_contrastive_eva"),
+                       (U_SIGLIP, "zoo_train_contrastive_siglip")):
+        cfg = get_model_config(name)
+        t0 = time.perf_counter()
+        model = create_model(name, precision="bf16", seed=0, device="cuda",
+                             master_weights=True)
+        build_s = time.perf_counter() - t0
+        module = model.module.train()
+        module.visual.compute_dtype = torch.bfloat16
+        siglip = cfg.init_logit_bias is not None
+        size = cfg.vision.image_size
+        g = torch.Generator(device="cuda").manual_seed(0)
+        images = torch.randn(U_BATCH, size, size, 3, generator=g,
+                             device="cuda")
+        if cfg.text.hf_tokenizer_name:
+            tokens = torch.from_numpy(rng.integers(
+                1, cfg.text.vocab_size, (U_BATCH, cfg.text.context_length)
+            ).astype(np.int32)).cuda()
+        else:
+            tokens = torch.from_numpy(np.asarray(get_tokenizer(name)(
+                _captions(rng, U_BATCH, 3, 30)))).cuda()
+        stats = {k: v.clone() for k, v in module.named_buffers()}
+        bias0 = (float(module.logit_bias.detach()) if siglip else None)
+        state = ContrastiveState(module, make_optimizer(
+            module.named_parameters(), lambda s: 5e-4, weight_decay=0.2))
+        step = make_contrastive_train_step(siglip)
+        c = counters[path]
+        seconds, peaks, losses = [], [], []
+        torch.cuda.synchronize()
+        c.zero()
+        for _ in range(U_STEPS):
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, m = step(state, images, tokens)
+            end.record()
+            end.synchronize()
+            seconds.append(start.elapsed_time(end) / 1e3)
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            losses.append(float(m["loss"]))
+        hold(path, {k: op.launches for k, op in c.ops.items()},
+             _u_contrastive_launches(cfg, U_STEPS),
+             f"contrastive {name}, {U_STEPS} steps")
+        require(all(np.isfinite(v) for v in losses),
+                f"(u) {name} losses {losses}")
+        same = all(torch.equal(v, stats[k])
+                   for k, v in module.named_buffers())
+        require(same, f"(u) {name}: a buffer changed")
+        cell = {"build_s": build_s, "step_s": seconds, "losses": losses,
+                "peak_gib": max(peaks)}
+        extra = ""
+        bn = [k for k in stats if k.endswith((".mean", ".var"))]
+        if bn:
+            extra = f"; {len(bn)} BatchNorm statistics bit for bit equal"
+        if siglip:
+            cell["logit_bias"] = float(module.logit_bias.detach())
+            require(cell["logit_bias"] != bias0, "(u) logit bias unmoved")
+            extra = (f"; sigmoid loss, logit bias {bias0} -> "
+                     f"{cell['logit_bias']:.6g}")
+        out[f"contrastive {name}"] = cell
+        say(f"(u) contrastive {name}: build {build_s:.1f} s; steps "
+            f"{[round(t, 4) for t in seconds]} s on the device "
+            f"({U_BATCH / float(np.mean(seconds)):.1f} pairs/s), losses "
+            f"{[round(v, 5) for v in losses]}, peak {max(peaks):.1f} GiB"
+            f"{extra}")
+        if siglip:
+            siglip_module = module
+        del model, module, state, images, tokens
+        torch.cuda.empty_cache()
+
+    # ---- FARE on the SigLIP tower, remat
+    cfg = get_model_config(U_SIGLIP)
+    visual = siglip_module.visual
+    fcfg = fare.FareConfig(steps=U_STEPS, warmup=1, batch_size=U_BATCH,
+                           lr=1e-5, wd=1e-4, eps=2 / 255, iterations_adv=10,
+                           stepsize_adv=1 / 255, remat=True, log_freq=1)
+    size = cfg.vision.image_size
+    batch = rng.uniform(0, 1, (U_BATCH, size, size, 3)).astype(np.float32)
+    c = counters["zoo_train_fare_siglip"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c.zero()
+    res = fare.train_fare(visual, cfg, fcfg, iter([(batch, None)] * U_STEPS))
+    torch.cuda.synchronize()
+    hold("zoo_train_fare_siglip", {k: op.launches for k, op in c.ops.items()},
+         _u_fare_launches(cfg, U_STEPS, 10, True),
+         f"FARE {U_SIGLIP}, {U_STEPS} steps, remat, PGD-10")
+    require(res["steps"] == U_STEPS and np.isfinite(res["final_loss"]),
+            f"(u) FARE {res['steps']} steps, loss {res['final_loss']}")
+    dev = [t["step_s"] for t in res["times"]]
+    out[f"FARE {U_SIGLIP}"] = {
+        "step_s": dev, "final_loss": res["final_loss"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    say(f"(u) FARE {U_SIGLIP}, remat: steps {dev} s on the device, loss "
+        f"{res['final_loss']:.6g}, peak "
+        f"{out[f'FARE {U_SIGLIP}']['peak_gib']:.1f} GiB")
+    del res, visual, siglip_module
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return {path: c.total for path, c in counters.items()}, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5481,7 +6056,11 @@ def main() -> int:
         conv_launches, conv_runs = _timed("s", phase_convnets, workdir)
         rest_parity = _timed("t parity", phase_rest_parity, workdir)
         rest_launches, rest_runs = _timed("t", phase_rest, workdir)
-        zoo_launches = {**zoo_launches, **conv_launches, **rest_launches}
+        train_parity = _timed("u parity", phase_zoo_train_parity, workdir)
+        train_zoo_launches, train_zoo_runs = _timed("u", phase_zoo_train,
+                                                    workdir)
+        zoo_launches = {**zoo_launches, **conv_launches, **rest_launches,
+                        **train_zoo_launches}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -5588,7 +6167,8 @@ def main() -> int:
                       "coca": coca_runs, "zoo_parity": zoo_parity,
                       "zoo": zoo_runs, "convnets_parity": conv_parity,
                       "convnets": conv_runs, "rest_parity": rest_parity,
-                      "rest": rest_runs}, default=float))
+                      "rest": rest_runs, "zoo_train_parity": train_parity,
+                      "zoo_train": train_zoo_runs}, default=float))
     # every shape's row (ms, plain_ms, library_ms, bound_ms, bound_by,
     # max_abs_err) on a line of its own, so that the kernels line stays
     # short enough to read whole from the end of a captured output

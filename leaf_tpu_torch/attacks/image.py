@@ -7,7 +7,8 @@
     or L2 projection, clamped to [0, 1]; NaN gradients zeroed).
 
 Each attack is a plain autograd loop over `delta`: forward through the
-vision tower, the input's gradient, a step.  On a card the forward runs
+vision tower (of any family: the ViT, ModifiedResNet, ConvNeXt, the
+trunks), the input's gradient, a step.  On a card the forward runs
 the towers' hand kernels and their backward recomputes through the
 plain versions (`ops.packed_attention`).  Images are NHWC in [0, 1];
 normalisation is folded into the loss.  The tower computes in its

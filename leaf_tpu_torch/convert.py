@@ -39,32 +39,36 @@ from leaf_tpu_torch.utils.safetensors_io import save_file
 def params_to_openclip(sd: Mapping[str, torch.Tensor],
                        cfg: CLIPConfig) -> Dict[str, torch.Tensor]:
     """The port's `CLIP.state_dict()` -> OpenCLIP state dict (fp32 CPU
-    tensors, contiguous): the reverse of `interop.openclip_to_params`.
-    `nn.Linear` weights are [out, in] there, so every matmul weight is
-    transposed back.  The CLIP-ViT, ModifiedResNet and ConvNeXt towers
-    (the latter two with the text tower at the top level, as the JAX
-    package writes them); the ViT zoo's other parts (no class token or
-    `ln_pre`, the SigLIP head, timm heads, projection biases,
-    `logit_bias`) raise (ROADMAP Queue 1 item 11).  A timm trunk (MobileCLIP,
-    EVA, ViTamin, Swin, RelPos-ViT) or an HF text tower has no OpenCLIP
-    export in the JAX package either (its `params_to_openclip` reads the
-    CLIP ViT and text tower's keys, which these lack): they raise so."""
+    tensors, contiguous): the reverse of `interop.openclip_to_params`, key
+    for key what the JAX package's `params_to_openclip` writes
+    (`leaf_tpu/convert.py:42-77`).  `nn.Linear` weights are [out, in]
+    there, so every matmul weight is transposed back.
+
+    It writes the CLIP-ViT, ModifiedResNet and ConvNeXt towers (the latter
+    two with the text tower at the top level); a biased text projection
+    (SigLIP) as the Linear's `text_projection.weight` and `.bias`, which
+    OpenCLIP reads the bias with; `logit_bias`; and a ViT without a class
+    token or `ln_pre` (CLIPA) without those keys.  SigLIP's MAP head
+    (`attn_pool`), a patch bias, a vision projection bias and timm's MLP
+    head raise: the JAX package writes no key for them, so its export
+    drops them and a reload gives other features (ROADMAP Queue 3).  A
+    timm trunk (MobileCLIP, EVA, ViTamin, Swin, RelPos-ViT) or an HF text
+    tower has no OpenCLIP export in the JAX package either (its
+    `params_to_openclip` reads the CLIP ViT and text tower's keys, which
+    these lack): they raise so."""
     require_openclip_exportable(cfg)
-    other = [k for k in ("text.text_projection_bias", "logit_bias")
-             if k in sd]
+    dropped = []
     if cfg.resnet is None and cfg.convnext is None:
-        other += [k for k in ("visual.patch_bias", "visual.proj_bias")
-                  if k in sd]
-        other += [k for k in ("visual.class_embedding",
-                              "visual.ln_pre.scale", "visual.proj")
-                  if k not in sd]
-        other += sorted({k.split(".")[1] for k in sd if k.startswith(
+        dropped += [k for k in ("visual.patch_bias", "visual.proj_bias")
+                    if k in sd]
+        dropped += [k for k in ("visual.proj",) if k not in sd]
+        dropped += sorted({k.split(".")[1] for k in sd if k.startswith(
             ("visual.attn_pool.", "visual.head_mlp."))})
-    if other:
+    if dropped:
         raise NotImplementedError(
-            f"{cfg.name}: the OpenCLIP export of this tower "
-            f"({', '.join(other)}) is not ported to leaf_tpu_torch yet: "
-            "ROADMAP Queue 1 item 11")
+            f"{cfg.name}: the JAX package's OpenCLIP export writes no key "
+            f"for this tower's {', '.join(dropped)}, and the port's does not "
+            "either (ROADMAP Queue 3)")
     out: Dict[str, torch.Tensor] = {}
 
     def put(key: str, value: torch.Tensor, transpose: bool = False) -> None:
@@ -75,8 +79,16 @@ def params_to_openclip(sd: Mapping[str, torch.Tensor],
     put("positional_embedding", sd["text.positional_embedding"])
     put("ln_final.weight", sd["text.ln_final.scale"])
     put("ln_final.bias", sd["text.ln_final.bias"])
-    put("text_projection", sd["text.text_projection"])
+    if "text.text_projection_bias" in sd:
+        # a Linear projection: OpenCLIP reads its bias only beside the
+        # Linear's [out, in] weight
+        put("text_projection.weight", sd["text.text_projection"], True)
+        put("text_projection.bias", sd["text.text_projection_bias"])
+    else:
+        put("text_projection", sd["text.text_projection"])
     put("logit_scale", sd["logit_scale"])
+    if "logit_bias" in sd:
+        put("logit_bias", sd["logit_bias"])
 
     towers = [("text", "transformer", cfg.text.layers)]
     if cfg.resnet is not None:
@@ -90,11 +102,13 @@ def params_to_openclip(sd: Mapping[str, torch.Tensor],
         conv = sd["visual.patch_embedding"].reshape(p, p, 3,
                                                     cfg.vision.width)
         put("visual.conv1.weight", conv.permute(3, 2, 0, 1))
-        put("visual.class_embedding", sd["visual.class_embedding"])
+        if "visual.class_embedding" in sd:
+            put("visual.class_embedding", sd["visual.class_embedding"])
         put("visual.positional_embedding", sd["visual.positional_embedding"])
         for ln in ("ln_pre", "ln_post"):
-            put(f"visual.{ln}.weight", sd[f"visual.{ln}.scale"])
-            put(f"visual.{ln}.bias", sd[f"visual.{ln}.bias"])
+            if f"visual.{ln}.scale" in sd:      # CLIPA has no ln_pre
+                put(f"visual.{ln}.weight", sd[f"visual.{ln}.scale"])
+                put(f"visual.{ln}.bias", sd[f"visual.{ln}.bias"])
         put("visual.proj", sd["visual.proj"])
         towers.append(("visual", "visual.transformer", cfg.vision.layers))
 

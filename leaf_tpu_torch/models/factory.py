@@ -134,28 +134,54 @@ def local_checkpoint(path: Optional[str], flag: str = "--pretrained",
         f"{model_name!r} (models/pretrained.py: list_pretrained())")
 
 
-def require_trainable(model_name: str) -> None:
-    """Refuse, before a trainer builds it, a model whose training is not
-    ported: a ModifiedResNet (BatchNorm in train mode), ConvNeXt or timm
-    trunk tower (MobileCLIP, EVA, ViTamin, Swin, RelPos-ViT: their
-    backward), an HF text tower, or SigLIP's sigmoid loss with the model's
-    own logit bias (ROADMAP Queue 1 item 11 step 4, training the zoo)."""
+TRAINERS = ("leaf", "contrastive", "fare")
+
+
+def require_trainable(model_name: str, trainer: str) -> None:
+    """Refuse, before it builds the model, what the JAX package's trainer
+    of the same kind cannot train either; each trainer takes what its JAX
+    trainer takes, and no more (ROADMAP Queue 1 item 11 step 4):
+
+    - "leaf" (`train.driver`): every model with a native text tower.  The
+      JAX driver has no family check: it locks the vision tower
+      (`leaf_tpu/train/driver.py:132-137`) and trains the text tower
+      through `clip.encode_text` (`leaf_tpu/train/fused.py:79-90,
+      146-150`); the vision tower runs only in the in-training evals,
+      whose PGD takes the input's gradient through `encode_image_model`
+      (`leaf_tpu/attacks/image.py:43-46`), which takes every family.
+    - "contrastive" (`train.contrastive_driver`): every vision family,
+      since JAX's step runs `clip.forward` -> `encode_image_model`
+      (`leaf_tpu/train/contrastive.py:33-59`, `leaf_tpu/models/clip.py:
+      228-254, 463-479`), and every CoCa model, `coca_roberta-*` with its
+      HF text tower included, through the CoCa step.
+    - "fare" (`train.fare_driver`): the ViT family only (plain ViT,
+      SigLIP's MAP head, CLIPA, timm heads and patch biases):
+      `fare.encode_vision` runs `clip.encode_image` on `cfg.vision`
+      (`leaf_tpu/train/fare.py:40-47`), which has no ModifiedResNet,
+      ConvNeXt or trunk path.
+
+    A CustomTextCLIP model (an HF text tower) trains in none of them:
+    `clip.forward` and the fused LEAF step call the native `encode_text`
+    on its HF tree.  What is refused raises "in the JAX package as
+    here"."""
+    if trainer not in TRAINERS:
+        raise ValueError(f"trainer must be one of {TRAINERS}, got "
+                         f"{trainer!r}")
     if model_name in coca.COCA_CONFIGS:
-        what = ("an HF text tower"
-                if coca.get_coca_config(model_name).hf_text_name else None)
+        what = ("an HF text tower" if trainer != "contrastive"
+                and coca.get_coca_config(model_name).hf_text_name else None)
     else:
         cfg = get_model_config(model_name)
-        what = ("a ModifiedResNet tower" if cfg.resnet is not None else
+        what = ("an HF text tower" if cfg.text.hf_model_name else
+                None if trainer != "fare" else
+                "a ModifiedResNet tower" if cfg.resnet is not None else
                 "a ConvNeXt tower" if cfg.convnext is not None else
                 f"a {type(cfg.trunk).__name__} trunk"
-                if cfg.trunk is not None else
-                "an HF text tower" if cfg.text.hf_model_name else
-                "SigLIP's logit bias" if cfg.init_logit_bias is not None
-                else None)
+                if cfg.trunk is not None else None)
     if what is not None:
         raise NotImplementedError(
-            f"training {model_name} ({what}) is not ported to "
-            "leaf_tpu_torch yet: ROADMAP Queue 1 item 11 step 4")
+            f"{model_name} ({what}) has no path in the {trainer} trainer, "
+            "in the JAX package as here")
 
 
 def _adopt_activation(cfg: CLIPConfig, model_name: str, pretrained: str,

@@ -371,7 +371,9 @@ def openclip_to_params(sd: Mapping[str, Any], cfg: CLIPConfig) -> StateDict:
         conv = _np(sd["visual.conv1.weight"])             # [D, 3, p, p]
         out["visual.patch_embedding"] = _tensor(
             conv.transpose(2, 3, 1, 0).reshape(-1, conv.shape[0]))
-        out["visual.class_embedding"] = _tensor(sd["visual.class_embedding"])
+        if "visual.class_embedding" in sd:   # none in a token-less ViT
+            out["visual.class_embedding"] = _tensor(
+                sd["visual.class_embedding"])
         out["visual.positional_embedding"] = _tensor(
             sd["visual.positional_embedding"])
         for ln in ("ln_pre", "ln_post"):

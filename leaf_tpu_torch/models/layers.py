@@ -92,12 +92,20 @@ def avg_pool_nhwc(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def refuse_training(family: str, remat: bool, dropout) -> None:
-    """Raise for the training arguments of a tower whose training is not
-    ported."""
+    """Raise for `remat` or patch dropout on a zoo tower (every tower but
+    the CLIP ViT's): no trainer of the JAX package passes either to one.
+    `clip.forward` calls `encode_image_model` without `remat`
+    (`leaf_tpu/models/clip.py:471-472`), FARE's remat goes to the ViT's
+    `encode_image`, and the LEAF driver's `--grad-checkpointing` to the
+    text tower (`leaf_tpu/train/driver.py:193, 208`).  JAX's patch-dropout
+    branch (`leaf_tpu/train/contrastive.py:37-48`) hands its key to
+    `encode_image_model`, which drops it for these towers without a word
+    (`clip.py:239-251`); the port raises rather than ignore a flag."""
     if remat or dropout is not None:
         raise NotImplementedError(
-            f"training {family} towers (remat, patch dropout) is not ported "
-            "to leaf_tpu_torch yet: ROADMAP Queue 1 item 11 step 4")
+            f"{family} towers take neither remat nor patch dropout: no "
+            "trainer passes either to them, in the JAX package as here "
+            "(which drops a patch-dropout key for them unused)")
 
 
 def adopt_optional(params: nn.ParameterDict, name: str, state_dict,

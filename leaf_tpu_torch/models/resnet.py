@@ -19,9 +19,11 @@ Pallas kernel: the tower launches none of the port's kernels.
 BatchNorm runs in inference form from the running statistics, in fp32
 with the result cast back to the activations' dtype, as the JAX package's
 `batch_norm` does; its scale, bias and statistics stay fp32 whatever the
-working dtype.  Training (batch statistics, the backward) is not ported:
-`encode_image` refuses `remat` and patch dropout, and the trainers refuse
-these configs (ROADMAP Queue 1 item 11 step 4).
+working dtype.  The contrastive and LEAF trainers take the tower (the LEAF
+trainer locks it and its evals take the input's gradient through it); its
+statistics are buffers that no step changes (`BatchNorm`).  `encode_image`
+refuses `remat` and patch dropout, which no JAX trainer passes to it
+(`layers.refuse_training`).
 
 `resnet_openclip_to_params` is the JAX package's numpy ingestion of an
 OpenCLIP `visual.*` ModifiedResNet state dict, copied: it returns that
@@ -45,7 +47,17 @@ EXPANSION = 4
 class BatchNorm(nn.Module):
     """Inference BatchNorm over the channels of NHWC x: fp32 statistics,
     scale and bias, the result in x's dtype (the JAX package's
-    `batch_norm` with `train_mode=False`)."""
+    `batch_norm` with `train_mode=False`), in `train()` as in `eval()`.
+
+    `scale` and `bias` train; `mean` and `var` are buffers that no step
+    changes, which is what `--lock-image-freeze-bn-stats` promises and
+    what the JAX contrastive driver says of its own towers ("they never
+    update", `leaf_tpu/train/contrastive_driver.py:193-198, 289-292`).
+    The JAX package does otherwise: its `mean` and `var` are leaves of
+    the params tree (`leaf_tpu/models/resnet.py:60-79`) that `jax.grad`
+    differentiates and `weight_decay_mask` marks as decayed, so AdamW
+    moves them every step.  The port keeps the stated intent
+    (`tests/test_torch_zoo_contrastive.py` holds both behaviours)."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()

@@ -59,11 +59,16 @@ def contrastive_loss_fn(model: CLIP, images: torch.Tensor,
                         tokens: torch.Tensor, siglip: bool = False,
                         dropout: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
-    """The loss of one batch, in fp32 on the towers' features.  `dropout`:
-    patch-dropout scores (`models.clip.patch_dropout_scores`)."""
-    img_f, txt_f, scale = fp32_features(model(images, tokens, dropout))
+    """The loss of one batch, in fp32 on the towers' features; the
+    sigmoid loss takes the model's `logit_bias` where it has one (SigLIP),
+    as the JAX step does (`leaf_tpu/train/contrastive.py:56-58`).
+    `dropout`: patch-dropout scores (`models.clip.patch_dropout_scores`)."""
+    out = model(images, tokens, dropout)
+    img_f, txt_f, scale = fp32_features(out)
     if siglip:
-        return siglip_loss(img_f, txt_f, scale)
+        bias = out.get("logit_bias")
+        return siglip_loss(img_f, txt_f, scale,
+                           None if bias is None else bias.float())
     return clip_loss(img_f, txt_f, scale)
 
 

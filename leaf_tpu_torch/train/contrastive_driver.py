@@ -11,8 +11,12 @@ bf16`) on symmetric InfoNCE, or the sigmoid loss with `--siglip`;
 `--accum-freq k` takes the feature-cache step, so that every microbatch
 sees the whole effective batch as negatives; `--lock-image` /
 `--lock-text` lock towers LiT-style (`train.locking`);
-`--force-patch-dropout` drops patch tokens at train time.  A CoCa model
-name (`coca_ViT-B-32`, ...) trains the whole model on InfoNCE plus its
+`--force-patch-dropout` drops patch tokens at train time (a ViT tower's;
+the other towers raise, where JAX ignores it).  Every vision family
+trains (`factory.require_trainable`); a ModifiedResNet's BatchNorm
+statistics stay as they are.  A CoCa model
+name (`coca_ViT-B-32`, `coca_roberta-*` with its HF text tower, ...)
+trains the whole model on InfoNCE plus its
 captioning loss (`--coca-caption-loss-weight`, `--coca-contrastive-loss-
 weight`), plain steps only, with no val eval (CoCa is scored by the
 benchmark's captioning task).  Train images go
@@ -32,10 +36,11 @@ driver (`utils.file_utils`, `utils.trackers`); `--profile-dir` traces
 batches 2 to 5 of epoch 0 and `--matmul-precision` sets torch's fp32
 matmul precision, as in the LEAF driver (the JAX contrastive driver
 parses both and reads neither).  Flags whose code is not ported raise,
-naming where ROADMAP.md queues them: HF-text CoCa models
-(`coca_roberta-*`), registry `--pretrained` tags, the other `--force-*`
-and `--image-*` overrides, `--mesh-shape`; `--no-gather-with-grad` raises
-as in JAX.
+naming where ROADMAP.md queues them: `--mesh-shape`;
+`--no-gather-with-grad` raises as in JAX, and so do the CustomTextCLIP
+models (HF text towers), which no JAX trainer takes.  The tokenizer of a
+SigLIP, CLIPA or HF-text model raises (`factory.get_tokenizer`): their
+steps take token ids.
 """
 from __future__ import annotations
 
@@ -175,7 +180,9 @@ def main(args=None) -> Dict:
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
     # the contrastive pipeline always random-resized-crops at train time;
     # parse() turns the flag's dict, possibly empty, into the default cfg
-    require_trainable(args.model)
+    require_trainable(args.model, "contrastive")
+    # before the build: an HF tokenizer (coca_roberta-*, SigLIP's) raises
+    tokenizer = get_tokenizer(args.model)
     model, preprocess_train, preprocess_val = create_model_and_transforms(
         args.model, local_checkpoint(args.pretrained, "--pretrained",
                                      args.model),
@@ -190,7 +197,15 @@ def main(args=None) -> Dict:
     cfg, module = model.cfg, model.module
     # both towers compute in the run's dtype on fp32 master weights
     module.visual.compute_dtype = dtype
-    tokenizer = get_tokenizer(args.model)
+    if getattr(cfg, "resnet", None) is not None:
+        LOG.warning(
+            "ModifiedResNet towers train with frozen (inference-form) "
+            "BatchNorm: the running statistics are buffers that no step "
+            "changes (the JAX package's are parameters that its AdamW "
+            "moves, though its log says they never update)")
+    if args.lock_image_freeze_bn_stats:
+        LOG.info("--lock-image-freeze-bn-stats: inherent here, no step "
+                 "changes a BatchNorm's running statistics")
     is_coca = args.model in COCA_CONFIGS
     if is_coca and (args.distill_model or args.siglip
                     or args.accum_freq > 1):

@@ -22,6 +22,11 @@ compute in bf16; a checkpoint is `checkpoints/epoch_<N>/state.pt` (the
 text tower's fp32 `state_dict`, the optimizer's state, the step) where
 the JAX package writes an Orbax directory.  Flags whose code is not
 ported yet raise, naming where ROADMAP.md queues them; none is ignored.
+Every model with a native text tower trains, as in the JAX driver
+(`factory.require_trainable`): the vision tower of any family is locked
+and evaluated; a model whose towers have no OpenCLIP export (a trunk,
+SigLIP's MAP head) skips the per-save export with a warning, as the JAX
+driver does.
 
 Run management, as in the JAX driver: `--copy-codebase` snapshots the
 package into `<run>/code`; `--remote-sync <dir or scheme://...>` mirrors
@@ -164,7 +169,9 @@ def main(args=None) -> Dict:
 
     # model + frozen anchor tower -----------------------------------------
     precision = "bf16" if args.precision in ("bf16", "amp") else "fp32"
-    require_trainable(args.model)
+    require_trainable(args.model, "leaf")
+    # before the build: an HF tokenizer (SigLIP's, CLIPA's) raises
+    tokenizer = get_tokenizer(args.model)
     model, _, _ = create_model_and_transforms(
         args.model, local_checkpoint(args.pretrained, "--pretrained",
                                      args.model),
@@ -187,7 +194,6 @@ def main(args=None) -> Dict:
     vocab = edits.DEFAULT_VOCAB
     constraint = WordConstraint() if args.constrain else None
     scorer = CandidateScorer(cfg, device)
-    tokenizer = get_tokenizer(args.model)
 
     # data ----------------------------------------------------------------
     # attacks operate in pixel space: datasets yield un-normalised images
@@ -283,8 +289,14 @@ def main(args=None) -> Dict:
         package's loaders consume; `state.pt` holds only the trained
         text side."""
         out = os.path.join(ckpt_dir, f"model_epoch_{epoch}")
-        save_state_dict(params_to_openclip(model.module.state_dict(), cfg),
-                        out, "openclip")
+        try:
+            sd = params_to_openclip(model.module.state_dict(), cfg)
+        except NotImplementedError as e:
+            # a tower with no OpenCLIP export (a trunk, SigLIP's head):
+            # skipped with a warning, as the JAX driver skips it
+            LOG.warning("skipping model export for epoch %d: %s", epoch, e)
+            return
+        save_state_dict(sd, out, "openclip")
         with open(os.path.join(out, "open_clip_config.json"), "w") as f:
             json.dump({"model_cfg": {"quick_gelu": bool(cfg.quick_gelu)}}, f)
 

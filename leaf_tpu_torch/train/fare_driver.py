@@ -136,7 +136,7 @@ def main(argv=None):
         raise ValueError("--resume only supports 'latest'")
     # fp32 master weights; the text tower (the classifier) computes in fp32
     # as the JAX driver's scorer does, the vision tower in --precision
-    require_trainable(args.model)
+    require_trainable(args.model, "fare")
     model = create_model(args.model,
                          local_checkpoint(args.pretrained, "--pretrained",
                                           args.model),

@@ -16,7 +16,8 @@ parameter.  The groups are those of `vision_lock_multipliers` and
 `text_lock_multipliers` as the JAX code has them: vision groups, last to
 first, are `proj` | the last block + `ln_post` | each other block | the
 stem (patch, class and positional embeddings, `ln_pre`), and
-`unlocked_groups = n` unlocks the last n; text embeddings are always
+`unlocked_groups = n` unlocks the last n (a tower without blocks locks
+whole); text embeddings are always
 locked, the last `unlocked_layers` blocks are not, and `ln_final` and
 `text_projection` are unlocked only when some block is (`ln_final` also
 whenever `freeze_layer_norm` is off, as are the locked blocks'
@@ -33,7 +34,34 @@ _LN_KEYS = ("ln_1", "ln_2")
 
 def vision_lock_multipliers(visual: VisionTower,
                             unlocked_groups: int = 0) -> Dict[str, float]:
-    """{name within the tower: 0.0 or 1.0}; 0 groups freezes it all."""
+    """{name within the tower: 0.0 or 1.0}; 0 groups freezes it all.
+
+    The groups are a ViT's, and apply to every tower with a `blocks`
+    stack, as in the JAX package, whose rule reads the tree's top-level
+    keys: the MobileCLIP MCi-ViT, EVA, ViTamin and RelPos-ViT trunks
+    included, whose parts other than `blocks`, `proj` and `ln_post` are
+    the stem there too.  A tower without one (ModifiedResNet, ConvNeXt,
+    FastViT, Swin) is locked whole, and unlocked groups raise, as JAX
+    raises (`leaf_tpu/train/locking.py:66-77`).  A tower whose blocks nest
+    deeper than a ViT's (EVA02's inner LayerNorms, ViTamin's MLP norm,
+    RelPos-ViT's bias MLP) raises: the JAX rule fails on it."""
+    if not hasattr(visual, "blocks"):
+        if unlocked_groups:
+            raise ValueError(
+                "--lock-image-unlocked-groups is implemented for ViT "
+                "towers (the reference defines separate group lists per "
+                "trunk, transformer.py:541 vs modified_resnet.py); use "
+                "full locking (0) for this tower")
+        return {name: 0.0 for name, _ in visual.named_parameters()}
+    deep = sorted({".".join(name.split(".")[2:]) for name, _ in
+                   visual.named_parameters()
+                   if name.startswith("blocks.") and name.count(".") > 3})
+    if deep:
+        raise NotImplementedError(
+            "--lock-image on this tower: the JAX package's rule takes a "
+            "block's parameters at most two levels deep and fails on its "
+            f"{', '.join(deep)} (leaf_tpu/train/locking.py:51-63); the "
+            "tower has no lock groups, in the JAX package as here")
     n_layers, n = len(visual.blocks), unlocked_groups
     proj_ok = n >= 1
     last_ok = n >= 2
@@ -58,7 +86,19 @@ def vision_lock_multipliers(visual: VisionTower,
 
 def text_lock_multipliers(text: TextTower, unlocked_layers: int = 0,
                           freeze_layer_norm: bool = True) -> Dict[str, float]:
-    """{name within the tower: 0.0 or 1.0}."""
+    """{name within the tower: 0.0 or 1.0}.  An HF text tower (no
+    `blocks`) is locked whole, its LayerNorms following
+    `freeze_layer_norm`, and unlocked layers raise, as in the JAX
+    package."""
+    if not hasattr(text, "blocks"):
+        if unlocked_layers:
+            raise ValueError(
+                "--lock-text-unlocked-layers > 0 is implemented for the "
+                "native text tower; HF towers support full locking only")
+        return {name: float(not freeze_layer_norm and any(
+            "layernorm" in part.lower().replace("_", "")
+            for part in name.split(".")))
+            for name, _ in text.named_parameters()}
     n_layers = len(text.blocks)
     n = min(unlocked_layers, n_layers)
     tail_ok = n > 0

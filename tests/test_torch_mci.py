@@ -6,6 +6,9 @@ the fused pytrees leaf for leaf, OpenCLIP `visual.trunk.*` checkpoints in
 train and deploy form through both packages, and the hybrid ViT against a
 torch forward written from the published architecture.
 """
+import dataclasses
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -87,6 +90,21 @@ def test_seeded_init_and_factory():
     assert b.module.visual.stem[0].w.dtype == torch.bfloat16
 
 
+def _runnable_tiny(monkeypatch, name):
+    """Register, under `name`, what one driver step of it runs on: the tiny
+    text tower widened to the CLIP BPE tokenizer's 49,408 ids and 77 tokens
+    (the tiny configs have 512 and 16), and RN50 cut to a tiny
+    ModifiedResNet of the same family
+    (`tests/test_torch_zoo_contrastive.py::tiny_resnet`)."""
+    from tests.test_torch_zoo_contrastive import tiny_resnet
+    cfg = (dataclasses.replace(tiny_resnet(tconfig), name=name)
+           if name == "RN50" else tconfig.get_model_config(name))
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, vocab_size=49408, context_length=77))
+    monkeypatch.setitem(tconfig._REGISTRY, name, cfg)
+    return cfg
+
+
 @pytest.mark.parametrize("name", ["fastvit-tiny-test", "siglip-tiny-test",
                                   "RN50", "convnext-tiny-test",
                                   "eva-tiny-test", "vitamin-tiny-test",
@@ -94,26 +112,59 @@ def test_seeded_init_and_factory():
                                   "nllb-clip-base"])
 @pytest.mark.parametrize("trainer", ["driver", "fare_driver",
                                      "contrastive_driver"])
-def test_trainers_refuse_zoo_training(trainer, name, tmp_path):
-    """Training MobileCLIP, EVA, ViTamin, Swin and RelPos-ViT trunks,
-    ModifiedResNet and ConvNeXt towers, HF text towers and SigLIP's sigmoid
-    loss with its own logit bias are not ported: each trainer refuses them
-    by name before it builds the model."""
+def test_trainers_refuse_zoo_training(trainer, name, tmp_path, monkeypatch):
+    """Each trainer takes what the JAX package's trainer of its kind takes
+    (`factory.require_trainable`), and one step runs: the LEAF and the
+    contrastive trainer every family with a native text tower, FARE the
+    ViT family.  What JAX has no path for raises "in the JAX package as
+    here": an HF text tower (nllb-clip-base) in every trainer, a tower
+    outside the ViT family in FARE.  The steps are held against JAX in
+    tests/test_torch_zoo_*.py."""
     import importlib
     main = importlib.import_module(f"leaf_tpu_torch.train.{trainer}").main
-    args = {"driver": ["--dataset-type", "synthetic", "--logs",
-                       str(tmp_path)],
-            "fare_driver": ["--imagenet-root", str(tmp_path),
-                            "--output-dir", str(tmp_path)],
-            "contrastive_driver": ["--dataset-type", "synthetic", "--logs",
-                                   str(tmp_path)]}[trainer]
-    with pytest.raises(NotImplementedError, match="item 11 step 4"):
-        main(["--model", name, "--device", "cpu"] + args)
+    kind = {"driver": "leaf", "fare_driver": "fare",
+            "contrastive_driver": "contrastive"}[trainer]
+    if name == "nllb-clip-base" or (kind == "fare"
+                                    and name != "siglip-tiny-test"):
+        with pytest.raises(NotImplementedError, match=(
+                f"no path in the {kind} trainer, in the JAX package as "
+                "here")):
+            main(["--model", name, "--device", "cpu", "--logs",
+                  str(tmp_path)] if kind != "fare" else
+                 ["--model", name, "--device", "cpu", "--imagenet-root",
+                  str(tmp_path), "--output-dir", str(tmp_path)])
+        return
+    one_step = ["--dataset-type", "synthetic", "--train-num-samples", "2",
+                "--batch-size", "2", "--epochs", "1", "--logs",
+                str(tmp_path), "--name", "run", "--device", "cpu"]
+    if kind == "fare":
+        rng = np.random.default_rng(0)
+        for c in range(2):
+            os.makedirs(tmp_path / "train" / f"c{c}")
+            np.save(tmp_path / "train" / f"c{c}" / "0.npy",
+                    rng.integers(0, 256, (70, 70, 3), dtype=np.uint8))
+        out = main(["--model", name, "--device", "cpu", "--imagenet-root",
+                    str(tmp_path / "train"), "--output-dir",
+                    str(tmp_path / "fare"), "--steps", "1", "--warmup", "0",
+                    "--batch-size", "2", "--iterations-adv", "1"])
+        assert out["steps"] == 1 and np.isfinite(out["final_loss"])
+        return
+    _runnable_tiny(monkeypatch, name)
+    if kind == "leaf":
+        out = main(["--model", name, "--rho", "2", "--zeroshot-frequency",
+                    "0"] + one_step)
+    else:
+        out = main(["--model", name] + one_step)
+    assert out["state"].step == 1
+    loss = float(out["results"][-1]["train_loss"])
+    assert np.isfinite(loss) and loss >= 0
 
 
 def test_trunk_training_and_unported_trunks_refused():
+    # no JAX trainer passes remat to a trunk (ROADMAP item 11 step 4)
     module = tclip.CLIP(tconfig.get_model_config("fastvit-tiny-test"))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="neither remat nor patch dropout.*JAX package"):
         module.visual.encode_image(torch.zeros(1, 32, 32, 3), remat=True)
     # Swin and RelPos-ViT, refused here before they were ported, resolve
     for name, spec in (("swin_base_patch4_window7_224", "SwinVisionSpec"),

@@ -307,7 +307,9 @@ def test_tiny_towers_match_jax(tiny):
     np.testing.assert_allclose(got_i.numpy(), _np(want_i), **TOL)
     np.testing.assert_allclose(got_t.numpy(), _np(want_t), **TOL)
     np.testing.assert_allclose(got_n.norm(dim=-1).numpy(), 1.0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 11 step 4"):
+    # no JAX trainer passes remat to a zoo tower (ROADMAP item 11 step 4)
+    with pytest.raises(NotImplementedError,
+                       match="neither remat nor patch dropout.*JAX package"):
         module.visual.encode_image(torch.from_numpy(images), remat=True)
 
 
