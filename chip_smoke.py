@@ -159,10 +159,11 @@ Phases, each printing its own lines:
       wd 0.2, `--local-loss`, `--workers 4`): the plain step with its
       batch already on the card (CUDA events), then
       `train.contrastive_driver.main` on 2,048 seeded 256 x 256 `.npy`
-      image-caption pairs in 8 tar shards: 4 plain steps (8 until phase
-      (u) needed the room; cosine after 2 warm-up steps) with `--val-data`
-      over one more shard before and after, saved; `--resume latest` for 2
-      more; 2 steps each with
+      image-caption pairs in 8 tar shards: 2 plain steps (8 until phase
+      (u), 4 until phase (v) needed the room; cosine after 2 warm-up steps)
+      with `--val-data` over one more shard before and after, saved;
+      `--resume latest` for 1 more (2 until (v)); 1 step each (2 until (v))
+      with
       `--siglip`, `--accum-freq 2`, `--distill-model ViT-B-32` and
       `--lock-image` (the vision tower unchanged bit for bit).  Per step
       its span on the device (CUDA events), the loader's wait, the loop's
@@ -227,9 +228,10 @@ Phases, each printing its own lines:
       CPU from the same seeded weights: the encoders, the training forward's
       logits and `coca_loss` within 1e-5, greedy and beam-search ids equal,
       one train step's parameters within 1e-5 (the attention key biases,
-      whose true gradient is zero, within 2 lr); then at full width and
-      depth (random weights, seed 0): `benchmark.cli eval --task captioning`
-      with coca_ViT-L-14 (fp32, batch 64) on a Karpathy JSON of 64 seeded
+      whose true gradient is zero, within 2 lr); then at full width
+      (random weights, seed 0): `benchmark.cli eval --task captioning`
+      with coca_ViT-L-14 cut to 8 vision, 4 text and 4 decoder layers
+      (`COCA_DEPTH_CUTS`; full depth until phase (v)) (fp32, batch 64) on a Karpathy JSON of 64 seeded
       224 x 224 `.npy` images with 5 captions each (COCO's 5,000 test
       images cut to a call), with the default beam search (K 6, G 3,
       seq_len 30) and with `--generation-type top_k`: seconds, captions/s
@@ -241,7 +243,8 @@ Phases, each printing its own lines:
       a step (CUDA events), pairs/s, the loader's wait, peak memory, finite
       losses, the resume at the saved step; `utils.profiler.main --model
       coca_ViT-L-14` on the card within 1% of the CPU count; one beam
-      search and one greedy generation of the 64 images under
+      search and one greedy generation of the 64 images (at the cut depth)
+      under
       `torch.profiler` (device busy, idle share, time by kernel family).
       Every part
       holds the kernels' launches to its image and text encodes, decodes,
@@ -250,14 +253,16 @@ Phases, each printing its own lines:
   (r) the ViT-family zoo: first siglip-tiny-test, mci-vit-tiny-test and
       fastvit-tiny-test in fp32, TF32 off, the card against the CPU from the
       same seeded weights (image and text features within 1e-4); then at full
-      width and depth, bf16, random weights from seed 0: MobileCLIP-B
+      width, bf16, random weights from seed 0 (full depth but SO400M's, cut
+      to 9 + 9 of its 27 + 27 layers by `ZOO_DEPTH_CUTS` since phase (v)):
+      MobileCLIP-B
       (MCi-ViT, 197 tokens, D 768; causal text at 77, D 512) through
       `serve.main`, 2,048 seeded captions at batch 256 and 256 seeded 224 x
       224 `.npy` images at batch 128; MobileCLIP-S2's `encode_image` on 128
       seeded 256 x 256 images (the FastViT trunk runs `F.conv2d` and plain
       attention: no kernel launch) and `encode_text` on 256 captions (77
       tokens, not causal); ViT-SO400M-14-SigLIP-384 through `serve.main
-      --images` on 128 seeded 384 x 384 images at batch 64 (27 blocks of [64,
+      --images` on 128 seeded 384 x 384 images at batch 64 (blocks of [64,
       729, 1152], 16 heads of 72, no class token, the MAP head) and its
       `encode_text` on 256 seeded rows of 64 ids (2 non-causal groups a
       128-token row; its SentencePiece tokenizer is not ported); the two
@@ -330,7 +335,24 @@ Phases, each printing its own lines:
       (the sigmoid loss, seeded ids), batch 32; FARE on the SigLIP tower
       with remat, PGD-10, batch 32.  Each cell's launches are held to the
       count its config gives; losses finite; seconds a step and peak
-      memory printed.
+      memory printed;
+  (v) multiple ranks (`leaf_tpu_torch.parallel.distributed`): two ranks in
+      spawned processes (`python chip_smoke.py --v-rank <spec>`, the
+      launcher's variables set) on the one card over gloo (NCCL refuses two
+      ranks on one device); tiny, fp32, TF32 off, the card against the same
+      two-rank runs on the CPU: three fused LEAF steps (anchors missed,
+      every rank hits, one rank misses), an unfused step, InfoNCE global and
+      `--local-loss`, the SigLIP ring, a FARE step (losses within 1e-5 of
+      their scale, parameters equal bit for bit across ranks, the same
+      widths, branches and sentences); at full width, bf16 on fp32 masters,
+      2 steps each, the fused LEAF step at ViT-L-14-quickgelu's text tower
+      (global batch 128, rho 50, bucket 16) and the contrastive step at
+      ViT-B-32 (global batch 256) with InfoNCE and SigLIP: s a step, the
+      collectives' share, each rank's launches held to its encodes; and
+      `python -m leaf_tpu_torch.train.driver` at world 1 on NCCL under
+      RANK=0 WORLD_SIZE=1 equal, bit for bit, to the run without the
+      variables.  With two or more cards the full-width part also runs on
+      NCCL across them; with one, a line says that it did not.
 Any failure raises.  The line before the last is the kernels' JSON
 report (each kernel at its main-path shape; the line before it has the
 rows of every shape); the last is {"ok": true, "device": {...}}.  Without CUDA, or
@@ -551,31 +573,59 @@ def require(ok, what: str) -> None:
 # well inside its time limit: (registry name, vision layers, text layers).
 # Every block keeps its shape, so (c)'s rows stay the shapes these paths
 # give the kernels, and the launches are held to the cut depths.  (d) to (h)
-# run ViT-L-14-quickgelu at its full depth, (n) ViT-B-32 and (q) CoCa too
+# run ViT-L-14-quickgelu at its full depth, (n) ViT-B-32 and (q) CoCa's
+# coca_ViT-B-32 too
 DEPTH_CUTS = (("ViT-L-14", 8, 4), ("ViT-L-14-quickgelu", 8, 4),
               ("ViT-H-14", 8, 6))
+# to make room for (v), (r) runs SO400M (27 + 27 layers) and (q) its
+# coca_ViT-L-14 (24 vision, 12 text, 12 decoder layers) cut in depth too:
+# (registry name, vision, text[, decoder] layers)
+ZOO_DEPTH_CUTS = (("ViT-SO400M-14-SigLIP-384", 9, 9),)
+COCA_DEPTH_CUTS = (("coca_ViT-L-14", 8, 4, 4),)
 
 
 @contextlib.contextmanager
-def _depth_cut():
-    """The registry's configs named in `DEPTH_CUTS`, cut to those depths
-    for the duration of the block (every entry point reads the registry
-    when it builds a model), then restored."""
+def _depth_cut(cuts=DEPTH_CUTS, label: str = "(j)-(p)"):
+    """The registry's configs named in `cuts`, cut to those depths for the
+    duration of the block (every entry point reads the registry when it
+    builds a model), then restored."""
     import dataclasses
     from leaf_tpu_torch.models import config
-    saved = {name: config._REGISTRY[name] for name, _, _ in DEPTH_CUTS}
-    for name, vision_layers, text_layers in DEPTH_CUTS:
+    saved = {name: config._REGISTRY[name] for name, _, _ in cuts}
+    for name, vision_layers, text_layers in cuts:
         cfg = saved[name]
         config._REGISTRY[name] = dataclasses.replace(
             cfg, vision=dataclasses.replace(cfg.vision, layers=vision_layers),
             text=dataclasses.replace(cfg.text, layers=text_layers))
-    say(f"(j)-(p) depths cut (name, vision layers, text layers): "
+    say(f"{label} depths cut (name, vision layers, text layers): "
         f"{[(n, saved[n].vision.layers, saved[n].text.layers) for n in saved]}"
-        f" -> {list(DEPTH_CUTS)}")
+        f" -> {list(cuts)}")
     try:
         yield
     finally:
         config._REGISTRY.update(saved)
+
+
+@contextlib.contextmanager
+def _coca_depth_cut():
+    """The CoCa registry's configs named in `COCA_DEPTH_CUTS` cut to those
+    depths for the block, as `_depth_cut`; the decoder keeps its width."""
+    import dataclasses
+    from leaf_tpu_torch.models import coca
+    saved = {name: coca.COCA_CONFIGS[name] for name, *_ in COCA_DEPTH_CUTS}
+    for name, vision, text, decoder in COCA_DEPTH_CUTS:
+        cfg = saved[name]()
+        cut = dataclasses.replace(
+            cfg, vision=dataclasses.replace(cfg.vision, layers=vision),
+            text=dataclasses.replace(cfg.text, layers=text),
+            multimodal=dataclasses.replace(cfg.multimodal, layers=decoder))
+        coca.COCA_CONFIGS[name] = lambda cut=cut: cut
+    say(f"(q) depths cut (name, vision, text, decoder layers): "
+        f"{list(COCA_DEPTH_CUTS)}")
+    try:
+        yield
+    finally:
+        coca.COCA_CONFIGS.update(saved)
 
 
 # ---------------------------------------------------------------------------
@@ -3118,10 +3168,10 @@ def _device_steps(n: int = 3):
 def phase_contrastive(workdir: str):
     """`contrastive_driver.main` at ViT-B-32's full width and depth (random
     weights, seed 0; bf16 on fp32 master weights; batch 256) on 2,048
-    seeded image-caption pairs in 8 tar shards: 4 plain steps (8 until
-    phase (u) needed the room) with `--val-data` (one more shard) before
-    and after, a resume for 2 more,
-    then 2 steps each (4 until phase (t) needed the room) with `--siglip`,
+    seeded image-caption pairs in 8 tar shards: 2 plain steps (8 until
+    phase (u), 4 until phase (v) needed the room) with `--val-data` (one
+    more shard) before and after, a resume for 1 more (2 until (v)),
+    then 1 step each (4 until phase (t), 2 until (v)) with `--siglip`,
     `--accum-freq 2`, `--distill-model ViT-B-32` and `--lock-image`.  Per step: the device's seconds, the
     loader's wait, samples/s, launches held; per cell the peak memory."""
     import torch
@@ -3143,18 +3193,18 @@ def phase_contrastive(workdir: str):
     base = CLIP_FLAGS + ["--train-data", train, "--logs", logs]
     pairs = CLIP_SHARDS * CLIP_PER_SHARD
     cells = [("plain", ["--val-data", val, "--train-num-samples",
-                        str(pairs // 2), "--epochs", "1"], 4, 1),
-             ("resumed", ["--val-data", val, "--train-num-samples", "512",
-                          "--epochs", "2", "--resume", "latest"], 2, 1),
-             ("siglip", ["--siglip", "--train-num-samples", "512",
-                         "--epochs", "1"], 2, 1),
+                        str(pairs // 4), "--epochs", "1"], 2, 1),
+             ("resumed", ["--val-data", val, "--train-num-samples", "256",
+                          "--epochs", "2", "--resume", "latest"], 1, 1),
+             ("siglip", ["--siglip", "--train-num-samples", "256",
+                         "--epochs", "1"], 1, 1),
              ("accum 2", ["--accum-freq", "2", "--train-num-samples",
-                          str(pairs // 2), "--epochs", "1"], 2, 4),
+                          str(pairs // 4), "--epochs", "1"], 1, 4),
              ("distill", ["--distill-model", CLIP_MODEL,
-                          "--train-num-samples", "512", "--epochs", "1"],
-              2, 2),
-             ("lock-image", ["--lock-image", "--train-num-samples", "512",
-                             "--epochs", "1"], 2, 1)]
+                          "--train-num-samples", "256", "--epochs", "1"],
+              1, 2),
+             ("lock-image", ["--lock-image", "--train-num-samples", "256",
+                             "--epochs", "1"], 1, 1)]
     counters = _Counters()
     total = dict.fromkeys(counters.NAMES, 0)
     results = {"device_steps_s": device_steps}
@@ -3219,10 +3269,10 @@ def phase_contrastive(workdir: str):
         rows = out["results"]
         extra_say = ""
         if tag == "resumed":
-            require(out["state"].step == 6 and [
+            require(out["state"].step == 3 and [
                 str(r["epoch"]) for r in rows] == ["0", "1", "2"],
                 f"(n) resume: step {out['state'].step}, rows {rows}")
-            extra_say = ", resumed at step 4 to step 6"
+            extra_say = ", resumed at step 2 to step 3"
         if tag == "lock-image":
             init = create_model(CLIP_MODEL, seed=0, device="cpu",
                                 master_weights=True).module.visual
@@ -4317,8 +4367,9 @@ def phase_coca_parity(workdir: str):
 
 def phase_coca(workdir: str):
     """(q) at full width: `benchmark.cli eval --task captioning` with
-    coca_ViT-L-14 (24 x 1024 vision, 12 x 768 text and decoder; random
-    weights, seed 0; fp32, TF32 off, batch 64) on a Karpathy JSON of 64
+    coca_ViT-L-14 (1024-wide vision, 768-wide text and decoder, cut in
+    depth by `COCA_DEPTH_CUTS` where `main` runs it; random weights, seed
+    0; fp32, TF32 off, batch 64) on a Karpathy JSON of 64
     seeded 224 x 224 `.npy` images with 5 captions each, with the default
     beam search (K 6, G 3, seq_len 30) and with `--generation-type top_k`;
     `contrastive_driver.main --model coca_ViT-B-32` (bf16 on fp32 masters,
@@ -4630,7 +4681,8 @@ def phase_zoo_parity(workdir: str):
 
 
 def phase_zoo(workdir: str):
-    """(r) at full width and depth, bf16, random weights from seed 0:
+    """(r) at full width (and depth, but SO400M's: `ZOO_DEPTH_CUTS`), bf16,
+    random weights from seed 0:
     MobileCLIP-B through `serve.main` (2,048 seeded captions at batch 256;
     256 seeded 224 x 224 `.npy` images at batch 128); MobileCLIP-S2's
     `encode_image` on 128 seeded 256 x 256 images (FastViT: no kernel
@@ -5977,6 +6029,566 @@ def phase_zoo_train(workdir: str):
     return {path: c.total for path, c in counters.items()}, out
 
 
+# ---------------------------------------------------------------------------
+# (v) multiple ranks: two processes on the one card over gloo
+# ---------------------------------------------------------------------------
+
+V_TINY = "ViT-tiny-test"
+V_LEAF, V_CLIP = "ViT-L-14-quickgelu", "ViT-B-32"
+# a rank's batch: the global batches are 128 (LEAF, rho 50) and 256
+V_LEAF_BATCH, V_LEAF_RHO, V_CLIP_BATCH, V_STEPS = 64, 50, 128, 2
+V_LR = 1e-4
+V_TINY_CAPTIONS = [f"a photo of object number {i} on a table"
+                   for i in range(8)]
+V_TINY_FRESH = [f"an unseen fresh caption number {i}" for i in range(4)]
+
+
+def _v_params_err(ref: dict, got: dict, steps: int):
+    """Max abs difference of two parameter sets, the attention's key bias
+    aside and held to 2 lr a step (its true gradient is zero: Adam turns
+    each device's rounding noise there into a step of up to lr)."""
+    worst = 0.0
+    for k, a in ref.items():
+        d = (got[k].float().cpu() - a.float().cpu()).abs().reshape(-1)
+        kb = _key_bias(k, d.numel()) if d.numel() > 1 else None
+        if kb is not None:
+            require(float(d[kb].max()) <= 2 * steps * V_LR,
+                    f"(v) key bias {k} differs by {float(d[kb].max())}")
+            d = d.clone()
+            d[kb] = 0
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+    return worst
+
+
+def _v_digest(module) -> str:
+    """A hash of a module's parameters' bytes (equal bit for bit across
+    ranks or not)."""
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in sorted(module.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+class _VCollectives:
+    """Seconds spent in the collectives of `parallel.distributed` (the
+    card synchronised before and after each), patched in for a block."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self.calls = 0
+
+    def __enter__(self):
+        import torch
+        from leaf_tpu_torch.parallel import distributed as D
+        from leaf_tpu_torch.train import fused
+        self.saved = [(D, n, getattr(D, n)) for n in (
+            "_all_reduce_sum_", "_gather_rows", "_reduce_scatter_rows",
+            "_exchange", "global_max_int32")]
+        self.saved.append((fused, "global_max_int32", fused.global_max_int32))
+
+        def timed(fn):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                return out
+            return call
+        for mod, name, fn in self.saved:
+            setattr(mod, name, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _v_tiny(D, device):
+    """One rank's tiny runs on `device`: three fused steps (anchors
+    missed, every rank hits, rank 1 misses), an unfused step, InfoNCE
+    global and `--local-loss`, the SigLIP ring, a FARE step.  Returns
+    {part: {losses, params (host copies), ...}}."""
+    import copy
+    import torch
+    from leaf_tpu_torch.attacks.engine import (CandidateScorer,
+                                               bucket_tokens_coordinated)
+    from leaf_tpu_torch.attacks.text import attack_text_leaf
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+    from leaf_tpu_torch.train import contrastive as tcon
+    from leaf_tpu_torch.train import fare as tfare
+    from leaf_tpu_torch.train.fused import FusedLeafStep
+    from leaf_tpu_torch.train.optim import make_optimizer
+    from leaf_tpu_torch.train.schedules import cosine_lr
+    from leaf_tpu_torch.train.step import (TrainState, make_anchor_encode,
+                                           make_train_step)
+
+    rank = D.rank()
+    tok = get_tokenizer(V_TINY)
+    model = create_model(V_TINY, precision="fp32", seed=0, device=device,
+                         master_weights=True)
+    cfg = model.cfg
+    out = {}
+
+    def leaf_state():
+        text = copy.deepcopy(model.module.text).requires_grad_(True)
+        opt = make_optimizer(text.named_parameters(),
+                             cosine_lr(V_LR, 1, 100), weight_decay=1e-4)
+        return TrainState.create(text, opt)
+
+    state = leaf_state()
+    frozen = copy.deepcopy(model.module.text).requires_grad_(False)
+    fused = FusedLeafStep(cfg, tok, rho=4, device=device)
+    widths, branches = [], []
+    p1, p1c = fused.phase1, fused.phase1_cached
+
+    def full(fr, tr, clean, probes):
+        widths.append(int(probes.shape[-1]))
+        branches.append("full")
+        return p1(fr, tr, clean, probes)
+
+    def cached(tr, probes, anch):
+        widths.append(int(probes.shape[-1]))
+        branches.append("cached")
+        return p1c(tr, probes, anch)
+    fused.phase1, fused.phase1_cached = full, cached
+    local = V_TINY_CAPTIONS[4 * rank:4 * rank + 4]
+    rng = np.random.default_rng(7 + rank)
+    losses = []
+    for texts in (local, local, local if rank == 0 else V_TINY_FRESH):
+        state, info = fused(state, frozen, texts, rng)
+        losses.append(float(info["metrics"]["loss"]))
+    out["fused"] = {"losses": losses, "widths": widths,
+                    "branches": branches, "digest": _v_digest(state.text),
+                    "params": _u_host(state.text.state_dict()), "steps": 3}
+
+    state = leaf_state()
+    scorer = CandidateScorer(cfg, device)
+    tokens = torch.from_numpy(bucket_tokens_coordinated(tok(local))).to(
+        device)
+    anchors = make_anchor_encode()(frozen, tokens)
+    _, adv = attack_text_leaf(scorer, state.text, tok, local, anchors, n=4,
+                              rng=np.random.default_rng(5 + rank))
+    adv_tokens = torch.from_numpy(bucket_tokens_coordinated(tok(adv))).to(
+        device)
+    state, metrics = make_train_step()(state, adv_tokens, anchors)
+    out["unfused"] = {"losses": [float(metrics["loss"])], "adv": adv,
+                      "digest": _v_digest(state.text),
+                      "params": _u_host(state.text.state_dict()), "steps": 1}
+
+    data = np.random.default_rng(11)
+    images = data.standard_normal((8, 64, 64, 3)).astype(np.float32)
+    ids = tok(V_TINY_CAPTIONS)
+    rows = D.local_batch_slice(8)
+    for name, kw in (("infonce", {}), ("local", {"local_loss": True}),
+                     ("siglip", {"siglip": True})):
+        net = copy.deepcopy(model.module)
+        opt = make_optimizer(net.named_parameters(), lambda s: V_LR,
+                             weight_decay=0.2)
+        cstate = tcon.ContrastiveState(net, opt)
+        cstate, metrics = tcon.make_contrastive_train_step(**kw)(
+            cstate, torch.from_numpy(images[rows]).to(device),
+            torch.from_numpy(ids[rows]).to(device))
+        out[name] = {"losses": [float(metrics["loss"])],
+                     "digest": _v_digest(net),
+                     "params": _u_host(net.state_dict()), "steps": 1}
+
+    net = copy.deepcopy(model.module)
+    fimages = data.uniform(0.2, 0.8, (4, 64, 64, 3)).astype(np.float32)
+    start = (8 / 255 * (2 * data.uniform(size=fimages.shape) - 1)).astype(
+        np.float32)
+    frows = D.local_batch_slice(4)
+    fcfg = tfare.FareConfig(steps=1, warmup=1, lr=V_LR, eps=8 / 255,
+                            iterations_adv=2, stepsize_adv=4 / 255,
+                            log_freq=1)
+    seen = []
+    tfare.train_fare(net.visual, cfg, fcfg, iter([(fimages[frows], None)]),
+                     starts=iter([torch.from_numpy(start[frows]).to(
+                         device)]),
+                     on_step=lambda s, m: seen.append(m))
+    out["fare"] = {"losses": [seen[0]["loss"]], "digest": _v_digest(net),
+                   "params": _u_host(net.visual.state_dict()), "steps": 1}
+    return out
+
+
+def _v_full(D, device, counters):
+    """One rank's full-width runs: the fused LEAF step at V_LEAF's text
+    tower (12 x 768; bf16 on fp32 masters; a rank's 64 of the global 128
+    bucket-16 captions, rho 50), then the contrastive step at V_CLIP (a
+    rank's 128 of the global 256 pairs) with InfoNCE and with the SigLIP
+    ring, V_STEPS steps each.  Per step: its seconds, the collectives'
+    seconds, the kernels' launches."""
+    import torch
+    from leaf_tpu_torch.models.clip import TextTower
+    from leaf_tpu_torch.models.config import get_model_config
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+    from leaf_tpu_torch.train import contrastive as tcon
+    from leaf_tpu_torch.train.fused import FusedLeafStep
+    from leaf_tpu_torch.train.optim import make_optimizer
+    from leaf_tpu_torch.train.schedules import cosine_lr
+    from leaf_tpu_torch.train.step import TrainState
+
+    rank = D.rank()
+    out = {}
+    cfg = get_model_config(V_LEAF)
+    tok = get_tokenizer(V_LEAF)
+    text = TextTower(cfg.text, cfg.quick_gelu)
+    text.init_weights(torch.Generator().manual_seed(0))
+    text = text.to(device)
+    text.compute_dtype = torch.bfloat16
+    frozen = TextTower(cfg.text, cfg.quick_gelu).to(device)
+    frozen.load_state_dict(text.state_dict())
+    frozen.compute_dtype = torch.bfloat16
+    frozen.requires_grad_(False)
+    opt = make_optimizer(text.named_parameters(), cosine_lr(V_LR, 1, 100))
+    state = TrainState.create(text, opt)
+    fused = FusedLeafStep(cfg, tok, rho=V_LEAF_RHO, device=device)
+    widths = []
+    p1, p1c = fused.phase1, fused.phase1_cached
+
+    def full(fr, tr, clean, probes):
+        widths.append(int(probes.shape[-1]))
+        return p1(fr, tr, clean, probes)
+
+    def cached(tr, probes, anch):
+        widths.append(int(probes.shape[-1]))
+        return p1c(tr, probes, anch)
+    fused.phase1, fused.phase1_cached = full, cached
+    captions = _captions(np.random.default_rng(97), 2 * V_LEAF_BATCH, 3, 7)
+    texts = captions[D.local_batch_slice(len(captions))]
+    rng = np.random.default_rng(13 + rank)
+
+    def run(tag, step_fn, steps, encodes):
+        rows = []
+        counters.zero()
+        for i in range(steps):
+            torch.cuda.synchronize()
+            before = {k: op.launches for k, op in counters.ops.items()}
+            with _VCollectives() as coll:
+                t0 = time.perf_counter()
+                loss = step_fn()
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            got = {k: op.launches - before[k]
+                   for k, op in counters.ops.items()}
+            rows.append({"s": seconds, "collective_s": coll.seconds,
+                         "collectives": coll.calls, "loss": loss,
+                         "launches": got, "want": encodes(i)})
+        out[tag] = {"steps": rows}
+
+    def leaf_step():
+        nonlocal state
+        state, info = fused(state, frozen, texts, rng)
+        return float(info["metrics"]["loss"])
+
+    layers = cfg.text.layers
+    # a step's text encodes: anchors (missed at the first), probes,
+    # candidates, the train forward (the backward recomputes through the
+    # plain versions)
+    run("leaf", leaf_step, V_STEPS, lambda i: {
+        "packed_attention": layers * (4 if i == 0 else 3),
+        "fused_attention_block": layers * (4 if i == 0 else 3),
+        "layer_norm": (layers + 1) * (4 if i == 0 else 3)})
+    out["leaf"].update(widths=widths, digest=_v_digest(text))
+    del state, text, frozen, fused, opt
+    torch.cuda.empty_cache()
+
+    model = create_model(V_CLIP, precision="bf16", seed=0, device=device,
+                         master_weights=True)
+    model.module.visual.compute_dtype = torch.bfloat16
+    ccfg = model.cfg
+    ctok = get_tokenizer(V_CLIP)
+    g = torch.Generator(device=device).manual_seed(5)
+    size = ccfg.vision.image_size
+    images = torch.randn((2 * V_CLIP_BATCH, size, size, 3), generator=g,
+                         device=device)
+    ids = torch.from_numpy(ctok(_captions(np.random.default_rng(98),
+                                          2 * V_CLIP_BATCH, 3, 12))).to(
+        device)
+    rows = D.local_batch_slice(2 * V_CLIP_BATCH)
+    opt = make_optimizer(model.module.named_parameters(), lambda s: V_LR)
+    cstate = tcon.ContrastiveState(model.module, opt)
+    for tag, siglip in (("infonce", False), ("siglip", True)):
+        step = tcon.make_contrastive_train_step(siglip)
+
+        def clip_step():
+            nonlocal cstate
+            cstate, metrics = step(cstate, images[rows], ids[rows])
+            return float(metrics["loss"])
+        run(tag, clip_step, V_STEPS,
+            lambda i: _clip_launches(ccfg, 1))
+        out[tag]["digest"] = _v_digest(model.module)
+    return out
+
+
+def _v_worker(spec_path: str) -> int:
+    """One rank of (v), spawned by `phase_multirank` (`python chip_smoke.py
+    --v-rank <spec>` under the launcher's variables)."""
+    import torch
+    from leaf_tpu_torch.parallel import distributed as D
+    with open(spec_path) as f:
+        spec = json.load(f)
+    info = D.init_distributed_device("cuda", backend=spec["backend"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": info["rank"], "world": info["world_size"],
+           "device": str(info["device"]), "backend": spec["backend"]}
+    t0 = time.perf_counter()
+    if spec["tiny"]:
+        card = _v_tiny(D, info["device"])
+        cpu = _v_tiny(D, torch.device("cpu"))
+        tiny = {}
+        for part, c in card.items():
+            p = cpu[part]
+            scale = max(abs(v) for v in p["losses"])
+            tiny[part] = {
+                "loss_err": max(abs(a - b) for a, b in
+                                zip(c["losses"], p["losses"])) / scale,
+                "losses": c["losses"],
+                "params_err": _v_params_err(p["params"], c["params"],
+                                            c["steps"]),
+                "same_decisions": all(c.get(k) == p.get(k) for k in
+                                      ("widths", "branches", "adv")),
+                "widths": c.get("widths"), "branches": c.get("branches"),
+                "digests": D.all_gather_object([c["digest"],
+                                                p["digest"]])}
+        out["tiny"] = tiny
+        out["tiny_s"] = time.perf_counter() - t0
+    # the full-width part waits for the card to be this phase's alone
+    gate = spec.get("gate")
+    while gate and not os.path.exists(gate):
+        time.sleep(0.1)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    t0 = time.perf_counter()
+    out["full"] = _v_full(D, info["device"], _Counters())
+    out["full_s"] = time.perf_counter() - t0
+    with open(spec["out"] % info["rank"], "w") as f:
+        json.dump(out, f, default=float)
+    D.barrier()
+    return 0
+
+
+def _v_start(workdir: str, tag: str, backend: str, tiny: bool, local_ranks,
+             gate=None):
+    """Two ranks of (v) in spawned processes; `_v_wait` collects them.
+    With `gate`, a path, the ranks start their full-width part once it
+    exists."""
+    import socket
+    spec = {"backend": backend, "tiny": tiny, "gate": gate,
+            "out": os.path.join(workdir, f"v_{tag}_rank%d.json")}
+    path = os.path.join(workdir, f"v_{tag}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank, local in enumerate(local_ranks):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                   LOCAL_RANK=str(local), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port))
+        log = open(os.path.join(workdir, f"v_{tag}_rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--v-rank", path],
+            stdout=log, stderr=subprocess.STDOUT, env=env), log))
+    return tag, spec, procs
+
+
+def _v_wait(workdir: str, started):
+    """The outputs of `_v_start`'s ranks, once both have exited."""
+    tag, spec, procs = started
+    try:
+        for p, _ in procs:
+            p.wait(timeout=600)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for rank, (p, _) in enumerate(procs):
+        with open(os.path.join(workdir, f"v_{tag}_rank{rank}.log")) as f:
+            tail = f.read()[-3000:]
+        require(p.returncode == 0, f"(v) {tag} rank {rank} failed:\n{tail}")
+    outs = []
+    for rank in range(2):
+        with open(spec["out"] % rank) as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def _v_report_full(tag: str, outs) -> dict:
+    """Hold and print the full-width parts of two ranks; the launches
+    summed over them by kernel."""
+    total = dict.fromkeys(_Counters.NAMES, 0)
+    res = {}
+    for part in ("leaf", "infonce", "siglip"):
+        a, b = (o["full"][part] for o in outs)
+        require(a["digest"] == b["digest"],
+                f"(v) {tag} {part}: the ranks' parameters differ")
+        for o in outs:
+            for i, row in enumerate(o["full"][part]["steps"]):
+                require(row["launches"] == row["want"],
+                        f"(v) {tag} {part} rank {o['rank']} step {i + 1}: "
+                        f"launches {row['launches']}, {row['want']} "
+                        "expected")
+                require(np.isfinite(row["loss"]) and row["loss"] > 0,
+                        f"(v) {tag} {part}: loss {row['loss']}")
+                for k in total:
+                    total[k] += row["launches"][k]
+        require([r["loss"] for r in a["steps"]]
+                == [r["loss"] for r in b["steps"]],
+                f"(v) {tag} {part}: the ranks logged different losses")
+        steps = [{"s": max(x["s"], y["s"]),
+                  "collective_s": max(x["collective_s"], y["collective_s"]),
+                  "loss": x["loss"], "launches_per_rank": x["launches"]}
+                 for x, y in zip(a["steps"], b["steps"])]
+        share = [s["collective_s"] / s["s"] for s in steps]
+        if part == "leaf":
+            require(set(a["widths"]) == {16} and a["widths"] == b["widths"],
+                    f"(v) {tag} leaf: probe widths {a['widths']}, "
+                    f"{b['widths']}")
+        say(f"(v) {tag} {part}: s per step {[round(s['s'], 4) for s in steps]}"
+            f", the collectives' share {[round(x, 3) for x in share]}, "
+            f"losses {[round(s['loss'], 5) for s in steps]}, launches per "
+            f"rank and step {[s['launches_per_rank'] for s in steps]} held "
+            "to the encodes; parameters equal bit for bit across ranks")
+        res[part] = {"steps": steps, "collective_share": share}
+    return total, res
+
+
+def _v_world1(workdir: str) -> str:
+    """`python -m leaf_tpu_torch.train.driver` at the tiny config under the
+    launcher's variables at world 1 (NCCL), and with no variables: the
+    losses and the parameters after 2 steps must be equal bit for bit."""
+    import socket
+    import torch
+    flags = ["--model", V_TINY, "--dataset-type", "synthetic",
+             "--train-num-samples", "8", "--batch-size", "4", "--epochs", "1",
+             "--rho", "4", "--warmup", "1", "--zeroshot-frequency", "0",
+             "--logs", os.path.join(workdir, "v_world1")]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                         "MASTER_PORT")}
+    runs = {}
+    for tag, env in (("launcher", dict(base, RANK="0", WORLD_SIZE="1",
+                                       LOCAL_RANK="0",
+                                       MASTER_ADDR="localhost",
+                                       MASTER_PORT=str(port))),
+                     ("plain", base)):
+        log = os.path.join(workdir, f"v_world1_{tag}.log")
+        with open(log, "w") as f:
+            runs[tag] = (subprocess.Popen(
+                [sys.executable, "-m", "leaf_tpu_torch.train.driver"] + flags
+                + ["--name", tag], env=env, stdout=f,
+                stderr=subprocess.STDOUT), log)
+    states = {}
+    for tag, (p, log) in runs.items():
+        p.wait(timeout=600)
+        with open(log) as f:
+            require(p.returncode == 0, f"(v) world 1 {tag}: {f.read()[-3000:]}")
+        run = os.path.join(workdir, "v_world1", tag)
+        states[tag] = (_csv_rows(os.path.join(run, "results.csv")),
+                       torch.load(os.path.join(run, "checkpoints", "epoch_1",
+                                               "state.pt")))
+    (rows_l, st_l), (rows_p, st_p) = states["launcher"], states["plain"]
+    require(rows_l == rows_p and st_l["step"] == st_p["step"] == 2
+            and all(torch.equal(v, st_p["text"][k])
+                    for k, v in st_l["text"].items()),
+            f"(v) world 1: the launcher's run {rows_l} differs from the "
+            f"plain run {rows_p}")
+    return (f"(v) world 1 on NCCL under RANK=0 WORLD_SIZE=1: losses "
+            f"{[r['train_loss'] for r in rows_l]} and the parameters after 2 "
+            "steps equal the run without the variables bit for bit")
+
+
+def phase_multirank(workdir: str):
+    """(v) two ranks (`parallel.distributed`) in spawned processes on the
+    one card over gloo (NCCL refuses two ranks on one device; gloo's CUDA
+    all-reduce and broadcast run in place, its all-gather and send/recv go
+    through the host).  Tiny (ViT-tiny-test, fp32, TF32 off): three fused
+    LEAF steps (anchors missed, every rank hits, rank 1 misses), an unfused
+    step, InfoNCE global and `--local-loss`, the SigLIP ring and a FARE
+    step on the card against the same two-rank runs on the CPU (losses
+    within 1e-5 of their scale; parameters within 2e-4 and the key bias
+    within 2 lr a step; probe widths, branches and sentences equal),
+    parameters equal bit for bit across ranks.  Full width: the fused LEAF
+    step at ViT-L-14-quickgelu's text tower (global batch 128, rho 50,
+    bucket-16 captions) and the contrastive step at ViT-B-32 (global batch
+    256) with InfoNCE and SigLIP, 2 steps each: s per step, the
+    collectives' share, each rank's launches held to its encodes.  Then
+    `python -m leaf_tpu_torch.train.driver` at the tiny config on NCCL
+    under RANK=0 WORLD_SIZE=1, against the same run with no variables: its
+    losses and parameters bit for bit.  With two or more cards the full
+    width part also runs on NCCL, one card a rank.  The world-1 pair runs
+    beside the ranks' tiny part; the full-width part waits for it."""
+    import torch
+    from leaf_tpu_torch.models.factory import get_tokenizer
+    t0 = time.perf_counter()
+    # the native tokenizer is built once here, not by two ranks at once
+    get_tokenizer(V_TINY)("a caption")
+    # the world-1 driver pair runs beside the ranks' tiny part; their
+    # full-width part waits for it (the gate)
+    gate = os.path.join(workdir, "v_card_free")
+    ranks = _v_start(workdir, "gloo", "gloo", True, (0, 0), gate)
+    try:
+        world1 = _v_world1(workdir)
+    finally:
+        open(gate, "w").close()
+        outs = _v_wait(workdir, ranks)
+    for o in outs:
+        require(o["world"] == 2 and o["device"] == "cuda:0",
+                f"(v) rank {o['rank']}: world {o['world']} on {o['device']}")
+    tiny = {}
+    for part in outs[0]["tiny"]:
+        a, b = (o["tiny"][part] for o in outs)
+        for o, t in zip(outs, (a, b)):
+            require(t["loss_err"] <= 1e-5 and t["params_err"] <= 2e-4
+                    and t["same_decisions"],
+                    f"(v) tiny {part} rank {o['rank']}: card vs CPU {t}")
+        digests = a["digests"]
+        require(digests[0] == digests[1] and a["digests"] == b["digests"],
+                f"(v) tiny {part}: the ranks' parameters differ {digests}")
+        require(a["losses"] == b["losses"],
+                f"(v) tiny {part}: the ranks logged different losses")
+        if part == "fused":
+            require(a["widths"] == b["widths"] and set(a["widths"]) == {16}
+                    and a["branches"] == ["full", "cached", "full"],
+                    f"(v) tiny fused: widths {a['widths']} {b['widths']}, "
+                    f"branches {a['branches']}")
+        tiny[part] = {"loss_err": max(a["loss_err"], b["loss_err"]),
+                      "params_err": max(a["params_err"], b["params_err"])}
+    say(f"(v) tiny, two gloo ranks on the card against the same on the CPU "
+        f"(fp32, TF32 off): {tiny}; probe widths {outs[0]['tiny']['fused']['widths']}, "
+        f"branches {outs[0]['tiny']['fused']['branches']}; parameters equal "
+        f"bit for bit across ranks in every part ({outs[0]['tiny_s']:.1f} s "
+        "a rank, card and CPU)")
+    launches, full = _v_report_full("gloo", outs)
+    say(f"(v) gloo through the host on one card is no measure of NCCL: "
+        f"the full-width parts took {outs[0]['full_s']:.1f} s a rank")
+    results = {"tiny": tiny, "gloo": full}
+
+    say(world1)
+    if torch.cuda.device_count() >= 2:
+        nccl = _v_wait(workdir, _v_start(workdir, "nccl", "nccl", False,
+                                         (0, 1)))
+        more, results["nccl"] = _v_report_full("nccl", nccl)
+        for k in launches:
+            launches[k] += more[k]
+    else:
+        say("(v) NCCL across cards: not run, the machine has "
+            f"{torch.cuda.device_count()} card")
+    results["seconds"] = time.perf_counter() - t0
+    return launches, results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6049,9 +6661,11 @@ def main() -> int:
             t2i_parity = _timed("p parity", phase_t2i_parity, workdir)
             t2i_launches, t2i_runs = _timed("p", phase_t2i_tooling, workdir)
         coca_parity = _timed("q parity", phase_coca_parity, workdir)
-        coca_launches, coca_runs = _timed("q", phase_coca, workdir)
+        with _coca_depth_cut():
+            coca_launches, coca_runs = _timed("q", phase_coca, workdir)
         zoo_parity = _timed("r parity", phase_zoo_parity, workdir)
-        zoo_launches, zoo_runs = _timed("r", phase_zoo, workdir)
+        with _depth_cut(ZOO_DEPTH_CUTS, "(r)"):
+            zoo_launches, zoo_runs = _timed("r", phase_zoo, workdir)
         conv_parity = _timed("s parity", phase_convnet_parity, workdir)
         conv_launches, conv_runs = _timed("s", phase_convnets, workdir)
         rest_parity = _timed("t parity", phase_rest_parity, workdir)
@@ -6059,8 +6673,10 @@ def main() -> int:
         train_parity = _timed("u parity", phase_zoo_train_parity, workdir)
         train_zoo_launches, train_zoo_runs = _timed("u", phase_zoo_train,
                                                     workdir)
+        rank_launches, multirank = _timed("v", phase_multirank, workdir)
         zoo_launches = {**zoo_launches, **conv_launches, **rest_launches,
-                        **train_zoo_launches}
+                        **train_zoo_launches,
+                        "multirank": rank_launches}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -6168,7 +6784,8 @@ def main() -> int:
                       "zoo": zoo_runs, "convnets_parity": conv_parity,
                       "convnets": conv_runs, "rest_parity": rest_parity,
                       "rest": rest_runs, "zoo_train_parity": train_parity,
-                      "zoo_train": train_zoo_runs}, default=float))
+                      "zoo_train": train_zoo_runs,
+                      "multirank": multirank}, default=float))
     # every shape's row (ms, plain_ms, library_ms, bound_ms, bound_by,
     # max_abs_err) on a line of its own, so that the kernels line stays
     # short enough to read whole from the end of a captured output
@@ -6181,4 +6798,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--v-rank"]:
+        sys.exit(_v_worker(sys.argv[2]))
     sys.exit(main())

@@ -78,6 +78,15 @@ def bucket_need(tokens) -> int:
     return int(np.asarray(tokens).argmax(-1).max()) + 1
 
 
+def bucket_tokens_coordinated(tokens, buckets=CONTEXT_BUCKETS):
+    """`bucket_tokens` with the width agreed across all ranks (one small
+    all-reduce a call; `bucket_tokens` itself on one rank)."""
+    from leaf_tpu_torch.parallel.distributed import global_max_int32
+    arr = np.asarray(tokens)
+    need = int(global_max_int32([bucket_need(arr)])[0])
+    return bucket_tokens(arr, buckets, need=need)
+
+
 def can_bucket(cfg) -> bool:
     """Bucketing is feature-invariant only for causal towers with
     argmax-EOT pooling.  `cfg` is a CLIPConfig."""

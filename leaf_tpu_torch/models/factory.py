@@ -36,6 +36,7 @@ from leaf_tpu_torch.models.layers import LayerNorm
 from leaf_tpu_torch.models.preprocess import (image_transform,
                                               train_image_transform)
 from leaf_tpu_torch.models.resnet import BatchNorm
+from leaf_tpu_torch.parallel.distributed import rank
 from leaf_tpu_torch.tokenizer import get_tokenizer as _get_bpe
 
 PRECISIONS = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -377,7 +378,8 @@ def create_model_and_transforms(
 ) -> Tuple[CLIPModel, Callable, Callable]:
     """(model, preprocess_train, preprocess_val).  With an `aug_cfg` (the
     contrastive trainer's) preprocess_train is the random-resized-crop
-    pipeline drawing from `seed`; without one both are the eval
+    pipeline drawing from `seed` and this process's rank (as the JAX
+    package folds in its process index); without one both are the eval
     pipeline.  `image_mean/std/interpolation/resize_mode` override the
     model's preprocess config; a new mean or std is written into the
     returned model's config, which the evals and attacks normalise by."""
@@ -409,7 +411,8 @@ def create_model_and_transforms(
         return model, train_image_transform(size, mean=mean, std=std,
                                             aug_cfg=aug_cfg,
                                             interpolation=interp,
-                                            seed=seed), preprocess
+                                            seed=seed, rank=rank()), \
+            preprocess
     return model, preprocess, preprocess
 
 

@@ -11,6 +11,11 @@ is always whole.  `save_checkpoint` copies the payload to the host
 before it returns (the trainer updates its tensors in place right
 after), and writes to disk on a worker thread; the results.csv ledger is
 reloaded by the caller.
+
+Across ranks (`parallel.distributed`) the parameters are equal on every
+rank, so the master alone writes; the blocking saves and
+`wait_for_checkpoints` end in a barrier, and every rank reads the same
+file after a barrier, as the JAX package's collective Orbax saves give.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ import threading
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from leaf_tpu_torch.parallel.distributed import barrier, is_master
 
 _EPOCH_RE = re.compile(r"^epoch_(\d+)$")
 STATE_FILE = "state.pt"
@@ -88,11 +95,14 @@ _WRITER = _Writer()
 
 def _save(ckpt_dir: str, name: str, payload: Dict[str, Any],
           wait: bool) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """The master's write (the other ranks write nothing); with `wait`,
+    every rank leaves once it is on disk."""
     path = os.path.join(os.path.abspath(ckpt_dir), name)
-    _WRITER.start(path, _to_host(payload))
+    if is_master():
+        os.makedirs(ckpt_dir, exist_ok=True)
+        _WRITER.start(path, _to_host(payload))
     if wait:
-        _WRITER.wait()
+        wait_for_checkpoints()
     return path
 
 
@@ -126,16 +136,20 @@ def save_latest(ckpt_dir: str, epoch: int, payload: Dict[str, Any]) -> None:
     sidecar for resume discovery."""
     _save(ckpt_dir, LATEST_NAME, payload, wait=True)
     # the sidecar must postdate the payload
-    sidecar = os.path.join(ckpt_dir, LATEST_NAME + ".epoch")
-    tmp = f"{sidecar}.{os.getpid()}.tmp"
-    with open(tmp, "w") as f:
-        f.write(str(epoch))
-    os.replace(tmp, sidecar)
+    if is_master():
+        sidecar = os.path.join(ckpt_dir, LATEST_NAME + ".epoch")
+        tmp = f"{sidecar}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            f.write(str(epoch))
+        os.replace(tmp, sidecar)
+    barrier()
 
 
 def wait_for_checkpoints() -> None:
-    """Block until any save in flight is on disk."""
+    """Block until any save in flight is on disk (across ranks: until the
+    master's is)."""
     _WRITER.wait()
+    barrier()
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[Tuple[int, str]]:
@@ -160,7 +174,9 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[Tuple[int, str]]:
 
 
 def load_checkpoint(path: str, map_location="cpu") -> Dict[str, Any]:
-    """Read a checkpoint directory written by this module."""
+    """Read a checkpoint directory written by this module (across ranks,
+    every rank reads it after a barrier)."""
+    barrier()
     file = os.path.join(os.path.abspath(path), STATE_FILE)
     if not os.path.exists(file):
         raise FileNotFoundError(

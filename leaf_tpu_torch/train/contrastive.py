@@ -18,6 +18,15 @@ accumulation).
 its latents plus the captioning cross-entropy of its decoder, teacher
 forced, AdamW on every parameter and the same clamp.
 
+Across ranks (`parallel.distributed`) each rank steps on its own rows of
+the global batch: the losses gather the features (or pass SigLIP's ring)
+under the process group, `--local-loss` keeps a rank's own logit rows,
+patch dropout takes the rank's rows of the global batch's scores, and the
+logged loss is the mean over ranks.  The feature-cache step gathers the
+cache of every rank (no gradient) and each microbatch's live features
+(with it), so that every rank computes the loss of the whole global
+effective batch, as the JAX step does on its global arrays.
+
 `evaluate_contrastive` gives the val loss and the image<->text recall
 metrics over a loader of (normalised images, captions).  The JAX package
 compiles each step with `jax.jit`; here they are Python functions on a
@@ -36,6 +45,7 @@ import torch
 from leaf_tpu_torch.models.clip import CLIP, patch_dropout_scores
 from leaf_tpu_torch.models.loss import (clip_loss, coca_loss, siglip_loss,
                                         symmetric_cross_entropy)
+from leaf_tpu_torch.parallel import distributed
 from leaf_tpu_torch.train.optim import Optimizer
 
 
@@ -57,19 +67,22 @@ def fp32_features(out: Dict[str, torch.Tensor]):
 
 def contrastive_loss_fn(model: CLIP, images: torch.Tensor,
                         tokens: torch.Tensor, siglip: bool = False,
-                        dropout: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        dropout: Optional[torch.Tensor] = None,
+                        local_loss: bool = False) -> torch.Tensor:
     """The loss of one batch, in fp32 on the towers' features; the
     sigmoid loss takes the model's `logit_bias` where it has one (SigLIP),
     as the JAX step does (`leaf_tpu/train/contrastive.py:56-58`).
-    `dropout`: patch-dropout scores (`models.clip.patch_dropout_scores`)."""
+    `dropout`: patch-dropout scores (`models.clip.patch_dropout_scores`).
+    Across ranks, this rank's loss under the process group."""
     out = model(images, tokens, dropout)
     img_f, txt_f, scale = fp32_features(out)
+    group = distributed.group()
     if siglip:
         bias = out.get("logit_bias")
         return siglip_loss(img_f, txt_f, scale,
-                           None if bias is None else bias.float())
-    return clip_loss(img_f, txt_f, scale)
+                           None if bias is None else bias.float(),
+                           group=group)
+    return clip_loss(img_f, txt_f, scale, group, local_loss)
 
 
 def clamp_logit_scale(model: CLIP) -> None:
@@ -87,30 +100,32 @@ def apply_update(state: ContrastiveState) -> None:
 
 
 def step_metrics(state: ContrastiveState, loss: torch.Tensor):
-    """A step's metrics, device tensors: its loss and exp(logit_scale)."""
-    return {"loss": loss.detach(),
+    """A step's metrics, device tensors: its loss (the mean over ranks)
+    and exp(logit_scale)."""
+    return {"loss": distributed.pmean(loss.detach()),
             "logit_scale": state.model.logit_scale.detach().exp()}
 
 
 def make_contrastive_train_step(siglip: bool = False,
-                                dropout_seed: Optional[int] = None
-                                ) -> Callable:
+                                dropout_seed: Optional[int] = None,
+                                local_loss: bool = False) -> Callable:
     """step(state, images [B, H, W, 3], tokens [B, C]) -> (state, metrics
     {loss, logit_scale}), both device tensors.  With `dropout_seed` and a
     config with `patch_dropout > 0`, each step drops patches with scores
-    drawn from (dropout_seed, state.step)."""
+    drawn from (dropout_seed, state.step): across ranks, this rank's rows
+    of the global batch's scores."""
 
     def step_fn(state: ContrastiveState, images: torch.Tensor,
                 tokens: torch.Tensor):
         vcfg = state.model.cfg.vision
         dropout = None
         if dropout_seed is not None and vcfg.patch_dropout > 0:
-            dropout = patch_dropout_scores(dropout_seed, state.step,
-                                           images.shape[0],
-                                           vcfg.grid_size ** 2,
-                                           images.device)
+            dropout = distributed.ranks_rows(patch_dropout_scores(
+                dropout_seed, state.step,
+                images.shape[0] * distributed.world_size(),
+                vcfg.grid_size ** 2, images.device))
         loss = contrastive_loss_fn(state.model, images, tokens, siglip,
-                                   dropout)
+                                   dropout, local_loss)
         loss.backward()
         apply_update(state)
         return state, step_metrics(state, loss)
@@ -120,20 +135,30 @@ def make_contrastive_train_step(siglip: bool = False,
 
 def make_accum_contrastive_train_step() -> Callable:
     """step(state, images [k, b, H, W, 3], tokens [k, b, C]) -> (state,
-    metrics {loss (the mean of the k chunk losses), logit_scale})."""
+    metrics {loss (the mean of the k chunk losses), logit_scale}).
+    Across ranks microbatch j of the global batch is every rank's j-th, in
+    rank order, and each rank computes every chunk's global loss: the
+    gradient mean then gives each tower parameter the sum over ranks of
+    its live rows' gradients, and `logit_scale` the chunk's gradient, as
+    in the JAX step."""
 
     def step_fn(state: ContrastiveState, images: torch.Tensor,
                 tokens: torch.Tensor):
         model = state.model
-        k, b = images.shape[0], images.shape[1]
+        k = images.shape[0]
+        b = images.shape[1] * distributed.world_size()
         with torch.no_grad():
             cached = [fp32_features(model(images[j], tokens[j]))
                       for j in range(k)]
-        all_img = torch.cat([c[0] for c in cached])
-        all_txt = torch.cat([c[1] for c in cached])
+        all_img = torch.cat([distributed.all_gather_no_grad(c[0])
+                             for c in cached])
+        all_txt = torch.cat([distributed.all_gather_no_grad(c[1])
+                             for c in cached])
         loss_sum = torch.zeros((), device=images.device)
         for j in range(k):
             img_f, txt_f, scale = fp32_features(model(images[j], tokens[j]))
+            img_f = distributed.all_gather(img_f)
+            txt_f = distributed.all_gather(txt_f)
             lo, hi = j * b, (j + 1) * b
             img = torch.cat([all_img[:lo], img_f, all_img[hi:]])
             txt = torch.cat([all_txt[:lo], txt_f, all_txt[hi:]])
@@ -147,7 +172,8 @@ def make_accum_contrastive_train_step() -> Callable:
 
 
 def make_coca_train_step(caption_loss_weight: float = 2.0,
-                         clip_loss_weight: float = 1.0) -> Callable:
+                         clip_loss_weight: float = 1.0,
+                         local_loss: bool = False) -> Callable:
     """step(state, images [B, H, W, 3], tokens [B, C]) -> (state, metrics
     {loss, logit_scale}) for a CoCa model: `coca_loss` on its fp32
     latents, logits and the labels tokens[:, 1:], summed, then the
@@ -161,7 +187,8 @@ def make_coca_train_step(caption_loss_weight: float = 2.0,
             out["logits"].float(), out["labels"], out["logit_scale"].float(),
             caption_loss_weight=caption_loss_weight,
             clip_loss_weight=clip_loss_weight,
-            pad_id=state.model.cfg.pad_id)
+            pad_id=state.model.cfg.pad_id, group=distributed.group(),
+            local_loss=local_loss)
         loss = contrastive + caption
         loss.backward()
         apply_update(state)

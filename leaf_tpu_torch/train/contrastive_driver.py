@@ -28,16 +28,26 @@ optimizer's state and the step) and `--resume latest` continues from the
 newest; `results.csv` has one row per epoch.  It runs on `--device`
 (default `cuda`).
 
-Against the JAX command line: one card, so `--local-loss` is the global
-loss and the features are never gathered; `--grad-checkpointing`, which
-the JAX driver ignores, raises.
+Multiple ranks, one process a card (`parallel.distributed`; `python -m
+torch.distributed.run --nproc-per-node N -m leaf_tpu_torch.train.
+contrastive_driver ...`): each rank reads its own shards, `--batch-size`
+is a rank's, the losses gather the features of every rank (`--local-loss`
+keeps a rank's own logit rows; `--siglip` passes the texts round the
+ring), the optimizer averages the gradients, and the master alone writes
+the ledger and checkpoints, finds the checkpoint to resume from and logs
+to the tracker; samples/s counts the global batch.  `--mesh-shape` is
+the JAX package's 1-D `data` mesh: one entry, the number of ranks.  On
+one rank `--local-loss` is the global loss.
+
+Against the JAX command line: `--grad-checkpointing`, which the JAX
+driver ignores, raises.
 `--copy-codebase`, `--remote-sync` and `--report-to` act as in the JAX
 driver (`utils.file_utils`, `utils.trackers`); `--profile-dir` traces
 batches 2 to 5 of epoch 0 and `--matmul-precision` sets torch's fp32
 matmul precision, as in the LEAF driver (the JAX contrastive driver
 parses both and reads neither).  Flags whose code is not ported raise,
-naming where ROADMAP.md queues them: `--mesh-shape`;
-`--no-gather-with-grad` raises as in JAX, and so do the CustomTextCLIP
+naming where ROADMAP.md queues them; `--no-gather-with-grad` raises as
+in JAX, and so do the CustomTextCLIP
 models (HF text towers), which no JAX trainer takes.  The tokenizer of a
 SigLIP, CLIPA or HF-text model raises (`factory.get_tokenizer`): their
 steps take token ids.
@@ -63,6 +73,7 @@ from leaf_tpu_torch.models.factory import (create_model,
                                            require_trainable)
 from leaf_tpu_torch.models.loss import distill_clip_loss
 from leaf_tpu_torch.models.preprocess import AugmentationCfg, image_transform
+from leaf_tpu_torch.parallel import distributed
 from leaf_tpu_torch.train import checkpoint as ckpt
 from leaf_tpu_torch.train.contrastive import (
     ContrastiveState, apply_update, evaluate_contrastive, fp32_features,
@@ -70,7 +81,8 @@ from leaf_tpu_torch.train.contrastive import (
     make_contrastive_train_step, step_metrics)
 from leaf_tpu_torch.train.locking import lock_multipliers
 from leaf_tpu_torch.train.optim import make_optimizer
-from leaf_tpu_torch.train.params import parse_args, set_matmul_precision
+from leaf_tpu_torch.train.params import (check_mesh_shape, parse_args,
+                                         set_matmul_precision)
 from leaf_tpu_torch.train.schedules import make_scheduler
 from leaf_tpu_torch.utils.file_utils import copy_codebase, start_run_mirror
 from leaf_tpu_torch.utils.logging_utils import setup_logging
@@ -89,15 +101,8 @@ RESULT_COLUMNS = [
 ]
 
 
-def _not_ported(args) -> None:
-    """Raise on every flag whose code the port does not have yet."""
-    checks = [
-        (args.mesh_shape, "--mesh-shape (multiple GPUs)", "Queue 1 item 6"),
-    ]
-    for hit, what, where in checks:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to leaf_tpu_torch yet: ROADMAP {where}")
+def _refused(args) -> None:
+    """Raise on the flags the JAX driver refuses or ignores."""
     if not args.gather_with_grad:
         raise ValueError("--no-gather-with-grad: the features are never "
                          "gathered without their gradient")
@@ -107,18 +112,21 @@ def _not_ported(args) -> None:
                          "the flag)")
 
 
-def make_distill_train_step(teacher: CLIP) -> Callable:
+def make_distill_train_step(teacher: CLIP,
+                            local_loss: bool = False) -> Callable:
     """step(state, images, tokens) -> (state, metrics {loss, logit_scale}):
     InfoNCE plus the distillation term from the frozen `teacher`'s
-    features on the same batch (no gradient)."""
+    features on the same batch (no gradient); across ranks both over the
+    gathered features."""
 
     def step_fn(state: ContrastiveState, images: torch.Tensor,
                 tokens: torch.Tensor):
         img_f, txt_f, scale = fp32_features(state.model(images, tokens))
         with torch.no_grad():
             t_img, t_txt, t_scale = fp32_features(teacher(images, tokens))
-        contrastive, distill = distill_clip_loss(img_f, txt_f, scale, t_img,
-                                                 t_txt, t_scale)
+        contrastive, distill = distill_clip_loss(
+            img_f, txt_f, scale, t_img, t_txt, t_scale,
+            group=distributed.group(), local_loss=local_loss)
         loss = contrastive + distill
         loss.backward()
         apply_update(state)
@@ -160,21 +168,32 @@ def main(args=None) -> Dict:
     if args is None or isinstance(args, list):
         args = parse_args(args)
     setup_logging(level=logging.DEBUG if args.debug else logging.INFO)
-    _not_ported(args)
+    _refused(args)
     set_matmul_precision(args.matmul_precision)
-    device = torch.device(args.device)
+    # ranks from the launcher's or SLURM's variables; one process otherwise
+    dist = distributed.init_distributed_device(args.device)
+    rank, world = dist["rank"], dist["world_size"]
+    master = rank == 0
+    check_mesh_shape(args.mesh_shape, world)
+    device = dist["device"]
 
     run_name = args.name or ((args.custom_out_folder or "")
                              + time.strftime("contrastive-%Y_%m_%d-%H_%M_%S"))
     out_dir = os.path.join(args.logs, run_name)
     ckpt_dir = os.path.join(out_dir, "checkpoints")
     os.makedirs(out_dir, exist_ok=True)
-    setup_logging(log_file=os.path.join(out_dir, "out.log"),
-                  level=logging.DEBUG if args.debug else logging.INFO)
-    LOG.info("contrastive run: %s -> %s on %s", run_name, out_dir, device)
-    if args.copy_codebase:
-        copy_codebase(out_dir)
-    sync_thread = start_run_mirror(args, out_dir, run_name)
+    # the file log is the master's unless --log-local
+    if master or args.log_local:
+        suffix = f"_rank{rank}" if args.log_local else ""
+        setup_logging(log_file=os.path.join(out_dir, f"out{suffix}.log"),
+                      level=logging.DEBUG if args.debug else logging.INFO)
+    LOG.info("contrastive run: %s -> %s on %s (rank %d of %d)", run_name,
+             out_dir, device, rank, world)
+    sync_thread = None
+    if master:
+        if args.copy_codebase:
+            copy_codebase(out_dir)
+        sync_thread = start_run_mirror(args, out_dir, run_name)
 
     precision = "bf16" if args.precision in ("bf16", "amp") else "fp32"
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
@@ -235,7 +254,8 @@ def main(args=None) -> Dict:
     # normalised images for training and val; the ImageNet split stays
     # un-normalised, the zero-shot eval normalises on the card
     imagenet_val, args.imagenet_val = args.imagenet_val, None
-    data = get_data(args, preprocess_train, preprocess_val=preprocess_val)
+    data = get_data(args, preprocess_train, process_index=rank,
+                    process_count=world, preprocess_val=preprocess_val)
     args.imagenet_val = imagenet_val
     if imagenet_val:
         data["imagenet-val"] = get_imagenet(
@@ -279,9 +299,10 @@ def main(args=None) -> Dict:
 
     if is_coca:
         step_fn = make_coca_train_step(args.coca_caption_loss_weight,
-                                       args.coca_contrastive_loss_weight)
+                                       args.coca_contrastive_loss_weight,
+                                       args.local_loss)
     elif teacher is not None:
-        step_fn = make_distill_train_step(teacher.module)
+        step_fn = make_distill_train_step(teacher.module, args.local_loss)
     elif args.accum_freq > 1:
         # the feature-cache step computes InfoNCE without patch dropout
         if args.siglip:
@@ -295,15 +316,19 @@ def main(args=None) -> Dict:
     else:
         step_fn = make_contrastive_train_step(
             args.siglip, args.seed + 17 if cfg.vision.patch_dropout > 0
-            else None)
+            else None, args.local_loss)
 
-    tracker = create_tracker(args.report_to, out_dir, run_name,
-                             wandb_project=args.wandb_project_name,
+    # the tracker and the ledger are the master's
+    tracker = create_tracker(args.report_to if master else "", out_dir,
+                             run_name, wandb_project=args.wandb_project_name,
                              wandb_notes=args.wandb_notes, config=vars(args))
     start_epoch = 0
-    resume = ckpt.resolve_resume(args.resume, ckpt_dir)
+    # the master finds the checkpoint, every rank loads the same one
+    resume = distributed.broadcast_object(
+        ckpt.resolve_resume(args.resume, ckpt_dir) if master else None)
     results = ResultsLedger(os.path.join(out_dir, "results.csv"),
-                            columns=RESULT_COLUMNS, fresh=resume is None)
+                            columns=RESULT_COLUMNS,
+                            fresh=resume is None) if master else None
     if resume is not None:
         epoch_done, path = resume
         LOG.info("resuming from %s (epoch %d)", path, epoch_done)
@@ -312,7 +337,8 @@ def main(args=None) -> Dict:
         optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
         start_epoch = epoch_done
-        results.truncate_to_epoch(epoch_done)
+        if results is not None:
+            results.truncate_to_epoch(epoch_done)
 
     def save(epoch: int) -> None:
         ckpt.save_checkpoint(ckpt_dir, epoch, {
@@ -335,6 +361,8 @@ def main(args=None) -> Dict:
         return metrics
 
     def record(epoch: int, train_loss: float, metrics: Dict[str, float]):
+        if results is None:
+            return
         row = {"epoch": epoch, "train_loss": train_loss}
         for col in RESULT_COLUMNS[2:]:
             if col in metrics:
@@ -388,7 +416,8 @@ def main(args=None) -> Dict:
                 # as in the JAX driver
                 loss_val = float(metrics["loss"])
                 losses_m.update(loss_val)
-                sps = args.batch_size * args.accum_freq / batch_time_m.val
+                sps = (args.batch_size * args.accum_freq * world
+                       / batch_time_m.val)
                 LOG.info("Contrastive Epoch %d [%d/%d] loss %.5g (%.5g) "
                          "%.1f samples/s", epoch, i + 1, steps_per_epoch,
                          loss_val, losses_m.avg, sps)
@@ -415,7 +444,8 @@ def main(args=None) -> Dict:
     if sync_thread is not None:
         sync_thread.stop(final_sync=True)
     tracker.finish()
-    return {"results": results.rows, "state": state, "model": model,
+    return {"results": results.rows if master else [], "state": state,
+            "model": model,
             "cfg": cfg, "out_dir": out_dir, "times": times}
 
 

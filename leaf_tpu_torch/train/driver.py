@@ -37,6 +37,24 @@ tensorboard,wandb` logs each logged step and each eval
 batches 2 to 5 of epoch 0 (`utils.profiler.TraceWindow`);
 `--matmul-precision` sets torch's fp32 matmul precision
 (`train.params.MATMUL_PRECISIONS`).
+
+Multiple ranks, one process a card (`parallel.distributed`): run under
+PyTorch's launcher, e.g.
+
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m leaf_tpu_torch.train.driver ... [--device cpu]
+
+(NCCL on the cards, gloo on the CPU).  Each rank reads its own shards
+and trains on its own rows of the global batch (`--batch-size` is a
+rank's); the fused step agrees on bucket widths and the anchor-cache
+branch across ranks, and the optimizer averages the gradients, so the
+ranks keep equal parameters.  As in the JAX driver: the run's epoch rng
+is `seed + 1000 * epoch + rank`; the master alone writes the ledgers,
+checkpoints, exports and the run mirror and logs to the tracker;
+`out.log` is the master's unless `--log-local` gives every rank
+`out_rank<r>.log`; the master finds the checkpoint to resume from and
+broadcasts it.  `--mesh-shape` is the JAX package's 1-D `data` mesh: one
+entry, equal to the number of ranks.
 """
 from __future__ import annotations
 
@@ -62,12 +80,15 @@ from leaf_tpu_torch.models.factory import (create_model_and_transforms,
                                            get_tokenizer, local_checkpoint,
                                            require_trainable)
 from leaf_tpu_torch.models.preprocess import image_transform
+from leaf_tpu_torch.parallel.distributed import (broadcast_object,
+                                                 init_distributed_device)
 from leaf_tpu_torch.train import checkpoint as ckpt
 from leaf_tpu_torch.train.contrastive import evaluate_contrastive
 from leaf_tpu_torch.train.fused import FusedLeafStep
 from leaf_tpu_torch.train.loop import train_one_epoch_text_only
 from leaf_tpu_torch.train.optim import make_optimizer
-from leaf_tpu_torch.train.params import parse_args, set_matmul_precision
+from leaf_tpu_torch.train.params import (check_mesh_shape, parse_args,
+                                         set_matmul_precision)
 from leaf_tpu_torch.train.schedules import make_scheduler
 from leaf_tpu_torch.train.step import (TrainState, make_anchor_encode,
                                        make_train_step)
@@ -98,17 +119,6 @@ def build_run_name(args) -> str:
             f"b_{args.batch_size}-rho_{args.rho}-k_{args.k_adv}")
 
 
-def _not_ported(args) -> None:
-    """Raise on every flag whose code the port does not have yet."""
-    checks = [
-        (args.mesh_shape, "--mesh-shape (multiple GPUs)", "Queue 1 item 6"),
-    ]
-    for hit, what, where in checks:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to leaf_tpu_torch yet: ROADMAP {where}")
-
-
 def _discover_resume(args, ckpt_dir: str, run_name: str):
     """`--resume`'s (epoch, path); with `--remote-sync` and `--resume
     latest`, a newer checkpoint in the mirror's `<run>/checkpoints` wins
@@ -131,7 +141,6 @@ def main(args=None) -> Dict:
     if args is None or isinstance(args, list):
         args = parse_args(args)
     setup_logging(level=logging.DEBUG if args.debug else logging.INFO)
-    _not_ported(args)
     # flags that belong to the vanilla contrastive trainer are a hard
     # error here
     if args.siglip or args.distill_model or args.local_loss:
@@ -152,20 +161,32 @@ def main(args=None) -> Dict:
             "cannot use --save-most-recent with --remote-sync and "
             "--resume latest (reference errors likewise)")
     set_matmul_precision(args.matmul_precision)
-    device = torch.device(args.device)
+    # ranks from the launcher's or SLURM's variables; one process otherwise
+    dist = init_distributed_device(args.device)
+    rank, world = dist["rank"], dist["world_size"]
+    master = rank == 0
+    check_mesh_shape(args.mesh_shape, world)
+    device = dist["device"]
 
     run_name = build_run_name(args)
     out_dir = os.path.join(args.logs, run_name)
     ckpt_dir = os.path.join(out_dir, "checkpoints")
     os.makedirs(out_dir, exist_ok=True)
-    setup_logging(log_file=os.path.join(out_dir, "out.log"),
-                  level=logging.DEBUG if args.debug else logging.INFO)
-    LOG.info("run: %s -> %s on %s", run_name, out_dir, device)
-    # codebase snapshot and remote mirror: one verified sync pass before
-    # training, then a background thread, a final sync at the end
-    if args.copy_codebase:
-        copy_codebase(out_dir)
-    sync_thread = start_run_mirror(args, out_dir, run_name)
+    # the file log is the master's unless --log-local
+    if master or args.log_local:
+        suffix = f"_rank{rank}" if args.log_local else ""
+        setup_logging(log_file=os.path.join(out_dir, f"out{suffix}.log"),
+                      level=logging.DEBUG if args.debug else logging.INFO)
+    LOG.info("run: %s -> %s on %s (rank %d of %d)", run_name, out_dir,
+             device, rank, world)
+    # codebase snapshot and remote mirror, the master's: one verified sync
+    # pass before training, then a background thread, a final sync at the
+    # end
+    sync_thread = None
+    if master:
+        if args.copy_codebase:
+            copy_codebase(out_dir)
+        sync_thread = start_run_mirror(args, out_dir, run_name)
 
     # model + frozen anchor tower -----------------------------------------
     precision = "bf16" if args.precision in ("bf16", "amp") else "fp32"
@@ -201,7 +222,8 @@ def main(args=None) -> Dict:
         cfg.vision.image_size, do_normalize=False,
         interpolation=args.image_interpolation or "bicubic",
         resize_mode=args.image_resize_mode or "shortest")
-    data = get_data(args, preprocess_nonorm, text_only=args.text_only)
+    data = get_data(args, preprocess_nonorm, process_index=rank,
+                    process_count=world, text_only=args.text_only)
 
     # optimizer ------------------------------------------------------------
     steps_per_epoch = (data["train"].num_batches // args.accum_freq
@@ -237,19 +259,23 @@ def main(args=None) -> Dict:
                                    w_fare_text=args.w_fare_text,
                                    k=args.k_adv, device=device)
 
-    timing = TimingLedger(os.path.join(out_dir,
-                                       f"times_{args.use_charmer}.csv"))
-    tracker = create_tracker(args.report_to, out_dir, run_name,
-                             wandb_project=args.wandb_project_name,
+    # the ledgers and the tracker are the master's
+    timing = TimingLedger(os.path.join(
+        out_dir, f"times_{args.use_charmer}.csv")) if master else None
+    tracker = create_tracker(args.report_to if master else "", out_dir,
+                             run_name, wandb_project=args.wandb_project_name,
                              wandb_notes=args.wandb_notes, config=vars(args))
 
     # resume ---------------------------------------------------------------
+    # the master finds the checkpoint, every rank loads the same one
     start_epoch = 0
-    resume = _discover_resume(args, ckpt_dir, run_name)
+    resume = broadcast_object(
+        _discover_resume(args, ckpt_dir, run_name) if master else None)
     # a run that does not resume starts its ledger anew; a resumed one
     # keeps the rows up to the epoch it resumes from
     results = ResultsLedger(os.path.join(out_dir, "results.csv"),
-                            columns=RESULT_COLUMNS, fresh=resume is None)
+                            columns=RESULT_COLUMNS,
+                            fresh=resume is None) if master else None
     if resume is not None:
         epoch_done, path = resume
         LOG.info("resuming from %s (epoch %d)", path, epoch_done)
@@ -273,7 +299,8 @@ def main(args=None) -> Dict:
         # checkpoint names record *completed* epochs; training epoch
         # indices are 0-based, so the next epoch to run == epoch_done
         start_epoch = epoch_done
-        results.truncate_to_epoch(epoch_done)
+        if results is not None:
+            results.truncate_to_epoch(epoch_done)
     else:
         ckpt.save_named(ckpt_dir, "frozen",
                         {"frozen_text": frozen_text.state_dict()})
@@ -302,7 +329,8 @@ def main(args=None) -> Dict:
 
     def save(epoch: int) -> None:
         ckpt.save_checkpoint(ckpt_dir, epoch, payload_now())
-        export_model(epoch)
+        if master:
+            export_model(epoch)
         if args.delete_previous_checkpoint:
             # the save above writes on a worker thread: epoch_N must be in
             # place before epoch_{N-1} is deleted, or a crash in between
@@ -310,7 +338,7 @@ def main(args=None) -> Dict:
             ckpt.wait_for_checkpoints()
             for prev in (os.path.join(ckpt_dir, f"epoch_{epoch - 1}"),
                          os.path.join(ckpt_dir, f"model_epoch_{epoch - 1}")):
-                if os.path.isdir(prev):
+                if master and os.path.isdir(prev):
                     shutil.rmtree(prev)
 
     eval_seconds: Dict[int, Dict[str, float]] = {}
@@ -342,6 +370,8 @@ def main(args=None) -> Dict:
         return metrics
 
     def record(epoch: int, train_loss: float, metrics: Dict[str, float]):
+        if results is None:
+            return
         row = {"epoch": epoch, "train_loss": train_loss}
         for col in RESULT_COLUMNS[2:]:
             if col in metrics:
@@ -365,16 +395,16 @@ def main(args=None) -> Dict:
     seconds: Dict[str, float] = {}
     if "train" not in data:
         finish()
-        return {"results": results.rows, "state": state, "model": model,
-                "frozen_text": frozen_text, "cfg": cfg, "out_dir": out_dir,
-                "eval_seconds": eval_seconds}
+        return {"results": results.rows if master else [], "state": state,
+                "model": model, "frozen_text": frozen_text, "cfg": cfg,
+                "out_dir": out_dir, "eval_seconds": eval_seconds}
     for epoch in range(start_epoch, args.epochs):
         LOG.info("Start epoch %d", epoch)
         state, log_data = train_one_epoch_text_only(
             state, frozen_text, scorer, anchor_encode, train_step,
             tokenizer, vocab, data, epoch, args, constraint=constraint,
             timing=timing,
-            rng=np.random.default_rng(args.seed + 1000 * epoch),
+            rng=np.random.default_rng(args.seed + 1000 * epoch + rank),
             seconds=seconds, fused_step=fused_step, tracker=tracker)
         completed = epoch + 1
         metrics = run_eval(completed)
@@ -390,9 +420,10 @@ def main(args=None) -> Dict:
             ckpt.save_latest(ckpt_dir, completed, payload_now())
 
     finish()
-    return {"results": results.rows, "state": state, "model": model,
-            "frozen_text": frozen_text, "cfg": cfg, "out_dir": out_dir,
-            "attack_times": timing.times, "attack_seconds": seconds,
+    return {"results": results.rows if master else [], "state": state,
+            "model": model, "frozen_text": frozen_text, "cfg": cfg,
+            "out_dir": out_dir,
+            "attack_times": timing.times if master else [], "attack_seconds": seconds,
             "fused_step": fused_step, "eval_seconds": eval_seconds}
 
 

@@ -24,6 +24,14 @@ Against the JAX step: where it encodes the clean images although
 does not encode them; the uniform start of PGD comes from a
 `torch.Generator` seeded by `seed` (or from `starts`, one perturbation a
 step), since `jax.random.uniform`'s draws cannot be reproduced.
+
+Across ranks (`parallel.distributed`), the JAX package's data
+parallelism over the devices of a host: each rank attacks and trains on
+its own rows of the global batch, the optimizer averages the gradients,
+and the logged metrics are means over ranks.  PGD's uniform start for
+rank r is its rows of the global batch's draw from the shared generator,
+so that a step on N ranks is the one-process step on the global batch,
+as a GSPMD draw is sharded.
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ from leaf_tpu_torch.attacks.image import _normalize_images, pgd
 from leaf_tpu_torch.data.common import put_batch
 from leaf_tpu_torch.models.clip import VisionTower, l2_normalize
 from leaf_tpu_torch.models.config import CLIPConfig
+from leaf_tpu_torch.parallel import distributed
 from leaf_tpu_torch.train.optim import Optimizer
 from leaf_tpu_torch.train.schedules import cosine_lr
 from leaf_tpu_torch.utils.meters import AverageMeter
@@ -174,7 +183,8 @@ def make_fare_attack(visual: VisionTower, cfg: CLIPConfig, fcfg: FareConfig):
     """The inner maximisation on the trainable tower: `attack(images,
     embedding_orig, targets, classifier, generator=None, delta=None) ->
     adversarial images`.  PGD starts from `delta` where it is given, else
-    from a uniform draw of `generator`."""
+    from a uniform draw of `generator` (across ranks, this rank's rows of
+    the global batch's draw)."""
 
     def attack(images, embedding_orig, targets, classifier,
                generator: Optional[torch.Generator] = None,
@@ -197,8 +207,11 @@ def make_fare_attack(visual: VisionTower, cfg: CLIPConfig, fcfg: FareConfig):
             if delta is None:
                 # the start goes to the first forward unclamped, as in the
                 # reference; the image box is enforced after each step
-                u = torch.rand(images.shape, generator=generator,
-                               dtype=images.dtype, device=images.device)
+                world = distributed.world_size()
+                shape = (images.shape[0] * world,) + tuple(images.shape[1:])
+                u = distributed.ranks_rows(torch.rand(
+                    shape, generator=generator, dtype=images.dtype,
+                    device=images.device))
                 delta = fcfg.eps * (2 * u - 1)
             return pgd(loss_fn, images, norm=fcfg.norm, eps=fcfg.eps,
                        iterations=fcfg.iterations_adv,
@@ -212,8 +225,8 @@ def make_fare_train_step(visual: VisionTower, cfg: CLIPConfig,
                          fcfg: FareConfig, opt: Optimizer):
     """The outer update: `step_fn(step, embedding_orig, images, adv_images,
     targets, classifier) -> metrics` (device tensors: loss, loss_clean,
-    cos_sim), one optimizer update at `step` (the count of earlier
-    updates)."""
+    cos_sim, each the mean over ranks), one optimizer update at `step`
+    (the count of earlier updates)."""
 
     def step_fn(step: int, embedding_orig, images, adv_images, targets,
                 classifier) -> Dict[str, torch.Tensor]:
@@ -241,8 +254,9 @@ def make_fare_train_step(visual: VisionTower, cfg: CLIPConfig,
             cos = (l2_normalize(emb_adv.float())
                    * l2_normalize(embedding_orig.float())).sum(-1).mean()
         opt.update(step)
-        return {"loss": loss_adv.detach(), "loss_clean": loss_clean.detach(),
-                "cos_sim": cos}
+        return {"loss": distributed.pmean(loss_adv.detach()),
+                "loss_clean": distributed.pmean(loss_clean.detach()),
+                "cos_sim": distributed.pmean(cos)}
 
     return step_fn
 

@@ -20,6 +20,13 @@ only; the zero-shot
 classifier is built for `--loss ce_reg` too, where the JAX driver builds
 it for `ce` alone and then scores `ce_reg` against a one-column zero
 classifier.  `--eval-freq` is parsed and read by nothing, as in JAX.
+
+The JAX driver trains data-parallel over every device of its host; here
+a device is a rank (`parallel.distributed`, `python -m
+torch.distributed.run --nproc-per-node N -m leaf_tpu_torch.train.
+fare_driver ...`): each rank reads its own share of the image folder
+(`--batch-size` is a rank's), and the master alone writes the
+checkpoints, removes the fallbacks and logs to the tracker.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from leaf_tpu_torch.models.zero_shot import (build_zero_shot_classifier,
                                              imagenet_classnames,
                                              openai_imagenet_templates,
                                              simple_imagenet_templates)
+from leaf_tpu_torch.parallel import distributed
 from leaf_tpu_torch.train import checkpoint as ckpt
 from leaf_tpu_torch.train import fare
 from leaf_tpu_torch.utils.logging_utils import setup_logging
@@ -137,11 +145,14 @@ def main(argv=None):
     # fp32 master weights; the text tower (the classifier) computes in fp32
     # as the JAX driver's scorer does, the vision tower in --precision
     require_trainable(args.model, "fare")
+    # ranks from the launcher's or SLURM's variables; one process otherwise
+    dist = distributed.init_distributed_device(args.device)
+    master = dist["rank"] == 0
     model = create_model(args.model,
                          local_checkpoint(args.pretrained, "--pretrained",
                                           args.model),
-                         precision="fp32", seed=args.seed, device=args.device,
-                         master_weights=True)
+                         precision="fp32", seed=args.seed,
+                         device=dist["device"], master_weights=True)
     cfg = model.cfg
     visual = model.module.visual
     visual.compute_dtype = (torch.bfloat16 if args.precision in ("bf16", "amp")
@@ -158,7 +169,9 @@ def main(argv=None):
 
     preprocess = image_transform(cfg.vision.image_size, do_normalize=False)
     train_info = get_imagenet(args.imagenet_root, preprocess, "train",
-                              batch_size=args.batch_size, seed=args.seed)
+                              batch_size=args.batch_size, seed=args.seed,
+                              process_index=dist["rank"],
+                              process_count=dist["world_size"])
 
     def repeat_forever():
         while True:
@@ -186,10 +199,13 @@ def main(argv=None):
     def fallback_fn(step, state):
         # save fallback_<step>, then remove the earlier one
         ckpt.save_named(ckpt_dir, f"fallback_{step}", state.payload())
-        _remove_fallbacks(ckpt_dir, keep=f"fallback_{step}")
+        if master:
+            _remove_fallbacks(ckpt_dir, keep=f"fallback_{step}")
 
     init_state, start_step = None, 0
-    found = _latest_fare_checkpoint(ckpt_dir) if args.resume else None
+    found = distributed.broadcast_object(
+        _latest_fare_checkpoint(ckpt_dir) if args.resume and master
+        else None)
     if found is not None:
         start_step, path = found
         LOG.info("resuming FARE from %s (step %d)", path, start_step)
@@ -197,7 +213,8 @@ def main(argv=None):
 
     tracker = create_tracker(args.report_to, out_dir, args.experiment_name,
                              wandb_project=args.wandb_project_name,
-                             config=vars(args)) if args.report_to else None
+                             config=vars(args)) \
+        if args.report_to and master else None
     on_step = None
     if tracker is not None:
         def on_step(step, metrics):
@@ -212,7 +229,7 @@ def main(argv=None):
     # the last milestone must be on disk before the fallbacks go, or a
     # crash in between leaves neither
     ckpt.wait_for_checkpoints()
-    if out["steps"] >= fcfg.steps:
+    if out["steps"] >= fcfg.steps and master:
         _remove_fallbacks(ckpt_dir)
     if tracker is not None:
         tracker.finish()

@@ -19,15 +19,23 @@ feed the train forward on the device.  Selection semantics are those of
 `tests/test_torch_fused.py` pins the equivalence against the unfused
 path and against the JAX package's fused step.
 
+Across ranks (`parallel.distributed`), each rank runs the step on its
+own rows of the global batch.  As in the JAX package's multi-host step,
+one small all-reduce a round agrees on the bucket widths (the global max
+of every rank's need) and on the phase-1 branch: the cached phase 1 runs
+only where every rank hit its own anchor cache.  The candidates' width is
+agreed the same way, the logged loss is the mean over ranks, and the
+half-batch pipeline is off, as it is there.
+
 Against the JAX module: a phase body is a plain function on the port's
 `TextTower` (no jit, no `cfg`/`tx`/`dtype` arguments: the tower knows its
 config and compute dtype, the `TrainState` holds the optimizer), scoring
-runs under `torch.no_grad()`, and the state is updated in place.  The
-mesh, `shard_map` and multi-host parts are not carried over; they belong
-to the multi-GPU slice.  Everything is enqueued on the current CUDA
-stream, so a train step, its in-place AdamW update and the next step's
-phase 1 keep a single stream's order; only the best-probe readback uses
-a second stream (`_Readback`).
+runs under `torch.no_grad()`, and the state is updated in place.  There
+is no mesh or `shard_map`: a rank's phases are local, and the ranks meet
+only in the agreement above and the optimizer's gradient mean.
+Everything is enqueued on the current CUDA stream, so a train step, its
+in-place AdamW update and the next step's phase 1 keep a single stream's
+order; only the best-probe readback uses a second stream (`_Readback`).
 """
 from __future__ import annotations
 
@@ -38,13 +46,15 @@ import numpy as np
 import torch
 
 from leaf_tpu_torch.attacks import edits
-from leaf_tpu_torch.attacks.engine import (bucket_tokens,
+from leaf_tpu_torch.attacks.engine import (bucket_need, bucket_tokens,
                                            can_bucket as engine_can_bucket,
                                            objective_loss)
 from leaf_tpu_torch.attacks.text import _edit_tokens_fast
 from leaf_tpu_torch.data.common import put_batch
 from leaf_tpu_torch.models.clip import TextTower, l2_normalize
 from leaf_tpu_torch.models.config import CLIPConfig
+from leaf_tpu_torch.parallel.distributed import (global_max_int32, pmean,
+                                                 world_size)
 from leaf_tpu_torch.train.step import TrainState
 
 
@@ -114,11 +124,12 @@ def make_fused_phase1_cached(objective: str = "l2"):
 
 def _update(state: TrainState, loss: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Backward, one optimizer update, the step count; metrics stay on
-    the device (reading one waits for it)."""
+    the device (reading one waits for it).  The logged loss is the mean
+    over ranks."""
     loss.backward()
     grad_norm = state.optimizer.update(state.step)
     state.step += 1
-    return {"loss": loss.detach(), "grad_norm": grad_norm}
+    return {"loss": pmean(loss.detach()), "grad_norm": grad_norm}
 
 
 def make_fused_phase2_step(normalize: bool = False, remat: bool = False,
@@ -273,6 +284,10 @@ class FusedLeafStep:
         # context bucketing: only feature-invariant for causal+argmax
         # towers
         self._do_bucket = engine_can_bucket(cfg)
+        # across ranks, every round agrees on the bucket widths and the
+        # phase-1 branch (one all-reduce of [probe need, any miss, clean
+        # need], and one of the candidates' need)
+        self._multihost = world_size() > 1
         self.phase1 = make_fused_phase1(normalize, objective)
         self.phase1_cached = make_fused_phase1_cached(objective)
         self.phase2 = make_fused_phase2_step(normalize, remat, objective,
@@ -299,8 +314,8 @@ class FusedLeafStep:
 
     # -- host <-> device ----------------------------------------------------
 
-    def _bucket(self, tokens):
-        return bucket_tokens(tokens) if self._do_bucket \
+    def _bucket(self, tokens, need: Optional[int] = None):
+        return bucket_tokens(tokens, need=need) if self._do_bucket \
             else np.asarray(tokens)
 
     def _put(self, tokens: np.ndarray) -> torch.Tensor:
@@ -433,9 +448,10 @@ class FusedLeafStep:
     # -- the step ----------------------------------------------------------
 
     def _use_pipeline(self, B: int) -> bool:
-        """Half-batch pipelining applies to k=1 steps with an evenly
-        splittable batch."""
-        return bool(self._pipeline and self.k == 1 and B % 2 == 0 and B >= 4)
+        """Half-batch pipelining applies to one-rank k=1 steps with an
+        evenly splittable batch."""
+        return bool(self._pipeline and self.k == 1 and B % 2 == 0 and B >= 4
+                    and not self._multihost)
 
     def _pipelined(self, state: TrainState, frozen_text: TextTower, texts,
                    rng: np.random.Generator, prepared: Optional[dict]
@@ -535,9 +551,27 @@ class FusedLeafStep:
         for r in range(self.k):
             positions, probe_raw, clean_raw = self._prepared_or_new(
                 texts_cur, rng, prepared if r == 0 else None)
-            probe_tokens = self._put(self._bucket(probe_raw))
+            probe_need = clean_need = None
+            cached = None if anchors is not None \
+                else self._cached_anchors(texts_cur)
+            if self._multihost:
+                if anchors is None and clean_raw is None:
+                    # tokenised up front: if any rank misses, every rank
+                    # runs phase 1 and needs its clean tokens
+                    clean_raw = self._timed_host(
+                        lambda: np.asarray(self.tokenizer(texts_cur)))
+                g = global_max_int32([
+                    bucket_need(probe_raw) if self._do_bucket else 0,
+                    0 if (cached is not None or anchors is not None) else 1,
+                    (bucket_need(clean_raw) if self._do_bucket else 0)
+                    if clean_raw is not None else 0])
+                probe_need = int(g[0]) or None
+                clean_need = int(g[2]) or None
+                if int(g[1]):
+                    cached = None
+            probe_tokens = self._put(self._bucket(probe_raw, probe_need))
             if anchors is None:
-                anchors = self._cached_anchors(texts_cur)
+                anchors = cached
             if anchors is not None:
                 best_probe = self.phase1_cached(state.text, probe_tokens,
                                                 anchors)
@@ -547,7 +581,8 @@ class FusedLeafStep:
                         lambda: np.asarray(self.tokenizer(texts_cur)))
                 anchors, best_probe = self.phase1(
                     frozen_text, state.text,
-                    self._put(self._bucket(clean_raw)), probe_tokens)
+                    self._put(self._bucket(clean_raw, clean_need)),
+                    probe_tokens)
                 self._fill_cache(texts_cur, anchors)
             best_probe = self._wait(self._readback(best_probe))  # hard sync
             best_pos = [int(positions[i][best_probe[i]]) for i in range(B)]
@@ -555,7 +590,10 @@ class FusedLeafStep:
             us = self._draw_chars(rng, B)
             cand_raw = self._timed_host(self._candidates, texts_cur, best_pos,
                                         us, clean_raw)
-            cand_tokens = self._put(self._bucket(cand_raw))
+            cand_need = None
+            if self._multihost and self._do_bucket:
+                cand_need = int(global_max_int32([bucket_need(cand_raw)])[0])
+            cand_tokens = self._put(self._bucket(cand_raw, cand_need))
             if r < self.k - 1:
                 # intermediate round: pick the winner, edit on the host
                 best = self._wait(self._readback(self.phase1_cached(

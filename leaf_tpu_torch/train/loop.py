@@ -17,6 +17,11 @@ prepares its probes on the host.  Nothing between enqueuing a step and
 that preparation reads a device value: a logged step's loss stays a
 tensor until the next logging point.
 
+Across ranks each rank runs its own rows of the global batch: the unfused
+step's token buffers take the bucket width agreed across ranks
+(`engine.bucket_tokens_coordinated`), and samples/s counts the global
+batch.
+
 The attack wall-time CSV (`times_{use_charmer}.csv`) is the trainer's
 own throughput record and is kept; on the fused branch a worker thread
 writes it (`utils.results.AsyncAttackTimer`).
@@ -31,10 +36,12 @@ import numpy as np
 import torch
 
 from leaf_tpu_torch.attacks.engine import (CandidateScorer, bucket_tokens,
+                                           bucket_tokens_coordinated,
                                            can_bucket)
 from leaf_tpu_torch.attacks.text import (attack_text_charmer_batched,
                                          attack_text_leaf)
 from leaf_tpu_torch.models.clip import TextTower
+from leaf_tpu_torch.parallel.distributed import world_size
 from leaf_tpu_torch.train.step import TrainState
 from leaf_tpu_torch.utils.meters import AverageMeter
 from leaf_tpu_torch.utils.profiler import TraceWindow
@@ -97,7 +104,11 @@ def train_one_epoch_text_only(
     to `tracker`, and with `args.profile_dir` batches 2 to 5 of epoch 0
     are traced (`utils.profiler.TraceWindow`)."""
     rng = rng or np.random.default_rng(args.seed + 1000 * epoch)
-    _bucket = bucket_tokens if can_bucket(scorer.cfg) else np.asarray
+    world = world_size()
+    # across ranks the width is agreed per buffer (one small all-reduce)
+    _bucket = np.asarray
+    if can_bucket(scorer.cfg):
+        _bucket = bucket_tokens if world == 1 else bucket_tokens_coordinated
     device = scorer.device
     info = data["train"]
     info.set_epoch(epoch)
@@ -216,7 +227,7 @@ def train_one_epoch_text_only(
                 "batch_time": batch_time_m.avg,
                 "data_time_val": data_time_m.val,
                 "batch_time_val": batch_time_m.val,
-                "sps": (args.accum_freq * args.batch_size
+                "sps": (args.accum_freq * args.batch_size * world
                         / batch_time_m.val),
                 "attack_seconds": attack_seconds,
                 "step": step,

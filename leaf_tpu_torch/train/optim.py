@@ -18,6 +18,10 @@ step nor the decay moves it, while its gradient still counts in the clip's
 global norm and Adam's moments still follow it: the JAX package's update
 mask chained after the whole chain.
 
+Across ranks (`parallel.distributed`), `update` first replaces each
+gradient by its mean over the ranks, so that every rank takes the same
+step on the same parameters.
+
 Gradient accumulation (`accum_freq = k > 1`) has the meaning of optax's
 `MultiSteps(tx, every_k_schedule=k)`: the gradients of k calls are
 averaged (as a running mean, in the same order of operations), the chain
@@ -30,6 +34,8 @@ import dataclasses
 from typing import Callable, Iterable, List, Mapping, Optional, Tuple
 
 import torch
+
+from leaf_tpu_torch.parallel.distributed import all_reduce_mean_
 
 # Path components that put a parameter in the no-decay group.
 _NO_DECAY_KEYS = {"ln_1", "ln_2", "ln_pre", "ln_post", "ln_final",
@@ -93,12 +99,18 @@ class Optimizer:
         torch._foreach_add_(self.accumulated, grads)
 
     def update(self, step: int) -> torch.Tensor:
-        """`step` counts the calls so far.  Clip, take one AdamW step at
+        """`step` counts the calls so far.  Average the gradients across
+        ranks (every call, as the JAX package's psum), clip, take one AdamW
+        step at
         `schedule(step // accum_freq)` and clear the gradients; under
         accumulation only every `accum_freq`-th call does that, on the
         mean of the gradients since the last one.  Returns the global
         norm of this call's gradients before clipping."""
         grads = [p.grad for p in self.parameters() if p.grad is not None]
+        # across ranks, the mean of the gradients comes first: under GSPMD
+        # the JAX package's clip, accumulation and Adam see the psum'd
+        # gradient (a no-op on one rank)
+        all_reduce_mean_(grads)
         norm = clip_norm = global_norm(grads)
         if self.accum_freq > 1:
             mini_step = step % self.accum_freq

@@ -203,7 +203,8 @@ def parse_args(args: Optional[List[str]] = None) -> argparse.Namespace:
                    help="torch device of the run: 'cuda' (the default) or "
                         "'cpu'")
     p.add_argument("--mesh-shape", type=str, default=None,
-                   help="comma-sep device mesh shape, e.g. '8' or '4,2'")
+                   help="the data mesh's shape: one entry, the number of "
+                        "ranks (the JAX package's 1-D 'data' mesh)")
     p.add_argument("--matmul-precision", type=str, default=None,
                    choices=["default", "high", "highest"])
 
@@ -229,6 +230,24 @@ def set_matmul_precision(value: Optional[str]) -> None:
     torch's setting."""
     if value:
         torch.set_float32_matmul_precision(MATMUL_PRECISIONS[value])
+
+
+def check_mesh_shape(mesh_shape: Optional[str], world: int) -> None:
+    """`--mesh-shape`: the JAX package builds a 1-D `data` mesh of that
+    shape over all devices, and fails on a shape that does not hold them.
+    Here a rank is a device: one entry, equal to the number of ranks."""
+    if not mesh_shape:
+        return
+    try:
+        shape = tuple(int(x) for x in mesh_shape.split(","))
+    except ValueError:
+        raise ValueError(f"--mesh-shape {mesh_shape!r}: comma-separated "
+                         "integers") from None
+    if shape != (world,):
+        raise ValueError(
+            f"--mesh-shape {mesh_shape!r} does not match the run's "
+            f"{world} rank(s): the mesh has one axis, 'data', of one rank "
+            "a device (data parallelism only)")
 
 
 def apply_default_hparams(ns: argparse.Namespace):

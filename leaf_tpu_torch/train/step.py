@@ -18,6 +18,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from leaf_tpu_torch.models.clip import CLIP, TextTower
+from leaf_tpu_torch.parallel.distributed import pmean
 from leaf_tpu_torch.train.optim import Optimizer
 
 
@@ -50,8 +51,9 @@ def make_train_step(normalize: bool = False, remat: bool = False,
 
     step(state, adv_tokens [B, C], anchor_features [B, D])
       -> (state, metrics {loss, grad_norm}), both metrics tensors on the
-    tower's device (reading one waits for the device).  The state is
-    updated in place and returned."""
+    tower's device (reading one waits for the device); across ranks the
+    loss is the mean over ranks.  The state is updated in place and
+    returned."""
 
     def step_fn(state: TrainState, adv_tokens: torch.Tensor,
                 anchor_features: torch.Tensor
@@ -61,7 +63,7 @@ def make_train_step(normalize: bool = False, remat: bool = False,
         loss.backward()
         grad_norm = state.optimizer.update(state.step)
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, {"loss": pmean(loss.detach()), "grad_norm": grad_norm}
 
     return step_fn
 

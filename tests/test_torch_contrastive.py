@@ -496,7 +496,9 @@ def test_siglip_command_line_matches_jax(files, tmp_path):
 def test_command_line_refusals(tmp_path, monkeypatch):
     base = SYNTHETIC + ["--logs", str(tmp_path)]
     for extra, err, match in [
-            (["--mesh-shape", "1"], NotImplementedError, "item 6"),
+            # ported since this case was written: one entry, the number
+            # of ranks (1 runs below)
+            (["--mesh-shape", "2"], ValueError, "mesh-shape"),
             # the overrides and registry tags are taken since these cases
             # were written: --force-image-size refuses CoCa as in JAX, and
             # a tag resolves from the local checkpoint cache, where
@@ -535,7 +537,8 @@ def test_command_line_refusals(tmp_path, monkeypatch):
                                 "taken", "--force-image-size", "32",
                                 "--force-quick-gelu", "--image-mean", "0.5",
                                 "0.5", "0.5", "--image-interpolation",
-                                "bilinear", "--image-resize-mode", "squash"])
+                                "bilinear", "--image-resize-mode", "squash",
+                                "--mesh-shape", "1"])
     run = tmp_path / "taken"
     assert [r["epoch"] for r in out["results"]] == [0, 1]
     cfg = out["model"].cfg

@@ -518,6 +518,17 @@ def test_unported_flags_raise(flags, match, tmp_path):
         with pytest.raises(FileNotFoundError, match="registry tag"):
             tdriver.main(TINY_RUN + ["--logs", str(tmp_path)] + flags)
         return
+    if match == "mesh-shape":
+        # ported since this case was written: the JAX package's 1-D data
+        # mesh, one entry equal to the number of ranks; 2 on one rank is
+        # refused before anything is written, 1 runs
+        with pytest.raises(ValueError, match="mesh-shape"):
+            tdriver.main(TINY_RUN + ["--logs", str(tmp_path)] + flags)
+        assert not os.listdir(tmp_path)
+        out = tdriver.main(TINY_RUN + ["--logs", str(tmp_path),
+                                       "--mesh-shape", "1"])
+        assert [r["epoch"] for r in out["results"]] == [0, 1]
+        return
     if match == "val-data":
         # ported since these cases were written: the flag is taken, and the
         # val eval over a shard that is not there (skipped with a warning,
