@@ -18,11 +18,16 @@ Phases, each printing its own lines:
       call that computes the same function where there is one
       (`scaled_dot_product_attention`; used nowhere in the package), and
       the least time the card could take for the same bytes and
-      operations (these times include each wrapper's host time; the fused
-      block and its parts are also timed on the device alone, 20 calls
-      replayed from one CUDA graph); then, untimed, both bf16 kernels over a sweep of ragged
-      shapes (groups of 13 to 257 tokens, heads of 8 to 128, sequences of
-      1 to 257) and the gradients of one shape of each (kernel forward,
+      operations (fp32 products of the packed kernel, the block and its
+      GEMM at the 3xTF32 rate, 495 / 3 TFLOP/s; a kernel time below its
+      bound fails the phase) (these times include each wrapper's host
+      time; the fused block and its parts are also timed on the device
+      alone, 20 calls replayed from one CUDA graph); then, untimed, both
+      tensor-core attention kernels over a sweep of ragged shapes (groups
+      of 13 to 257 tokens, heads of 8 to 128, sequences of 1 to 257; the
+      packed kernel in bf16 and fp32, with heads of 5 to 128 in fp32), the
+      fp32 GEMM at the ragged shapes and PEZ's M = 77, with and without
+      the residual, and the gradients of one shape of each (kernel forward,
       recompute backward) against the plain version's; and the fused
       block's parts alone, bf16: the GEMM + bias kernel at the block's qkv
       and out-projection shapes (text buckets 16 and 77, vision, the fused
@@ -273,7 +278,7 @@ Phases, each printing its own lines:
       features to cosine >= 0.99 against the same model's fp32 ones on the
       card, TF32 off.  (c) has rows at the zoo's shapes: both kernels and the
       LayerNorm at [64, 729, 1152] bf16 (and [8, 729, 1152] fp32, where the
-      fp32 attention kernel reads K and V in place), [128, 128, 1152] bf16 in
+      fp32 kernel takes its ring of 64-key stages), [128, 128, 1152] bf16 in
       groups of 64 not causal, [128, 197, 768] bf16 and [256, 77, 512] bf16
       not causal, and the block's GEMMs at those shapes; the sweep has heads
       of 72, rows of 728-730 tokens and the non-causal text groups;
@@ -430,8 +435,8 @@ SHAPES = [
     ("pez_text_s77_fp32", 1, 77, 77, True, 768, 12, "float32"),
     # the ViT-family zoo (r): ViT-SO400M-14-SigLIP-384's image batch of 64
     # (27 x 27 = 729 tokens, no class token, 16 heads of 72) and its fp32
-    # parity slice of 8, whose visible keys overflow shared memory (the
-    # fp32 kernel reads them in place); its text, 256 rows of 64 ids packed
+    # parity slice of 8, whose visible keys do not fit shared memory whole
+    # (both kernels take the ring of 64-key stages); its text, 256 rows of 64 ids packed
     # 2 to a 128-token row, not causal; MobileCLIP-B's images (196 patches
     # + the class token, D 768); MobileCLIP-S2's text, 77 tokens not causal
     ("siglip_vision_bf16", 64, 729, 729, False, 1152, 16, "bfloat16"),
@@ -537,9 +542,12 @@ FLASH_SHAPES = [
     ("s130_d80", 8, 16, 130, 80, False),
 ]
 # published peaks of one H100 SXM (dense, at a 700 W limit): device memory
-# rate, tensor-core bf16 rate, fp32 rate outside the tensor cores
+# rate; bf16 on the tensor cores; fp32 products on the tensor cores as three
+# TF32 products each ("3xtf32": 495 / 3 TFLOP/s), what the packed kernel, the
+# fused block and its GEMM run in fp32; fp32 outside the tensor cores (flash
+# attention's fp32 body, the LayerNorm)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "3xtf32": 495e12 / 3}
 WORDS = ("a photo of the small large red blue green dog cat man woman child "
          "car street house tree river beach city park field table chair "
          "bird horse boat train plane sitting standing running near on "
@@ -751,13 +759,14 @@ def _compare(kernel, plain, dtype_name: str, library=None, residual=None):
     return err, (k1 + k2) / 2, (p1 + p2) / 2, lib_ms
 
 
-def _bound(n_bytes: float, flops: float, dtype_name: str):
+def _bound(n_bytes: float, flops: float, peak: str):
     """The least time (ms) the card could take: the bytes the function
     must move (inputs read once, outputs written once) over the memory
-    rate, or its operations over the peak rate for the inputs' type,
-    whichever is larger, and which of the two it is."""
+    rate, or its operations over the peak rate `PEAK_FLOPS[peak]` for the
+    inputs' type and the units that run them, whichever is larger, and
+    which of the two it is."""
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    by_ops = flops / PEAK_FLOPS[peak] * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -770,11 +779,13 @@ def _visible_pairs(L: int, group_len: int, causal: bool) -> int:
     return pairs
 
 
-def _schedule(L: int, group_len: int, causal: bool, allow_exact: bool = True):
-    """The bf16 kernel's schedule for a row, from the built library, after
-    holding the package's Python mirror of it equal."""
+def _schedule(L: int, group_len: int, causal: bool, allow_exact: bool = True,
+              dtype_name: str = "bfloat16"):
+    """The tensor-core kernel's schedule for a row in a dtype, from the
+    built library, after holding the package's Python mirror of it equal."""
+    import torch
     from leaf_tpu_torch.ops import packed_attention as pa
-    args = (L, group_len, causal, allow_exact)
+    args = (L, group_len, causal, allow_exact, getattr(torch, dtype_name))
     built, mirror = pa.kernel_schedule(*args), pa.tile_schedule(*args)
     require(built == mirror, f"tile_schedule{args} is not the library's "
             f"schedule: {mirror[0]} against {built[0]}")
@@ -782,21 +793,34 @@ def _schedule(L: int, group_len: int, causal: bool, allow_exact: bool = True):
 
 
 def _visible_share(L: int, group_len: int, causal: bool,
-                   allow_exact: bool = True) -> float:
-    """Share of the logits the bf16 kernel computes (16 queries x the key
-    steps of every tile, by the library's own schedule) that attention
-    needs.  Derived from the shape, not measured: it goes into the phase's
-    printed line and not into the kernels' report."""
+                   allow_exact: bool = True,
+                   dtype_name: str = "bfloat16") -> float:
+    """Share of the logits the tensor-core kernel computes (16 queries x
+    the key steps of every tile, by the library's own schedule) that
+    attention needs.  Derived from the shape, not measured: it goes into
+    the phase's printed line and not into the kernels' report."""
     from leaf_tpu_torch.ops.packed_attention import TILE
-    _, tiles = _schedule(L, group_len, causal, allow_exact)
+    _, tiles = _schedule(L, group_len, causal, allow_exact, dtype_name)
     computed = sum(TILE * (hi - lo)
                    for _, _, spans in tiles for lo, hi in spans)
     return _visible_pairs(L, group_len, causal) / computed
 
 
 def _row(name, shape, dt, err, ms, pms, lib_ms, n_bytes, flops,
-         visible_share=None, **extra):
-    bound_ms, bound_by = _bound(n_bytes, flops, dt)
+         visible_share=None, peak=None, **extra):
+    """One (c) row, printed and returned.  `peak`: the `PEAK_FLOPS` key of
+    the units that run the kernel's products (default: `dt`).  A kernel
+    time below its bound fails the phase: the bound's count or rate would
+    be wrong (the device-only time too where the operations bound it; a
+    bound by bytes is no floor for data that stays in the L2 cache between
+    the graph's replays)."""
+    bound_ms, bound_by = _bound(n_bytes, flops, peak or dt)
+    require(ms >= bound_ms, f"{name} {shape} {dt}: {ms} ms is below its "
+            f"bound {bound_ms} ms by {bound_by}")
+    if "device_ms" in extra and bound_by == "operations":
+        require(extra["device_ms"] >= bound_ms,
+                f"{name} {shape} {dt}: {extra['device_ms']} ms on the device "
+                f"is below its bound {bound_ms} ms by operations")
     device = ("" if "device_ms" not in extra else
               f" ({extra['device_ms']:.4f} on the device, from a CUDA graph)")
     say(f"(c) {name} {shape} {dt}: max_abs_err {err:.3g}, kernel {ms:.4f} ms"
@@ -845,15 +869,16 @@ def phase_kernels():
                 return out.transpose(1, 2).reshape(R, L, D)
 
             attn_flops = 4.0 * (D // H) * _visible_pairs(L, S, causal) * H * R
+            # both dtypes' products run on the tensor cores
+            peak = "3xtf32" if dt == "float32" else dt
             err, ms, pms, lib = _compare(
                 lambda: pa.packed_attention(qkv, H, S, causal),
                 lambda: pa._reference(qkv, H, S, causal), dt, sdpa)
             rows["packed_attention"].append(_row(
                 "packed_attention", name, dt, err, ms, pms, lib,
                 4.0 * R * L * D * esize, attn_flops, R=R, L=L, group_len=S,
-                causal=causal, D=D, heads=H,
-                visible_share=(_visible_share(L, S, causal)
-                               if dt == "bfloat16" else None)))
+                causal=causal, D=D, heads=H, peak=peak,
+                visible_share=_visible_share(L, S, causal, dtype_name=dt)))
 
             x = dev(R, L, D, scale=0.5)
             p = {"ln_1": {"scale": dev(D, scale=0.1, shift=1.0,
@@ -870,7 +895,7 @@ def phase_kernels():
                 "fused_attention_block", name, dt, err, ms, pms, lib,
                 (2.0 * R * L * D + 4 * D * D + 4 * D) * esize + 2 * D * 4,
                 2.0 * R * L * D * 4 * D + attn_flops, R=R, L=L, group_len=S,
-                causal=causal, D=D, heads=H, device_ms=_graph_ms(
+                causal=causal, D=D, heads=H, peak=peak, device_ms=_graph_ms(
                     lambda: pa.fused_attention_block(p, x, H, S, causal))))
 
         PHASE_SECONDS["c attention rows"] = round(time.perf_counter() - t0, 1)
@@ -955,7 +980,8 @@ def phase_parts():
     say(f"(c) gemm_bias: the ragged shapes also agree in every tile width "
         f"{GEMM_TILES}")
     for name, M, K, N in EVAL_FP32_GEMM_SHAPES:
-        # fp32 runs on scalar FMAs; the library call is torch.addmm, TF32 off
+        # fp32 runs as 3xTF32 on the tensor cores; the library call is
+        # torch.addmm, TF32 off
         a = normal(M, K, dtype=torch.float32)
         w = normal(K, N, scale=K ** -0.5, dtype=torch.float32)
         b = normal(N, dtype=torch.float32)
@@ -966,7 +992,7 @@ def phase_parts():
         parts["gemm_bias"].append(_row(
             "gemm_bias", name, "float32", err, ms, pms, lib,
             4.0 * (M * K + K * N + N + M * N), 2.0 * M * N * K, M=M, K=K, N=N,
-            residual=False, tflops=2.0 * M * N * K / ms / 1e9,
+            residual=False, tflops=2.0 * M * N * K / ms / 1e9, peak="3xtf32",
             device_ms=_graph_ms(lambda: pa._launch_gemm_bias(a, w, b))))
 
     ln_shapes = [(name, R * L, D, dt) for name, R, L, _, _, D, _, dt
@@ -1000,50 +1026,77 @@ PACKED_SWEEP = [(13, 3, False), (13, 3, True), (16, 8, True), (24, 5, True),
                 (401, 1, True), (64, 2, False), (16, 8, False),
                 (77, 1, False)]
 SWEEP_HEAD_WIDTHS = (64, 72, 80)
+# fp32 (3xTF32) also at the narrowest and the widest head, and words that are
+# no 16-byte piece (the word-by-word copies)
+SWEEP_HEAD_WIDTHS_FP32 = SWEEP_HEAD_WIDTHS + (8, 128, 12, 5)
+# the fp32 GEMM beside the ragged shapes: PEZ's one prompt, M = 77
+PEZ_GEMM_SHAPES = [("pez qkv", 77, 768, 2304), ("pez out", 77, 768, 768)]
 FLASH_SWEEP_S = (1, 15, 16, 17, 63, 65, 130, 257, 600)
 FLASH_SWEEP_D = (8, 40, 64, 80, 128)
 
 
 def phase_sweep():
-    """Correctness only, bf16: ragged shapes through both tensor-core
-    kernels, then the gradients of one shape of each."""
+    """Correctness only: ragged shapes through both tensor-core kernels
+    (the packed one in bf16 and fp32), the fp32 GEMM at ragged shapes,
+    then the gradients of one shape of each."""
     import torch
     from leaf_tpu_torch.ops import flash_attention as fa
     from leaf_tpu_torch.ops import packed_attention as pa
 
-    def normal(rng, *shape):
+    def normal(rng, *shape, dtype=torch.bfloat16):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
-                                ).to("cuda", torch.bfloat16)
+                                ).to("cuda", dtype)
 
     rng = np.random.default_rng(6)
-    worst, cases = 0.0, 0
     with torch.inference_mode():
-        for S, G, causal in PACKED_SWEEP:
-            for hd in SWEEP_HEAD_WIDTHS:
-                R, H = 3, 3
-                _schedule(G * S, S, causal)
-                qkv = normal(rng, R, G * S, 3 * H * hd)
+        for dt, widths in (("bfloat16", SWEEP_HEAD_WIDTHS),
+                           ("float32", SWEEP_HEAD_WIDTHS_FP32)):
+            worst, cases = 0.0, 0
+            dtype = getattr(torch, dt)
+            for S, G, causal in PACKED_SWEEP:
+                for hd in widths:
+                    R, H = 3, 3
+                    _schedule(G * S, S, causal, dtype_name=dt)
+                    qkv = normal(rng, R, G * S, 3 * H * hd, dtype=dtype)
+                    worst = max(worst, _close(
+                        pa.packed_attention(qkv, H, S, causal),
+                        pa._reference(qkv, H, S, causal),
+                        f"packed_attention S={S} G={G} causal={causal} "
+                        f"hd={hd} {dt}", dt))
+                    cases += 1
+            # ViT-H-14's rows: 16 heads of width 80 over 257 tokens, and one
+            # token either side; SigLIP-384's: 16 heads of 72 over 729 tokens
+            # (a last tile of 9 queries, a last stage of 25 keys), one either
+            # side
+            for L, hd in ((256, 80), (257, 80), (258, 80), (728, 72),
+                          (729, 72), (730, 72)):
+                _schedule(L, L, False, dtype_name=dt)
+                qkv = normal(rng, 2, L, 3 * 16 * hd, dtype=dtype)
                 worst = max(worst, _close(
-                    pa.packed_attention(qkv, H, S, causal),
-                    pa._reference(qkv, H, S, causal),
-                    f"packed_attention S={S} G={G} causal={causal} hd={hd}"))
+                    pa.packed_attention(qkv, 16, L, False),
+                    pa._reference(qkv, 16, L, False),
+                    f"packed_attention L={L} 16 x {hd} {dt}", dt))
                 cases += 1
-        # ViT-H-14's rows: 16 heads of width 80 over 257 tokens, and one
-        # token either side; SigLIP-384's: 16 heads of 72 over 729 tokens
-        # (a last tile of 9 queries, a last stage of 25 keys), one either side
-        for L, hd in ((256, 80), (257, 80), (258, 80), (728, 72), (729, 72),
-                      (730, 72)):
-            _schedule(L, L, False)
-            qkv = normal(rng, 2, L, 3 * 16 * hd)
-            worst = max(worst, _close(
-                pa.packed_attention(qkv, 16, L, False),
-                pa._reference(qkv, 16, L, False),
-                f"packed_attention L={L} 16 x {hd}"))
-            cases += 1
-        say(f"(c) sweep packed_attention bf16: {cases} shapes "
-            f"(group_len, groups, causal) in {PACKED_SWEEP} x head widths "
-            f"{SWEEP_HEAD_WIDTHS}, 16 heads of 80 at 256-258 tokens and of 72 "
-            f"at 728-730, max_abs_err {worst:.3g}")
+            say(f"(c) sweep packed_attention {dt}: {cases} shapes "
+                f"(group_len, groups, causal) in {PACKED_SWEEP} x head widths "
+                f"{widths}, 16 heads of 80 at 256-258 tokens and of 72 at "
+                f"728-730, max_abs_err {worst:.3g}")
+        worst, cases = 0.0, 0
+        for name, M, K, N in RAGGED_GEMM_SHAPES + PEZ_GEMM_SHAPES:
+            a = normal(rng, M, K, dtype=torch.float32)
+            w = normal(rng, K, N, dtype=torch.float32) * K ** -0.5
+            b, res = (normal(rng, *s, dtype=torch.float32)
+                      for s in ((N,), (M, N)))
+            for r in (None, res):
+                worst = max(worst, _close(
+                    pa._launch_gemm_bias(a, w, b, r),
+                    pa._gemm_bias_reference(a, w, b, r),
+                    f"gemm_bias {name} fp32 residual={r is not None}",
+                    "float32", residual=r))
+                cases += 1
+        say(f"(c) sweep gemm_bias float32: {cases} shapes (M, K, N) in "
+            f"{[s[1:] for s in RAGGED_GEMM_SHAPES + PEZ_GEMM_SHAPES]}, with "
+            f"and without the residual, max_abs_err {worst:.3g}")
         worst, cases = 0.0, 0
         for S in FLASH_SWEEP_S:
             for d in FLASH_SWEEP_D:
@@ -1063,7 +1116,8 @@ def phase_sweep():
             f"{FLASH_SWEEP_S} x d in {FLASH_SWEEP_D} x causal or not, and "
             f"mha_with_flash on strided views, max_abs_err {worst:.3g}")
         say("(c) schedule: the Python mirror (tile_schedule) equals the "
-            "library's make_plan and passes at every timed and swept shape")
+            "library's make_plan and passes at every timed and swept shape, "
+            "bf16 and fp32")
 
     # gradients: kernel forward with the recompute backward, against autograd
     # through the plain version; held to 2e-2 of the largest gradient.  Both

@@ -132,7 +132,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i, i, f, i, p]
     lib.leaf_flash_attention.restype = i
     ints = ctypes.POINTER(ctypes.c_int)
-    lib.leaf_attention_schedule.argtypes = [i, i, i, i, ints, ints, i]
+    lib.leaf_attention_schedule.argtypes = [i, i, i, i, i, ints, ints, i]
     lib.leaf_attention_schedule.restype = i
     lib.leaf_error_string.argtypes = [i]
     lib.leaf_error_string.restype = ctypes.c_char_p

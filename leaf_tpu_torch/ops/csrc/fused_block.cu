@@ -26,8 +26,11 @@
 // What bounds it on the H100.  The two GEMMs are bound by the tensor cores
 // (M = R*L tokens of 4,096..102,400 per call, K = D, N = 3D or D), but not by
 // much: at K = 768 writing a 128 x 256 output tile takes a third of the time of
-// its products, so that write must overlap the next tile's products.  LayerNorm
-// reads and writes each activation once and is bound by memory bandwidth.
+// its products, so that write must overlap the next tile's products.  In fp32
+// each product is three TF32 products (3xTF32, ~165 TFLOP/s at most: 495 / 3),
+// still well above the 67 TFLOP/s of fp32 FMAs, and the GEMMs stay bound by
+// their operations.  LayerNorm reads and writes each activation once and is
+// bound by memory bandwidth.
 //
 // Design:
 //   * bf16 GEMM (`gemm_bias_wgmma_kernel`): one persistent block per SM walks
@@ -50,9 +53,26 @@
 //         columns past M and N are dropped), so that the write to global
 //         memory overlaps the next tile's products.
 //     The producers give their registers to the consumers (`setmaxnreg`).
-//   * fp32 GEMM: 64x64 block tile, 4x4 outputs per thread, FMA in fp32
-//     (the tensor cores would round to TF32), A staged transposed so that
-//     each thread reads 4 rows at once.
+//   * fp32 GEMM (`gemm_bias_tf32_wgmma_kernel`): 3xTF32 (common.cuh: every
+//     operand split into hi + lo, fp32 accuracy, held to 1e-4 where one TF32
+//     pass is off by ~1e-3) on `wgmma`.  TF32 `wgmma` takes no transposed
+//     operand, and W [K, N] is N-major, so the kernel computes
+//     out^T = W^T A^T: W^T is the A operand, 64 rows (columns n of out) a
+//     warpgroup, from registers, loaded from shared memory in mma.m16n8k8's
+//     fragment layout and split as it is loaded (rows of W padded to 8 (mod
+//     32) words: 32 loads in 32 banks); the activations [M, K] are the
+//     K-major B operand, 128 rows (m) of 32 k a stage in 128-byte swizzled
+//     rows, split once a block into a hi tile (in place) and a lo tile.  A
+//     ring of 4 stages filled by 16-byte `cp.async` (zero-filled past M, N
+//     and K; N and K multiples of 4); the split of stage k + 1 and the copy
+//     of stage k + 3 run while stage k's products do.  Each stage's
+//     products go to a fresh accumulator that is then added to the total in
+//     fp32: the tensor core truncates every sum it accumulates, and into the
+//     total that lost ~5e-5 at K = 1024 and ~8e-5 at K = 1664, ~1e-5 this
+//     way.  The epilogue adds the bias in fp32, then the residual.  An
+//     `mma.sync.m16n8k8` version (8 warps of 64 x 32, both operands split
+//     in registers) ran the eval's qkv GEMM in 3.65 ms against this one's
+//     2.83: it issued ~3.7 other instructions a TF32 product.
 //   * LayerNorm: one warp per token; the row is read once in 16-byte pieces
 //     and stays in registers for the two passes (mean, then variance of
 //     x - mean, as leaf_tpu/models/layers.py::layer_norm) and the output; rows
@@ -503,67 +523,176 @@ cudaError_t gemm_bias_bf16(const bf16* a, const bf16* w, const bf16* bias,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 GEMM + bias (+ residual): FMA, no TF32
+// fp32 GEMM + bias (+ residual): 3xTF32 on wgmma, out^T = W^T A^T
 // ---------------------------------------------------------------------------
 
-constexpr int kFBM = 64, kFBN = 64, kFBK = 16;
-constexpr int kFThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kGM = 128;        // rows of out (m) a block: the wgmma's N
+constexpr int kGN = 128;        // columns of out (n) a block: 2 warpgroups of 64 (its M)
+constexpr int kGK = 32;         // k a stage: one 128-byte swizzled row of fp32
+constexpr int kGStages = 4;
+constexpr int kGThreads = 256;  // a third warpgroup (192 columns) spilled and was slower
+constexpr int kGWStride = kGN + 8;              // W rows [k][n]: 136 = 8 (mod 32) floats
+constexpr int kGABytes = kGM * kGK * 4;         // A [m][k], 128-byte swizzle: 16 KB
+constexpr int kGWBytes = kGK * kGWStride * 4;   // 17 x 1024
+constexpr int kGStageBytes = kGABytes + kGWBytes;  // keeps every stage's A 1024-aligned
+// the stages, A's lo tiles of two stages, the alignment
+constexpr int kGSmemBytes = kGStages * kGStageBytes + 2 * kGABytes + 1024;
 
-__global__ void __launch_bounds__(kFThreads)
-gemm_bias_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                     const float* __restrict__ bias, const float* __restrict__ residual,
-                     float* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(16) float As[kFBK][kFBM];  // transposed: As[k][m]
-  __shared__ __align__(16) float Bs[kFBK][kFBN];
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int bm = blockIdx.y * kFBM, bn = blockIdx.x * kFBN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kFBK) {
-    {  // A: 64 rows x 16 cols, one float4 per thread
-      const int r = tid / 4, col = (tid % 4) * 4;
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (bm + r < M && k0 + col < K)
-        a = *reinterpret_cast<const float4*>(A + (size_t)(bm + r) * K + k0 + col);
-      As[col + 0][r] = a.x;
-      As[col + 1][r] = a.y;
-      As[col + 2][r] = a.z;
-      As[col + 3][r] = a.w;
-    }
-    {  // W: 16 rows x 64 cols, one float4 per thread
-      const int r = tid / 16, col = (tid % 16) * 4;
-      float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + r < K && bn + col < N)
-        b = *reinterpret_cast<const float4*>(W + (size_t)(k0 + r) * N + bn + col);
-      *reinterpret_cast<float4*>(&Bs[r][col]) = b;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kFBK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+// the (A, W) tiles of k-step k0 -> shared memory, in 16-byte pieces; pieces
+// past M, N or K are zeros (N and K are multiples of 4)
+__device__ __forceinline__ void load_stage_wg(uint8_t* st, const float* __restrict__ A,
+                                              const float* __restrict__ W, int M, int N,
+                                              int K, int m0, int n0, int k0) {
+  for (int i = threadIdx.x; i < kGM * kGK / 4; i += kGThreads) {
+    const int r = i / 8, c = i % 8;  // 16-byte piece c of row r, swizzled by the row
+    const bool valid = m0 + r < M && k0 + 4 * c < K;
+    leaf::cp_async16(st + r * 128 + ((c ^ (r & 7)) * 16),
+                     valid ? A + (size_t)(m0 + r) * K + k0 + 4 * c : A, valid);
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = bm + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = bn + tx * 4 + j;
-      if (n >= N) continue;
-      float v = acc[i][j] + bias[n];
-      if (residual != nullptr) v = residual[(size_t)m * N + n] + v;
-      out[(size_t)m * N + n] = v;
-    }
+  float* Ws = reinterpret_cast<float*>(st + kGABytes);
+  for (int i = threadIdx.x; i < kGK * kGN / 4; i += kGThreads) {
+    const int r = i / (kGN / 4), c = i % (kGN / 4) * 4;
+    const bool valid = k0 + r < K && n0 + c < N;
+    leaf::cp_async16(Ws + r * kGWStride + c, valid ? W + (size_t)(k0 + r) * N + n0 + c : W,
+                     valid);
   }
 }
 
+// A's tile of one stage -> its hi halves (in place) and lo halves, elementwise:
+// the swizzle does not matter; then made visible to the products, which read
+// shared memory through the async proxy
+__device__ __forceinline__ void split_stage_wg(uint8_t* st, uint8_t* lo_tile) {
+  float4* hi4 = reinterpret_cast<float4*>(st);
+  float4* lo4 = reinterpret_cast<float4*>(lo_tile);
+  for (int i = threadIdx.x; i < kGM * kGK / 4; i += kGThreads) {
+    const float4 x = hi4[i];
+    uint32_t h[4], l[4];
+    leaf::split_tf32(x.x, h[0], l[0]);
+    leaf::split_tf32(x.y, h[1], l[1]);
+    leaf::split_tf32(x.z, h[2], l[2]);
+    leaf::split_tf32(x.w, h[3], l[3]);
+    hi4[i] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                         __uint_as_float(h[3]));
+    lo4[i] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
+                         __uint_as_float(l[3]));
+  }
+  hp::fence_async_shared();
+}
+
+__global__ void __launch_bounds__(kGThreads, 1)
+gemm_bias_tf32_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                            const float* __restrict__ bias,
+                            const float* __restrict__ residual, float* __restrict__ out,
+                            int M, int N, int K) {
+  extern __shared__ uint8_t gsmem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(gsmem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* lo_tiles = base + kGStages * kGStageBytes;  // A's lo halves, two stages'
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wg = warp / 4;
+  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
+  const int nw = wg * 64 + (warp % 4) * 16;  // this warp's 16 rows of out^T (columns n)
+  const int k_steps = (K + kGK - 1) / kGK;
+
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  for (int st = 0; st < kGStages - 1; ++st) {
+    if (st < k_steps)
+      load_stage_wg(base + st * kGStageBytes, A, W, M, N, K, m0, n0, st * kGK);
+    leaf::cp_async_commit();
+  }
+  leaf::cp_async_wait<kGStages - 2>();
+  __syncthreads();
+  split_stage_wg(base, lo_tiles);
+  __syncthreads();
+  for (int ks = 0; ks < k_steps; ++ks) {
+    uint8_t* st = base + ks % kGStages * kGStageBytes;
+    const float* Ws = reinterpret_cast<const float*>(st + kGABytes);
+    const uint32_t a_hi = hp::smem_address(st);
+    const uint32_t a_lo = hp::smem_address(lo_tiles + ks % 2 * kGABytes);
+    // stage ks's products, into a fresh accumulator
+#pragma unroll
+    for (int kk = 0; kk < kGK / 8; ++kk) {
+      // W^T's fragment: rows n, columns k: a0 = W[k t][n g], a1 = W[k t][n g + 8], ...
+      const float* w = Ws + (kk * 8 + t) * kGWStride + nw + g;
+      uint32_t wh[4], wl[4];
+      leaf::split_tf32(w[0], wh[0], wl[0]);
+      leaf::split_tf32(w[8], wh[1], wl[1]);
+      leaf::split_tf32(w[4 * kGWStride], wh[2], wl[2]);
+      leaf::split_tf32(w[4 * kGWStride + 8], wh[3], wl[3]);
+      const uint64_t bh = hp::matrix_descriptor(a_hi + kk * 32, 16, 1024);
+      const uint64_t bl = hp::matrix_descriptor(a_lo + kk * 32, 16, 1024);
+      hp::wgmma_fence();
+      hp::wgmma_tf32_m64n128(part, wl, bh, kk != 0);
+      hp::wgmma_tf32_m64n128(part, wh, bl, 1);
+      hp::wgmma_tf32_m64n128(part, wh, bh, 1);
+    }
+    hp::wgmma_commit();
+    // while they run: the copy of stage ks + 3 into the slot of stage ks - 1
+    // (its products have retired), and the split of stage ks + 1
+    const int next = ks + kGStages - 1;
+    if (next < k_steps)
+      load_stage_wg(base + next % kGStages * kGStageBytes, A, W, M, N, K, m0, n0, next * kGK);
+    leaf::cp_async_commit();
+    if (ks + 1 < k_steps) {
+      leaf::cp_async_wait<kGStages - 2>();
+      __syncthreads();
+      split_stage_wg(base + (ks + 1) % kGStages * kGStageBytes,
+                     lo_tiles + (ks + 1) % 2 * kGABytes);
+    }
+    hp::wgmma_wait<0>();
+    hp::fence_registers(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    __syncthreads();  // stage ks + 1 is split for every warpgroup
+  }
+  leaf::cp_async_wait<0>();
+
+  // acc[4j + 2h + e] is out^T[nw + g + 8h][8j + 2t + e]: out[m][n] with the
+  // bias of n added in fp32, then the residual
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + nw + g + 8 * h;
+    if (n >= N) continue;
+    const float b = bias[n];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + 8 * j + 2 * t + e;
+        if (m >= M) continue;
+        float v = acc[4 * j + 2 * h + e] + b;
+        if (residual != nullptr) v = residual[(size_t)m * N + n] + v;
+        out[(size_t)m * N + n] = v;
+      }
+  }
+}
+
+cudaError_t gemm_bias_f32(const float* a, const float* w, const float* bias,
+                          const float* residual, float* out, int M, int N, int K,
+                          cudaStream_t s) {
+  if (N % 4 != 0 || K % 4 != 0) return cudaErrorInvalidValue;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(w) |
+                         reinterpret_cast<uintptr_t>(bias) |
+                         reinterpret_cast<uintptr_t>(residual) |
+                         reinterpret_cast<uintptr_t>(out);
+  if (ptrs % 16 != 0) return cudaErrorMisalignedAddress;
+  const dim3 grid((N + kGN - 1) / kGN, (M + kGM - 1) / kGM);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemm_bias_tf32_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGSmemBytes);
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
+  gemm_bias_tf32_wgmma_kernel<<<grid, kGThreads, kGSmemBytes, s>>>(a, w, bias, residual, out,
+                                                                   M, N, K);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -597,15 +726,11 @@ extern "C" int leaf_gemm_bias_tile(const void* a, const void* w, const void* bia
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case leaf::kFloat32: {
-      if (N % 4 != 0 || K % 4 != 0) return cudaErrorInvalidValue;
-      const dim3 grid((N + kFBN - 1) / kFBN, (M + kFBM - 1) / kFBM);
-      gemm_bias_f32_kernel<<<grid, kFThreads, 0, s>>>(
-          static_cast<const float*>(a), static_cast<const float*>(w),
-          static_cast<const float*>(bias), static_cast<const float*>(residual),
-          static_cast<float*>(out), M, N, K);
-      return cudaGetLastError();
-    }
+    case leaf::kFloat32:
+      return gemm_bias_f32(static_cast<const float*>(a), static_cast<const float*>(w),
+                           static_cast<const float*>(bias),
+                           static_cast<const float*>(residual), static_cast<float*>(out), M,
+                           N, K, s);
     case leaf::kBFloat16:
       return gemm_bias_bf16(static_cast<const bf16*>(a), static_cast<const bf16*>(w),
                             static_cast<const bf16*>(bias),

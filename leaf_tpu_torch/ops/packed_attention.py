@@ -16,21 +16,26 @@ PyTorch version:
     (`leaf_fused_block` of `csrc/fused_block.cu`) launches LayerNorm, the
     qkv GEMM, the packed-attention kernel and the out-projection GEMM in
     order on the current stream; the wrapper allocates the output and one
-    scratch buffer for the three intermediates.  The bf16 GEMMs are bound
-    by the tensor cores and run on `wgmma` fed by TMA (persistent
-    128 x {256, 192, 128} tiles picked from the shape); fp32 keeps scalar
-    FMAs.  Plain version: `_block_reference`.
+    scratch buffer for the three intermediates.  The GEMMs are bound by
+    the tensor cores: bf16 runs on `wgmma` fed by TMA (persistent
+    128 x {256, 192, 128} tiles picked from the shape), fp32 on TF32
+    `wgmma` with split operands (3xTF32: three TF32 products per fp32
+    product, fp32 accuracy) fed by a `cp.async` ring.  Plain version:
+    `_block_reference`.
   * `layer_norm(x, scale, bias, eps)`: fp32-statistics LayerNorm over the
     last dimension, the block's first stage on its own (`leaf_layer_norm`),
     for every other LayerNorm of the towers (`layers.LayerNorm`).  Bound
     by memory: a warp reads its row once in 16-byte pieces, keeps it in
     registers and writes it once.  Plain version: `_layer_norm_reference`.
 
-The packed-attention kernel has two bodies: bf16 runs on the tensor cores
-(`csrc/attention_mma.cuh`, shared with flash attention; `tile_schedule`
-below mirrors its schedule in Python for the CPU tests, `kernel_schedule`
-asks the built library for it), float32 keeps scalar FMAs, since
-the tensor cores would round it to TF32.
+The packed-attention kernel runs on the tensor cores in both dtypes
+(`csrc/attention_mma.cuh`, shared with flash attention's bf16 body):
+bf16 products directly, float32 ones as three TF32 products of operands
+split into hi + lo (3xTF32), which keeps fp32 accuracy where one TF32
+pass would not.  `tile_schedule` below mirrors its schedule in Python for
+the CPU tests (fp32 blocks stage fewer keys whole: its rows take twice
+the bytes), `kernel_schedule` asks the built library for it, and
+`staged_bytes` gives a plan's shared memory.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel or raises.  There
@@ -95,24 +100,28 @@ def _key_range(q0: int, q1: int, L: int, group_len: int, causal: bool):
 TILE = 16             # queries a warp owns
 MAX_WARPS = 8         # warps (query tiles) per block
 ONLINE_CHUNK = 64     # keys per pass of the online softmax, and per ring stage
-MAX_WHOLE_CHUNK = 352  # most rows a block stages at once
+# most key rows a block stages at once: what fits 232,448 bytes of shared
+# memory beside the query tile at a head width of 128
+MAX_WHOLE_CHUNK = {torch.bfloat16: 352, torch.float32: 144}
+ROW_PAD = {torch.bfloat16: 8, torch.float32: 4}   # elements past a staged row
+SMEM_LIMIT = 232_448  # dynamic shared memory of a block on sm_90
 
 
 def tile_schedule(L: int, group_len: int, causal: bool,
-                  allow_exact: bool = True):
-    """The bf16 kernel's schedule for one row of L tokens, as
-    `csrc/attention_mma.cuh` computes it (`make_plan` on the host, the
-    key passes in `attention_kernel`).
+                  allow_exact: bool = True, dtype=torch.bfloat16):
+    """The tensor-core kernel's schedule for one row of L tokens in
+    `dtype`, as `csrc/attention_mma.cuh` computes it (`make_plan` on the
+    host, the key passes in `attention_kernel`).
 
     Returns `(plan, tiles)`.  `plan`: warps (16-query tiles) per block,
     blocks per (row, head), keys per staged chunk, stages (1: a block
-    copies its whole key range at once; 2: a ring of 64-key stages), and
-    whether the exact two-pass softmax runs (every tile's keys fit in
-    `nt` * 8 logit columns; flash attention passes `allow_exact=False`)
-    or the online one.  `tiles`: for each 16-query tile `(q0, q1, spans)`,
-    `spans` the `[lo, hi)` key ranges, in steps of 16 keys and at most
-    `nt` * 8 wide, that the tile's warp computes logits for, one per
-    pass."""
+    copies its whole key range at once, at most `MAX_WHOLE_CHUNK[dtype]`
+    rows; 2: a ring of 64-key stages), and whether the exact two-pass
+    softmax runs (every tile's keys fit in `nt` * 8 logit columns; flash
+    attention passes `allow_exact=False`) or the online one.  `tiles`: for
+    each 16-query tile `(q0, q1, spans)`, `spans` the `[lo, hi)` key
+    ranges, in steps of 16 keys and at most `nt` * 8 wide, that the tile's
+    warp computes logits for, one per pass."""
     n_tiles = -(-L // TILE)
     blocks = -(-n_tiles // MAX_WARPS)
     warps = -(-n_tiles // blocks)
@@ -128,7 +137,7 @@ def tile_schedule(L: int, group_len: int, causal: bool,
     steps = max(-(-(wk1 - bk0 - ((wk0 - bk0) & ~15)) // 16)
                 for (bk0, _), _, (wk0, wk1) in ranges)
     whole = (span + 15) & ~15
-    stages = 1 if whole <= MAX_WHOLE_CHUNK else 2
+    stages = 1 if whole <= MAX_WHOLE_CHUNK[dtype] else 2
     chunk = whole if stages == 1 else ONLINE_CHUNK
     exact = allow_exact and steps <= 5 and stages == 1
     nt = (2 if steps <= 1 else 10) if exact else ONLINE_CHUNK // 8
@@ -146,8 +155,17 @@ def tile_schedule(L: int, group_len: int, causal: bool,
     return plan, tiles
 
 
+def staged_bytes(plan: Mapping, head_dim: int, dtype) -> int:
+    """Shared memory of one block under `plan` (`tile_schedule`'s) at
+    `head_dim`, as `launch_variant` sizes it: the query tile and the
+    staged K and V chunks, rows of the head width rounded up to 32 plus
+    `ROW_PAD[dtype]` elements."""
+    row = (-(-head_dim // 32) * 32 + ROW_PAD[dtype]) * dtype.itemsize
+    return row * (plan["warps"] * TILE + 2 * plan["stages"] * plan["chunk"])
+
+
 def kernel_schedule(L: int, group_len: int, causal: bool,
-                    allow_exact: bool = True):
+                    allow_exact: bool = True, dtype=torch.bfloat16):
     """What `tile_schedule` mirrors, from the built library itself
     (`leaf_attention_schedule`: `make_plan` and `list_passes` of
     `csrc/attention_mma.cuh`, run on the host), in the same form.  Needs
@@ -156,10 +174,11 @@ def kernel_schedule(L: int, group_len: int, causal: bool,
     cap = 4 * (-(-L // TILE)) * (-(-L // TILE) + 1)
     plan, passes = (ctypes.c_int * 6)(), (ctypes.c_int * (3 * cap))()
     n = build.library().leaf_attention_schedule(
-        L, group_len, int(causal), int(allow_exact), plan, passes, cap)
+        L, group_len, int(causal), int(allow_exact), _DTYPE_CODES[dtype],
+        plan, passes, cap)
     if n < 0:
         raise RuntimeError(f"leaf_attention_schedule({L}, {group_len}, "
-                           f"{causal}, {allow_exact}) returned {n}")
+                           f"{causal}, {allow_exact}, {dtype}) returned {n}")
     warps, blocks, chunk, stages, nt, exact = plan
     tiles = [(q0, min(q0 + TILE, L), []) for q0 in range(0, L, TILE)]
     for t, lo, hi in zip(*(passes[i:3 * n:3] for i in range(3))):

@@ -16,7 +16,7 @@ Two parts, each printing its lines and then one JSON object:
     unprofiled one (what serve sees) and the profiled one (which the
     profiler's own host overhead stretches).
   * gemm: the fused block's GEMM + bias kernel (`leaf_gemm_bias`: bf16 on
-    `wgmma` fed by TMA, fp32 on scalar FMAs) against `torch.addmm` (cuBLAS,
+    `wgmma` fed by TMA, fp32 as 3xTF32 on `wgmma`) against `torch.addmm` (cuBLAS,
     TF32 off) at the block's qkv and out-projection shapes of the serving
     batches and of a training step's scoring encode, timed with CUDA
     events in turns (cuBLAS, kernel, kernel, cuBLAS).

@@ -218,9 +218,10 @@ def parse_args(args: Optional[List[str]] = None) -> argparse.Namespace:
 # pass (bf16 inputs on the TPU), torch's "medium" (bf16 internally);
 # "high" is TF32 (or bf16x3) in both; "highest" is full fp32 in both.
 # Without the flag nothing is set, and torch's own default is "highest".
-# The setting reaches cuBLAS and cuDNN only: the hand kernels' fp32 paths
-# are scalar FMAs and never read it, and the fp32 parity limits of the
-# tests and `chip_smoke.py` assume TF32 off.
+# The setting reaches cuBLAS and cuDNN only: the hand kernels never read
+# it (their fp32 paths keep fp32 accuracy: 3xTF32 split products or
+# scalar FMAs), and the fp32 parity limits of the tests and
+# `chip_smoke.py` assume TF32 off.
 MATMUL_PRECISIONS = {"default": "medium", "high": "high",
                      "highest": "highest"}
 

@@ -70,14 +70,16 @@ SCHEDULE_CASES = [(13, 3, False), (13, 3, True), (16, 8, True), (16, 8, False),
                   (401, 1, True)]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,G,causal", SCHEDULE_CASES)
-def test_tile_schedule_visits_what_the_mask_shows(S, G, causal):
-    """The Python mirror of the bf16 kernel's schedule against `block_mask`:
-    the 16-query tiles partition the row, every visible (query, key) pair
-    lies in a key span its tile visits, no visited 16-key step is wholly
-    hidden, and a pass holds at most `nt` * 8 logit columns."""
+def test_tile_schedule_visits_what_the_mask_shows(S, G, causal, dtype):
+    """The Python mirror of the tensor-core kernel's schedule against
+    `block_mask`, in both dtypes: the 16-query tiles partition the row,
+    every visible (query, key) pair lies in a key span its tile visits, no
+    visited 16-key step is wholly hidden, and a pass holds at most `nt` * 8
+    logit columns."""
     L = S * G
-    plan, tiles = tpa.tile_schedule(L, S, causal)
+    plan, tiles = tpa.tile_schedule(L, S, causal, dtype=dtype)
     mask = tpa.block_mask(L, S, causal)
     assert [(q0, q1) for q0, q1, _ in tiles] == [
         (q0, min(q0 + 16, L)) for q0 in range(0, L, 16)]
@@ -93,34 +95,37 @@ def test_tile_schedule_visits_what_the_mask_shows(S, G, causal):
                 assert mask[q0:q1, k:k + 16].any(), (q0, k)
     assert not (mask & ~visited).any()
     # text rows take the exact softmax, longer ones the online one; a block
-    # stages the whole key range of its queries while that is at most 352 rows
+    # stages the whole key range of its queries while that is at most 352
+    # rows in bf16, 144 in fp32
     assert plan["exact"] == (S <= 80)
     block_q = 16 * plan["warps"]
     span = max(int(keys[-1] - keys[0]) + 1 for keys in (
         mask[q0:q0 + block_q].any(0).nonzero().flatten()
         for q0 in range(0, L, block_q)))
-    assert plan["stages"] == (1 if span <= tpa.MAX_WHOLE_CHUNK else 2)
+    assert plan["stages"] == (1 if span <= tpa.MAX_WHOLE_CHUNK[dtype] else 2)
     assert plan["chunk"] == ((span + 15) // 16 * 16 if plan["stages"] == 1
                              else 64)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,G,causal", [(13, 3, True), (77, 1, True),
                                         (257, 1, False), (200, 3, False)])
-def test_kernel_schedule_unpacks_what_the_library_writes(S, G, causal,
+def test_kernel_schedule_unpacks_what_the_library_writes(S, G, causal, dtype,
                                                          monkeypatch):
-    """`kernel_schedule` asks the built library for the schedule; here a
-    stand-in writes the mirror's answer the way the C entry does (six plan
-    fields, then (tile, lo, hi) triples), and the wrapper must hand back
-    `tile_schedule`'s form.  The real entry is held to the mirror on the
-    card by `chip_smoke.py`."""
+    """`kernel_schedule` asks the built library for the schedule of a
+    dtype; here a stand-in writes the mirror's answer the way the C entry
+    does (six plan fields, then (tile, lo, hi) triples), and the wrapper
+    must hand back `tile_schedule`'s form.  The real entry is held to the
+    mirror on the card by `chip_smoke.py`."""
     L = S * G
-    plan, tiles = tpa.tile_schedule(L, S, causal)
+    plan, tiles = tpa.tile_schedule(L, S, causal, dtype=dtype)
 
     class Library:
         @staticmethod
-        def leaf_attention_schedule(L_, group_len, c, allow_exact, plan_out,
-                                    passes, cap):
-            assert (L_, group_len, c, allow_exact) == (L, S, int(causal), 1)
+        def leaf_attention_schedule(L_, group_len, c, allow_exact, code,
+                                    plan_out, passes, cap):
+            assert (L_, group_len, c, allow_exact, code) == (
+                L, S, int(causal), 1, tpa._DTYPE_CODES[dtype])
             fields = ("warps", "blocks", "chunk", "stages", "nt", "exact")
             plan_out[:] = [int(plan[f]) for f in fields]
             flat = [x for t, (_, _, spans) in enumerate(tiles)
@@ -130,11 +135,34 @@ def test_kernel_schedule_unpacks_what_the_library_writes(S, G, causal,
             return len(flat) // 3
 
     monkeypatch.setattr(build, "library", Library)
-    assert tpa.kernel_schedule(L, S, causal) == (plan, tiles)
+    assert tpa.kernel_schedule(L, S, causal, dtype=dtype) == (plan, tiles)
     monkeypatch.setattr(Library, "leaf_attention_schedule",
                         staticmethod(lambda *a: -1))
     with pytest.raises(RuntimeError, match="leaf_attention_schedule"):
-        tpa.kernel_schedule(L, S, causal)
+        tpa.kernel_schedule(L, S, causal, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_plan_fits_shared_memory(dtype):
+    """The query tile and the staged K and V chunks of every plan fit the
+    232,448 bytes of shared memory a block may take, for heads of 8 to 128
+    in steps of 8 and rows up to 730 tokens (SigLIP-384's 729 and one
+    more): in one group, causal or not, and in the text buckets' groups.
+    `MAX_WHOLE_CHUNK` is the most that fits beside 8 warps' queries at a
+    head of 128: 16 rows more would not."""
+    for L in range(1, 731):
+        for group_len, causal in ((L, False), (L, True), (16, True),
+                                  (77, False)):
+            plan, _ = tpa.tile_schedule(L, min(group_len, L), causal,
+                                        dtype=dtype)
+            for head_dim in range(8, 129, 8):
+                used = tpa.staged_bytes(plan, head_dim, dtype)
+                assert used <= tpa.SMEM_LIMIT, (L, group_len, causal,
+                                                head_dim, plan, used)
+    whole = tpa.MAX_WHOLE_CHUNK[dtype]
+    for chunk, fits in ((whole, True), (whole + 16, False)):
+        plan = {"warps": tpa.MAX_WARPS, "stages": 1, "chunk": chunk}
+        assert (tpa.staged_bytes(plan, 128, dtype) <= tpa.SMEM_LIMIT) == fits
 
 
 def _block_params(rng, D):
