@@ -18,16 +18,19 @@ Phases, each printing its own lines:
       call that computes the same function where there is one
       (`scaled_dot_product_attention`; used nowhere in the package), and
       the least time the card could take for the same bytes and
-      operations (fp32 products of the packed kernel, the block and its
-      GEMM at the 3xTF32 rate, 495 / 3 TFLOP/s; a kernel time below its
+      operations (fp32 products of both attention kernels, the block and
+      its GEMM at the 3xTF32 rate, 495 / 3 TFLOP/s; a kernel time below its
       bound fails the phase) (these times include each wrapper's host
-      time; the fused block and its parts are also timed on the device
-      alone, 20 calls replayed from one CUDA graph); then, untimed, both
-      tensor-core attention kernels over a sweep of ragged shapes (groups
-      of 13 to 257 tokens, heads of 8 to 128, sequences of 1 to 257; the
-      packed kernel in bf16 and fp32, with heads of 5 to 128 in fp32), the
-      fp32 GEMM at the ragged shapes and PEZ's M = 77, with and without
-      the residual, and the gradients of one shape of each (kernel forward,
+      time; flash attention, the fused block and its parts are also timed
+      on the device alone, 20 calls replayed from one CUDA graph); then,
+      untimed, both tensor-core attention kernels over a sweep of ragged
+      shapes in bf16 and fp32 (groups of 13 to 257 tokens, heads of 8 to
+      128, sequences of 1 to 600; heads of 5 to 128 for the packed kernel
+      in fp32), the fp32 GEMM at the ragged shapes and PEZ's M = 77, with
+      and without the residual, the LayerNorm at widths 8 to 4096 that
+      take every plan of its kernel (1, 7 and 333 rows, both dtypes; the
+      plan's Python mirror held to the library's), and the gradients of
+      one shape of each (kernel forward,
       recompute backward) against the plain version's; and the fused
       block's parts alone, bf16: the GEMM + bias kernel at the block's qkv
       and out-projection shapes (text buckets 16 and 77, vision, the fused
@@ -35,8 +38,8 @@ Phases, each printing its own lines:
       residual) and at three ragged
       shapes in every tile width, with `torch.addmm` as its library call
       and its operations bound, and in fp32 at the eval's vision qkv and
-      out-projection shapes; the LayerNorm op at the bf16 shapes and two
-      fp32 ones (text bucket 77, the eval's vision shape), with
+      out-projection shapes; the LayerNorm op at every row width the paths
+      give it, with the plan its kernel takes (held to the Python mirror),
       `F.layer_norm` and its bytes bound, and its gradients;
   (d) `leaf_tpu_torch.serve.main` on ViT-L-14-quickgelu (seed 0, bf16):
       4096 short captions (bucket 16, 8 per 128-token row), then 2048 long
@@ -503,10 +506,10 @@ EVAL_FP32_GEMM_SHAPES = [("eval vision qkv fp32", 128 * 257, 1024, 3072),
 # cached captioning step (q), one position of each of 64 images x 6 beams:
 # 73 LayerNorms a step, 2,117 of a beam-search batch's 2,157 at coca_ViT-L-14
 # and (s)'s towers, batches of 64 images: ConvNeXt's stem LN over 64 x 64
-# pixels of 128 channels (convnext_base_w at 256 px), EVA02-L's `mlp.ln` at
-# D 2730, no multiple of a 16-byte piece (the general kernel; also fp32 on
-# the parity slice of 8 images), ViTamin-L's stem LN over 112 x 112 pixels
-# of 160 channels
+# pixels of 128 channels (convnext_base_w at 256 px: 16 pieces a row, the
+# narrow plan), EVA02-L's `mlp.ln` at D 2730, no multiple of a 16-byte piece
+# (rows of 4-byte words; also fp32 on the parity slice of 8 images),
+# ViTamin-L's stem LN over 112 x 112 pixels of 160 channels (20 pieces)
 LN_SHAPES = [("coca_decode_step_fp32", 64 * 6, 768, "float32"),
              ("convnext_stem_bf16", 64 * 64 * 64, 128, "bfloat16"),
              ("eva02_mlp_ln_bf16", 64 * 257, 2730, "bfloat16"),
@@ -514,9 +517,9 @@ LN_SHAPES = [("coca_decode_step_fp32", 64 * 6, 768, "float32"),
              ("vitamin_stem_bf16", 64 * 112 * 112, 160, "bfloat16"),
              # (t): Swin-B's patch norm and stage-0 LNs over 56 x 56 pixels
              # of 128 channels, its last patch merge's 2048-wide rows (7 x
-             # 7 a image: the general kernel, above 1024), serve's batch of
-             # 64; NLLB's M2M100 text rows at D 1024 and XLM-R's at 768,
-             # fp32 as the HF towers run, 256 rows of 77 ids
+             # 7 a image: above 1024, the wide plan), serve's batch of 64;
+             # NLLB's M2M100 text rows at D 1024 and XLM-R's at 768, fp32
+             # as the HF towers run, 256 rows of 77 ids
              ("swin_stage0_bf16", 64 * 56 * 56, 128, "bfloat16"),
              ("swin_merge3_bf16", 64 * 7 * 7, 2048, "bfloat16"),
              ("m2m100_text_fp32", 256 * 77, 1024, "float32"),
@@ -543,9 +546,9 @@ FLASH_SHAPES = [
 ]
 # published peaks of one H100 SXM (dense, at a 700 W limit): device memory
 # rate; bf16 on the tensor cores; fp32 products on the tensor cores as three
-# TF32 products each ("3xtf32": 495 / 3 TFLOP/s), what the packed kernel, the
-# fused block and its GEMM run in fp32; fp32 outside the tensor cores (flash
-# attention's fp32 body, the LayerNorm)
+# TF32 products each ("3xtf32": 495 / 3 TFLOP/s), what both attention
+# kernels, the fused block and its GEMM run in fp32; fp32 outside the tensor
+# cores (the LayerNorm, bound by its bytes)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "3xtf32": 495e12 / 3}
 WORDS = ("a photo of the small large red blue green dog cat man woman child "
@@ -913,13 +916,16 @@ def phase_kernels():
                     lambda: fa._reference(q, k, v, d ** -0.5, causal), dt,
                     lambda: F.scaled_dot_product_attention(
                         q, k, v, is_causal=causal))
+                # both dtypes' products run on the tensor cores
                 rows["flash_attention"].append(_row(
                     "flash_attention", name, dt, err, ms, pms, lib,
                     4.0 * B * H * S * d * esize,
                     4.0 * d * _visible_pairs(S, S, causal) * B * H,
                     B=B, heads=H, S=S, d=d, causal=causal,
-                    visible_share=(_visible_share(S, S, causal, False)
-                                   if dt == "bfloat16" else None)))
+                    peak="3xtf32" if dt == "float32" else dt,
+                    visible_share=_visible_share(S, S, causal, False, dt),
+                    device_ms=_graph_ms(
+                        lambda: fa.flash_attention(q, k, v, causal=causal))))
 
         # the fused-qkv wrapper, at the vision shape
         B, H, S, d = FLASH_SHAPES[0][1:5]
@@ -1009,11 +1015,26 @@ def phase_parts():
             lambda: pa.layer_norm(x, scale, bias, 1e-5),
             lambda: pa._layer_norm_reference(x, scale, bias, 1e-5), dt,
             lambda: F.layer_norm(x, (D,), scale_t, bias_t, 1e-5))
+        plan = _ln_plan(D, dt)
+        say(f"(c) layer_norm {name}: plan {plan}")
         parts["layer_norm"].append(_row(
             "layer_norm", name, dt, err, ms, pms, lib,
             2.0 * M * D * x.element_size() + 8 * D, 8.0 * M * D, M=M, D=D,
+            variant=plan["variant"],
             device_ms=_graph_ms(lambda: pa.layer_norm(x, scale, bias, 1e-5))))
     return parts
+
+
+def _ln_plan(D: int, dtype_name: str, aligned: bool = True) -> dict:
+    """The LayerNorm kernel's plan for rows of D elements, from the built
+    library, after holding the package's Python mirror of it equal."""
+    import torch
+    from leaf_tpu_torch.ops import packed_attention as pa
+    args = (D, getattr(torch, dtype_name), aligned)
+    built, mirror = pa.kernel_layer_norm_plan(*args), pa.layer_norm_plan(*args)
+    require(built == mirror, f"layer_norm_plan{args} is not the library's "
+            f"plan: {mirror} against {built}")
+    return built
 
 
 # (group_len, groups per row, causal): groups that straddle the 16-query
@@ -1032,7 +1053,14 @@ SWEEP_HEAD_WIDTHS_FP32 = SWEEP_HEAD_WIDTHS + (8, 128, 12, 5)
 # the fp32 GEMM beside the ragged shapes: PEZ's one prompt, M = 77
 PEZ_GEMM_SHAPES = [("pez qkv", 77, 768, 2304), ("pez out", 77, 768, 768)]
 FLASH_SWEEP_S = (1, 15, 16, 17, 63, 65, 130, 257, 600)
-FLASH_SWEEP_D = (8, 40, 64, 80, 128)
+FLASH_SWEEP_D = (8, 40, 64, 72, 80, 128)
+# the LayerNorm at every plan: narrow rows (whole pieces, fewer than 32), the
+# rows kernel (768, 1000, 1024), rows of words (1025 fp32, 2730) and of bf16
+# elements (1025), wide rows on a warp (1152 to 2048) and on two warps (4096
+# fp32); ragged numbers of rows, none a multiple of a block's
+LN_SWEEP_D = (8, 24, 128, 160, 200, 768, 1000, 1024, 1025, 1152, 1280, 1664,
+              2048, 2730, 4096)
+LN_SWEEP_M = (1, 7, 333)
 
 
 def phase_sweep():
@@ -1097,27 +1125,50 @@ def phase_sweep():
         say(f"(c) sweep gemm_bias float32: {cases} shapes (M, K, N) in "
             f"{[s[1:] for s in RAGGED_GEMM_SHAPES + PEZ_GEMM_SHAPES]}, with "
             f"and without the residual, max_abs_err {worst:.3g}")
-        worst, cases = 0.0, 0
-        for S in FLASH_SWEEP_S:
-            for d in FLASH_SWEEP_D:
-                for causal in (False, True):
-                    _schedule(S, S, causal, False)
-                    q, k, v = (normal(rng, 2, 3, S, d) for _ in range(3))
-                    worst = max(worst, _close(
-                        fa.flash_attention(q, k, v, causal=causal),
-                        fa._reference(q, k, v, d ** -0.5, causal),
-                        f"flash_attention S={S} d={d} causal={causal}"))
-                    cases += 1
-        # head views of a token-major qkv, read in place
-        qkv = normal(rng, 3, 130, 3 * 4 * 40)
-        _close(fa.mha_with_flash(qkv, 4, True),
-               pa._reference(qkv, 4, 130, True), "mha_with_flash S=130 d=40")
-        say(f"(c) sweep flash_attention bf16: {cases} shapes, S in "
-            f"{FLASH_SWEEP_S} x d in {FLASH_SWEEP_D} x causal or not, and "
-            f"mha_with_flash on strided views, max_abs_err {worst:.3g}")
+        for dt in ("bfloat16", "float32"):
+            worst, cases = 0.0, 0
+            dtype = getattr(torch, dt)
+            for S in FLASH_SWEEP_S:
+                for d in FLASH_SWEEP_D:
+                    for causal in (False, True):
+                        _schedule(S, S, causal, False, dt)
+                        q, k, v = (normal(rng, 2, 3, S, d, dtype=dtype)
+                                   for _ in range(3))
+                        worst = max(worst, _close(
+                            fa.flash_attention(q, k, v, causal=causal),
+                            fa._reference(q, k, v, d ** -0.5, causal),
+                            f"flash_attention S={S} d={d} causal={causal} "
+                            f"{dt}", dt))
+                        cases += 1
+            # head views of a token-major qkv (token stride 3D), read in place
+            qkv = normal(rng, 3, 130, 3 * 4 * 40, dtype=dtype)
+            worst = max(worst, _close(
+                fa.mha_with_flash(qkv, 4, True),
+                pa._reference(qkv, 4, 130, True),
+                f"mha_with_flash S=130 d=40 {dt}", dt))
+            say(f"(c) sweep flash_attention {dt}: {cases} shapes, S in "
+                f"{FLASH_SWEEP_S} x d in {FLASH_SWEEP_D} x causal or not, "
+                f"and mha_with_flash on strided views, max_abs_err "
+                f"{worst:.3g}")
         say("(c) schedule: the Python mirror (tile_schedule) equals the "
             "library's make_plan and passes at every timed and swept shape, "
             "bf16 and fp32")
+        for dt in ("bfloat16", "float32"):
+            worst, plans = 0.0, set()
+            dtype = getattr(torch, dt)
+            for D in LN_SWEEP_D:
+                plans.add(tuple(_ln_plan(D, dt).values()))
+                scale = normal(rng, D, dtype=torch.float32) * 0.1 + 1
+                bias = normal(rng, D, dtype=torch.float32) * 0.1
+                for M in LN_SWEEP_M:
+                    x = normal(rng, M, D, dtype=dtype) * 2 + 0.5
+                    worst = max(worst, _close(
+                        pa.layer_norm(x, scale, bias, 1e-5),
+                        pa._layer_norm_reference(x, scale, bias, 1e-5),
+                        f"layer_norm M={M} D={D} {dt}", dt))
+            say(f"(c) sweep layer_norm {dt}: D in {LN_SWEEP_D} x M in "
+                f"{LN_SWEEP_M}, {len(plans)} plans (the Python mirror equals "
+                f"the library's at each), max_abs_err {worst:.3g}")
 
     # gradients: kernel forward with the recompute backward, against autograd
     # through the plain version; held to 2e-2 of the largest gradient.  Both
@@ -6379,6 +6430,30 @@ def _v_full(D, device, counters):
     return out
 
 
+def _v_rank_diff(D, digests, card: dict, cpu: dict):
+    """Where the ranks' parameters differ, for the failure's message:
+    {device: [{name, elements that differ, max abs difference, the first
+    indices}]} (both ranks call it; None where every digest agrees)."""
+    report = {}
+    for i, device in enumerate(("card", "cpu")):
+        if digests[0][i] == digests[1][i]:
+            continue
+        params = (card, cpu)[i]
+        both = D.all_gather_object({k: v.numpy() for k, v in params.items()})
+        rows = []
+        for k, a in both[0].items():
+            b = both[1][k]
+            bad = np.flatnonzero(a.reshape(-1).view(np.int32)
+                                 != b.reshape(-1).view(np.int32))
+            if bad.size:
+                rows.append({"name": k, "elements": int(a.size),
+                             "differ": int(bad.size),
+                             "max_abs": float(np.abs(a - b).max()),
+                             "first": bad[:8].tolist()})
+        report[device] = rows
+    return report or None
+
+
 def _v_worker(spec_path: str) -> int:
     """One rank of (v), spawned by `phase_multirank` (`python chip_smoke.py
     --v-rank <spec>` under the launcher's variables)."""
@@ -6410,6 +6485,8 @@ def _v_worker(spec_path: str) -> int:
                 "widths": c.get("widths"), "branches": c.get("branches"),
                 "digests": D.all_gather_object([c["digest"],
                                                 p["digest"]])}
+            tiny[part]["rank_diff"] = _v_rank_diff(D, tiny[part]["digests"],
+                                                   c["params"], p["params"])
         out["tiny"] = tiny
         out["tiny_s"] = time.perf_counter() - t0
     # the full-width part waits for the card to be this phase's alone
@@ -6609,7 +6686,8 @@ def phase_multirank(workdir: str):
                     f"(v) tiny {part} rank {o['rank']}: card vs CPU {t}")
         digests = a["digests"]
         require(digests[0] == digests[1] and a["digests"] == b["digests"],
-                f"(v) tiny {part}: the ranks' parameters differ {digests}")
+                f"(v) tiny {part}: the ranks' parameters differ {digests}: "
+                f"{a['rank_diff']}")
         require(a["losses"] == b["losses"],
                 f"(v) tiny {part}: the ranks logged different losses")
         if part == "fused":

@@ -134,6 +134,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     ints = ctypes.POINTER(ctypes.c_int)
     lib.leaf_attention_schedule.argtypes = [i, i, i, i, i, ints, ints, i]
     lib.leaf_attention_schedule.restype = i
+    lib.leaf_layer_norm_plan.argtypes = [i, i, i, ints]
+    lib.leaf_layer_norm_plan.restype = i
     lib.leaf_error_string.argtypes = [i]
     lib.leaf_error_string.restype = ctypes.c_char_p
 

@@ -1,6 +1,6 @@
 // Tensor-core attention core shared by the packed and the flash attention
 // kernels (sm_90a): QK^T and PV as warp-level `mma.sync` products, bf16 and
-// fp32 (the packed kernel's; flash attention's fp32 body is its own file's).
+// fp32, for both kernels in both dtypes.
 //
 // Replaces the inner loops of two Pallas kernels: `_kernel` of
 // leaf_tpu/ops/packed_attention.py (and through it the attention stage of
@@ -691,7 +691,7 @@ __device__ __forceinline__ void tile_pass_f32(float scale_log2e, const Tile& til
 }
 
 // The fp32 block, as `attention_kernel`: DP is the head width rounded up to
-// a multiple of 32; kFull: the head width is DP.
+// a multiple of 32 (or 80, flash attention's); kFull: the head width is DP.
 template <typename Tag, int DP, int NT, bool kExact, bool kFull>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     attention_kernel_f32(const ParamsT<float> p) {
@@ -813,42 +813,62 @@ cudaError_t launch_variant_f32(const ParamsT<float>& p, const Plan& pl,
   return cudaGetLastError();
 }
 
-template <typename Tag, int DP, bool kFull>
+template <typename Tag, bool kAllowExact, int DP, bool kFull>
 cudaError_t launch_width_f32(const ParamsT<float>& p, const Plan& pl, cudaStream_t stream) {
-  if (pl.exact && pl.nt == 2) return launch_variant_f32<Tag, DP, 2, true, kFull>(p, pl, stream);
-  if (pl.exact) return launch_variant_f32<Tag, DP, 10, true, kFull>(p, pl, stream);
+  if constexpr (kAllowExact) {
+    if (pl.exact && pl.nt == 2) return launch_variant_f32<Tag, DP, 2, true, kFull>(p, pl, stream);
+    if (pl.exact) return launch_variant_f32<Tag, DP, 10, true, kFull>(p, pl, stream);
+  }
   return launch_variant_f32<Tag, DP, kOnlineChunk / 8, false, kFull>(p, pl, stream);
 }
 
-// The packed kernel's fp32 kernels for heads of at most DP columns: heads
-// of exactly DP take the variant without the per-step width checks (at the
-// vision shape 0.88 ms against 1.15).  Each DP is instantiated in a source
-// file of its own (packed_attention_f32_<DP>.cu), so that nvcc builds them
-// side by side: in one file they took the build from 13 s to 82 s.
-struct PackedF32 {};  // the tag of those kernels
+// The fp32 kernels for heads of at most DP columns: heads of exactly DP take
+// the variant without the per-step width checks (at the packed kernel's
+// vision shape 0.88 ms against 1.15).  Each (Tag, DP) is instantiated in a
+// source file of its own (packed_attention_f32_<DP>.cu, the packed kernel's
+// with the exact softmax; flash_attention_f32_<DP>.cu, flash attention's,
+// online only), so that nvcc builds them side by side: in one file the
+// packed kernel's took the build from 13 s to 82 s.  Flash attention also
+// has DP = 80 (on the H100 its heads of 80 ran 1.4x slower through the width
+// checks of DP = 96 at S = 130); DP + 4 = 84 keeps rows 16-byte aligned and
+// conflict-free.
+struct PackedF32 {  // the tags of those kernels
+  static constexpr bool kWidth80 = false;
+};
+struct FlashF32 {
+  static constexpr bool kWidth80 = true;
+};
 
-template <int DP>
+template <typename Tag, bool kAllowExact, int DP>
 cudaError_t launch_f32_width(const ParamsT<float>& p, const Plan& pl, cudaStream_t stream) {
-  if (p.d == DP) return launch_width_f32<PackedF32, DP, true>(p, pl, stream);
-  return launch_width_f32<PackedF32, DP, false>(p, pl, stream);
+  if (p.d == DP) return launch_width_f32<Tag, kAllowExact, DP, true>(p, pl, stream);
+  return launch_width_f32<Tag, kAllowExact, DP, false>(p, pl, stream);
 }
-extern template cudaError_t launch_f32_width<32>(const ParamsT<float>&, const Plan&,
-                                                 cudaStream_t);
-extern template cudaError_t launch_f32_width<64>(const ParamsT<float>&, const Plan&,
-                                                 cudaStream_t);
-extern template cudaError_t launch_f32_width<96>(const ParamsT<float>&, const Plan&,
-                                                 cudaStream_t);
-extern template cudaError_t launch_f32_width<128>(const ParamsT<float>&, const Plan&,
-                                                  cudaStream_t);
+#define LEAF_F32_WIDTH(TAG, EXACT, DP)                                                   \
+  extern template cudaError_t launch_f32_width<TAG, EXACT, DP>(const ParamsT<float>&, \
+                                                               const Plan&, cudaStream_t);
+LEAF_F32_WIDTH(PackedF32, true, 32)
+LEAF_F32_WIDTH(PackedF32, true, 64)
+LEAF_F32_WIDTH(PackedF32, true, 96)
+LEAF_F32_WIDTH(PackedF32, true, 128)
+LEAF_F32_WIDTH(FlashF32, false, 32)
+LEAF_F32_WIDTH(FlashF32, false, 64)
+LEAF_F32_WIDTH(FlashF32, false, 80)
+LEAF_F32_WIDTH(FlashF32, false, 96)
+LEAF_F32_WIDTH(FlashF32, false, 128)
+#undef LEAF_F32_WIDTH
 
-// `launch` for the packed kernel's fp32 (the exact softmax allowed): any
-// head width up to kMaxHeadDim; rows move in 16-byte pieces where the width,
-// the strides and the pointers allow it.
-inline cudaError_t launch_f32(ParamsT<float> p, float scale, cudaStream_t stream) {
+// `launch` for fp32: any head width up to kMaxHeadDim; rows move in 16-byte
+// pieces where the width, the strides and the pointers allow it, else word
+// by word.  Tag and kAllowExact as in `launch`: the packed kernel's
+// (PackedF32, the exact softmax allowed) or flash attention's (FlashF32,
+// online only).
+template <typename Tag, bool kAllowExact>
+cudaError_t launch_f32(ParamsT<float> p, float scale, cudaStream_t stream) {
   if (p.B <= 0 || p.H <= 0 || p.L <= 0 || p.d <= 0 || p.d > kMaxHeadDim ||
       p.group_len <= 0)
     return cudaErrorInvalidValue;
-  const Plan pl = make_plan(p.L, p.group_len, p.causal, true, kMaxWholeChunkF32);
+  const Plan pl = make_plan(p.L, p.group_len, p.causal, kAllowExact, kMaxWholeChunkF32);
   if ((long long)pl.blocks * p.H * p.B > 0x7fffffffLL) return cudaErrorInvalidValue;
   p.chunk = pl.chunk;
   p.stages = pl.stages;
@@ -859,10 +879,12 @@ inline cudaError_t launch_f32(ParamsT<float> p, float scale, cudaStream_t stream
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(p.q) | reinterpret_cast<uintptr_t>(p.k) |
                          reinterpret_cast<uintptr_t>(p.v) | reinterpret_cast<uintptr_t>(p.out);
   p.vec = any % 4 == 0 && ptrs % 16 == 0;
-  if (p.d <= 32) return launch_f32_width<32>(p, pl, stream);
-  if (p.d <= 64) return launch_f32_width<64>(p, pl, stream);
-  if (p.d <= 96) return launch_f32_width<96>(p, pl, stream);
-  return launch_f32_width<128>(p, pl, stream);
+  if (p.d <= 32) return launch_f32_width<Tag, kAllowExact, 32>(p, pl, stream);
+  if (p.d <= 64) return launch_f32_width<Tag, kAllowExact, 64>(p, pl, stream);
+  if constexpr (Tag::kWidth80)
+    if (p.d <= 80) return launch_f32_width<Tag, kAllowExact, 80>(p, pl, stream);
+  if (p.d <= 96) return launch_f32_width<Tag, kAllowExact, 96>(p, pl, stream);
+  return launch_f32_width<Tag, kAllowExact, 128>(p, pl, stream);
 }
 
 }  // namespace mma

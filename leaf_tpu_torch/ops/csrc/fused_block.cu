@@ -7,12 +7,13 @@
 // are 8 MiB in bf16, and a Hopper block has 227 KB of shared memory, so the
 // block is four kernels that `leaf_fused_block` launches in order on one
 // stream:
-//   1. layer_norm:        h = LN_1(x), fp32 statistics, written in x.dtype;
+//   1. layer_norm.cu:     h = LN_1(x), fp32 statistics, written in x.dtype;
 //   2. gemm_bias:         qkv = h @ qkv_w + qkv_b;
 //   3. packed_attention.cu: attn = packed attention over qkv;
 //   4. gemm_bias:         out = x + (attn @ out_w + out_b).
-// `leaf_layer_norm` and `leaf_gemm_bias` launch 1 and 2/4 alone (the LayerNorm
-// op of every other LayerNorm in the towers, and the profiler).
+// `leaf_layer_norm` (layer_norm.cu) and `leaf_gemm_bias` launch 1 and 2/4
+// alone (the LayerNorm op of every other LayerNorm in the towers, and the
+// profiler).
 //
 // Weight layout: W is [K, N] row-major, y = x @ W (the JAX package's layout).
 // OpenCLIP's in_proj_weight [3D, D] is transposed once when a checkpoint is
@@ -30,7 +31,7 @@
 // each product is three TF32 products (3xTF32, ~165 TFLOP/s at most: 495 / 3),
 // still well above the 67 TFLOP/s of fp32 FMAs, and the GEMMs stay bound by
 // their operations.  LayerNorm reads and writes each activation once and is
-// bound by memory bandwidth.
+// bound by memory bandwidth (layer_norm.cu says how it gets near it).
 //
 // Design:
 //   * bf16 GEMM (`gemm_bias_wgmma_kernel`): one persistent block per SM walks
@@ -73,146 +74,20 @@
 //     `mma.sync.m16n8k8` version (8 warps of 64 x 32, both operands split
 //     in registers) ran the eval's qkv GEMM in 3.65 ms against this one's
 //     2.83: it issued ~3.7 other instructions a TF32 product.
-//   * LayerNorm: one warp per token; the row is read once in 16-byte pieces
-//     and stays in registers for the two passes (mean, then variance of
-//     x - mean, as leaf_tpu/models/layers.py::layer_norm) and the output; rows
-//     that do not fit, or are not whole 16-byte pieces, take a generic loop.
 #include <cuda.h>
 
 #include "common.cuh"
 #include "wgmma.cuh"
 
+extern "C" int leaf_layer_norm(const void* x, const void* scale, const void* bias, void* y,
+                               int dtype, int M, int D, float eps, int device, void* stream);
 extern "C" int leaf_packed_attention(const void* qkv, void* out, int dtype, int R, int L,
                                      int n_heads, int head_dim, int group_len, int causal,
                                      float scale, int device, void* stream);
 
 namespace {
 
-using leaf::from_float;
-using leaf::round_to;
-using leaf::to_float;
 using bf16 = __nv_bfloat16;
-
-// ---------------------------------------------------------------------------
-// LayerNorm
-// ---------------------------------------------------------------------------
-
-constexpr int kLnWarps = 8;
-
-// Any D: three passes over the row in global memory.
-template <typename T>
-__global__ void __launch_bounds__(kLnWarps * 32)
-layer_norm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                  const float* __restrict__ bias, T* __restrict__ y, int M, int D,
-                  float eps) {
-  const int tok = blockIdx.x * kLnWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (tok >= M) return;
-  const T* xr = x + (size_t)tok * D;
-  T* yr = y + (size_t)tok * D;
-  float s = 0.f;
-  for (int d = lane; d < D; d += 32) s += to_float(xr[d]);
-  const float mean = leaf::warp_sum(s) / D;
-  float v = 0.f;
-  for (int d = lane; d < D; d += 32) {
-    const float t = to_float(xr[d]) - mean;
-    v += t * t;
-  }
-  const float rstd = 1.f / sqrtf(leaf::warp_sum(v) / D + eps);
-  for (int d = lane; d < D; d += 32)
-    yr[d] = from_float<T>((to_float(xr[d]) - mean) * rstd * scale[d] + bias[d]);
-}
-
-// 16 bytes of T <-> floats
-template <typename T> __device__ __forceinline__ void unpack16(uint4 u, float* f) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) leaf::Word<T>::unpack(w[i], f + i * leaf::Word<T>::kElems);
-}
-template <typename T> __device__ __forceinline__ uint4 pack16(const float* f) {
-  constexpr int kE = leaf::Word<T>::kElems;
-  return make_uint4(leaf::Word<T>::pack(f), leaf::Word<T>::pack(f + kE),
-                    leaf::Word<T>::pack(f + 2 * kE), leaf::Word<T>::pack(f + 3 * kE));
-}
-
-// Rows of whole 16-byte pieces, at most 32 * kPieces of them: lane l keeps
-// pieces l, l + 32, ... in registers from the one read to the one write.
-template <typename T, int kPieces>
-__global__ void __launch_bounds__(kLnWarps * 32)
-layer_norm_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                       const float* __restrict__ bias, T* __restrict__ y, int M, int D,
-                       float eps) {
-  constexpr int kE = 16 / sizeof(T);  // elements of a piece
-  const int tok = blockIdx.x * kLnWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (tok >= M) return;
-  const int pieces = D / kE;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)tok * D);
-  uint4* yr = reinterpret_cast<uint4*>(y + (size_t)tok * D);
-  uint4 row[kPieces];
-#pragma unroll
-  for (int c = 0; c < kPieces; ++c)
-    if (lane + 32 * c < pieces) row[c] = xr[lane + 32 * c];
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < kPieces; ++c) {
-    if (lane + 32 * c < pieces) {
-      float f[kE];
-      unpack16<T>(row[c], f);
-#pragma unroll
-      for (int e = 0; e < kE; ++e) s += f[e];
-    }
-  }
-  const float mean = leaf::warp_sum(s) / D;
-  float v = 0.f;
-#pragma unroll
-  for (int c = 0; c < kPieces; ++c) {
-    if (lane + 32 * c < pieces) {
-      float f[kE];
-      unpack16<T>(row[c], f);
-#pragma unroll
-      for (int e = 0; e < kE; ++e) v += (f[e] - mean) * (f[e] - mean);
-    }
-  }
-  const float rstd = 1.f / sqrtf(leaf::warp_sum(v) / D + eps);
-#pragma unroll
-  for (int c = 0; c < kPieces; ++c) {
-    const int piece = lane + 32 * c;
-    if (piece < pieces) {
-      float f[kE];
-      unpack16<T>(row[c], f);
-#pragma unroll
-      for (int e = 0; e < kE; e += 4) {
-        const float4 g = *reinterpret_cast<const float4*>(scale + piece * kE + e);
-        const float4 b = *reinterpret_cast<const float4*>(bias + piece * kE + e);
-        f[e + 0] = (f[e + 0] - mean) * rstd * g.x + b.x;
-        f[e + 1] = (f[e + 1] - mean) * rstd * g.y + b.y;
-        f[e + 2] = (f[e + 2] - mean) * rstd * g.z + b.z;
-        f[e + 3] = (f[e + 3] - mean) * rstd * g.w + b.w;
-      }
-      yr[piece] = pack16<T>(f);
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch_layer_norm(const void* x, const float* scale, const float* bias, void* y,
-                              int M, int D, float eps, cudaStream_t s) {
-  constexpr int kE = 16 / sizeof(T);
-  constexpr int kPieces = 1024 / (32 * kE);  // rows of D <= 1024 stay in registers
-  const T* xt = static_cast<const T*>(x);
-  T* yt = static_cast<T*>(y);
-  const dim3 grid((M + kLnWarps - 1) / kLnWarps);
-  const bool aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
-                        reinterpret_cast<uintptr_t>(scale) |
-                        reinterpret_cast<uintptr_t>(bias)) % 16 == 0;
-  if (aligned && D % kE == 0 && D / kE <= 32 * kPieces)
-    layer_norm_rows_kernel<T, kPieces><<<grid, kLnWarps * 32, 0, s>>>(xt, scale, bias, yt, M,
-                                                                      D, eps);
-  else
-    layer_norm_kernel<T><<<grid, kLnWarps * 32, 0, s>>>(xt, scale, bias, yt, M, D, eps);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bf16 GEMM + bias (+ residual): TMA ring, wgmma, persistent tiles
@@ -695,25 +570,6 @@ cudaError_t gemm_bias_f32(const float* a, const float* w, const float* bias,
 }
 
 }  // namespace
-
-extern "C" int leaf_layer_norm(const void* x, const void* scale, const void* bias, void* y,
-                               int dtype, int M, int D, float eps, int device,
-                               void* stream) {
-  if (M <= 0 || D <= 0) return cudaErrorInvalidValue;
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* g = static_cast<const float*>(scale);
-  const float* b = static_cast<const float*>(bias);
-  switch (dtype) {
-    case leaf::kFloat32:
-      return launch_layer_norm<float>(x, g, b, y, M, D, eps, s);
-    case leaf::kBFloat16:
-      return launch_layer_norm<bf16>(x, g, b, y, M, D, eps, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
 
 // out[M, N] = (residual +) A[M, K] @ W[K, N] + bias[N]; residual may be null.
 // bf16 only: `tile_n` is the tile width (256, 192 or 128), 0 to have it picked

@@ -78,10 +78,10 @@ extern "C" int leaf_packed_attention(const void* qkv, void* out, int dtype, int 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case leaf::kFloat32:
-      return leaf::mma::launch_f32(views(static_cast<const float*>(qkv),
-                                         static_cast<float*>(out), R, L, n_heads, head_dim,
-                                         group_len, causal),
-                                   scale, s);
+      return leaf::mma::launch_f32<leaf::mma::PackedF32, /*kAllowExact=*/true>(
+          views(static_cast<const float*>(qkv), static_cast<float*>(out), R, L, n_heads,
+                head_dim, group_len, causal),
+          scale, s);
     case leaf::kBFloat16:
       return leaf::mma::launch<PackedTag, /*kAllowExact=*/true>(
           views(static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), R,

@@ -3,5 +3,5 @@
 // width's kernels beside the others'.
 #include "attention_mma.cuh"
 
-template cudaError_t leaf::mma::launch_f32_width<128>(const leaf::mma::ParamsT<float>&,
-                                                      const leaf::mma::Plan&, cudaStream_t);
+template cudaError_t leaf::mma::launch_f32_width<leaf::mma::PackedF32, true, 128>(
+    const leaf::mma::ParamsT<float>&, const leaf::mma::Plan&, cudaStream_t);

@@ -8,30 +8,37 @@ nothing in the package calls this one.
 
 The hand-written CUDA kernel is `csrc/flash_attention.cu`: an online
 softmax over tiles of keys that writes only the `[S, d]` output of each
-(batch, head); in bfloat16 its products run on the tensor cores
-(`csrc/attention_mma.cuh`, shared with packed attention).  It reads q, k
-and v through their strides, so the head views of a fused qkv are not
-copied.  The plain PyTorch version beside it, `_reference`,
-materialises the fp32 logits (the JAX package's `_reference_attention`).
+(batch, head).  Its products run on the tensor cores in both dtypes
+(`csrc/attention_mma.cuh`, shared with packed attention): bfloat16
+directly, float32 as three TF32 products of operands split into hi + lo
+(3xTF32), which keeps fp32 accuracy.  It reads q, k and v through their
+strides, so the head views of a fused qkv are not copied.  The plain
+PyTorch version beside it, `_reference`, materialises the fp32 logits
+(the JAX package's `_reference_attention`).
 Dispatch is by the tensors' device and nothing else: CPU tensors take
 the plain version, CUDA tensors launch the kernel or raise.  The kernel
 takes float32 or bfloat16 and any head width that is a multiple of 8 up
 to 128.  `flash_attention.launches` counts kernel launches.
 
-The CUDA path is a `torch.autograd.Function` whose backward recomputes
-through the plain version (no `[S, S]` tensor is kept between forward
-and backward), like the JAX `custom_vjp`.  The TPU tuning arguments
-(`block_q`, `block_kv`, `interpret`) have no counterpart here.
+Where autograd would record the op, the CUDA path is a
+`torch.autograd.Function` whose backward recomputes through the plain
+version (no `[S, S]` tensor is kept between forward and backward), like
+the JAX `custom_vjp`; where it would not, the kernel launches directly
+(`Function.apply` costs more host time than a small kernel takes).  The
+TPU tuning arguments (`block_q`, `block_kv`, `interpret`) have no
+counterpart here.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from leaf_tpu_torch.ops import build
-from leaf_tpu_torch.ops.packed_attention import _DTYPE_CODES, _stream
+from leaf_tpu_torch.ops.packed_attention import (_DTYPE_CODES, _needs_grad,
+                                                  _stream)
 
 MAX_HEAD_DIM = 128
 
@@ -53,10 +60,12 @@ def _check(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"{name}: expected a 4-D tensor [B, H, S, d]")
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+    shape, dtype, device = q.shape, q.dtype, q.device
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != shape or t.dtype != dtype or t.device != device:
             raise ValueError(
                 f"{name}: {tuple(t.shape)} {t.dtype} on {t.device}; q is "
-                f"{tuple(q.shape)} {q.dtype} on {q.device}")
+                f"{tuple(shape)} {dtype} on {device}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"dtype {q.dtype}; the kernel takes float32 or "
                         "bfloat16")
@@ -82,6 +91,14 @@ def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+@functools.lru_cache(maxsize=64)
+def _strides(strides: tuple):
+    """The (batch, head, token) strides of q, k, v and out as the array
+    the kernel reads (building one costs more host time than a small
+    kernel takes, and a caller repeats its shapes)."""
+    return (ctypes.c_longlong * 12)(*strides)
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             sm_scale: float, causal: bool) -> torch.Tensor:
     B, H, S, d = q.shape
@@ -93,8 +110,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           device=q.device).transpose(1, 2)
     else:
         out = torch.empty((B, H, S, d), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    strides = _strides(q.stride()[:3] + k.stride()[:3] + v.stride()[:3]
+                       + out.stride()[:3])
     build.check(build.library().leaf_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
         _DTYPE_CODES[q.dtype], B, H, S, d, int(causal), sm_scale,
@@ -127,7 +144,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
     if q.device.type == "cpu":
         return _reference(q, k, v, scale, causal)
-    return _FlashAttention.apply(q, k, v, scale, causal)
+    return _kernel_op(q, k, v, scale, causal)
+
+
+def _kernel_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               sm_scale: float, causal: bool) -> torch.Tensor:
+    """The kernel's path (CUDA tensors): launched directly where autograd
+    records nothing, else through `_FlashAttention`."""
+    if not _needs_grad(q, k, v):
+        return _launch(q, k, v, sm_scale, causal)
+    return _FlashAttention.apply(q, k, v, sm_scale, causal)
 
 
 flash_attention.launches = 0

@@ -23,10 +23,13 @@ PyTorch version:
     product, fp32 accuracy) fed by a `cp.async` ring.  Plain version:
     `_block_reference`.
   * `layer_norm(x, scale, bias, eps)`: fp32-statistics LayerNorm over the
-    last dimension, the block's first stage on its own (`leaf_layer_norm`),
-    for every other LayerNorm of the towers (`layers.LayerNorm`).  Bound
-    by memory: a warp reads its row once in 16-byte pieces, keeps it in
-    registers and writes it once.  Plain version: `_layer_norm_reference`.
+    last dimension, the block's first stage on its own (`leaf_layer_norm`
+    of `csrc/layer_norm.cu`), for every other LayerNorm of the towers
+    (`layers.LayerNorm`).  Bound by memory: a row is read once in aligned
+    16-byte pieces (its head and tail, where it has them, in words), kept
+    in registers by 4 to 256 threads and written once.
+    `layer_norm_plan` mirrors the kernel's choice in Python.  Plain
+    version: `_layer_norm_reference`.
 
 The packed-attention kernel runs on the tensor cores in both dtypes
 (`csrc/attention_mma.cuh`, shared with flash attention's bf16 body):
@@ -185,6 +188,63 @@ def kernel_schedule(L: int, group_len: int, causal: bool,
         tiles[t][2].append((lo, hi))
     return ({"warps": warps, "blocks": blocks, "chunk": chunk,
              "stages": stages, "exact": bool(exact), "nt": nt}, tiles)
+
+
+LN_THREADS = 256   # threads of a LayerNorm block
+LN_ROW_REGS = 64   # 32-bit registers of row data a LayerNorm thread may hold
+LN_VARIANTS = ("rows", "registers", "global")
+
+
+def layer_norm_plan(D: int, dtype, aligned: bool = True) -> dict:
+    """The LayerNorm kernel's plan for rows of D elements of `dtype`, as
+    `make_plan` in `csrc/layer_norm.cu` computes it; `aligned`: x, the
+    output, scale and bias all on 16-byte boundaries (what the op's
+    checks and allocations give).
+
+    A row moves in aligned 16-byte pieces (`unit`); where its bytes are no
+    whole number of pieces, its head and tail (the bytes before its first
+    16-byte boundary and after its last piece) move in `edge`-byte units
+    (4, or 2 for bf16 rows of odd width).  `threads` a row, `per`: pieces
+    a thread holds as compiled, `rows` a block of `LN_THREADS`.
+    `variant`: "rows" (whole pieces, D <= 1024, 32 or more pieces: a warp
+    a row), "registers" (the row in the registers of 4 or 8 threads when
+    it is fewer than 32 whole pieces, else of 1 to 8 warps, at most
+    `LN_ROW_REGS` registers of it a thread) or "global" (rows wider than a
+    block's registers, or unaligned pointers: three passes over the row in
+    device memory, element by element)."""
+    es = dtype.itemsize
+    nbytes = D * es
+    pieces = nbytes // 16
+    cap = LN_ROW_REGS // 4
+    edge = 0 if nbytes % 16 == 0 else 4 if nbytes % 4 == 0 else es
+    warps = 1
+    while warps < LN_THREADS // 32 and -(-pieces // (32 * warps)) > cap:
+        warps *= 2
+    need = -(-pieces // (32 * warps))
+    unit = 16
+    if not aligned or need > cap:
+        variant, unit, edge, threads, per = "global", es, 0, 32, 0
+    elif edge == 0 and pieces >= 32 and D <= 1024:
+        variant, threads, per = "rows", 32, 1024 // (32 * (16 // es))
+    elif edge == 0 and pieces < 32:
+        variant, threads, per = "registers", 4 if pieces <= 16 else 8, 4
+    else:
+        variant, threads, per = "registers", 32 * warps, 8 if need <= 8 else 16
+    return {"variant": variant, "unit": unit, "edge": edge,
+            "threads": threads, "per": per, "rows": LN_THREADS // threads}
+
+
+def kernel_layer_norm_plan(D: int, dtype, aligned: bool = True) -> dict:
+    """What `layer_norm_plan` mirrors, from the built library itself
+    (`leaf_layer_norm_plan`, run on the host).  Needs the CUDA toolkit,
+    not a card; `chip_smoke.py` holds the two equal."""
+    import ctypes
+    plan = (ctypes.c_int * 6)()
+    build.check(build.library().leaf_layer_norm_plan(
+        D, _DTYPE_CODES[dtype], int(aligned), plan), "leaf_layer_norm_plan")
+    variant, unit, edge, threads, per, rows = plan
+    return {"variant": LN_VARIANTS[variant], "unit": unit, "edge": edge,
+            "threads": threads, "per": per, "rows": rows}
 
 
 def _reference(qkv: torch.Tensor, n_heads: int, group_len: int,

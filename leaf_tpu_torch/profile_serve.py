@@ -39,9 +39,10 @@ SOT, EOT = 49406, 49407
 # unprofiled batches timed per cell (fewer of the much longer image batches)
 TEXT_BATCHES, IMAGE_BATCHES = 20, 5
 # kernel families, by a substring of the kernel's name; the first match wins
-FAMILIES = (("attention kernel", ("attention_kernel", "attention_fp32_kernel")),
+FAMILIES = (("attention kernel", ("attention_kernel",)),
             ("hand GEMMs", ("gemm_bias_",)),
-            ("LayerNorm kernel", ("layer_norm_kernel", "layer_norm_rows_kernel")),
+            ("LayerNorm kernel", ("layer_norm_rows_kernel", "layer_norm_regs_kernel",
+                                  "layer_norm_global_kernel")),
             ("cuBLAS", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
             ("copies", ("Memcpy", "Memset")))
 # (name, M tokens per batch, K, N) of the fused block's two GEMMs: a serving

@@ -134,14 +134,20 @@ def test_flash_rejects_what_the_kernel_does_not_take():
         tfa.mha_with_flash(torch.zeros(2, 16, 96), 5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("S", [1, 15, 16, 17, 63, 65, 130, 257, 600])
-def test_flash_tile_schedule_visits_what_the_mask_shows(S, causal):
+def test_flash_tile_schedule_visits_what_the_mask_shows(S, causal, dtype):
     """Flash attention runs the online softmax (one group of S keys, passes
-    of 64 keys): every visible pair is visited, no visited step is hidden."""
-    plan, tiles = tpa.tile_schedule(S, S, causal, allow_exact=False)
+    of 64 keys) in both dtypes: every visible pair is visited, no visited
+    step is hidden.  A block stages its keys whole up to 352 in bf16 and
+    144 in fp32 (fp32 rows take twice the bytes), else through the ring of
+    64-key stages."""
+    plan, tiles = tpa.tile_schedule(S, S, causal, allow_exact=False,
+                                    dtype=dtype)
     assert not plan["exact"] and plan["nt"] == 8
-    assert plan["stages"] == (1 if S <= 352 else 2)
+    whole = {torch.float32: 144, torch.bfloat16: 352}[dtype]
+    assert plan["stages"] == (1 if S <= whole else 2)
     mask = tpa.block_mask(S, S, causal)
     visited = torch.zeros(S, S, dtype=torch.bool)
     for q0, q1, spans in tiles:
@@ -228,6 +234,38 @@ def test_flash_launch_passes_strides(dtype, monkeypatch):
     assert args[0] != odd.data_ptr()
     assert list(args[4])[:3] == [H * S * d, S * d, d]
     assert tfa.flash_attention.launches == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_launches_directly_where_autograd_records_nothing(
+        dtype, monkeypatch):
+    """The kernel's path: where autograd records nothing (no input needs a
+    gradient, or grad mode is off) the op launches without
+    `_FlashAttention.apply`; where it records, the output's backward is
+    `_FlashAttention`'s.  One launch either way."""
+    fake = _FakeLibrary()
+    monkeypatch.setattr(build, "library", lambda: fake)
+    monkeypatch.setattr(tfa, "_stream", lambda t: 0)
+    monkeypatch.setattr(tfa.flash_attention, "launches", 0)
+    applied = []
+    apply = tfa._FlashAttention.apply
+
+    def spy(*args):
+        applied.append(args)
+        return apply(*args)
+
+    monkeypatch.setattr(tfa._FlashAttention, "apply", spy)
+    q, k, v = (torch.zeros(1, 2, 16, 8, dtype=dtype) for _ in range(3))
+    out = tfa._kernel_op(q, k, v, 0.5, True)
+    assert out.grad_fn is None and not applied
+    with torch.no_grad():
+        out = tfa._kernel_op(q.requires_grad_(), k, v, 0.5, True)
+    assert out.grad_fn is None and not applied
+    assert len(fake.calls) == 2 and tfa.flash_attention.launches == 2
+    out = tfa._kernel_op(q, k, v, 0.5, True)
+    assert len(applied) == 1 and type(out.grad_fn).__name__ == \
+        "_FlashAttentionBackward"
+    assert len(fake.calls) == 3 and tfa.flash_attention.launches == 3
 
 
 # ---------------------------------------------------------------------------

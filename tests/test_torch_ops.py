@@ -376,18 +376,46 @@ def _ln_inputs(rng, shape):
     return x, scale, bias
 
 
+# rows of the widths the kernel's plans take on the card (ConvNeXt's and
+# ViTamin's stems, SO400M, ViT-H, Swin's last merge, EVA02-L's `mlp.ln`)
+LN_KERNEL_SHAPES = [(3, 128), (2, 160), (2, 1152), (2, 1280), (2, 2048),
+                    (3, 2730)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(5, 32), (2, 7, 48), (3, 4, 5, 24), (40,)])
+@pytest.mark.parametrize("shape", [(5, 32), (2, 7, 48), (3, 4, 5, 24), (40,)]
+                         + LN_KERNEL_SHAPES)
 def test_layer_norm_matches_jax(shape, dtype):
     """fp32 within 1e-6 of the value's size; bf16 within one rounding
-    step (2^-8 of the value): both sides round the same fp32 result."""
+    step (2^-8 of the value): both sides round the same fp32 result.
+
+    In bf16 each side's output is its own fp32 result (on the same bf16
+    inputs) rounded once, and the two fp32 results agree within 1e-6.  Of
+    the thousands of values in a row of the kernel's widths a few fp32
+    results land on either side of a bf16 rounding boundary, one step
+    (2^-7 of a value just above a power of two) apart: there the bf16
+    outputs are held by those two checks alone."""
     x, scale, bias = _ln_inputs(np.random.default_rng(7), shape)
+    p = {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}
     want = np.asarray(jlayers.layer_norm(
-        {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)},
-        jnp.asarray(x, jnp.dtype(dtype)), 1e-5), np.float32)
-    got = tpa.layer_norm(torch.from_numpy(x).to(getattr(torch, dtype)),
-                         torch.from_numpy(scale), torch.from_numpy(bias), 1e-5)
+        p, jnp.asarray(x, jnp.dtype(dtype)), 1e-5), np.float32)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    ts, tb = torch.from_numpy(scale), torch.from_numpy(bias)
+    got = tpa.layer_norm(tx, ts, tb, 1e-5)
     assert got.dtype == getattr(torch, dtype) and got.shape == shape
+    if dtype == "bfloat16":
+        x16 = tx.float()
+        got32 = tpa.layer_norm(x16, ts, tb, 1e-5)
+        want32 = np.asarray(jlayers.layer_norm(p, jnp.asarray(x16.numpy()),
+                                               1e-5))
+        np.testing.assert_allclose(got32.numpy(), want32, atol=1e-6,
+                                   rtol=1e-6)
+        assert torch.equal(got, got32.bfloat16())
+        np.testing.assert_array_equal(
+            want, np.asarray(jnp.asarray(want32).astype(jnp.bfloat16),
+                             np.float32))
+        if shape in LN_KERNEL_SHAPES:
+            return
     tol = (dict(atol=1e-6, rtol=1e-6) if dtype == "float32"
            else dict(atol=2.0 ** -9, rtol=2.0 ** -8))
     np.testing.assert_allclose(got.float().numpy(), want, **tol)
@@ -407,6 +435,56 @@ def test_layer_norm_gradients_match_jax(shape, monkeypatch):
     for leaf, w in zip(leaves, want):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w),
                                    atol=1e-5, rtol=1e-4)
+
+
+# the widths `chip_smoke.py` times the LayerNorm kernel at: the towers'
+# activations (512 to 1280) and the zoo's (SO400M's 1152, ConvNeXt's and
+# Swin's 128-channel stems, ViTamin's 160, EVA02-L's `mlp.ln` at 2730, Swin's
+# last merge at 2048)
+LN_WIDTHS = (128, 160, 512, 640, 768, 1024, 1152, 1280, 2048, 2730)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_plan_covers_every_row(dtype, aligned):
+    """`layer_norm_plan` at every width from 1 to 4096: a row's head (the
+    bytes before its first 16-byte boundary, whatever the row's place in x),
+    its pieces and its tail add up to the row, the edges are whole units
+    of `edge` bytes and at most one a thread, the pieces fit the row's
+    threads, and a thread holds at most `LN_ROW_REGS` registers of the row.
+    Unaligned pointers take the global path; aligned ones never do below
+    4096, and the widths the towers give take the register paths."""
+    es = dtype.itemsize
+    for D in range(1, 4097):
+        plan = tpa.layer_norm_plan(D, dtype, aligned)
+        assert plan["rows"] * plan["threads"] == tpa.LN_THREADS, (D, plan)
+        if not aligned:
+            assert plan == {"variant": "global", "unit": es, "edge": 0,
+                            "threads": 32, "per": 0, "rows": 8}, (D, plan)
+            continue
+        assert plan["variant"] != "global" and plan["unit"] == 16, (D, plan)
+        assert plan["per"] * 4 <= tpa.LN_ROW_REGS, (D, plan)
+        nbytes = D * es
+        edge = plan["edge"]
+        assert edge == (0 if nbytes % 16 == 0 else 4 if nbytes % 4 == 0
+                        else 2), (D, plan)
+        for start in range(0, 16 * nbytes, nbytes):   # 16 rows' places
+            head = min((16 - start % 16) % 16, nbytes) if edge else 0
+            pieces = (nbytes - head) // 16
+            tail = nbytes - head - 16 * pieces
+            assert pieces <= plan["threads"] * plan["per"], (D, plan)
+            if edge:
+                assert head % edge == 0 and tail % edge == 0, (D, start)
+                assert max(head, tail) // edge <= plan["threads"], (D, plan)
+            else:
+                assert start % 16 == 0 and tail == 0, (D, start)
+        if plan["variant"] == "rows":
+            assert edge == 0 and 32 <= nbytes // 16 and D <= 1024
+        elif edge == 0 and nbytes // 16 < 32:
+            assert plan["threads"] in (4, 8) and plan["per"] == 4, (D, plan)
+    for D in LN_WIDTHS:
+        assert tpa.layer_norm_plan(D, dtype)["variant"] in (
+            "rows", "registers"), D
 
 
 def test_layer_norm_rejects_what_the_kernel_does_not_take():
