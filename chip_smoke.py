@@ -64,9 +64,10 @@ Phases, each printing its own lines:
       attack + train step (free and constrained), and two fused steps are
       within 1e-4 of the CPU's (same sentences, loss, parameters);
   (j) the trainer on ViT-L-14-quickgelu at its full width, cut in depth
-      like every tower of (j) to (p) but (n)'s (`DEPTH_CUTS`: ViT-L-14 to 8
-      vision and 4 text layers of 24 and 12, ViT-H-14 to 8 and 6 of 32 and
-      24; every block keeps its shape) (bf16 compute on fp32 master
+      like every tower of (j) to (p) but (n)'s (`DEPTH_CUTS`: ViT-L-14 to 4
+      vision and 4 text layers of 24 and 12, ViT-H-14 to 4 and 6 of 32 and
+      24, the vision towers at 8 until (w); every block keeps its shape)
+      (bf16 compute on fp32 master
       weights, batch 128, rho 50, k 1), each cell with the kernels' counters
       zeroed just before and held, just after, to the count its encodes
       imply: `leaf_tpu_torch.train.driver.main` with the fused step on the
@@ -360,7 +361,24 @@ Phases, each printing its own lines:
       `python -m leaf_tpu_torch.train.driver` at world 1 on NCCL under
       RANK=0 WORLD_SIZE=1 equal, bit for bit, to the run without the
       variables.  With two or more cards the full-width part also runs on
-      NCCL across them; with one, a line says that it did not.
+      NCCL across them; with one, a line says that it did not;
+  (w) prefix-reuse candidate encoding (`models.prefix_encode`) and tensor
+      parallelism (`parallel.sharding`): tiny, fp32, TF32 off, the prefix
+      path (unpacked and packed) on the card against the card's full encode
+      and the CPU, the LayerNorm kernel's launches held; the fused LEAF step
+      on a (data 1, model 2) grid of two gloo ranks on the card (`python
+      chip_smoke.py --w-rank <spec>`) against the same grid on the CPU and
+      the one-rank step on the card and the CPU (losses within 1e-5 of
+      their scale, parameters within 2e-4, the key bias within 2 lr a step,
+      the same sentences), whole parameters equal bit for bit across ranks;
+      at ViT-L-14-quickgelu's text tower (12 x 768, bf16): `clean_kv` +
+      `encode_text_suffix_packed` against `encode_text` on one step's 6,400
+      bucket-16 candidates of 64 captions (rho 50, both phases), CUDA-event
+      times in turns, cosine >= 0.99; the fused step at model 2 (global
+      batch 16, rho 50, bf16 on fp32 masters), 2 steps: s a step, the
+      collectives' share, each rank's LayerNorm, GEMM and packed-attention
+      launches held to its encodes; (c) has rows at the shapes it gives the
+      GEMM (N 1,152, K 384) and the packed kernel (6 heads).
 Any failure raises.  The line before the last is the kernels' JSON
 report (each kernel at its main-path shape; the line before it has the
 rows of every shape); the last is {"ok": true, "device": {...}}.  Without CUDA, or
@@ -461,6 +479,11 @@ SHAPES = [
     ("zoo_siglip_b16_text_s64_bf16", 16, 128, 64, False, 768, 12,
      "bfloat16"),
 ]
+# (w), tensor parallelism at model 2: a rank's packed attention on its 6
+# of ViT-L text's 12 heads (D 384 of 768), at the TP cell's candidate
+# scoring (800 candidates at bucket 16, 100 rows); the packed kernel alone,
+# the block runs split
+TP_SHAPES = [("tp_s16_h6_bf16", 100, 128, 16, True, 384, 6, "bfloat16")]
 # (name, M, K, N) of the fused block's two GEMMs on the main path; the
 # out-projections run again with their residual
 GEMM_SHAPES = [("s16 qkv", 32 * 128, 768, 2304), ("s16 out", 32 * 128, 768, 768),
@@ -492,7 +515,12 @@ GEMM_SHAPES = [("s16 qkv", 32 * 128, 768, 2304), ("s16 out", 32 * 128, 768, 768)
                ("mobileclip-b vision out", 128 * 197, 768, 768),
                # (s): the text tower at D 640, K 640 and N 1920
                ("d640 text qkv", 256 * 77, 640, 1920),
-               ("d640 text out", 256 * 77, 640, 640)]
+               ("d640 text out", 256 * 77, 640, 640),
+               # (w): a model-2 rank's qkv columns (N 1,152) and its rows
+               # of the out-projection (K 384, summed across the ranks
+               # before the bias: no residual) at the TP cell's scoring
+               ("tp s16 qkv", 100 * 128, 768, 1152),
+               ("tp s16 out rows", 100 * 128, 384, 768)]
 # M = 3 rows of 77 tokens; N and K multiples of 8 and of no tile (64 k, 128
 # to 256 columns), one of them narrower than a single TMA box
 # the eval's fp32 vision GEMMs: the block's qkv and out projections
@@ -585,9 +613,10 @@ def require(ok, what: str) -> None:
 # Every block keeps its shape, so (c)'s rows stay the shapes these paths
 # give the kernels, and the launches are held to the cut depths.  (d) to (h)
 # run ViT-L-14-quickgelu at its full depth, (n) ViT-B-32 and (q) CoCa's
-# coca_ViT-B-32 too
-DEPTH_CUTS = (("ViT-L-14", 8, 4), ("ViT-L-14-quickgelu", 8, 4),
-              ("ViT-H-14", 8, 6))
+# coca_ViT-B-32 too.  The vision towers ran 8 layers until phase (w) needed
+# the room
+DEPTH_CUTS = (("ViT-L-14", 4, 4), ("ViT-L-14-quickgelu", 4, 4),
+              ("ViT-H-14", 4, 6))
 # to make room for (v), (r) runs SO400M (27 + 27 layers) and (q) its
 # coca_ViT-L-14 (24 vision, 12 text, 12 decoder layers) cut in depth too:
 # (registry name, vision, text[, decoder] layers)
@@ -846,7 +875,7 @@ def phase_kernels():
             "flash_attention": []}
     t0 = time.perf_counter()
     with torch.inference_mode():
-        for name, R, L, S, causal, D, H, dt in SHAPES:
+        for name, R, L, S, causal, D, H, dt in SHAPES + TP_SHAPES:
             dtype = getattr(torch, dt)
             esize = 2 if dt == "bfloat16" else 4
             # drawn on the card: the largest rows hold billions of values,
@@ -882,6 +911,8 @@ def phase_kernels():
                 4.0 * R * L * D * esize, attn_flops, R=R, L=L, group_len=S,
                 causal=causal, D=D, heads=H, peak=peak,
                 visible_share=_visible_share(L, S, causal, dtype_name=dt)))
+            if (name, R, L, S, causal, D, H, dt) in TP_SHAPES:
+                continue      # the split block runs no fused block
 
             x = dev(R, L, D, scale=0.5)
             p = {"ln_1": {"scale": dev(D, scale=0.1, shift=1.0,
@@ -6213,6 +6244,37 @@ class _VCollectives:
         return False
 
 
+def _v_watch(opt, log: list) -> None:
+    """Record, at each update of `opt` (`train.optim.Optimizer`), what
+    AdamW's step depends on: the step count `update` was given, each
+    group's learning rate, weight decay and eps, AdamW's path, a digest of
+    the parameters before the step and their layout (for `_v_rank_diff`)."""
+    import hashlib
+    update, step = opt.update, opt.adamw.step
+
+    def watched_update(n):
+        log.append({"step": int(n)})
+        return update(n)
+
+    def watched_step(*a, **kw):
+        groups = opt.adamw.param_groups
+        h = hashlib.sha256()
+        for q in opt.parameters():
+            h.update(q.detach().float().cpu().numpy().tobytes())
+        g0 = groups[0]
+        log[-1].update(
+            lr=[g["lr"] for g in groups],
+            weight_decay=[g["weight_decay"] for g in groups],
+            eps=[g["eps"] for g in groups],
+            path=("fused" if g0.get("fused") else "foreach"
+                  if g0.get("foreach") else "for-loop"),
+            params_before=h.hexdigest()[:16],
+            layout=[[q.is_contiguous(), q.storage_offset()]
+                    for q in opt.parameters()])
+        return step(*a, **kw)
+    opt.update, opt.adamw.step = watched_update, watched_step
+
+
 def _v_tiny(D, device):
     """One rank's tiny runs on `device`: three fused steps (anchors
     missed, every rank hits, rank 1 misses), an unfused step, InfoNCE
@@ -6246,6 +6308,8 @@ def _v_tiny(D, device):
         return TrainState.create(text, opt)
 
     state = leaf_state()
+    updates = []
+    _v_watch(state.optimizer, updates)
     frozen = copy.deepcopy(model.module.text).requires_grad_(False)
     fused = FusedLeafStep(cfg, tok, rho=4, device=device)
     widths, branches = [], []
@@ -6269,7 +6333,8 @@ def _v_tiny(D, device):
         losses.append(float(info["metrics"]["loss"]))
     out["fused"] = {"losses": losses, "widths": widths,
                     "branches": branches, "digest": _v_digest(state.text),
-                    "params": _u_host(state.text.state_dict()), "steps": 3}
+                    "params": _u_host(state.text.state_dict()), "steps": 3,
+                    "updates": updates}
 
     state = leaf_state()
     scorer = CandidateScorer(cfg, device)
@@ -6430,14 +6495,22 @@ def _v_full(D, device, counters):
     return out
 
 
-def _v_rank_diff(D, digests, card: dict, cpu: dict):
+def _v_rank_diff(D, digests, card: dict, cpu: dict, updates=(None, None)):
     """Where the ranks' parameters differ, for the failure's message:
     {device: [{name, elements that differ, max abs difference, the first
-    indices}]} (both ranks call it; None where every digest agrees)."""
+    indices}], device + " updates": the first update whose record
+    (`_v_watch`) differs across ranks, both ranks' records} (both ranks
+    call it; None where every digest agrees)."""
     report = {}
     for i, device in enumerate(("card", "cpu")):
         if digests[0][i] == digests[1][i]:
             continue
+        logs = D.all_gather_object(updates[i])
+        if logs[0] is not None:
+            report[device + " updates"] = next(
+                ({"update": j, "ranks": [a, b]} for j, (a, b)
+                 in enumerate(zip(*logs)) if a != b),
+                {"update": None, "equal records": len(logs[0])})
         params = (card, cpu)[i]
         both = D.all_gather_object({k: v.numpy() for k, v in params.items()})
         rows = []
@@ -6485,8 +6558,9 @@ def _v_worker(spec_path: str) -> int:
                 "widths": c.get("widths"), "branches": c.get("branches"),
                 "digests": D.all_gather_object([c["digest"],
                                                 p["digest"]])}
-            tiny[part]["rank_diff"] = _v_rank_diff(D, tiny[part]["digests"],
-                                                   c["params"], p["params"])
+            tiny[part]["rank_diff"] = _v_rank_diff(
+                D, tiny[part]["digests"], c["params"], p["params"],
+                (c.get("updates"), p.get("updates")))
         out["tiny"] = tiny
         out["tiny_s"] = time.perf_counter() - t0
     # the full-width part waits for the card to be this phase's alone
@@ -6504,10 +6578,10 @@ def _v_worker(spec_path: str) -> int:
 
 
 def _v_start(workdir: str, tag: str, backend: str, tiny: bool, local_ranks,
-             gate=None):
-    """Two ranks of (v) in spawned processes; `_v_wait` collects them.
-    With `gate`, a path, the ranks start their full-width part once it
-    exists."""
+             gate=None, entry: str = "--v-rank"):
+    """Two ranks of (v) (or of (w): `entry` "--w-rank") in spawned
+    processes; `_v_wait` collects them.  With `gate`, a path, the ranks
+    start their gated part once it exists."""
     import socket
     spec = {"backend": backend, "tiny": tiny, "gate": gate,
             "out": os.path.join(workdir, f"v_{tag}_rank%d.json")}
@@ -6524,7 +6598,7 @@ def _v_start(workdir: str, tag: str, backend: str, tiny: bool, local_ranks,
                    MASTER_PORT=str(port))
         log = open(os.path.join(workdir, f"v_{tag}_rank{rank}.log"), "w")
         procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--v-rank", path],
+            [sys.executable, os.path.abspath(__file__), entry, path],
             stdout=log, stderr=subprocess.STDOUT, env=env), log))
     return tag, spec, procs
 
@@ -6721,6 +6795,448 @@ def phase_multirank(workdir: str):
     return launches, results
 
 
+# ---------------------------------------------------------------------------
+# (w) prefix-reuse candidate encoding, and tensor parallelism on two ranks
+# ---------------------------------------------------------------------------
+
+W_LEAF = "ViT-L-14-quickgelu"
+# the prefix cell: one LEAF step's candidates at the recipe's rho, both
+# phases (probes and characters), for 64 bucket-16 captions: 6,400
+W_PREFIX_CAPTIONS, W_RHO = 64, 50
+# the tensor-parallel cell: a (data 1, model 2) grid, two gloo ranks on the
+# one card, each seeing the whole global batch of 16 captions at rho 50
+W_TP_CAPTIONS, W_TP_STEPS = 16, 2
+W_TINY_BATCHES = (V_TINY_CAPTIONS, V_TINY_CAPTIONS,
+                  V_TINY_CAPTIONS[:4] + V_TINY_FRESH)
+
+
+class _WCounters(_Counters):
+    """The counters with the GEMM's, which the tensor-parallel block
+    launches on its own."""
+    NAMES = _Counters.NAMES + ("gemm_bias",)
+
+
+def _w_tp_launches(layers: int, encodes: int) -> dict:
+    """A tensor-parallel text encode's launches on each rank: per block
+    ln_1 and ln_2 (LayerNorm kernel), the qkv columns and the out rows
+    (GEMM kernel), its heads' attention; `ln_final` once."""
+    return {"packed_attention": layers * encodes, "fused_attention_block": 0,
+            "layer_norm": (2 * layers + 1) * encodes,
+            "gemm_bias": 2 * layers * encodes}
+
+
+def _w_candidates(tok, texts, rng, rho: int):
+    """One LEAF step's candidates for `texts`: phase 1's probes (a space at
+    `rho` sampled positions of each caption) and phase 2's (`rho`
+    characters at the first of them), at one bucket width with the clean
+    tokens.  Returns (clean [B, S], candidates [2 B rho, S], their
+    captions' rows)."""
+    from leaf_tpu_torch.attacks import edits
+    from leaf_tpu_torch.attacks.engine import bucket_need, bucket_tokens
+    space = edits.DEFAULT_VOCAB.index(ord(" "))
+    n_vocab = len(edits.DEFAULT_VOCAB)
+    probes, chars = [], []
+    for s in texts:
+        zs = edits.sample_positions(len(s), rho, rng=rng)
+        probes += [edits.apply_edit(s, int(z), space, alternative=-1)
+                   for z in zs]
+        chars += [edits.apply_edit(s, int(zs[0]), int(u), alternative=-1)
+                  for u in rng.choice(n_vocab, size=rho,
+                                      replace=rho > n_vocab)]
+    clean, cand = np.asarray(tok(texts)), np.asarray(tok(probes + chars))
+    need = max(bucket_need(clean), bucket_need(cand))
+    rows = np.tile(np.repeat(np.arange(len(texts), dtype=np.int32), rho), 2)
+    return (bucket_tokens(clean, need=need), bucket_tokens(cand, need=need),
+            rows)
+
+
+def _w_prefix(text, clean, cand, rows, bucket: int = 4, packed=True):
+    """The prefix path's features of `cand` [N, S] (normalized), its
+    clean K/V from `clean`: (features, host seconds of `suffix_split`)."""
+    import torch
+    from leaf_tpu_torch.models import prefix_encode as pe
+    t0 = time.perf_counter()
+    suffix, plen = pe.suffix_split(cand, clean, rows, bucket)
+    host_s = time.perf_counter() - t0
+    dev = text.token_embedding.device
+
+    def on(a):
+        return torch.from_numpy(a).to(dev)
+    with torch.no_grad():
+        ks, vs = pe.clean_kv(text, on(clean))
+        fn = pe.encode_text_suffix_packed if packed else pe.encode_text_suffix
+        return fn(text, on(suffix), on(rows), on(plen), ks, vs,
+                  normalize=True), host_s
+
+
+def _w_prefix_tiny(counters) -> dict:
+    """ViT-tiny-test, fp32, TF32 off: the prefix path (unpacked and packed)
+    on the card against the card's full encode and the CPU's prefix path;
+    the LayerNorm kernel's launches held (clean_kv: 2 a layer; a suffix
+    encode: 2 a layer and ln_final), no attention kernel."""
+    import torch
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+    tok = get_tokenizer(V_TINY)
+    clean, cand, rows = _w_candidates(tok, V_TINY_CAPTIONS,
+                                      np.random.default_rng(3), 6)
+    text = {dev: create_model(V_TINY, precision="fp32", seed=0,
+                              device=dev).module.text
+            for dev in ("cuda", "cpu")}
+    layers = text["cuda"].cfg.layers
+    with torch.no_grad():
+        full = text["cuda"].encode_text(torch.from_numpy(cand).cuda(),
+                                        normalize=True).cpu()
+    out = {"S": int(cand.shape[1]), "N": int(cand.shape[0])}
+    for packed in (False, True):
+        tag = "packed" if packed else "suffix"
+        torch.cuda.synchronize()
+        counters.zero()
+        card, _ = _w_prefix(text["cuda"], clean, cand, rows, packed=packed)
+        torch.cuda.synchronize()
+        got = {k: op.launches for k, op in counters.ops.items()}
+        want = dict.fromkeys(_WCounters.NAMES, 0)
+        want["layer_norm"] = 4 * layers + 1
+        require(got == want, f"(w) tiny prefix {tag}: launches {got}, "
+                f"{want} expected")
+        cpu, _ = _w_prefix(text["cpu"], clean, cand, rows, packed=packed)
+        card = card.cpu()
+        out[tag] = {"vs_full": float((card - full).abs().max()),
+                    "vs_cpu": float((card - cpu).abs().max()),
+                    "launches": got}
+        require(out[tag]["vs_full"] <= TOLERANCE["float32"]
+                and out[tag]["vs_cpu"] <= TOLERANCE["float32"],
+                f"(w) tiny prefix {tag}: {out[tag]}")
+    return out
+
+
+def _w_prefix_full(counters) -> dict:
+    """V_LEAF's text tower (12 x 768, bf16 weights): `clean_kv` plus
+    `encode_text_suffix_packed` against the packed full encode
+    (`encode_text`) on one step's 6,400 bucket-16 candidates, CUDA-event
+    times in turns (full, prefix, prefix, full), features at cosine >=
+    0.99 of the full encode's, the LayerNorm kernel's launches held."""
+    import torch
+    from leaf_tpu_torch.models.clip import TextTower
+    from leaf_tpu_torch.models.config import get_model_config
+    from leaf_tpu_torch.models.factory import _cast_weights, get_tokenizer
+    cfg = get_model_config(W_LEAF)
+    text = TextTower(cfg.text, cfg.quick_gelu)
+    text.init_weights(torch.Generator().manual_seed(0))
+    _cast_weights(text, torch.bfloat16)
+    text = text.cuda().eval()
+    layers = cfg.text.layers
+    texts = _captions(np.random.default_rng(97), W_PREFIX_CAPTIONS, 3, 7)
+    clean, cand, rows = _w_candidates(get_tokenizer(W_LEAF), texts,
+                                      np.random.default_rng(31), W_RHO)
+    require(cand.shape == (2 * W_PREFIX_CAPTIONS * W_RHO, 16),
+            f"(w) prefix candidates {cand.shape}, bucket 16 expected")
+    cand_dev = torch.from_numpy(cand).cuda()
+
+    def full():
+        with torch.no_grad():
+            return text.encode_text(cand_dev, normalize=True)
+
+    def prefix():
+        return _w_prefix(text, clean, cand, rows)[0]
+
+    torch.cuda.synchronize()
+    counters.zero()
+    feats, host_s = _w_prefix(text, clean, cand, rows)
+    torch.cuda.synchronize()
+    got = {k: op.launches for k, op in counters.ops.items()}
+    want = dict.fromkeys(_WCounters.NAMES, 0)
+    want["layer_norm"] = 4 * layers + 1
+    require(got == want, f"(w) prefix launches {got}, {want} expected")
+    ref = full()
+    cos = torch.nn.functional.cosine_similarity(feats.float(), ref.float(),
+                                                dim=-1)
+    require(float(cos.min()) >= 0.99, f"(w) prefix cosine {float(cos.min())}")
+
+    def timed(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = {"full": [], "prefix": []}
+    for tag in ("full", "prefix", "prefix", "full"):
+        ms[tag].append(timed(full if tag == "full" else prefix))
+    from leaf_tpu_torch.models import prefix_encode as pe
+    suffix, plen = pe.suffix_split(cand, clean, rows, 4)
+    out = {"N": int(cand.shape[0]), "S": int(cand.shape[1]),
+           "T": int(suffix.shape[1]),
+           "mean_suffix": float(cand.shape[1] - plen.mean()),
+           "full_ms": ms["full"], "prefix_ms": ms["prefix"],
+           "suffix_split_host_s": host_s, "min_cosine": float(cos.min()),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": got}
+    del text, cand_dev, feats, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _w_tiny_steps(device, grid=None) -> dict:
+    """Three fused LEAF steps at ViT-tiny-test (fp32, unpipelined; anchors
+    missed, hit, half missed) on `device`, on `grid`'s shards where it is
+    given: losses, sentences, the whole parameters (host copies) and their
+    digest."""
+    import copy
+    import torch
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+    from leaf_tpu_torch.parallel import sharding
+    from leaf_tpu_torch.train.fused import FusedLeafStep
+    from leaf_tpu_torch.train.optim import make_optimizer
+    from leaf_tpu_torch.train.schedules import cosine_lr
+    from leaf_tpu_torch.train.step import TrainState
+    model = create_model(V_TINY, precision="fp32", seed=0, device=device,
+                         master_weights=True)
+    text = copy.deepcopy(model.module.text).requires_grad_(True)
+    frozen = copy.deepcopy(text).requires_grad_(False)
+    if grid is not None:
+        sharding.shard_module(text, grid)
+        sharding.shard_module(frozen, grid)
+    opt = make_optimizer(text.named_parameters(), cosine_lr(V_LR, 1, 100),
+                         weight_decay=1e-4, grid=grid)
+    state = TrainState.create(text, opt)
+    fused = FusedLeafStep(model.cfg, get_tokenizer(V_TINY), rho=4,
+                          device=device, pipeline=False, grid=grid)
+    rng = np.random.default_rng(7)
+    losses, adv = [], []
+    for texts in W_TINY_BATCHES:
+        state, info = fused(state, frozen, list(texts), rng)
+        losses.append(float(info["metrics"]["loss"]))
+        adv.append(fused.adv_sentences(list(texts), info))
+    return {"losses": losses, "adv": adv, "digest": _v_digest(text),
+            "params": _u_host(text.state_dict()), "steps": len(losses)}
+
+
+def _w_tp_full(grid, device, counters) -> dict:
+    """One rank's full-width tensor-parallel steps: the fused LEAF step at
+    V_LEAF's text tower (12 x 768, bf16 on fp32 masters) on the grid's
+    shards, every rank the whole global batch (W_TP_CAPTIONS bucket-16
+    captions, rho 50) and the same rng stream; per step its seconds, the
+    collectives' seconds and the kernels' launches."""
+    import torch
+    from leaf_tpu_torch.models.clip import TextTower
+    from leaf_tpu_torch.models.config import get_model_config
+    from leaf_tpu_torch.models.factory import get_tokenizer
+    from leaf_tpu_torch.parallel import sharding
+    from leaf_tpu_torch.train.fused import FusedLeafStep
+    from leaf_tpu_torch.train.optim import make_optimizer
+    from leaf_tpu_torch.train.schedules import cosine_lr
+    from leaf_tpu_torch.train.step import TrainState
+    cfg = get_model_config(W_LEAF)
+    text = TextTower(cfg.text, cfg.quick_gelu)
+    text.init_weights(torch.Generator().manual_seed(0))
+    frozen = TextTower(cfg.text, cfg.quick_gelu)
+    frozen.load_state_dict(text.state_dict())
+    towers = []
+    for t in (text, frozen):
+        t = sharding.shard_module(t.to(device), grid)
+        t.compute_dtype = torch.bfloat16
+        towers.append(t)
+    text, frozen = towers
+    frozen.requires_grad_(False)
+    opt = make_optimizer(text.named_parameters(), cosine_lr(V_LR, 1, 100),
+                         grid=grid)
+    state = TrainState.create(text, opt)
+    fused = FusedLeafStep(cfg, get_tokenizer(W_LEAF), rho=W_RHO,
+                          device=device, grid=grid)
+    texts = _captions(np.random.default_rng(97), W_TP_CAPTIONS, 3, 7)
+    rng = np.random.default_rng(13)
+    layers = cfg.text.layers
+    rows = []
+    counters.zero()
+    for i in range(W_TP_STEPS):
+        torch.cuda.synchronize()
+        before = {k: op.launches for k, op in counters.ops.items()}
+        with _VCollectives() as coll:
+            t0 = time.perf_counter()
+            state, info = fused(state, frozen, texts, rng)
+            loss = float(info["metrics"]["loss"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        got = {k: op.launches - before[k] for k, op in counters.ops.items()}
+        # anchors (missed at the first step), probes, candidates, the train
+        # forward; the backward recomputes through the plain versions
+        rows.append({"s": seconds, "collective_s": coll.seconds,
+                     "collectives": coll.calls, "loss": loss,
+                     "launches": got,
+                     "want": _w_tp_launches(layers, 4 if i == 0 else 3)})
+    return {"steps": rows, "digest": _v_digest(text),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _w_worker(spec_path: str) -> int:
+    """One rank of (w), spawned by `phase_prefix_tp` (`python chip_smoke.py
+    --w-rank <spec>` under the launcher's variables): a (1, 2) grid, the
+    tiny steps on the card and on the CPU, then the full-width steps."""
+    import torch
+    from leaf_tpu_torch.parallel import distributed as D
+    from leaf_tpu_torch.parallel import sharding
+    with open(spec_path) as f:
+        spec = json.load(f)
+    info = D.init_distributed_device("cuda", backend=spec["backend"])
+    grid = sharding.create_grid((1, 2))
+    out = {"rank": info["rank"], "device": str(info["device"]),
+           "grid": [grid.data, grid.model, grid.data_index,
+                    grid.model_index]}
+    # the card is the tiny reference's and the prefix cell's until then
+    gate = spec.get("gate")
+    while gate and not os.path.exists(gate):
+        time.sleep(0.1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    counters = _WCounters()
+    counters.zero()
+    out["tiny"] = {"card": _w_tiny_steps(info["device"], grid)}
+    torch.cuda.synchronize()
+    out["tiny_launches"] = {k: op.launches for k, op in counters.ops.items()}
+    out["tiny"]["cpu"] = _w_tiny_steps(torch.device("cpu"), grid)
+    out["tiny_s"] = time.perf_counter() - t0
+    torch.backends.cuda.matmul.allow_tf32 = True
+    t0 = time.perf_counter()
+    out["full"] = _w_tp_full(grid, info["device"], counters)
+    out["full_s"] = time.perf_counter() - t0
+    # the whole parameters (tensors) beside the JSON
+    torch.save({dev: out["tiny"][dev].pop("params") for dev in out["tiny"]},
+               spec["out"] % info["rank"] + ".params.pt")
+    with open(spec["out"] % info["rank"], "w") as f:
+        json.dump(out, f, default=float)
+    D.barrier()
+    return 0
+
+
+def phase_prefix_tp(workdir: str):
+    """(w) The prefix path (`models.prefix_encode`) and tensor parallelism
+    (`parallel.sharding`).  Tiny (ViT-tiny-test, fp32, TF32 off): the
+    prefix path on the card equals the card's full encode and the CPU's
+    prefix path; the fused LEAF step on a (1, 2) grid of two gloo ranks on
+    the card equals the same grid on the CPU and the one-rank step (card and
+    CPU; losses within 1e-5 of their scale, parameters within 2e-4 and the
+    key bias within 2 lr a step, the same sentences), the ranks' whole
+    parameters equal bit for bit.  Full width (ViT-L-14-quickgelu's text
+    tower, bf16): `clean_kv` + `encode_text_suffix_packed` against
+    `encode_text` on one step's 6,400 bucket-16 candidates (times in turns,
+    cosine >= 0.99); the fused step at model 2, global batch 16 at rho 50,
+    2 steps: s a step, the collectives' share, each rank's launches of the
+    LayerNorm, GEMM and packed-attention kernels held to its encodes.
+    Returns ({path: {kernel: launches}}, results)."""
+    import torch
+    t0 = time.perf_counter()
+    from leaf_tpu_torch.models.factory import get_tokenizer
+    get_tokenizer(V_TINY)("a caption")
+    gate = os.path.join(workdir, "w_card_free")
+    ranks = _v_start(workdir, "w", "gloo", True, (0, 0), gate, "--w-rank")
+    counters = _WCounters()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        tiny_prefix = _w_prefix_tiny(counters)
+        one = {dev: _w_tiny_steps(torch.device(dev))
+               for dev in ("cuda", "cpu")}
+        torch.backends.cuda.matmul.allow_tf32 = True
+        prefix = _w_prefix_full(counters)
+    finally:
+        open(gate, "w").close()
+        outs = _v_wait(workdir, ranks)
+    say(f"(w) tiny prefix path (fp32, TF32 off, {tiny_prefix['N']} "
+        f"candidates at S {tiny_prefix['S']}): max abs against the card's "
+        f"full encode / the CPU: unpacked "
+        f"{tiny_prefix['suffix']['vs_full']:.3g} / "
+        f"{tiny_prefix['suffix']['vs_cpu']:.3g}, packed "
+        f"{tiny_prefix['packed']['vs_full']:.3g} / "
+        f"{tiny_prefix['packed']['vs_cpu']:.3g}; launches "
+        f"{tiny_prefix['packed']['launches']}")
+    say(f"(w) prefix at {W_LEAF}'s text tower, bf16: {prefix['N']} "
+        f"candidates at S {prefix['S']} (suffixes T {prefix['T']}, mean "
+        f"{prefix['mean_suffix']:.2f} tokens): full encode ms "
+        f"{[round(x, 3) for x in prefix['full_ms']]}, clean_kv + packed "
+        f"suffix encode ms {[round(x, 3) for x in prefix['prefix_ms']]}, "
+        f"suffix_split {prefix['suffix_split_host_s'] * 1e3:.1f} ms on the "
+        f"host, min cosine {prefix['min_cosine']:.5f}, peak "
+        f"{prefix['peak_gib']:.1f} GiB, launches {prefix['launches']}")
+    tiny = {}
+    for o in outs:
+        params = torch.load(os.path.join(workdir, f"v_w_rank{o['rank']}.json"
+                                         ".params.pt"))
+        for dev in params:
+            o["tiny"][dev]["params"] = params[dev]
+        require(o["grid"][:2] == [1, 2] and o["device"] == "cuda:0",
+                f"(w) rank {o['rank']}: grid {o['grid']} on {o['device']}")
+        want = _w_tp_launches(2, 4 + 3 + 4)
+        require(o["tiny_launches"] == want,
+                f"(w) tiny rank {o['rank']}: launches {o['tiny_launches']}, "
+                f"{want} expected")
+        pairs = {"card vs cpu": (o["tiny"]["cpu"], o["tiny"]["card"]),
+                 "card vs one rank": (one["cuda"], o["tiny"]["card"]),
+                 "cpu vs one rank": (one["cpu"], o["tiny"]["cpu"])}
+        for tag, (ref, got) in pairs.items():
+            scale = max(abs(v) for v in ref["losses"])
+            err = {"loss_err": max(abs(a - b) for a, b in zip(
+                ref["losses"], got["losses"])) / scale,
+                "params_err": _v_params_err(ref["params"], got["params"],
+                                            got["steps"])}
+            require(err["loss_err"] <= 1e-5 and err["params_err"] <= 2e-4
+                    and ref["adv"] == got["adv"],
+                    f"(w) tiny rank {o['rank']} {tag}: {err}, sentences "
+                    f"{ref['adv'] == got['adv']}")
+            tiny[tag] = {k: max(v, tiny.get(tag, {}).get(k, 0.0))
+                         for k, v in err.items()}
+    for dev in ("card", "cpu"):
+        a, b = (o["tiny"][dev]["digest"] for o in outs)
+        require(a == b, f"(w) tiny {dev}: the ranks' parameters differ")
+    say(f"(w) tiny fused step on a (1, 2) grid of two gloo ranks (fp32, TF32 "
+        f"off): {tiny}; the same sentences; each rank's launches over the "
+        f"three steps {outs[0]['tiny_launches']}; whole parameters equal bit "
+        f"for bit across ranks ({outs[0]['tiny_s']:.1f} s a rank)")
+
+    a, b = (o["full"] for o in outs)
+    require(a["digest"] == b["digest"],
+            "(w) model 2: the ranks' parameters differ")
+    launches = dict.fromkeys(_WCounters.NAMES, 0)
+    for o in outs:
+        for i, row in enumerate(o["full"]["steps"]):
+            require(row["launches"] == row["want"],
+                    f"(w) model 2 rank {o['rank']} step {i + 1}: launches "
+                    f"{row['launches']}, {row['want']} expected")
+            require(np.isfinite(row["loss"]) and row["loss"] > 0,
+                    f"(w) model 2: loss {row['loss']}")
+            for k in launches:
+                launches[k] += row["launches"][k]
+    require([r["loss"] for r in a["steps"]] == [r["loss"] for r in b["steps"]],
+            "(w) model 2: the ranks logged different losses")
+    steps = [{"s": max(x["s"], y["s"]),
+              "collective_s": max(x["collective_s"], y["collective_s"]),
+              "collectives": x["collectives"], "loss": x["loss"],
+              "launches_per_rank": x["launches"]}
+             for x, y in zip(a["steps"], b["steps"])]
+    share = [s["collective_s"] / s["s"] for s in steps]
+    say(f"(w) model 2 at {W_LEAF}'s text tower (bf16 on fp32 masters, global "
+        f"batch {W_TP_CAPTIONS}, rho {W_RHO}): s per step "
+        f"{[round(s['s'], 4) for s in steps]}, the collectives' share "
+        f"{[round(x, 3) for x in share]} ({steps[0]['collectives']} calls a "
+        f"step, gloo through the host), losses "
+        f"{[round(s['loss'], 5) for s in steps]}, launches per rank and step "
+        f"{[s['launches_per_rank'] for s in steps]} held to the encodes; "
+        f"whole parameters equal bit for bit across ranks; peak "
+        f"{max(a['peak_gib'], b['peak_gib']):.1f} GiB a rank")
+    results = {"tiny_prefix": tiny_prefix, "prefix": prefix, "tiny_tp": tiny,
+               "tp": {"steps": steps, "collective_share": share},
+               "seconds": time.perf_counter() - t0}
+    paths = {"prefix": {"layer_norm": tiny_prefix["packed"]["launches"][
+                 "layer_norm"] + prefix["launches"]["layer_norm"]},
+             "tp": launches}
+    return paths, results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6806,6 +7322,7 @@ def main() -> int:
         train_zoo_launches, train_zoo_runs = _timed("u", phase_zoo_train,
                                                     workdir)
         rank_launches, multirank = _timed("v", phase_multirank, workdir)
+        w_launches, prefix_tp = _timed("w", phase_prefix_tp, workdir)
         zoo_launches = {**zoo_launches, **conv_launches, **rest_launches,
                         **train_zoo_launches,
                         "multirank": rank_launches}
@@ -6838,7 +7355,9 @@ def main() -> int:
                              **{path: coca_launches[path]["packed_attention"]
                                 for path in coca_launches},
                              **{path: zoo_launches[path]["packed_attention"]
-                                for path in zoo_launches}},
+                                for path in zoo_launches},
+                             "tensor_parallel":
+                                 w_launches["tp"]["packed_attention"]},
         "fused_attention_block": {
             "serve": serve_launches["fused_attention_block"],
             "train": train_launches["fused_attention_block"],
@@ -6892,12 +7411,21 @@ def main() -> int:
                    **{path: coca_launches[path]["layer_norm"]
                       for path in coca_launches},
                    **{path: zoo_launches[path]["layer_norm"]
-                      for path in zoo_launches}}
+                      for path in zoo_launches},
+                   "prefix_encode": w_launches["prefix"]["layer_norm"],
+                   "tensor_parallel": w_launches["tp"]["layer_norm"]}
     for path, count in ln_launches.items():
         require(count > 0, f"layer_norm: no launch on the {path} path")
+    # the GEMM alone: the tensor-parallel block's qkv columns and out rows
+    gemm_launches = {"tensor_parallel": w_launches["tp"]["gemm_bias"]}
+    require(gemm_launches["tensor_parallel"] > 0,
+            "gemm_bias: no launch on the tensor_parallel path")
     require(report[1]["name"] == "fused_attention_block", "report order")
-    report[1]["parts"] = {"layer_norm": {"launches": sum(ln_launches.values()),
-                                         "launches_by_path": ln_launches}}
+    report[1]["parts"] = {
+        "layer_norm": {"launches": sum(ln_launches.values()),
+                       "launches_by_path": ln_launches},
+        "gemm_bias": {"launches": sum(gemm_launches.values()),
+                      "launches_by_path": gemm_launches}}
     PHASE_SECONDS["all"] = round(time.perf_counter() - t_start, 1)
     say(f"phase seconds: {PHASE_SECONDS}")
     print(json.dumps({"phase_seconds": PHASE_SECONDS,
@@ -6917,7 +7445,8 @@ def main() -> int:
                       "convnets": conv_runs, "rest_parity": rest_parity,
                       "rest": rest_runs, "zoo_train_parity": train_parity,
                       "zoo_train": train_zoo_runs,
-                      "multirank": multirank}, default=float))
+                      "multirank": multirank, "prefix_tp": prefix_tp},
+                     default=float))
     # every shape's row (ms, plain_ms, library_ms, bound_ms, bound_by,
     # max_abs_err) on a line of its own, so that the kernels line stays
     # short enough to read whole from the end of a captured output
@@ -6932,4 +7461,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--v-rank"]:
         sys.exit(_v_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--w-rank"]:
+        sys.exit(_w_worker(sys.argv[2]))
     sys.exit(main())

@@ -137,6 +137,8 @@ class TextTower(nn.Module):
                                      if cfg.proj_bias else None)
         # None: compute in the stored weights' dtype
         self.compute_dtype: Optional[torch.dtype] = None
+        # a `parallel.sharding.Grid` once the tower holds its shards
+        self.tp = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -155,6 +157,9 @@ class TextTower(nn.Module):
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """Token ids [B, S] -> embeddings [B, S, D] (the PEZ hook)."""
+        if self.tp is not None:
+            from leaf_tpu_torch.parallel.sharding import embed_tokens
+            return embed_tokens(self, tokens)
         return self.token_embedding[tokens.long()].to(self.dtype)
 
     def encode_text_embedding(self, embeds: torch.Tensor,

@@ -204,7 +204,9 @@ class ResidualBlock(nn.Module):
     """Pre-LN residual attention block.  With `packed` it is one
     `fused_attention_block` call plus the MLP; without it (CoCa's text
     tower and decoder, and the tests' oracle) `ln_1` and the unpacked
-    `attention`."""
+    `attention`.  On a tensor-parallel grid (`tp` set by
+    `parallel.sharding.shard_module`) it holds its shards and runs
+    `sharding.block_forward`."""
 
     def __init__(self, width: int, heads: int, mlp_width: int, act,
                  ln_eps: float):
@@ -220,6 +222,8 @@ class ResidualBlock(nn.Module):
         })
         self.ln_2 = LayerNorm(width, ln_eps)
         self.mlp = Mlp(width, mlp_width, act)
+        # a `parallel.sharding.Grid` once the block holds its shards
+        self.tp = None
 
     def init_weights(self, generator: torch.Generator, layers: int) -> None:
         """The JAX package's init (`init_block_stack`) for a tower of
@@ -233,6 +237,9 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 packed: Packed = None) -> torch.Tensor:
+        if self.tp is not None:
+            from leaf_tpu_torch.parallel.sharding import block_forward
+            return block_forward(self, x, packed)
         attn = {k: v.to(x.dtype) for k, v in self.attn.items()}
         if packed is not None:
             p = {"ln_1": {"scale": self.ln_1.scale, "bias": self.ln_1.bias},

@@ -30,6 +30,12 @@ PyTorch version:
     in registers by 4 to 256 threads and written once.
     `layer_norm_plan` mirrors the kernel's choice in Python.  Plain
     version: `_layer_norm_reference`.
+  * `gemm_bias(a, w, bias)`: `a @ w (+ bias)`, the block's GEMM kernel on
+    its own (`leaf_gemm_bias` of `csrc/fused_block.cu`), for the
+    tensor-parallel block (`parallel.sharding`), which cannot end in the
+    fused block's residual: a rank's qkv columns and its rows of the
+    out-projection, whose partial products are summed across the ranks
+    before the bias.  Plain version: `_gemm_bias_reference`.
 
 The packed-attention kernel runs on the tensor cores in both dtypes
 (`csrc/attention_mma.cuh`, shared with flash attention's bf16 body):
@@ -44,9 +50,10 @@ Dispatch is by the tensor's device and nothing else: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel or raises.  There
 is no size gate and no fallback.  Each op counts its kernel launches in
 an integer attribute (`packed_attention.launches`,
-`fused_attention_block.launches`, `layer_norm.launches`); the fused
-block runs the packed-attention kernel, so it counts there too, and its
-own LayerNorm stage counts under the block, not under `layer_norm`.
+`fused_attention_block.launches`, `layer_norm.launches`,
+`gemm_bias.launches`); the fused block runs the packed-attention kernel,
+so it counts there too, and its own LayerNorm and GEMM stages count under
+the block, not under `layer_norm` or `gemm_bias`.
 
 Each CUDA path is a `torch.autograd.Function` whose backward recomputes
 through the plain version, like the JAX `custom_vjp`s.  Serving never
@@ -274,13 +281,15 @@ def _layer_norm_reference(x: torch.Tensor, scale: torch.Tensor,
     return y.to(x.dtype)
 
 
-def _gemm_bias_reference(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+def _gemm_bias_reference(a: torch.Tensor, w: torch.Tensor,
+                         bias: Optional[torch.Tensor],
                          residual: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """`(residual +) a @ w + bias` at the GEMM kernel's rounding points:
-    the product and the bias summed in fp32 and rounded once, the residual
-    added as a sum of two values of the dtype."""
-    y = (a.float() @ w.float() + bias.float()).to(a.dtype)
+    the product and the bias (none where None) summed in fp32 and rounded
+    once, the residual added as a sum of two values of the dtype."""
+    y = a.float() @ w.float()
+    y = (y if bias is None else y + bias.float()).to(a.dtype)
     return y if residual is None else residual + y
 
 
@@ -368,8 +377,9 @@ def _launch_gemm_bias(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """The block's GEMM kernel alone, `(residual +) a @ w + bias` on CUDA
     tensors `[M, K]`, `[K, N]`, `[N]` (`[M, N]`) of one dtype; `tile_n`
     forces the bf16 tile width (256, 192 or 128; 0: picked from the
-    shape).  For `chip_smoke.py` and the profiler: the towers reach the
-    kernel through `fused_attention_block` only."""
+    shape).  The towers reach the kernel through `fused_attention_block`
+    and, under tensor parallelism, `gemm_bias`; `chip_smoke.py` and the
+    profiler call it here."""
     (M, K), N = a.shape, w.shape[1]
     _check_tensor("a", a, a.dtype, (M, K), a.device)
     _check_tensor("w", w, a.dtype, (K, N), a.device)
@@ -382,6 +392,27 @@ def _launch_gemm_bias(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         None if residual is None else residual.data_ptr(), out.data_ptr(),
         _DTYPE_CODES[a.dtype], M, N, K, tile_n, a.device.index, _stream(a)),
         "GEMM + bias kernel")
+    return out
+
+
+_ZERO_BIAS = {}
+
+
+def _zero_bias(n: int, like: torch.Tensor) -> torch.Tensor:
+    """A zero bias [n] in `like`'s dtype and device (the kernel takes a
+    bias; adding zeros to the fp32 accumulator leaves it as it is)."""
+    key = (n, like.dtype, like.device)
+    if key not in _ZERO_BIAS:
+        _ZERO_BIAS[key] = torch.zeros(n, dtype=like.dtype, device=like.device)
+    return _ZERO_BIAS[key]
+
+
+def _launch_gemm(a: torch.Tensor, w: torch.Tensor,
+                 bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """`gemm_bias`'s launch: counted, `bias` None as zeros."""
+    out = _launch_gemm_bias(a, w, _zero_bias(w.shape[1], a)
+                            if bias is None else bias)
+    gemm_bias.launches += 1
     return out
 
 
@@ -479,6 +510,23 @@ class _FusedAttentionBlock(torch.autograd.Function):
                 p[group][key] = t
             out = _block_reference(p, ts[0], *ctx.args)
         return (*_input_grads(ctx, out, ts, g), None, None, None, None)
+
+
+class _GemmBias(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, w, bias):
+        ctx.save_for_backward(*((a, w) if bias is None else (a, w, bias)))
+        ctx.has_bias = bias is not None
+        return _launch_gemm(a, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            ts = _recompute_inputs(ctx)
+            out = _gemm_bias_reference(ts[0], ts[1], ts[2] if ctx.has_bias
+                                       else None)
+        grads = _input_grads(ctx, out, ts, g)
+        return (*grads, None) if not ctx.has_bias else tuple(grads)
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -616,6 +664,34 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 layer_norm.launches = 0
+
+
+def gemm_bias(a: torch.Tensor, w: torch.Tensor,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`a @ w (+ bias)`: a `[..., K]` (contiguous), w `[K, N]`, bias `[N]`
+    or None, all of one dtype (float32 or bfloat16); the product and the
+    bias summed in fp32 and rounded once."""
+    if a.dtype not in _DTYPE_CODES:
+        raise TypeError(f"a: dtype {a.dtype}; the kernel takes float32 or "
+                        "bfloat16")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"a: unsupported device {a.device}")
+    K, N = w.shape
+    _check_tensor("a", a, a.dtype, a.shape[:-1] + (K,), a.device)
+    a2 = a.reshape(-1, K)
+    if a.device.type == "cpu":
+        _check_tensor("w", w, a.dtype, (K, N), a.device)
+        if bias is not None:
+            _check_tensor("bias", bias, a.dtype, (N,), a.device)
+        out = _gemm_bias_reference(a2, w, bias)
+    elif not _needs_grad(a, w, *(() if bias is None else (bias,))):
+        out = _launch_gemm(a2, w, bias)
+    else:
+        out = _GemmBias.apply(a2, w, bias)
+    return out.reshape(a.shape[:-1] + (N,))
+
+
+gemm_bias.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Multi-rank coordination and collectives on `torch.distributed` (port
 of `leaf_tpu/parallel/distributed.py`, with `mesh.py::local_batch_slice`).
 
-One process drives one card; the ranks run data parallelism only, as the
-JAX package's one `data` mesh axis does.  `init_distributed_device` joins
+One process drives one card; the drivers' ranks run data parallelism, as
+the JAX package's one `data` mesh axis does (a (data, model) grid with
+tensor parallelism is `parallel.sharding`'s).  `init_distributed_device` joins
 the ranks from the environment: the variables PyTorch's launcher sets
 (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR`, `MASTER_PORT`) or
 SLURM's (`SLURM_PROCID`, `SLURM_NTASKS`, `SLURM_LOCALID`, with the
@@ -25,6 +26,11 @@ step's bucket widths and anchor-cache branch, agreed across ranks),
     transpose, a reduce-scatter);
   * `neighbour_exchange`: one `lax.ppermute` hop of the SigLIP ring,
     differentiable; its backward sends the gradient back the other way.
+
+`all_reduce_mean_`, `pmean` and `global_max_int32` take an optional
+process group (None: every rank): on a (data, model) grid of ranks
+(`parallel.sharding`) the gradient mean, the logged loss and the fused
+step's agreement run over the data group alone.
 
 A loss that gathers features is each rank's own loss, and its backward
 gives each rank the gradient of the sum of the ranks' losses through its
@@ -70,8 +76,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def world_size() -> int:
-    return dist.get_world_size() if dist.is_initialized() else 1
+def world_size(group=None) -> int:
+    """The number of ranks of `group` (None: every rank); 1 without a
+    process group."""
+    return dist.get_world_size(group) if dist.is_initialized() else 1
 
 
 def rank() -> int:
@@ -171,16 +179,17 @@ def all_gather_object(obj: Any) -> list:
     return out
 
 
-def global_max_int32(values) -> np.ndarray:
-    """Elementwise max of a small int32 vector across all ranks (one
-    all-reduce; the identity on one rank).  The fused step's per-batch
-    agreement on bucket widths and on the anchor-cache branch, so that
-    every rank slices to the same width and takes the same phase 1."""
+def global_max_int32(values, group=None) -> np.ndarray:
+    """Elementwise max of a small int32 vector across the ranks of `group`
+    (one all-reduce; the identity on one rank).  The fused step's
+    per-batch agreement on bucket widths and on the anchor-cache branch,
+    so that every rank slices to the same width and takes the same phase
+    1."""
     vals = np.asarray(values, np.int32)
-    if world_size() == 1:
+    if world_size(group) == 1:
         return vals
     t = torch.from_numpy(vals.astype(np.int64)).to(_scalar_device())
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return t.cpu().numpy().astype(np.int32)
 
 
@@ -197,20 +206,20 @@ def local_batch_slice(global_batch: int,
 
 # -- tensor collectives --------------------------------------------------
 
-def _all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
+def _all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
     if _native("all_reduce", t):
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
         return t
     host = t.cpu()
-    dist.all_reduce(host)
+    dist.all_reduce(host, group=group)
     return t.copy_(host)
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Replace each tensor by its mean across ranks, in place: one
-    all-reduce per dtype over the tensors flattened together.  Every rank
-    ends with the same bits."""
-    world = world_size()
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Replace each tensor by its mean across the ranks of `group`, in
+    place: one all-reduce per dtype over the tensors flattened together.
+    Every rank ends with the same bits."""
+    world = world_size(group)
     if world == 1:
         return
     by_dtype = {}
@@ -218,7 +227,7 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
         by_dtype.setdefault(t.dtype, []).append(t)
     for group_ in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in group_])
-        _all_reduce_sum_(flat).div_(world)
+        _all_reduce_sum_(flat, group).div_(world)
         offset = 0
         for t in group_:
             n = t.numel()
@@ -226,14 +235,14 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
             offset += n
 
 
-def pmean(value: torch.Tensor) -> torch.Tensor:
-    """The mean of a (logged, not differentiated) value across ranks; the
-    value itself on one rank."""
-    world = world_size()
+def pmean(value: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of a (logged, not differentiated) value across the ranks
+    of `group`; the value itself on one rank."""
+    world = world_size(group)
     if world == 1:
         return value
     out = value.detach().clone()
-    return _all_reduce_sum_(out).div_(world)
+    return _all_reduce_sum_(out, group).div_(world)
 
 
 def _gather_rows(x: torch.Tensor) -> torch.Tensor:

@@ -51,7 +51,7 @@ from leaf_tpu_torch.data.common import put_batch
 from leaf_tpu_torch.models.clip import VisionTower, l2_normalize
 from leaf_tpu_torch.models.config import CLIPConfig
 from leaf_tpu_torch.parallel import distributed
-from leaf_tpu_torch.train.optim import Optimizer
+from leaf_tpu_torch.train.optim import Optimizer, adamw_kwargs
 from leaf_tpu_torch.train.schedules import cosine_lr
 from leaf_tpu_torch.utils.meters import AverageMeter
 
@@ -162,7 +162,8 @@ def make_fare_optimizer(params: Iterable[torch.nn.Parameter],
         inner = _TraceSGD(params, schedule(0), fcfg.momentum_sgd, fcfg.wd)
     else:
         inner = torch.optim.AdamW(params, lr=schedule(0), betas=(0.9, 0.999),
-                                  eps=1e-8, weight_decay=fcfg.wd)
+                                  eps=1e-8, weight_decay=fcfg.wd,
+                                  **adamw_kwargs(params))
     return Optimizer(inner, schedule, 1.0 if fcfg.grad_clip else None)
 
 

@@ -27,6 +27,12 @@ only where every rank hit its own anchor cache.  The candidates' width is
 agreed the same way, the logged loss is the mean over ranks, and the
 half-batch pipeline is off, as it is there.
 
+On a tensor-parallel grid (`parallel.sharding`, `grid` given; the towers
+sharded with `shard_module`, the optimizer made with the grid) the rows
+and the agreement are the data group's: every rank of a model group takes
+the same captions and the same rng stream, so it draws the same probes
+and characters, and its encodes are one tensor-parallel encode.
+
 Against the JAX module: a phase body is a plain function on the port's
 `TextTower` (no jit, no `cfg`/`tx`/`dtype` arguments: the tower knows its
 config and compute dtype, the `TrainState` holds the optimizer), scoring
@@ -129,7 +135,10 @@ def _update(state: TrainState, loss: torch.Tensor) -> Dict[str, torch.Tensor]:
     loss.backward()
     grad_norm = state.optimizer.update(state.step)
     state.step += 1
-    return {"loss": pmean(loss.detach()), "grad_norm": grad_norm}
+    grid = getattr(state.optimizer, "grid", None)
+    mean = pmean(loss.detach()) if grid is None else \
+        grid.data_pmean(loss.detach())
+    return {"loss": mean, "grad_norm": grad_norm}
 
 
 def make_fused_phase2_step(normalize: bool = False, remat: bool = False,
@@ -256,7 +265,7 @@ class FusedLeafStep:
                  remat: bool = False, cache_anchors: bool = True,
                  constraint=None, objective: str = "l2",
                  w_fare_text: float = 1.0, k: int = 1,
-                 pipeline: bool = True, device="cuda"):
+                 pipeline: bool = True, device="cuda", grid=None):
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.rho = rho
@@ -288,6 +297,8 @@ class FusedLeafStep:
         # phase-1 branch (one all-reduce of [probe need, any miss, clean
         # need], and one of the candidates' need)
         self._multihost = world_size() > 1
+        self.grid = grid
+        self._agree = (world_size() if grid is None else grid.data) > 1
         self.phase1 = make_fused_phase1(normalize, objective)
         self.phase1_cached = make_fused_phase1_cached(objective)
         self.phase2 = make_fused_phase2_step(normalize, remat, objective,
@@ -313,6 +324,12 @@ class FusedLeafStep:
         self.readbacks = {"early": 0, "late": 0}
 
     # -- host <-> device ----------------------------------------------------
+
+    def _global_max(self, values) -> np.ndarray:
+        """`global_max_int32` over the ranks that split the batch."""
+        if self.grid is None:
+            return global_max_int32(values)
+        return self.grid.data_max_int32(values)
 
     def _bucket(self, tokens, need: Optional[int] = None):
         return bucket_tokens(tokens, need=need) if self._do_bucket \
@@ -554,13 +571,13 @@ class FusedLeafStep:
             probe_need = clean_need = None
             cached = None if anchors is not None \
                 else self._cached_anchors(texts_cur)
-            if self._multihost:
+            if self._agree:
                 if anchors is None and clean_raw is None:
                     # tokenised up front: if any rank misses, every rank
                     # runs phase 1 and needs its clean tokens
                     clean_raw = self._timed_host(
                         lambda: np.asarray(self.tokenizer(texts_cur)))
-                g = global_max_int32([
+                g = self._global_max([
                     bucket_need(probe_raw) if self._do_bucket else 0,
                     0 if (cached is not None or anchors is not None) else 1,
                     (bucket_need(clean_raw) if self._do_bucket else 0)
@@ -591,8 +608,8 @@ class FusedLeafStep:
             cand_raw = self._timed_host(self._candidates, texts_cur, best_pos,
                                         us, clean_raw)
             cand_need = None
-            if self._multihost and self._do_bucket:
-                cand_need = int(global_max_int32([bucket_need(cand_raw)])[0])
+            if self._agree and self._do_bucket:
+                cand_need = int(self._global_max([bucket_need(cand_raw)])[0])
             cand_tokens = self._put(self._bucket(cand_raw, cand_need))
             if r < self.k - 1:
                 # intermediate round: pick the winner, edit on the host

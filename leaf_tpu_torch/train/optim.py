@@ -20,7 +20,21 @@ mask chained after the whole chain.
 
 Across ranks (`parallel.distributed`), `update` first replaces each
 gradient by its mean over the ranks, so that every rank takes the same
-step on the same parameters.
+step on the same parameters.  On a tensor-parallel grid
+(`parallel.sharding`, `grid` given) the mean runs over the data group
+only, and the global norm counts each split parameter's shards summed
+over the model group and each replicated one once, as optax's norm of the
+global arrays; AdamW then updates each rank's shards elementwise.
+
+On the CPU the update is AdamW's fused kernel (`fused=True`), whose
+square root is the vector unit's.  The default CPU path (a loop over the
+parameters) takes its square root from MKL's vector math library through
+`torch.sqrt`, and the first call of that function in a process, split over
+the intra-op threads, can give one thread's share of a large tensor a
+result of about 12 correct bits (x times an approximate reciprocal square
+root): about one process in 75 (`adamw_kwargs`).  On two ranks that made
+the ranks' first update of the token embedding differ.  On CUDA the update
+keeps PyTorch's default path.
 
 Gradient accumulation (`accum_freq = k > 1`) has the meaning of optax's
 `MultiSteps(tx, every_k_schedule=k)`: the gradients of k calls are
@@ -36,6 +50,7 @@ from typing import Callable, Iterable, List, Mapping, Optional, Tuple
 import torch
 
 from leaf_tpu_torch.parallel.distributed import all_reduce_mean_
+from leaf_tpu_torch.parallel.sharding import Grid, param_split, split_norm_sq
 
 # Path components that put a parameter in the no-decay group.
 _NO_DECAY_KEYS = {"ln_1", "ln_2", "ln_pre", "ln_post", "ln_final",
@@ -49,6 +64,17 @@ def is_decay_param(name: str) -> bool:
         if key in _NO_DECAY_KEYS or key.endswith("_b") or key.endswith("_bias"):
             return False
     return True
+
+
+def adamw_kwargs(params: Iterable[torch.Tensor]) -> dict:
+    """`torch.optim.AdamW`'s path for `params`: the fused kernel where
+    they lie on the CPU, where the default path's first `torch.sqrt` may be
+    inexact on one thread (the module docstring); PyTorch's default
+    elsewhere."""
+    params = list(params)
+    if params and all(p.device.type == "cpu" for p in params):
+        return {"fused": True}
+    return {}
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -68,9 +94,19 @@ class Optimizer:
     # running mean of the gradients since the last applied update
     # (accum_freq > 1 only; None right after an applied update)
     accumulated: Optional[List[torch.Tensor]] = None
+    # a tensor-parallel grid, and which parameters (in `parameters()`
+    # order) are its shards
+    grid: Optional[Grid] = None
+    split: Tuple[bool, ...] = ()
 
     def parameters(self) -> List[torch.Tensor]:
         return [p for g in self.adamw.param_groups for p in g["params"]]
+
+    def _norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of `grads` (one per parameter, in order)."""
+        if self.grid is None or self.grid.model == 1:
+            return global_norm(grads)
+        return split_norm_sq(grads, self.split, self.grid).sqrt()
 
     def state_dict(self) -> dict:
         """AdamW's moments and step counts, and the accumulated gradients."""
@@ -107,11 +143,17 @@ class Optimizer:
         mean of the gradients since the last one.  Returns the global
         norm of this call's gradients before clipping."""
         grads = [p.grad for p in self.parameters() if p.grad is not None]
+        if self.grid is not None and len(grads) != len(self.split):
+            raise RuntimeError("a tensor-parallel update needs a gradient "
+                               "on every parameter")
         # across ranks, the mean of the gradients comes first: under GSPMD
         # the JAX package's clip, accumulation and Adam see the psum'd
         # gradient (a no-op on one rank)
-        all_reduce_mean_(grads)
-        norm = clip_norm = global_norm(grads)
+        if self.grid is None:
+            all_reduce_mean_(grads)
+        else:
+            self.grid.data_mean_(grads)
+        norm = clip_norm = self._norm(grads)
         if self.accum_freq > 1:
             mini_step = step % self.accum_freq
             self._accumulate(mini_step)
@@ -121,7 +163,7 @@ class Optimizer:
             grads, self.accumulated = self.accumulated, None
             for p, g in zip(self.parameters(), grads):
                 p.grad = g
-            clip_norm = global_norm(grads)
+            clip_norm = self._norm(grads)
         if self.grad_clip_norm:
             # optax's clip_by_global_norm: g * max_norm / norm above the
             # threshold, untouched below it (torch's clip_grad_norm_ would
@@ -148,25 +190,35 @@ def make_optimizer(
     grad_clip_norm: Optional[float] = None,
     accum_freq: int = 1,
     multipliers: Optional[Mapping[str, float]] = None,
+    grid: Optional[Grid] = None,
 ) -> Optimizer:
     """AdamW over `named_parameters` with the JAX package's defaults
     (`eps=1e-6`, `beta2=0.98`) and decay groups; `schedule` maps the
     0-based count of applied updates to the learning rate.  `multipliers`
-    ({name: 0.0 or 1.0}, `train.locking`) locks the parameters of 0."""
+    ({name: 0.0 or 1.0}, `train.locking`) locks the parameters of 0.
+    `grid`: the tensor-parallel grid the parameters are sharded on
+    (`parallel.sharding.shard_module`, before this call)."""
     if accum_freq < 1:
         raise ValueError(f"accum_freq must be at least 1, got {accum_freq}")
     # (decay, lr_scale) -> parameters; the two trainable groups always
     # exist, the locked ones where they have parameters
     groups = {(True, 1.0): [], (False, 1.0): []}
+    split = {}
     for name, p in named_parameters:
         scale = 1.0 if multipliers is None else float(multipliers[name])
         if scale not in (0.0, 1.0):
             raise ValueError(f"{name}: multiplier {scale}, not 0 or 1")
         groups.setdefault((is_decay_param(name), scale), []).append(p)
+        split[id(p)] = param_split(name, p.dim()) is not None
     adamw = torch.optim.AdamW(
         [{"params": params, "weight_decay": weight_decay if decay else 0.0,
           "lr_scale": scale}
          for (decay, scale), params in groups.items()
          if params or scale == 1.0],
-        lr=float(schedule(0)), betas=(beta1, beta2), eps=eps)
-    return Optimizer(adamw, schedule, grad_clip_norm, accum_freq)
+        lr=float(schedule(0)), betas=(beta1, beta2), eps=eps,
+        **adamw_kwargs(p for params in groups.values() for p in params))
+    opt = Optimizer(adamw, schedule, grad_clip_norm, accum_freq)
+    if grid is not None:
+        opt.grid = grid
+        opt.split = tuple(split[id(p)] for p in opt.parameters())
+    return opt

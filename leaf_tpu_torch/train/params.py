@@ -236,7 +236,9 @@ def set_matmul_precision(value: Optional[str]) -> None:
 def check_mesh_shape(mesh_shape: Optional[str], world: int) -> None:
     """`--mesh-shape`: the JAX package builds a 1-D `data` mesh of that
     shape over all devices, and fails on a shape that does not hold them.
-    Here a rank is a device: one entry, equal to the number of ranks."""
+    Here a rank is a device: one entry, equal to the number of ranks.  No
+    driver takes a model axis, in the JAX package as here: a (data, model)
+    grid is `parallel.sharding.create_grid`'s."""
     if not mesh_shape:
         return
     try:
@@ -248,7 +250,8 @@ def check_mesh_shape(mesh_shape: Optional[str], world: int) -> None:
         raise ValueError(
             f"--mesh-shape {mesh_shape!r} does not match the run's "
             f"{world} rank(s): the mesh has one axis, 'data', of one rank "
-            "a device (data parallelism only)")
+            "a device (a (data, model) grid is the API "
+            "parallel.sharding.create_grid, which no driver reaches)")
 
 
 def apply_default_hparams(ns: argparse.Namespace):

@@ -53,6 +53,7 @@ from leaf_tpu_torch.models import clip as tclip
 from leaf_tpu_torch.models import config as tconfig
 from leaf_tpu_torch.models import interop as tinterop
 from leaf_tpu_torch.models.factory import get_tokenizer
+from leaf_tpu_torch.parallel import sharding
 from leaf_tpu_torch.train import fare as tfare
 from leaf_tpu_torch.train.params import check_mesh_shape
 
@@ -770,3 +771,270 @@ def test_rank_splits_match_jax(loader, tmp_path):
             assert got == split("jax", rank, world), (world, rank)
             seen.append(got)
         assert len({str(s) for s in seen}) == world     # disjoint ranks
+
+
+# ---------------------------------------------------------------------------
+# The fused LEAF step on a (data 2, model 2) grid of four gloo ranks against
+# JAX's FusedLeafStep on a (2, 2) mesh with `shard_params`'d text params:
+# two JAX processes of two CPU devices each, a process a row of the mesh,
+# as a port data group is a row of the grid
+# ---------------------------------------------------------------------------
+
+GRID_LR = 1e-5
+GRID_CAPTIONS = [f"a photo of object number {i} on a table" for i in range(8)]
+GRID_FRESH = [f"an unseen fresh caption number {i}" for i in range(4)]
+
+JAX_GRID_WORKER = textwrap.dedent("""
+    import os, sys, pickle
+    proc_id = int(sys.argv[1]); port = sys.argv[2]; out = sys.argv[3]
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_default_matmul_precision", "highest")
+    jax.distributed.initialize(f"localhost:{port}", 2, proc_id)
+    import numpy as np
+    import jax.numpy as jnp
+    sys.path.insert(0, %(repo)r)
+    from jax.experimental import multihost_utils
+    from jax.sharding import Mesh
+    from leaf_tpu.models import create_model
+    from leaf_tpu.parallel.sharding import shard_params
+    from leaf_tpu.tokenizer import get_tokenizer
+    from leaf_tpu.train.fused import FusedLeafStep
+    from leaf_tpu.train.optim import make_optimizer
+    from leaf_tpu.train.schedules import cosine_lr
+    from leaf_tpu.train.step import TrainState
+
+    # process p holds row p of the mesh: its data index
+    mesh = Mesh(np.asarray(jax.devices()).reshape(2, 2), ("data", "model"))
+    model = create_model(%(model)r)
+    tx = make_optimizer(cosine_lr(%(lr)r, 1, 100), weight_decay=1e-4)
+    tp = lambda p: shard_params({"text": p}, mesh, model_axis="model")["text"]
+    state = TrainState.create(jax.tree.map(jnp.copy, tp(model.params["text"])),
+                              tx)
+    frozen = tp(jax.tree.map(np.asarray, model.params["text"]))
+    fused = FusedLeafStep(model.cfg, tx, get_tokenizer(), rho=4, mesh=mesh)
+    local = %(captions)r[proc_id * 4:(proc_id + 1) * 4]
+    rng = np.random.default_rng(7 + proc_id)
+    res = {"losses": [], "grad_norms": [], "adv": []}
+    for texts in (local, local, local if proc_id == 0 else %(fresh)r):
+        state, info = fused(state, frozen, texts, rng)
+        res["losses"].append(float(info["metrics"]["loss"]))
+        res["grad_norms"].append(float(info["metrics"]["grad_norm"]))
+        res["adv"].append(fused.adv_sentences(texts, info))
+    res["params"] = jax.tree.map(np.asarray, multihost_utils.process_allgather(
+        state.text_params, tiled=True))
+    with open(os.path.join(out, f"jax_grid_{proc_id}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+""") % {"repo": REPO, "model": MODEL, "lr": GRID_LR,
+        "captions": GRID_CAPTIONS, "fresh": GRID_FRESH}
+
+PORT_GRID_WORKER = textwrap.dedent("""
+    import copy, os, sys
+    out = sys.argv[1]
+    sys.path.insert(0, %(repo)r)
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    from leaf_tpu_torch.models import clip as tclip
+    from leaf_tpu_torch.models import config as tconfig
+    from leaf_tpu_torch.models.factory import get_tokenizer
+    from leaf_tpu_torch.parallel import distributed as D
+    from leaf_tpu_torch.parallel import sharding
+    from leaf_tpu_torch.train import fused as tfused
+    from leaf_tpu_torch.train import optim as toptim
+    from leaf_tpu_torch.train import schedules as tsched
+    from leaf_tpu_torch.train import step as tstep
+
+    D.init_distributed_device("cpu")
+    grid = sharding.create_grid((2, 2))
+    cfg = tconfig.get_model_config(%(model)r)
+    full = torch.load(os.path.join(out, "full_sd.pt"))
+    text = tclip.TextTower(cfg.text, cfg.quick_gelu)
+    text.load_state_dict({k[5:]: v for k, v in full.items()
+                          if k.startswith("text.")})
+    frozen = copy.deepcopy(text).requires_grad_(False)
+    sharding.shard_module(text, grid)
+    sharding.shard_module(frozen, grid)
+    opt = toptim.make_optimizer(text.named_parameters(),
+                                tsched.cosine_lr(%(lr)r, 1, 100),
+                                weight_decay=1e-4, grid=grid)
+    state = tstep.TrainState.create(text, opt)
+    fused = tfused.FusedLeafStep(cfg, get_tokenizer(%(model)r), rho=4,
+                                 device="cpu", grid=grid)
+    d = grid.data_index
+    local = %(captions)r[d * 4:(d + 1) * 4]
+    rng = np.random.default_rng(7 + d)     # one stream a model group
+    res = {"grid": [grid.data, grid.model, d, grid.model_index],
+           "losses": [], "grad_norms": [], "adv": [],
+           "shards": {n: list(p.shape) for n, p in text.named_parameters()}}
+    for texts in (local, local, local if d == 0 else %(fresh)r):
+        state, info = fused(state, frozen, texts, rng)
+        res["losses"].append(float(info["metrics"]["loss"]))
+        res["grad_norms"].append(float(info["metrics"]["grad_norm"]))
+        res["adv"].append(fused.adv_sentences(texts, info))
+    res["params"] = {k: v.clone() for k, v in text.state_dict().items()}
+    torch.save(res, os.path.join(out, f"torch_grid_{D.rank()}.pt"))
+""") % {"repo": REPO, "model": MODEL, "lr": GRID_LR,
+        "captions": GRID_CAPTIONS, "fresh": GRID_FRESH}
+
+
+@pytest.fixture(scope="module")
+def grid_runs(tmp_path_factory):
+    """{"jax": [process 0, process 1], "torch": [rank 0 .. 3]}."""
+    root = tmp_path_factory.mktemp("grid")
+    module = tclip.CLIP(tconfig.get_model_config(MODEL))
+    module.load_state_dict(tinterop.params_from_jax(
+        jax.tree.map(np.asarray, jcreate_model(MODEL).params)))
+    torch.save(module.state_dict(), root / "full_sd.pt")
+    get_tokenizer(MODEL)("build the native tokenizer before the workers")
+    scripts = {}
+    for name, text in (("jax", JAX_GRID_WORKER), ("torch", PORT_GRID_WORKER)):
+        scripts[name] = str(root / f"{name}_grid_worker.py")
+        with open(scripts[name], "w") as f:
+            f.write(text)
+    jport = str(_free_port())
+    procs = [_spawn([scripts["jax"], str(i), jport, str(root)], _env(),
+                    str(root / f"jax_grid_{i}.log")) for i in range(2)]
+    procs += _port_ranks(scripts["torch"], [str(root)], str(root), n=4)
+    _wait(procs)
+    out = {"torch": [torch.load(root / f"torch_grid_{r}.pt")
+                     for r in range(4)], "jax": []}
+    for i in range(2):
+        with open(root / f"jax_grid_{i}.pkl", "rb") as f:
+            out["jax"].append(pickle.load(f))
+    return out
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_fused_step_on_a_grid_matches_the_jax_mesh(grid_runs, rank):
+    """Rank r at (data r // 2, model r % 2) holds its shards, and its three
+    steps (anchors missed, every rank hits, data row 1 misses) log JAX's
+    losses and gradient norms to 1e-5 and pick JAX's sentences for its data
+    row; its whole parameters (gathered by `state_dict`) are JAX's within
+    1e-5 of their largest value, the key bias within 3 lr a step (ROADMAP
+    Queue 3), and the model group's other rank's bit for bit."""
+    got = grid_runs["torch"][rank]
+    d, m = divmod(rank, 2)
+    want = grid_runs["jax"][d]
+    assert got["grid"] == [2, 2, d, m]
+    whole = {k: tuple(v.shape) for k, v in got["params"].items()}
+    for name, shape in got["shards"].items():
+        dim = sharding.param_split(name, len(shape))
+        full = list(whole[name])
+        if dim is not None:
+            full[dim] //= 2
+        assert list(shape) == full, name
+    assert got["adv"] == want["adv"]
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
+    np.testing.assert_allclose(got["grad_norms"], want["grad_norms"],
+                               rtol=1e-5)
+    ref = tinterop.params_from_jax(want["params"])
+    scale = max(float(np.abs(np.asarray(v)).max()) for v in ref.values())
+    steps = len(got["losses"])
+    assert sorted(got["params"]) == sorted(ref)
+    for k, w in ref.items():
+        g, w = got["params"][k].numpy().copy(), np.asarray(w).copy()
+        if k.endswith("attn.qkv_b"):
+            kb = np.s_[len(w) // 3:2 * len(w) // 3]
+            np.testing.assert_allclose(g[kb], w[kb], atol=3 * steps * GRID_LR,
+                                       err_msg=k)
+            g[kb] = w[kb] = 0
+        np.testing.assert_allclose(g, w, atol=1e-5 * scale, rtol=0,
+                                   err_msg=k)
+    _same_across_ranks(got["params"], grid_runs["torch"][rank ^ 1]["params"])
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke (v)'s tiny two-rank fused steps, repeated: the ranks' parameters
+# equal bit for bit.  The CPU for-loop AdamW took its square root from MKL's
+# vector math, whose first call in a process, split over the intra-op
+# threads, could leave one thread's share of the token embedding's update at
+# ~12 correct bits on one rank; the port's CPU update runs AdamW's fused
+# kernel (`optim.adamw_kwargs`).  The workers keep 4 intra-op threads, so
+# that the embedding's update is split as it is there.
+# ---------------------------------------------------------------------------
+
+REPEAT_WORKER = textwrap.dedent("""
+    import copy, hashlib, json, os, sys
+    out = sys.argv[1]
+    sys.path.insert(0, %(repo)r)
+    import numpy as np
+    import torch
+    from leaf_tpu_torch.models.factory import create_model, get_tokenizer
+    from leaf_tpu_torch.parallel import distributed as D
+    from leaf_tpu_torch.train.fused import FusedLeafStep
+    from leaf_tpu_torch.train.optim import make_optimizer
+    from leaf_tpu_torch.train.schedules import cosine_lr
+    from leaf_tpu_torch.train.step import TrainState
+
+    D.init_distributed_device("cpu")
+    rank = D.rank()
+    captions = %(captions)r
+    local = captions[4 * rank:4 * rank + 4]
+    tok = get_tokenizer(%(model)r)
+    sqrt_calls = [0]
+    plain_sqrt = torch.Tensor.sqrt
+
+    def counted(self, *a, **kw):
+        sqrt_calls[0] += 1
+        return plain_sqrt(self, *a, **kw)
+
+    res = {"threads": torch.get_num_threads(), "digests": [], "fused": []}
+    for rep in range(2):
+        model = create_model(%(model)r, precision="fp32", seed=0,
+                             device="cpu", master_weights=True)
+        text = copy.deepcopy(model.module.text).requires_grad_(True)
+        frozen = copy.deepcopy(text).requires_grad_(False)
+        opt = make_optimizer(text.named_parameters(),
+                             cosine_lr(%(lr)r, 1, 100), weight_decay=1e-4)
+        res["fused"].append(bool(opt.adamw.defaults.get("fused")))
+        state = TrainState.create(text, opt)
+        fused = FusedLeafStep(model.cfg, tok, rho=4, device="cpu")
+        rng = np.random.default_rng(7 + rank)
+        torch.Tensor.sqrt = counted
+        try:
+            for texts in (local, local, local if rank == 0 else %(fresh)r):
+                state, _ = fused(state, frozen, texts, rng)
+        finally:
+            torch.Tensor.sqrt = plain_sqrt
+        h = hashlib.sha256()
+        for k, v in sorted(text.state_dict().items()):
+            h.update(k.encode())
+            h.update(v.detach().numpy().tobytes())
+        res["digests"].append(h.hexdigest())
+    res["sqrt_calls"] = sqrt_calls[0]
+    json.dump(res, open(os.path.join(out, f"repeat_{rank}.json"), "w"))
+""") % {"repo": REPO, "model": MODEL, "lr": LR,
+        "captions": GRID_CAPTIONS, "fresh": GRID_FRESH}
+
+
+def test_tiny_fused_steps_keep_the_ranks_equal(tmp_path):
+    """Two pairs of gloo ranks side by side, each process twice (v)'s
+    tiny fused steps (anchors missed, every rank hits, rank 1 misses) from
+    a fresh tower and optimizer: every rank ends with the same parameters,
+    bit for bit, every time; the CPU update runs AdamW's fused kernel and
+    calls no `Tensor.sqrt`."""
+    (tmp_path / "worker.py").write_text(REPEAT_WORKER)
+    get_tokenizer(MODEL)("build the native tokenizer before the workers")
+    pairs = []
+    for pair in range(2):
+        root = tmp_path / f"pair{pair}"
+        root.mkdir()
+        port = str(_free_port())
+        pairs.append((root, [
+            _spawn([str(tmp_path / "worker.py"), str(root)],
+                   dict(_env(RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                             MASTER_ADDR="localhost", MASTER_PORT=port),
+                        OMP_NUM_THREADS="4"),
+                   str(root / f"rank{r}.log")) for r in range(2)]))
+    _wait([p for _, procs in pairs for p in procs], timeout=300)
+    for root, _ in pairs:
+        a, b = (json.loads((root / f"repeat_{r}.json").read_text())
+                for r in range(2))
+        assert a["threads"] == b["threads"] == 4
+        assert a["fused"] == b["fused"] == [True] * 2
+        assert a["sqrt_calls"] == b["sqrt_calls"] == 0
+        assert a["digests"] == b["digests"]
+        assert len(set(a["digests"])) == 1       # every repeat the same

@@ -618,6 +618,8 @@ def test_trainer_imports_no_jax():
         "import leaf_tpu_torch.models.m2m100, leaf_tpu_torch.models.hf_text\n"
         "import leaf_tpu_torch.models.hf_encoders\n"
         "import leaf_tpu_torch.models.pretrained\n"
+        "import leaf_tpu_torch.models.prefix_encode\n"
+        "import leaf_tpu_torch.parallel.sharding\n"
         "from leaf_tpu_torch.models.config import get_model_config\n"
         "get_model_config('MobileCLIP-S2'), get_model_config('siglip-tiny-test')\n"
         "get_model_config('swin-tiny-test'), get_model_config('nllb-clip-base')\n"
