@@ -30,8 +30,22 @@ Phases, each printing its own lines:
       and without the residual, the LayerNorm at widths 8 to 4096 that
       take every plan of its kernel (1, 7 and 333 rows, both dtypes; the
       plan's Python mirror held to the library's), and the gradients of
-      one shape of each (kernel forward,
-      recompute backward) against the plain version's; and the fused
+      one shape of each through the public ops (kernels forward and
+      backward) against autograd through the plain versions; the
+      backward kernels (`phase_backward`): the attention backward and the
+      LayerNorm backward at the differentiated paths' shapes (FARE's ViT-H
+      [128, 257, 3840] bf16, the eval's [128, 257, 3072] fp32, contrastive
+      text [256, 77, 1536] causal and vision [256, 50, 2304], the LEAF
+      step's rows of 16 in 128, the robust eval's and PEZ's fp32 rows; the
+      LayerNorm at 32,896 x 1280 bf16, 32,896 x 1024 fp32, 19,712 x 512
+      bf16, 16,448 x 2730 bf16 and the fp32 conv stems) held to autograd
+      through the plain forward and to the explicit plain backward (2e-2
+      of the largest gradient in bf16, 1e-4 in fp32), two runs equal bit
+      for bit, timed against the plain backward and the library's (SDPA's,
+      `F.layer_norm`'s), with their bounds; the fused block's backward,
+      all seven gradients and the input's alone, against autograd through
+      `_block_reference`; a sweep of groups, head widths and LayerNorm
+      widths through both backward kernels; and the fused
       block's parts alone, bf16: the GEMM + bias kernel at the block's qkv
       and out-projection shapes (text buckets 16 and 77, vision, the fused
       and the unfused train step's; the out-projections also with their
@@ -58,7 +72,7 @@ Phases, each printing its own lines:
       its counter zeroed just before, and held against the plain version
       on a slice of that batch;
   (i) train-step parity at ViT-tiny-test, fp32, TF32 off: gradients and
-      two train steps on the card (kernels forward, recompute backward)
+      two train steps on the card (kernels forward and backward)
       against the same on the CPU (plain versions); then the fused
       attack+train step: on the card it picks the sentences of the unfused
       attack + train step (free and constrained), and two fused steps are
@@ -379,6 +393,14 @@ Phases, each printing its own lines:
       collectives' share, each rank's LayerNorm, GEMM and packed-attention
       launches held to its encodes; (c) has rows at the shapes it gives the
       GEMM (N 1,152, K 384) and the packed kernel (6 heads).
+(j), (k), (m), (n), (o), (u), (v) and (w) run under a guard
+(`_BackwardGuard`): no plain version of the op module runs on a CUDA tensor
+in the phase (its count `PLAIN_ON_CUDA` stays 0, in the rank processes too),
+and the attention and LayerNorm backward kernels launch; each phase's
+backward launches are printed and go into the kernels' report; (m)'s FARE
+steps and (n)'s device steps hold them exactly, a block, an attention and
+an `ln_1` backward per block and a LayerNorm backward per other LayerNorm,
+for every differentiated encode.
 Any failure raises.  The line before the last is the kernels' JSON
 report (each kernel at its main-path shape; the line before it has the
 rows of every shape); the last is {"ok": true, "device": {...}}.  Without CUDA, or
@@ -572,6 +594,44 @@ FLASH_SHAPES = [
     ("s130_d80_causal", 8, 16, 130, 80, True),
     ("s130_d80", 8, 16, 130, 80, False),
 ]
+# the attention backward (c) at the differentiated paths' shapes, as SHAPES:
+# FARE's ViT-H batch (m, bf16), the eval's PGD through ViT-L's vision tower
+# (k, fp32), the contrastive text and vision batches (n), the LEAF step's
+# 128 captions at bucket 16 (j), the robust eval's ViT-H batch (m, fp32) and
+# PEZ's prompt (o, fp32)
+BWD_SHAPES = [
+    ("fare_vith_bf16", 128, 257, 257, False, 1280, 16, "bfloat16"),
+    ("eval_vision_fp32", 128, 257, 257, False, 1024, 16, "float32"),
+    ("contrastive_text_s77_bf16", 256, 77, 77, True, 512, 8, "bfloat16"),
+    ("contrastive_vision_bf16", 256, 50, 50, False, 768, 12, "bfloat16"),
+    ("leaf_train_s16_bf16", 16, 128, 16, True, 768, 12, "bfloat16"),
+    ("robust_vith_fp32", 32, 257, 257, False, 1280, 16, "float32"),
+    ("pez_text_s77_fp32", 1, 77, 77, True, 768, 12, "float32"),
+]
+BWD_MAIN_SHAPE = "fare_vith_bf16"
+# the fused block's backward, all seven gradients and the input's alone
+# (PGD through a frozen tower), at four of those shapes
+BLOCK_BWD_SHAPES = ("fare_vith_bf16", "eval_vision_fp32",
+                    "contrastive_text_s77_bf16", "leaf_train_s16_bf16")
+# (name, M, D, dtype name) of the LayerNorm backward: FARE's ViT-H rows, the
+# eval's fp32 vision rows, the contrastive text rows, EVA02-L's `mlp.ln` (u),
+# the LEAF eval's fp32 PGD through the ConvNeXt and ViTamin stems (u)
+LN_BWD_SHAPES = [("fare_vith_bf16", 128 * 257, 1280, "bfloat16"),
+                 ("eval_vision_fp32", 128 * 257, 1024, "float32"),
+                 ("contrastive_text_bf16", 256 * 77, 512, "bfloat16"),
+                 ("eva02_mlp_ln_bf16", 64 * 257, 2730, "bfloat16"),
+                 ("convnext_eval_stem_fp32", 16 * 64 * 64, 128, "float32"),
+                 ("vitamin_eval_stem_fp32", 16 * 112 * 112, 160, "float32")]
+LN_BWD_MAIN_SHAPE = "fare_vith_bf16"
+# untimed: (group_len, groups, causal) x head widths through the attention
+# backward, and LayerNorm widths x rows through its backward
+BWD_SWEEP = [(16, 8, True), (48, 2, True), (77, 1, True), (13, 3, False),
+             (257, 1, False), (130, 1, True), (729, 1, False)]
+BWD_SWEEP_HEAD_WIDTHS = {"bfloat16": (8, 32, 64, 72, 80, 128),
+                         "float32": (5, 32, 64, 80, 128)}
+LN_BWD_SWEEP_D = (8, 128, 160, 768, 1025, 2730, 4096, 8192)
+LN_BWD_SWEEP_M = (1, 333)
+GRAD_TOLERANCE = {"bfloat16": 2e-2, "float32": 1e-4}   # of the largest
 # published peaks of one H100 SXM (dense, at a 700 W limit): device memory
 # rate; bf16 on the tensor cores; fp32 products on the tensor cores as three
 # TF32 products each ("3xtf32": 495 / 3 TFLOP/s), what both attention
@@ -973,6 +1033,7 @@ def phase_kernels():
         PHASE_SECONDS["c flash rows"] = round(time.perf_counter() - t0, 1)
         parts = _timed("c parts", phase_parts)
     _timed("c sweep", phase_sweep)
+    parts.update(_timed("c backward", phase_backward))
     return rows, parts
 
 
@@ -1201,13 +1262,13 @@ def phase_sweep():
                 f"{LN_SWEEP_M}, {len(plans)} plans (the Python mirror equals "
                 f"the library's at each), max_abs_err {worst:.3g}")
 
-    # gradients: kernel forward with the recompute backward, against autograd
-    # through the plain version; held to 2e-2 of the largest gradient.  Both
-    # backwards recompute through the plain version, so the two sides differ
-    # only by the forward's output, which the comparisons above already
-    # hold: this cannot fail where they pass on values.  What it guards is
-    # the way through autograd: the saved (strided) inputs, the kernel's
-    # output as the head of a graph, and one launch per forward.
+    # gradients through the public ops: the kernels forward and backward
+    # (flash attention's backward still through its plain version), against
+    # autograd through the plain versions; held to 2e-2 of the largest
+    # gradient.  What it guards is the way through autograd: the saved
+    # (strided) inputs, the kernel's output as the head of a graph, one
+    # launch per forward and one backward launch (the backward kernels
+    # themselves are held in `phase_backward`).
     def grads(fn, *leaves):
         ts = [t.detach().clone().requires_grad_() for t in leaves]
         fn(*ts).float().sin().sum().backward()
@@ -1232,11 +1293,18 @@ def phase_sweep():
             return (pa.packed_attention.launches + fa.flash_attention.launches
                     + pa.layer_norm.launches)
 
-        before = launches()
+        def backward_launches():
+            return (pa.packed_attention.backward_launches
+                    + pa.layer_norm.backward_launches)
+
+        before, before_b = launches(), backward_launches()
         got, want = grads(kernel, *leaves), grads(plain, *leaves)
         torch.cuda.synchronize()
         require(launches() == before + 1,
                 f"{name}: the forward did not launch the kernel")
+        require(backward_launches() == before_b + (0 if "flash" in name
+                                                   else 1),
+                f"{name}: the backward did not launch its kernel")
         scale = max(w.abs().max().item() for w in want)
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
         require(all(bool(torch.isfinite(g).all()) for g in got)
@@ -1244,6 +1312,349 @@ def phase_sweep():
                 f"{name}: gradients differ by {err} (largest {scale})")
         say(f"(c) gradient {name} bf16: max abs diff {err:.3g} (largest "
             f"gradient {scale:.3g})")
+
+
+def _grad_err(got, want, what: str, dtype_name: str):
+    """Hold gradients to the plain version's: max |got - want| of each
+    tensor within `GRAD_TOLERANCE` of that tensor's largest |want|; returns
+    (the largest absolute difference, the largest relative one)."""
+    import torch
+    torch.cuda.synchronize()
+    abs_err = rel_err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(g.shape == w.shape and g.dtype == w.dtype,
+                f"{what}: gradient {i} {tuple(g.shape)} {g.dtype} against "
+                f"{tuple(w.shape)} {w.dtype}")
+        require(bool(torch.isfinite(g).all()), f"{what}: gradient {i} not "
+                "finite")
+        d = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        abs_err, rel_err = max(abs_err, d), max(rel_err, d / max(scale, 1e-30))
+    require(rel_err <= GRAD_TOLERANCE[dtype_name],
+            f"{what}: gradients differ by {rel_err:.3g} of the largest "
+            f"(> {GRAD_TOLERANCE[dtype_name]})")
+    return abs_err, rel_err
+
+
+def _turns(kernel, plain, library=None, n: int = 10):
+    """(kernel ms, plain ms, library ms or None), CUDA events over `n` calls
+    in turns plain, kernel, library, kernel, plain after a warm-up."""
+    for fn in (kernel, plain) + ((library,) if library else ()):
+        fn()
+    p1, k1 = _time_ms(plain, n), _time_ms(kernel, n)
+    lib = _time_ms(library, n) if library else None
+    k2, p2 = _time_ms(kernel, n), _time_ms(plain, n)
+    return (k1 + k2) / 2, (p1 + p2) / 2, lib
+
+
+def phase_backward():
+    """(c) the backward kernels against their plain versions: the attention
+    backward (`leaf_packed_attention_backward`) and the LayerNorm backward
+    at the differentiated paths' shapes, timed (kernel, plain version,
+    the library's backward: SDPA's, `F.layer_norm`'s) and held to autograd
+    through the plain forward and to the explicit plain backward, two runs
+    equal bit for bit, the schedule and the plan equal to their Python
+    mirrors; the fused block's backward (all gradients, and the input's
+    alone) against autograd through `_block_reference`; then an untimed
+    sweep of head widths, groups and LayerNorm widths."""
+    import torch
+    from torch.nn import functional as F
+    from leaf_tpu_torch.ops import packed_attention as pa
+    rows = {"packed_attention_backward": [], "layer_norm_backward": [],
+            "fused_attention_block_backward": []}
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def dev(*shape, scale=1.0, shift=0.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale
+                + shift).to(dtype)
+
+    def autograd(fn, leaves, grad_out):
+        ts = [t.detach().clone().requires_grad_() for t in leaves]
+        return list(torch.autograd.grad(fn(*ts), ts, grad_out))
+
+    for name, R, L, S, causal, D, H, dt in BWD_SHAPES:
+        dtype = getattr(torch, dt)
+        esize, hd = (2 if dt == "bfloat16" else 4), D // H
+        require(pa.kernel_backward_schedule(L, S, causal)
+                == pa.backward_schedule(L, S, causal),
+                f"backward_schedule({L}, {S}, {causal}) is not the library's")
+        qkv = dev(R, L, 3 * D, dtype=dtype)
+        dout = dev(R, L, D, dtype=dtype)
+        with torch.no_grad():
+            out = pa.packed_attention(qkv, H, S, causal)
+
+        def kernel(qkv=qkv, out=out, dout=dout):
+            return pa._launch_packed_attention_backward(qkv, out, dout, H, S,
+                                                        causal)
+
+        def plain(qkv=qkv, out=out, dout=dout):
+            return pa._packed_attention_backward_reference(qkv, out, None,
+                                                           dout, H, S, causal)
+
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        require(torch.equal(got, again),
+                f"attention backward {name}: two runs differ")
+        want = autograd(lambda t: pa._reference(t, H, S, causal), [qkv],
+                        dout)
+        err, rel = _grad_err([got], want, f"attention backward {name} "
+                             "against autograd through the plain forward", dt)
+        _grad_err([got], [plain()], f"attention backward {name} against the "
+                  "plain backward", dt)
+        del want
+        mask = pa.block_mask(L, S, causal, "cuda")
+        lq = qkv.detach().clone().requires_grad_()
+        q, k, v = (t.reshape(R, L, H, hd).transpose(1, 2)
+                   for t in lq.split(D, dim=-1))
+        sdpa = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=None if S == L else mask,
+            is_causal=causal and S == L)
+        sdpa_g = dout.reshape(R, L, H, hd).transpose(1, 2)
+
+        def library(sdpa=sdpa, lq=lq, sdpa_g=sdpa_g):
+            return torch.autograd.grad(sdpa, lq, sdpa_g, retain_graph=True)
+
+        lib_err = (library()[0].float() - got.float()).abs().max().item()
+        require(lib_err <= 0.1 * got.float().abs().max().item() + 1e-3,
+                f"attention backward {name}: SDPA's backward computes "
+                f"another function ({lib_err})")
+        ms, pms, lib = _turns(kernel, plain, library)
+
+        def recompute(qkv=qkv, dout=dout):
+            return autograd(lambda t: pa._reference(t, H, S, causal), [qkv],
+                            dout)
+        recompute_ms = _time_ms(recompute, 3)
+        pairs = _visible_pairs(L, S, causal) * H * R
+        rows["packed_attention_backward"].append(_row(
+            "packed_attention backward", name, dt, err, ms, pms, lib,
+            8.0 * R * L * D * esize, 10.0 * hd * pairs, R=R, L=L,
+            group_len=S, causal=causal, D=D, heads=H, rel_err=rel,
+            recompute_ms=recompute_ms,
+            peak="bfloat16" if dt == "bfloat16" else "3xtf32"))
+        say(f"(c) packed_attention backward {name}: autograd through the "
+            f"plain forward (the backward before) {recompute_ms:.4f} ms; "
+            f"largest difference {rel:.3g} of the largest gradient; two runs "
+            "equal bit for bit")
+        del sdpa, lq, q, k, v, got, again
+        torch.cuda.empty_cache()
+
+        if name not in BLOCK_BWD_SHAPES:
+            continue
+        x = dev(R, L, D, scale=0.5, dtype=dtype)
+        gx = dev(R, L, D, dtype=dtype)
+        p = {"ln_1": {"scale": dev(D, scale=0.1, shift=1.0),
+                      "bias": dev(D, scale=0.1)},
+             "attn": {"qkv_w": dev(D, 3 * D, scale=D ** -0.5, dtype=dtype),
+                      "qkv_b": dev(3 * D, scale=0.1, dtype=dtype),
+                      "out_w": dev(D, D, scale=D ** -0.5, dtype=dtype),
+                      "out_b": dev(D, scale=0.1, dtype=dtype)}}
+        leaves = [p[a][b] for a, b in pa._BLOCK_KEYS]
+
+        def tree(ts):
+            return {"ln_1": dict(zip(("scale", "bias"), ts[:2])),
+                    "attn": dict(zip(("qkv_w", "qkv_b", "out_w", "out_b"),
+                                     ts[2:]))}
+
+        for mode in ("all", "input"):
+            n_in = 7 if mode == "all" else 1
+            ts = [t.detach().clone().requires_grad_(i < n_in)
+                  for i, t in enumerate([x] + leaves)]
+            out_k = pa.fused_attention_block(tree(ts[1:]), ts[0], H, S, causal)
+            ps = [t.detach().clone().requires_grad_(i < n_in)
+                  for i, t in enumerate([x] + leaves)]
+            before = pa.fused_attention_block.backward_launches
+
+            def kernel(out_k=out_k, ts=ts, n_in=n_in):
+                return torch.autograd.grad(out_k, ts[:n_in], gx,
+                                           retain_graph=True)
+
+            def plain(ps=ps, n_in=n_in):
+                # the backward before: the plain block again, and autograd
+                # through it
+                return torch.autograd.grad(
+                    pa._block_reference(tree(ps[1:]), ps[0], H, S, causal,
+                                        1e-5), ps[:n_in], gx)
+
+            got = kernel()
+            require(pa.fused_attention_block.backward_launches == before + 1,
+                    f"block backward {name}: no launch")
+            err, rel = _grad_err(got, plain(), f"block backward {name} "
+                                 f"{mode}", dt)
+            same = all(torch.equal(a, b) for a, b in zip(got, kernel()))
+            ms, pms, _ = _turns(kernel, plain, n=5)
+            M = R * L
+            products = (16.0 if mode == "all" else 8.0) * M * D * D
+            n_bytes = (3.0 * M * D + (8 * D * D + 8 * D if mode == "all"
+                                      else 4 * D * D)) * esize + 16 * D
+            rows["fused_attention_block_backward"].append(_row(
+                "fused_attention_block backward", f"{name} {mode}", dt, err,
+                ms, pms, None, n_bytes,
+                products + 10.0 * hd * _visible_pairs(L, S, causal) * H * R,
+                R=R, L=L, group_len=S, causal=causal, D=D, heads=H,
+                rel_err=rel, same_bits=same, gradients=mode,
+                peak="bfloat16" if dt == "bfloat16" else "float32"))
+            say(f"(c) fused_attention_block backward {name} ({mode}): largest "
+                f"difference {rel:.3g} of the largest gradient; two runs "
+                f"{'equal' if same else 'differ (cuBLAS)'} bit for bit")
+            del out_k, ts, ps, got
+        torch.cuda.empty_cache()
+
+    for name, M, D, dt in LN_BWD_SHAPES:
+        dtype = getattr(torch, dt)
+        esize = 2 if dt == "bfloat16" else 4
+        plan = pa.kernel_layer_norm_backward_plan(M, D)
+        require(plan == pa.layer_norm_backward_plan(M, D),
+                f"layer_norm_backward_plan({M}, {D}) is not the library's "
+                f"plan {plan}")
+        x = dev(M, D, scale=2.0, shift=0.5, dtype=dtype)
+        dy = dev(M, D, dtype=dtype)
+        # fp32 parameters that bf16 holds exactly (the library call takes
+        # them in x's dtype)
+        scale = dev(D, scale=0.1, shift=1.0).to(dtype).float()
+        bias = dev(D, scale=0.1).to(dtype).float()
+
+        def kernel(x=x, scale=scale, dy=dy):
+            return pa._launch_layer_norm_backward(x, scale, dy, 1e-5, True)
+
+        def plain(x=x, scale=scale, bias=bias, dy=dy):
+            return pa._layer_norm_backward_reference(x, scale, bias, 1e-5, dy)
+
+        got, again = kernel(), kernel()
+        dx_alone = pa._launch_layer_norm_backward(x, scale, dy, 1e-5, False)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again))
+                and torch.equal(got[0], dx_alone[0]),
+                f"layer_norm backward {name}: two runs differ")
+        want = autograd(lambda *t: pa._layer_norm_reference(*t, 1e-5),
+                        [x, scale, bias], dy)
+        err, rel = _grad_err(list(got), want, f"layer_norm backward {name}",
+                             dt)
+        _grad_err(list(got), list(plain()), f"layer_norm backward {name} "
+                  "against the plain backward", dt)
+        lx = x.detach().clone().requires_grad_()
+        lw, lb = (t.to(dtype).detach().clone().requires_grad_()
+                  for t in (scale, bias))
+        ly = F.layer_norm(lx, (D,), lw, lb, 1e-5)
+
+        def library(ly=ly, lx=lx, lw=lw, lb=lb, dy=dy):
+            return torch.autograd.grad(ly, (lx, lw, lb), dy,
+                                       retain_graph=True)
+
+        ms, pms, lib = _turns(kernel, plain, library)
+        rows["layer_norm_backward"].append(_row(
+            "layer_norm backward", name, dt, err, ms, pms, lib,
+            3.0 * M * D * esize + 12 * D, 12.0 * M * D, M=M, D=D,
+            rel_err=rel, plan=plan,
+            dx_alone_ms=_time_ms(lambda: pa._launch_layer_norm_backward(
+                x, scale, dy, 1e-5, False)), peak="float32"))
+        del ly, lx, lw, lb, got, again, want
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(8)
+    for dt, widths in BWD_SWEEP_HEAD_WIDTHS.items():
+        dtype, worst, cases = getattr(torch, dt), 0.0, 0
+        for S, G, causal in BWD_SWEEP:
+            for hd in widths:
+                L, H = G * S, 2
+                qkv = torch.from_numpy(rng.standard_normal(
+                    (2, L, 3 * H * hd)).astype(np.float32)).to("cuda", dtype)
+                dout = torch.from_numpy(rng.standard_normal(
+                    (2, L, H * hd)).astype(np.float32)).to("cuda", dtype)
+                with torch.no_grad():
+                    out = pa.packed_attention(qkv, H, S, causal)
+                got = pa._launch_packed_attention_backward(qkv, out, dout, H,
+                                                           S, causal)
+                want = autograd(lambda t: pa._reference(t, H, S, causal),
+                                [qkv], dout)
+                worst = max(worst, _grad_err(
+                    [got], want, f"attention backward S={S} G={G} "
+                    f"causal={causal} hd={hd} {dt}", dt)[1])
+                cases += 1
+        say(f"(c) sweep packed_attention backward {dt}: {cases} shapes "
+            f"(group_len, groups, causal) in {BWD_SWEEP} x head widths "
+            f"{widths}, largest difference {worst:.3g} of the largest "
+            "gradient")
+    for dt in ("bfloat16", "float32"):
+        dtype, worst = getattr(torch, dt), 0.0
+        for D in LN_BWD_SWEEP_D:
+            for M in LN_BWD_SWEEP_M:
+                require(pa.kernel_layer_norm_backward_plan(M, D)
+                        == pa.layer_norm_backward_plan(M, D),
+                        f"layer_norm_backward_plan({M}, {D})")
+                x, dy = (torch.from_numpy(rng.standard_normal((M, D)).astype(
+                    np.float32)).to("cuda", dtype) for _ in range(2))
+                scale = torch.from_numpy((1 + 0.1 * rng.standard_normal(D))
+                                         .astype(np.float32)).cuda()
+                bias = torch.zeros_like(scale)
+                got = pa._launch_layer_norm_backward(x, scale, dy, 1e-5, True)
+                want = autograd(lambda *t: pa._layer_norm_reference(*t, 1e-5),
+                                [x, scale, bias], dy)
+                worst = max(worst, _grad_err(
+                    list(got), want, f"layer_norm backward M={M} D={D} {dt}",
+                    dt)[1])
+        say(f"(c) sweep layer_norm backward {dt}: D in {LN_BWD_SWEEP_D} x M "
+            f"in {LN_BWD_SWEEP_M} (the plan's Python mirror equal to the "
+            f"library's at each), largest difference {worst:.3g} of the "
+            "largest gradient")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# The guard of the differentiated phases
+# ---------------------------------------------------------------------------
+
+BACKWARD_NAMES = ("packed_attention", "layer_norm", "fused_attention_block")
+# each guarded phase's backward launches and plain calls on the card
+BACKWARD = {}
+# the backward counts of rank processes, as `_v_wait` reads them
+RANK_BACKWARD = []
+
+
+def _backward_counts() -> dict:
+    """This process's backward launches and plain-version calls on a CUDA
+    tensor, for a rank to report."""
+    from leaf_tpu_torch.ops import packed_attention as pa
+    return {"plain_on_cuda": pa.PLAIN_ON_CUDA["calls"],
+            **{n: getattr(pa, n).backward_launches for n in BACKWARD_NAMES}}
+
+
+class _BackwardGuard:
+    """Around a phase whose steps differentiate the towers: no plain version
+    runs on a CUDA tensor from entry to exit (`PLAIN_ON_CUDA` stays 0, in
+    this process and in the rank processes it reads), and the backward
+    kernels launch: their launches over the phase are kept in `BACKWARD`,
+    the attention's and the LayerNorm's nonzero."""
+
+    def __init__(self, tag: str):
+        self.tag = tag
+
+    def __enter__(self):
+        from leaf_tpu_torch.ops import packed_attention as pa
+        pa.PLAIN_ON_CUDA["calls"] = 0
+        self.before = _backward_counts()
+        self.ranks = len(RANK_BACKWARD)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is not None:
+            return False
+        import torch
+        torch.cuda.synchronize()
+        after = _backward_counts()
+        got = {k: after[k] - self.before[k] for k in after}
+        got["plain_on_cuda"] = after["plain_on_cuda"]
+        for rank in RANK_BACKWARD[self.ranks:]:
+            for k in got:
+                got[k] += rank[k]
+        say(f"({self.tag}) backward launches {got}: no plain version ran on "
+            "the card")
+        require(got["plain_on_cuda"] == 0,
+                f"({self.tag}) {got['plain_on_cuda']} calls of a plain version "
+                "on a CUDA tensor")
+        require(got["packed_attention"] > 0 and got["layer_norm"] > 0,
+                f"({self.tag}) the backward kernels did not launch: {got}")
+        BACKWARD[self.tag] = got
+        return False
 
 
 # ---------------------------------------------------------------------------
@@ -1757,8 +2168,8 @@ def phase_train(workdir: str):
         cfg, layers = out["cfg"], out["cfg"].text.layers
         fs = out["fused_step"]
         # per step: 2 probe + 2 candidate scoring encodes and the train
-        # forward's 2 half encodes (its backward recomputes through the
-        # plain version and launches nothing); the caption is the same in
+        # forward's 2 half encodes (its backward runs the backward kernels,
+        # held by the phase's guard); the caption is the same in
         # every row, so only the first step's first half encodes anchors
         counters.hold("train.driver fused, 'Dummy caption'", 6 * n_steps + 1,
                       layers, f"{n_steps} steps x (2 probe + 2 candidate + 2 "
@@ -2650,12 +3061,24 @@ def _fare_launches(layers: int, encodes: int, differentiated: int,
                    remat: bool):
     """Launches of each packed kernel and of the LayerNorm op for `encodes`
     forward-only image encodes and `differentiated` ones: a block per layer
-    (twice under remat: the forward and its recompute in the backward;
-    the backward itself recomputes through the plain versions), `ln_2`
-    with each block, and `ln_pre` and `ln_post` once an encode."""
+    (twice under remat: the forward and its recompute in the backward),
+    `ln_2` with each block, and `ln_pre` and `ln_post` once an encode; and
+    the backward kernels' (`_backward_launches`)."""
     blocks = layers * (encodes + (2 if remat else 1) * differentiated)
     return {"packed_attention": blocks, "fused_attention_block": blocks,
-            "layer_norm": blocks + 2 * (encodes + differentiated)}
+            "layer_norm": blocks + 2 * (encodes + differentiated),
+            **_backward_launches(layers, differentiated, 2)}
+
+
+def _backward_launches(blocks: int, differentiated: int, outside: int):
+    """The backward launches of `differentiated` encodes of a tower of
+    `blocks` fused blocks and `outside` LayerNorm ops besides the blocks'
+    `ln_2`: a block backward per block, which runs the attention backward
+    and `ln_1`'s; the LayerNorm backward of every `ln_2` and of the others
+    (whatever the recompute of remat launched forward)."""
+    return {"packed_attention backward": blocks * differentiated,
+            "fused_attention_block backward": blocks * differentiated,
+            "layer_norm backward": (2 * blocks + outside) * differentiated}
 
 
 def phase_fare_parity(workdir: str):
@@ -2803,8 +3226,10 @@ class _FareRun:
                       (checkpoint, "_write", checkpoint._write)]
 
         def read():
-            return {name: op.launches
-                    for name, op in self.counters.ops.items()}
+            return {**{name: op.launches
+                       for name, op in self.counters.ops.items()},
+                    **{f"{name} backward": op.backward_launches
+                       for name, op in self.counters.ops.items()}}
 
         def train_fare(visual, cfg, fcfg, data_iter, **kw):
             run.before = {k: v.detach().cpu().clone()
@@ -2896,7 +3321,8 @@ def phase_fare(workdir: str):
         for i, (t, got) in enumerate(zip(out["times"], run.launches())):
             require(got == want, f"(m) FARE {tag} step {i + 1}: launches "
                     f"{got}, {want} expected (1 anchor + {iters + 1} "
-                    f"differentiated encodes of {layers} layers)")
+                    f"differentiated encodes of {layers} layers, forward and "
+                    "backward)")
             steps.append(dict(t, images_per_s=batch / t["step_s"],
                               launches=got))
             say(f"(m) FARE {tag} step {i + 1}: {t['step_s']:.3f} s on the "
@@ -3075,8 +3501,8 @@ def _write_pair_tars(root: str, rng, shards: int, per_shard: int,
 def _clip_launches(cfg, encodes: int):
     """Launches of each packed kernel and of the LayerNorm op for
     `encodes` forward passes of both towers: a block per layer of each
-    (the backward recomputes through the plain versions), `ln_2` with each
-    block, `ln_final`, `ln_pre` and `ln_post` once a pass."""
+    (the backward's kernels count apart: `_backward_launches`), `ln_2`
+    with each block, `ln_final`, `ln_pre` and `ln_post` once a pass."""
     blocks = (cfg.text.layers + cfg.vision.layers) * encodes
     return {"packed_attention": blocks, "fused_attention_block": blocks,
             "layer_norm": blocks + 3 * encodes}
@@ -3278,10 +3704,16 @@ def _device_steps(n: int = 3):
     counters = _Counters()
     step(state, images, tokens)
     torch.cuda.synchronize()
-    want = _clip_launches(model.cfg, 1)
+    cfg = model.cfg
+    # both towers differentiated once: ln_final, ln_pre and ln_post beside
+    # the blocks
+    want = {**_clip_launches(cfg, 1), **_backward_launches(
+        cfg.text.layers + cfg.vision.layers, 1, 3)}
     seconds = []
     for _ in range(n):
         counters.zero()
+        before = {f"{k} backward": op.backward_launches
+                  for k, op in counters.ops.items()}
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3289,6 +3721,8 @@ def _device_steps(n: int = 3):
         end.record()
         end.synchronize()
         got = {k: op.launches for k, op in counters.ops.items()}
+        got.update({f"{k} backward": op.backward_launches - before[
+            f"{k} backward"] for k, op in counters.ops.items()})
         require(got == want, f"(n) device step: launches {got}, {want} "
                 "expected")
         seconds.append(start.elapsed_time(end) / 1e3)
@@ -5718,8 +6152,8 @@ def _u_host(sd: dict) -> dict:
 
 
 def phase_zoo_train_parity(workdir: str):
-    """(u) tiny, fp32, TF32 off, the card (kernels forward, recompute
-    backward) against the CPU (plain versions) from the same seeded
+    """(u) tiny, fp32, TF32 off, the card (kernels forward and backward)
+    against the CPU (plain versions) from the same seeded
     weights, one step each at lr 1e-4: the contrastive step on every vision
     family (SigLIP's with its sigmoid loss and logit bias; a ModifiedResNet
     whose BatchNorm statistics must not move) and coca-roberta-tiny-test's
@@ -5902,7 +6336,8 @@ def phase_zoo_train_parity(workdir: str):
 def _u_contrastive_launches(cfg, steps: int):
     """A contrastive step's launches: one forward of each tower
     (`_convnet_launches` for a ModifiedResNet or EVA tower, `_zoo_launches`
-    for a ViT); the backward recomputes through the plain versions."""
+    for a ViT); the backward's kernels count apart, under the phase's
+    guard."""
     per = (_zoo_launches(cfg, 1, 1) if cfg.resnet is None
            and cfg.trunk is None else _convnet_launches(cfg, 1, 1))
     return {k: v * steps for k, v in per.items()}
@@ -6457,8 +6892,7 @@ def _v_full(D, device, counters):
 
     layers = cfg.text.layers
     # a step's text encodes: anchors (missed at the first), probes,
-    # candidates, the train forward (the backward recomputes through the
-    # plain versions)
+    # candidates, the train forward (its backward's kernels count apart)
     run("leaf", leaf_step, V_STEPS, lambda i: {
         "packed_attention": layers * (4 if i == 0 else 3),
         "fused_attention_block": layers * (4 if i == 0 else 3),
@@ -6571,6 +7005,7 @@ def _v_worker(spec_path: str) -> int:
     t0 = time.perf_counter()
     out["full"] = _v_full(D, info["device"], _Counters())
     out["full_s"] = time.perf_counter() - t0
+    out["backward"] = _backward_counts()
     with open(spec["out"] % info["rank"], "w") as f:
         json.dump(out, f, default=float)
     D.barrier()
@@ -6623,6 +7058,7 @@ def _v_wait(workdir: str, started):
     for rank in range(2):
         with open(spec["out"] % rank) as f:
             outs.append(json.load(f))
+        RANK_BACKWARD.append(outs[-1]["backward"])
     return outs
 
 
@@ -7064,7 +7500,7 @@ def _w_tp_full(grid, device, counters) -> dict:
             seconds = time.perf_counter() - t0
         got = {k: op.launches - before[k] for k, op in counters.ops.items()}
         # anchors (missed at the first step), probes, candidates, the train
-        # forward; the backward recomputes through the plain versions
+        # forward, whose backward's kernels count apart
         rows.append({"s": seconds, "collective_s": coll.seconds,
                      "collectives": coll.calls, "loss": loss,
                      "launches": got,
@@ -7108,6 +7544,7 @@ def _w_worker(spec_path: str) -> int:
     # the whole parameters (tensors) beside the JSON
     torch.save({dev: out["tiny"][dev].pop("params") for dev in out["tiny"]},
                spec["out"] % info["rank"] + ".params.pt")
+    out["backward"] = _backward_counts()
     with open(spec["out"] % info["rank"], "w") as f:
         json.dump(out, f, default=float)
     D.barrier()
@@ -7289,23 +7726,31 @@ def main() -> int:
         _timed("i train", phase_train_parity)
         _timed("i fused", phase_fused_parity)
         with _depth_cut():
-            train_launches, trainer = _timed("j", phase_train, workdir)
-            eval_parity = _timed("k parity", phase_eval_parity, workdir)
-            eval_launches, recipe = _timed("k", phase_recipe, workdir)
+            with _BackwardGuard("j"):
+                train_launches, trainer = _timed("j", phase_train, workdir)
+            with _BackwardGuard("k"):
+                eval_parity = _timed("k parity", phase_eval_parity, workdir)
+                eval_launches, recipe = _timed("k", phase_recipe, workdir)
             charmer_parity = _timed("l parity", phase_charmer_parity,
                                     workdir)
             attack_launches, text_attacks = _timed("l", phase_text_attacks,
                                                    workdir)
-            fare_parity = _timed("m parity", phase_fare_parity, workdir)
-            fare_launches, fare_runs = _timed("m FARE", phase_fare, workdir)
-            robust_launches, robust = _timed("m robust", phase_robust,
-                                             workdir)
-            clip_parity = _timed("n parity", phase_contrastive_parity,
-                                 workdir)
-            clip_launches, clip_runs = _timed("n", phase_contrastive, workdir)
-            bench_parity = _timed("o parity", phase_benchmark_parity, workdir)
-            bench_launches, pez_launches, bench_runs = _timed(
-                "o", phase_benchmark, workdir)
+            with _BackwardGuard("m"):
+                fare_parity = _timed("m parity", phase_fare_parity, workdir)
+                fare_launches, fare_runs = _timed("m FARE", phase_fare,
+                                                  workdir)
+                robust_launches, robust = _timed("m robust", phase_robust,
+                                                 workdir)
+            with _BackwardGuard("n"):
+                clip_parity = _timed("n parity", phase_contrastive_parity,
+                                     workdir)
+                clip_launches, clip_runs = _timed("n", phase_contrastive,
+                                                  workdir)
+            with _BackwardGuard("o"):
+                bench_parity = _timed("o parity", phase_benchmark_parity,
+                                      workdir)
+                bench_launches, pez_launches, bench_runs = _timed(
+                    "o", phase_benchmark, workdir)
             t2i_parity = _timed("p parity", phase_t2i_parity, workdir)
             t2i_launches, t2i_runs = _timed("p", phase_t2i_tooling, workdir)
         coca_parity = _timed("q parity", phase_coca_parity, workdir)
@@ -7318,11 +7763,15 @@ def main() -> int:
         conv_launches, conv_runs = _timed("s", phase_convnets, workdir)
         rest_parity = _timed("t parity", phase_rest_parity, workdir)
         rest_launches, rest_runs = _timed("t", phase_rest, workdir)
-        train_parity = _timed("u parity", phase_zoo_train_parity, workdir)
-        train_zoo_launches, train_zoo_runs = _timed("u", phase_zoo_train,
-                                                    workdir)
-        rank_launches, multirank = _timed("v", phase_multirank, workdir)
-        w_launches, prefix_tp = _timed("w", phase_prefix_tp, workdir)
+        with _BackwardGuard("u"):
+            train_parity = _timed("u parity", phase_zoo_train_parity,
+                                  workdir)
+            train_zoo_launches, train_zoo_runs = _timed(
+                "u", phase_zoo_train, workdir)
+        with _BackwardGuard("v"):
+            rank_launches, multirank = _timed("v", phase_multirank, workdir)
+        with _BackwardGuard("w"):
+            w_launches, prefix_tp = _timed("w", phase_prefix_tp, workdir)
         zoo_launches = {**zoo_launches, **conv_launches, **rest_launches,
                         **train_zoo_launches,
                         "multirank": rank_launches}
@@ -7426,6 +7875,35 @@ def main() -> int:
                        "launches_by_path": ln_launches},
         "gemm_bias": {"launches": sum(gemm_launches.values()),
                       "launches_by_path": gemm_launches}}
+    # the backward kernels, launched by the guarded phases' differentiated
+    # steps (BACKWARD), at FARE's ViT-H shapes; the block's backward (its
+    # recompute, cuBLAS products and these kernels) by path beside the block
+    block_backward = {tag: c["fused_attention_block"]
+                      for tag, c in BACKWARD.items()}
+    report[1]["backward"] = {"launches": sum(block_backward.values()),
+                             "launches_by_path": block_backward}
+    for name, key, source, replaces, main_shape in (
+            ("packed_attention_backward", "packed_attention",
+             "leaf_tpu_torch/ops/csrc/attention_backward.cu",
+             "leaf_tpu/ops/packed_attention.py:187", BWD_MAIN_SHAPE),
+            ("layer_norm_backward", "layer_norm",
+             "leaf_tpu_torch/ops/csrc/layer_norm_backward.cu",
+             "leaf_tpu/ops/packed_attention.py:363", LN_BWD_MAIN_SHAPE)):
+        by_path = {tag: c[key] for tag, c in BACKWARD.items()}
+        for path, count in by_path.items():
+            require(count > 0, f"{name}: no launch on the ({path}) path")
+        by_shape = parts[name]
+        main_row = next(r for r in by_shape if r["shape"] == main_shape)
+        report.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in by_shape),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "shape": main_row["shape"], "dtype": main_row["dtype"]})
     PHASE_SECONDS["all"] = round(time.perf_counter() - t_start, 1)
     say(f"phase seconds: {PHASE_SECONDS}")
     print(json.dumps({"phase_seconds": PHASE_SECONDS,
@@ -7445,7 +7923,8 @@ def main() -> int:
                       "convnets": conv_runs, "rest_parity": rest_parity,
                       "rest": rest_runs, "zoo_train_parity": train_parity,
                       "zoo_train": train_zoo_runs,
-                      "multirank": multirank, "prefix_tp": prefix_tp},
+                      "multirank": multirank, "prefix_tp": prefix_tp,
+                      "backward": BACKWARD},
                      default=float))
     # every shape's row (ms, plain_ms, library_ms, bound_ms, bound_by,
     # max_abs_err) on a line of its own, so that the kernels line stays

@@ -9,8 +9,8 @@
 Each attack is a plain autograd loop over `delta`: forward through the
 vision tower (of any family: the ViT, ModifiedResNet, ConvNeXt, the
 trunks), the input's gradient, a step.  On a card the forward runs
-the towers' hand kernels and their backward recomputes through the
-plain versions (`ops.packed_attention`).  Images are NHWC in [0, 1];
+the towers' hand kernels and the backward their backward kernels
+(`ops.packed_attention`), asked for the input's gradient alone.  Images are NHWC in [0, 1];
 normalisation is folded into the loss.  The tower computes in its
 weights' dtype (fp32 for the trainer's eval, as the JAX package's
 default `dtype=float32`).  The random start is drawn from `generator`

@@ -128,6 +128,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     # LN eps, attention scale
     lib.leaf_fused_block.argtypes = [p] * 11 + [i] * 7 + [f, f, i, p]
     lib.leaf_fused_block.restype = i
+    # qkv, out, dout, dqkv, the fp32 scratch; dtype, R, L, heads, head width,
+    # group_len, causal, attention scale
+    lib.leaf_packed_attention_backward.argtypes = [p] * 5 + [i] * 7 + [f, i, p]
+    lib.leaf_packed_attention_backward.restype = i
+    # x, scale, dy, dx, dscale, dbias, partials; dtype, M, D, eps
+    lib.leaf_layer_norm_backward.argtypes = [p] * 7 + [i, i, i, f, i, p]
+    lib.leaf_layer_norm_backward.restype = i
     lib.leaf_flash_attention.argtypes = [
         p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i, i, f, i, p]
     lib.leaf_flash_attention.restype = i
@@ -136,6 +143,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.leaf_attention_schedule.restype = i
     lib.leaf_layer_norm_plan.argtypes = [i, i, i, ints]
     lib.leaf_layer_norm_plan.restype = i
+    lib.leaf_attention_backward_schedule.argtypes = [i, i, i, ints, i]
+    lib.leaf_attention_backward_schedule.restype = i
+    lib.leaf_layer_norm_backward_plan.argtypes = [i, i, ints]
+    lib.leaf_layer_norm_backward_plan.restype = i
     lib.leaf_error_string.argtypes = [i]
     lib.leaf_error_string.restype = ctypes.c_char_p
 

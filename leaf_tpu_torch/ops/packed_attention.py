@@ -55,9 +55,34 @@ an integer attribute (`packed_attention.launches`,
 so it counts there too, and its own LayerNorm and GEMM stages count under
 the block, not under `layer_norm` or `gemm_bias`.
 
-Each CUDA path is a `torch.autograd.Function` whose backward recomputes
-through the plain version, like the JAX `custom_vjp`s.  Serving never
-differentiates; the backward is there for the training slices.
+Each CUDA path is a `torch.autograd.Function` whose backward runs hand
+kernels and cuBLAS products, never a plain version:
+
+  * `packed_attention`: `csrc/attention_backward.cu`, two kernels (dQ with
+    each query's log-sum-exp and delta, then dK and dV), from qkv, the
+    saved output and its gradient to dqkv in the fused token-major layout;
+  * `layer_norm`: `csrc/layer_norm_backward.cu`, dx a row at a time and the
+    parameters' gradients as per-block partials summed by a second pass
+    (skipped where the input's gradient alone is asked for);
+  * `fused_attention_block`: saves its inputs alone, as the JAX `_block_fwd`
+    does, and recomputes ln_1, the qkv projection and the attention with
+    the forward kernels (`_launch_block_recompute`), then takes the
+    out-projection's and the qkv projection's gradients as cuBLAS products
+    (`_mm`), dqkv by the attention backward and dx by the LayerNorm
+    backward, each only where `ctx.needs_input_grad` asks (PGD through a
+    frozen tower runs no weight product);
+  * `gemm_bias`: `g w^T`, `a^T g` and the column sums of g, as asked.
+
+Their plain versions, `_packed_attention_backward_reference` and
+`_layer_norm_backward_reference`, are explicit formulas beside the
+kernels for the tests and `chip_smoke.py`.  Each backward counts its
+launches (`packed_attention.backward_launches`,
+`layer_norm.backward_launches`, `fused_attention_block.backward_launches`,
+the block's one count covering its recomputation, whose forward kernels
+count under the block and not under their ops); every plain version
+counts its calls on a CUDA tensor in `PLAIN_ON_CUDA`, which a training
+path on the card leaves at 0.  On the CPU the ops run their plain
+forward versions, with autograd through them.
 
 The three ops are also registered as `torch.library` custom ops,
 `torch.ops.leaf_tpu_torch.{packed_attention, fused_attention_block,
@@ -83,6 +108,15 @@ from leaf_tpu_torch.ops import build
 
 _NEG = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DType
+
+# calls of a plain version on a CUDA tensor: the comparisons of `chip_smoke.py`
+# make them on purpose; a training or serving path on the card makes none
+PLAIN_ON_CUDA = {"calls": 0}
+
+
+def _note_plain(t: torch.Tensor) -> None:
+    if t.device.type == "cuda":
+        PLAIN_ON_CUDA["calls"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -254,11 +288,79 @@ def kernel_layer_norm_plan(D: int, dtype, aligned: bool = True) -> dict:
             "threads": threads, "per": per, "rows": rows}
 
 
+BWD_TILE = 64         # queries or keys an attention backward block owns
+MAX_HEAD_DIM = 128    # the widest head both attention kernels take
+
+
+def backward_schedule(L: int, group_len: int, causal: bool) -> dict:
+    """The attention backward kernels' schedule for one row of L tokens,
+    as `leaf_attention_backward_schedule` in `csrc/attention_backward.cu`
+    computes it: for each `BWD_TILE`-query tile of the dQ kernel `(q0, q1,
+    k0, k1)`, its queries and the keys it visits (in chunks of
+    `BWD_TILE` from k0), and for each key tile of the dK/dV kernel `(k0,
+    k1, i0, i1)`, its keys and the queries that see them."""
+    dq, dkv = [], []
+    for a0 in range(0, L, BWD_TILE):
+        a1 = min(a0 + BWD_TILE, L)
+        dq.append((a0, a1, *_key_range(a0, a1, L, group_len, causal)))
+        i0 = a0 // group_len * group_len
+        i1 = min(((a1 - 1) // group_len + 1) * group_len, L)
+        dkv.append((a0, a1, max(i0, a0) if causal else i0, i1))
+    return {"tile": BWD_TILE, "dq": dq, "dkv": dkv}
+
+
+def kernel_backward_schedule(L: int, group_len: int, causal: bool) -> dict:
+    """What `backward_schedule` mirrors, from the built library itself.
+    Needs the CUDA toolkit, not a card; `chip_smoke.py` holds the two
+    equal."""
+    import ctypes
+    cap = 8 * -(-L // BWD_TILE)
+    ranges = (ctypes.c_int * cap)()
+    n = build.library().leaf_attention_backward_schedule(
+        L, group_len, int(causal), ranges, cap)
+    if n < 0:
+        raise RuntimeError(f"leaf_attention_backward_schedule({L}, "
+                           f"{group_len}, {causal}) returned {n}")
+    quads = [tuple(ranges[4 * t:4 * t + 4]) for t in range(2 * n)]
+    return {"tile": BWD_TILE, "dq": quads[:n], "dkv": quads[n:]}
+
+
+LN_BWD_MAX_BLOCKS = 2048   # blocks of the LayerNorm backward's first kernel
+LN_BWD_MAX_D = 8192        # the widest row it takes (32 elements a thread)
+
+
+def layer_norm_backward_plan(M: int, D: int) -> dict:
+    """The LayerNorm backward kernel's plan for M rows of D elements, as
+    `make_plan` in `csrc/layer_norm_backward.cu` computes it: `threads` a
+    row (a block: the fewest multiple of 32 that holds the row at 8
+    elements a thread, at most `LN_THREADS`), `per` elements a thread as
+    compiled (0: D is wider than `LN_BWD_MAX_D`), `blocks` and `rows` a
+    block (at most `LN_BWD_MAX_BLOCKS` blocks, each writing one row of the
+    parameters' partial sums)."""
+    threads = min(LN_THREADS, 32 * -(-D // 256))
+    need = -(-D // threads)
+    per = next((p for p in (4, 8, 12, 32) if need <= p), 0)
+    rows = -(-M // LN_BWD_MAX_BLOCKS)
+    return {"threads": threads, "per": per, "blocks": -(-M // rows),
+            "rows": rows}
+
+
+def kernel_layer_norm_backward_plan(M: int, D: int) -> dict:
+    """What `layer_norm_backward_plan` mirrors, from the built library
+    (`leaf_layer_norm_backward_plan`, run on the host)."""
+    import ctypes
+    plan = (ctypes.c_int * 4)()
+    build.check(build.library().leaf_layer_norm_backward_plan(M, D, plan),
+                "leaf_layer_norm_backward_plan")
+    return dict(zip(("threads", "per", "blocks", "rows"), plan))
+
+
 def _reference(qkv: torch.Tensor, n_heads: int, group_len: int,
                causal: bool) -> torch.Tensor:
     """Token-major attention with the block-diagonal semantics (numerics of
     `layers.attention`): fp32 logits and softmax, probabilities in the
     input dtype, PV accumulated in fp32."""
+    _note_plain(qkv)
     R, L, threeD = qkv.shape
     D = threeD // 3
     hd = D // n_heads
@@ -274,6 +376,7 @@ def _layer_norm_reference(x: torch.Tensor, scale: torch.Tensor,
                           bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm with fp32 statistics and parameters, cast back to x's
     dtype (the numerics of the LayerNorm kernel)."""
+    _note_plain(x)
     x32 = x.float()
     mu = x32.mean(dim=-1, keepdim=True)
     var = (x32 - mu).square().mean(dim=-1, keepdim=True)
@@ -288,6 +391,7 @@ def _gemm_bias_reference(a: torch.Tensor, w: torch.Tensor,
     """`(residual +) a @ w + bias` at the GEMM kernel's rounding points:
     the product and the bias (none where None) summed in fp32 and rounded
     once, the residual added as a sum of two values of the dtype."""
+    _note_plain(a)
     y = a.float() @ w.float()
     y = (y if bias is None else y + bias.float()).to(a.dtype)
     return y if residual is None else residual + y
@@ -297,7 +401,8 @@ def _block_reference(p: Mapping, x: torch.Tensor, n_heads: int,
                      group_len: int, causal: bool,
                      ln_eps: float) -> torch.Tensor:
     """Plain fused block (same numerics as `layers.ResidualBlock`'s
-    attention half); backward recompute and test oracle."""
+    attention half); the test oracle."""
+    _note_plain(x)
     R, L, D = x.shape
     a = p["attn"]
 
@@ -310,6 +415,64 @@ def _block_reference(p: Mapping, x: torch.Tensor, n_heads: int,
     qkv = linear(h, a["qkv_w"], a["qkv_b"])
     o = _reference(qkv, n_heads, group_len, causal)
     return x + linear(o, a["out_w"], a["out_b"])
+
+
+def _packed_attention_backward_reference(
+        qkv: torch.Tensor, out: torch.Tensor, lse: Optional[torch.Tensor],
+        dout: torch.Tensor, n_heads: int, group_len: int,
+        causal: bool) -> torch.Tensor:
+    """The gradient of `packed_attention` at qkv `[R, L, 3D]`, given its
+    output `out` and the output's gradient `dout` `[R, L, D]` (one dtype),
+    as explicit formulas at the backward kernel's rounding points: fp32
+    logits, probabilities and sums; delta = rowsum(dout * out); dP = dout
+    v^T and the probabilities that multiply dout rounded to the dtype, as
+    the autograd of `_reference` rounds them.  `lse`: the rows' fp32
+    log-sum-exp `[R, H, L]`, or None to take it from qkv, as the kernel
+    does.  Returns dqkv `[R, L, 3D]` in the dtype."""
+    _note_plain(qkv)
+    R, L, threeD = qkv.shape
+    D = threeD // 3
+    hd = D // n_heads
+    scale = hd ** -0.5
+
+    def heads(t):     # [R, L, D] -> [R, H, L, hd], fp32
+        return t.reshape(R, L, n_heads, hd).transpose(1, 2).float()
+
+    q, k, v = (heads(t) for t in qkv.split(D, dim=-1))
+    do, o = heads(dout), heads(out)
+    s = (q @ k.transpose(-1, -2)) * scale
+    s = s.masked_fill(~block_mask(L, group_len, causal, qkv.device), _NEG)
+    if lse is None:
+        lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])         # masked pairs: exactly 0
+    delta = (do * o).sum(-1, keepdim=True)
+    dp = (do @ v.transpose(-1, -2)).to(qkv.dtype).float()
+    ds = p * (dp - delta) * scale
+    grads = (ds @ k, ds.transpose(-1, -2) @ q,
+             p.to(qkv.dtype).float().transpose(-1, -2) @ do)
+    return torch.cat([t.transpose(1, 2).reshape(R, L, D) for t in grads],
+                     dim=-1).to(qkv.dtype)
+
+
+def _layer_norm_backward_reference(x: torch.Tensor, scale: torch.Tensor,
+                                   bias: torch.Tensor, eps: float,
+                                   dy: torch.Tensor):
+    """`(dx, dscale, dbias)` of `_layer_norm_reference` at x `[..., D]` for
+    the output's gradient dy, as explicit formulas in fp32 with the
+    kernel's statistics: x^ = (x - mean) rstd, g = dy scale, dx = rstd (g
+    - mean(g) - x^ mean(g x^)) in x's dtype; dscale = sum dy x^ and dbias
+    = sum dy over the rows, fp32 `[D]` (bias takes no part)."""
+    _note_plain(x)
+    D = x.shape[-1]
+    x32, dy32 = x.reshape(-1, D).float(), dy.reshape(-1, D).float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((x32 - mu).square().mean(dim=-1, keepdim=True) + eps)
+    xhat = (x32 - mu) * rstd
+    g = dy32 * scale.float()
+    dx = rstd * (g - g.mean(dim=-1, keepdim=True)
+                 - xhat * (g * xhat).mean(dim=-1, keepdim=True))
+    return (dx.to(x.dtype).reshape(x.shape), (dy32 * xhat).sum(0),
+            dy32.sum(0))
 
 
 # ---------------------------------------------------------------------------
@@ -357,8 +520,10 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_packed_attention(qkv: torch.Tensor, n_heads: int, group_len: int,
-                             causal: bool) -> torch.Tensor:
+def _packed_attention_kernel(qkv: torch.Tensor, n_heads: int,
+                             group_len: int, causal: bool) -> torch.Tensor:
+    """The packed-attention kernel's launch, uncounted (its callers count
+    it: the op, or the block's backward)."""
     R, L, threeD = qkv.shape
     D = threeD // 3
     hd = D // n_heads
@@ -367,8 +532,41 @@ def _launch_packed_attention(qkv: torch.Tensor, n_heads: int, group_len: int,
         qkv.data_ptr(), out.data_ptr(), _DTYPE_CODES[qkv.dtype], R, L,
         n_heads, hd, group_len, int(causal), hd ** -0.5, qkv.device.index,
         _stream(qkv)), "packed_attention kernel")
+    return out
+
+
+def _launch_packed_attention(qkv: torch.Tensor, n_heads: int, group_len: int,
+                             causal: bool) -> torch.Tensor:
+    out = _packed_attention_kernel(qkv, n_heads, group_len, causal)
     packed_attention.launches += 1
     return out
+
+
+def _launch_packed_attention_backward(qkv: torch.Tensor, out: torch.Tensor,
+                                      dout: torch.Tensor, n_heads: int,
+                                      group_len: int,
+                                      causal: bool) -> torch.Tensor:
+    """dqkv from qkv, the forward's output and its gradient: one C call
+    (`leaf_packed_attention_backward`) for the dQ and the dK/dV kernels,
+    with an fp32 scratch of each query's log-sum-exp and delta."""
+    R, L, threeD = qkv.shape
+    D = threeD // 3
+    hd = D // n_heads
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"packed_attention backward: head width {hd}; the "
+                         f"kernel takes at most {MAX_HEAD_DIM}")
+    _check_tensor("out", out, qkv.dtype, (R, L, D), qkv.device)
+    _check_tensor("dout", dout, qkv.dtype, (R, L, D), qkv.device)
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((2, R, n_heads, L), dtype=torch.float32,
+                        device=qkv.device)
+    build.check(build.library().leaf_packed_attention_backward(
+        qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+        stats.data_ptr(), _DTYPE_CODES[qkv.dtype], R, L, n_heads, hd,
+        group_len, int(causal), hd ** -0.5, qkv.device.index, _stream(qkv)),
+        "packed_attention backward kernels")
+    packed_attention.backward_launches += 1
+    return dqkv
 
 
 def _launch_gemm_bias(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -438,58 +636,147 @@ def _launch_fused_block(x, ln_scale, ln_bias, qkv_w, qkv_b, out_w, out_b,
     return out
 
 
-def _launch_layer_norm(x: torch.Tensor, scale: torch.Tensor,
+def _layer_norm_kernel(x: torch.Tensor, scale: torch.Tensor,
                        bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """The LayerNorm kernel's launch on a non-empty x, uncounted."""
     out = torch.empty_like(x)
     D = x.shape[-1]
-    if x.numel():
-        build.check(build.library().leaf_layer_norm(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[x.dtype], x.numel() // D, D, eps, x.device.index,
-            _stream(x)), "LayerNorm kernel")
-        layer_norm.launches += 1
+    build.check(build.library().leaf_layer_norm(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        _DTYPE_CODES[x.dtype], x.numel() // D, D, eps, x.device.index,
+        _stream(x)), "LayerNorm kernel")
     return out
 
 
+def _launch_layer_norm(x: torch.Tensor, scale: torch.Tensor,
+                       bias: torch.Tensor, eps: float) -> torch.Tensor:
+    if not x.numel():
+        return torch.empty_like(x)
+    out = _layer_norm_kernel(x, scale, bias, eps)
+    layer_norm.launches += 1
+    return out
+
+
+def _launch_layer_norm_backward(x: torch.Tensor, scale: torch.Tensor,
+                                dy: torch.Tensor, eps: float, params: bool):
+    """`(dx, dscale, dbias)` of the LayerNorm at x for the output's gradient
+    dy (x's dtype and shape); `params` False: the input's gradient alone
+    (dscale and dbias None, no partial sums, one kernel)."""
+    _check_tensor("dy", dy, x.dtype, x.shape, x.device)
+    D = x.shape[-1]
+    M = x.numel() // D
+    if not M:
+        zeros = torch.zeros(D, dtype=torch.float32, device=x.device)
+        return torch.empty_like(x), *((zeros, zeros.clone()) if params
+                                      else (None, None))
+    plan = layer_norm_backward_plan(M, D)
+    if not plan["per"]:
+        raise ValueError(f"layer_norm backward: rows of {D} elements; the "
+                         f"kernel takes at most {LN_BWD_MAX_D}")
+    dx = torch.empty_like(x)
+    dscale = dbias = partials = None
+    if params:
+        dscale, dbias = (torch.empty(D, dtype=torch.float32, device=x.device)
+                         for _ in range(2))
+        partials = torch.empty((2, plan["blocks"], D), dtype=torch.float32,
+                               device=x.device)
+    build.check(build.library().leaf_layer_norm_backward(
+        x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        *(None if t is None else t.data_ptr()
+          for t in (dscale, dbias, partials)),
+        _DTYPE_CODES[x.dtype], M, D, eps, x.device.index, _stream(x)),
+        "LayerNorm backward kernel")
+    layer_norm.backward_launches += 1
+    return dx, dscale, dbias
+
+
+def _launch_block_recompute(x, ln_scale, ln_bias, qkv_w, qkv_b, n_heads: int,
+                            group_len: int, causal: bool, ln_eps: float):
+    """The fused block's intermediates for its backward, by the forward
+    kernels: `h = ln_1(x)` (LayerNorm kernel), `qkv = h @ qkv_w + qkv_b`
+    (GEMM kernel) and the attention output `o` (packed kernel), counted
+    once as the block's backward."""
+    R, L, D = x.shape
+    h = _layer_norm_kernel(x, ln_scale, ln_bias, ln_eps)
+    qkv = _launch_gemm_bias(h.reshape(R * L, D), qkv_w, qkv_b)
+    qkv = qkv.reshape(R, L, 3 * D)
+    o = _packed_attention_kernel(qkv, n_heads, group_len, causal)
+    fused_attention_block.backward_launches += 1
+    return h, qkv, o
+
+
 # ---------------------------------------------------------------------------
-# Autograd wrappers: kernel forward, backward through the plain version
+# Autograd wrappers: kernel forward, kernel and cuBLAS backward
 # ---------------------------------------------------------------------------
 
-def _recompute_inputs(ctx) -> list:
-    """The saved tensor inputs, detached, each requiring a gradient where
-    the caller needs one (a frozen tower's weights do not: PGD asks for
-    the input's gradient alone)."""
-    return [t.detach().requires_grad_(need) for t, need in
-            zip(ctx.saved_tensors, ctx.needs_input_grad)]
-
-
-def _input_grads(ctx, out, ts, g) -> list:
-    """Gradients of `out` (recomputed from `ts`) for the inputs that need
-    one, None for the others."""
-    need = [t for t in ts if t.requires_grad]
-    grads = iter(torch.autograd.grad(out, need, g) if need else ())
-    return [next(grads) if t.requires_grad else None for t in ts]
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A product of the backwards: cuBLAS through `torch.matmul`, in the
+    operands' dtype (fp32 sums; true fp32 while TF32 is off), as the JAX
+    package leaves these products to XLA's VJP."""
+    return torch.matmul(a, b)
 
 
 class _PackedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, n_heads, group_len, causal):
-        ctx.save_for_backward(qkv)
+        out = _launch_packed_attention(qkv, n_heads, group_len, causal)
+        ctx.save_for_backward(qkv, out)
         ctx.args = (n_heads, group_len, causal)
-        return _launch_packed_attention(qkv, n_heads, group_len, causal)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        (qkv,) = ctx.saved_tensors
-        with torch.enable_grad():
-            t = qkv.detach().requires_grad_()
-            out = _reference(t, *ctx.args)
-        (gq,) = torch.autograd.grad(out, t, g)
-        return gq, None, None, None
+        qkv, out = ctx.saved_tensors
+        return (_launch_packed_attention_backward(qkv, out, g.contiguous(),
+                                                  *ctx.args),
+                None, None, None)
 
 
 _BLOCK_KEYS = (("ln_1", "scale"), ("ln_1", "bias"), ("attn", "qkv_w"),
                ("attn", "qkv_b"), ("attn", "out_w"), ("attn", "out_b"))
+
+
+def _block_backward(need, g, x, ln_scale, ln_bias, qkv_w, qkv_b, out_w,
+                    out_b, n_heads: int, group_len: int, causal: bool,
+                    ln_eps: float) -> list:
+    """The gradients of `x + out_proj(attention(qkv_proj(ln_1(x))))` for the
+    inputs `need` asks for (x, then `_BLOCK_KEYS`' six), None for the
+    others: the intermediates recomputed by the forward kernels, then
+    dW_out = o^T g, db_out = sum g, do = g W_out^T, dqkv by the attention
+    backward, dW_qkv = h^T dqkv, db_qkv = sum dqkv, dh = dqkv W_qkv^T, and
+    dx = g + the LayerNorm backward of dh."""
+    R, L, D = x.shape
+    M = R * L
+    need_x, need_ls, need_lb, need_qw, need_qb, need_ow, need_ob = need
+    need_ln = need_x or need_ls or need_lb
+    need_qkv = need_ln or need_qw or need_qb
+    g2 = g.reshape(M, D)
+    grads = [None] * 7
+    if need_ob:
+        grads[6] = g2.sum(0)
+    if not (need_qkv or need_ow):
+        return grads
+    h, qkv, o = _launch_block_recompute(x, ln_scale, ln_bias, qkv_w, qkv_b,
+                                        n_heads, group_len, causal, ln_eps)
+    if need_ow:
+        grads[5] = _mm(o.reshape(M, D).t(), g2)
+    if not need_qkv:
+        return grads
+    do = _mm(g2, out_w.t()).reshape(R, L, D)
+    dqkv = _launch_packed_attention_backward(qkv, o, do, n_heads, group_len,
+                                             causal).reshape(M, 3 * D)
+    if need_qw:
+        grads[3] = _mm(h.reshape(M, D).t(), dqkv)
+    if need_qb:
+        grads[4] = dqkv.sum(0)
+    if need_ln:
+        dh = _mm(dqkv, qkv_w.t()).reshape(R, L, D)
+        dx, dls, dlb = _launch_layer_norm_backward(x, ln_scale, dh, ln_eps,
+                                                   need_ls or need_lb)
+        grads[0] = g + dx if need_x else None
+        grads[1] = dls if need_ls else None
+        grads[2] = dlb if need_lb else None
+    return grads
 
 
 class _FusedAttentionBlock(torch.autograd.Function):
@@ -503,45 +790,47 @@ class _FusedAttentionBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with torch.enable_grad():
-            ts = _recompute_inputs(ctx)
-            p = {"ln_1": {}, "attn": {}}
-            for (group, key), t in zip(_BLOCK_KEYS, ts[1:]):
-                p[group][key] = t
-            out = _block_reference(p, ts[0], *ctx.args)
-        return (*_input_grads(ctx, out, ts, g), None, None, None, None)
+        grads = _block_backward(ctx.needs_input_grad[:7], g.contiguous(),
+                                *ctx.saved_tensors, *ctx.args)
+        return (*grads, None, None, None, None)
+
+
+def _gemm_bias_backward(need, a: torch.Tensor, w: torch.Tensor,
+                        g: torch.Tensor) -> list:
+    """`(da, dw, dbias)` of `a @ w + bias` for the inputs `need` asks for:
+    `g w^T`, `a^T g` and the column sums of g, None for the others."""
+    return [_mm(g, w.t()) if need[0] else None,
+            _mm(a.t(), g) if need[1] else None,
+            g.sum(0) if need[2] else None]
 
 
 class _GemmBias(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, w, bias):
-        ctx.save_for_backward(*((a, w) if bias is None else (a, w, bias)))
-        ctx.has_bias = bias is not None
+        ctx.save_for_backward(a, w)
         return _launch_gemm(a, w, bias)
 
     @staticmethod
     def backward(ctx, g):
-        with torch.enable_grad():
-            ts = _recompute_inputs(ctx)
-            out = _gemm_bias_reference(ts[0], ts[1], ts[2] if ctx.has_bias
-                                       else None)
-        grads = _input_grads(ctx, out, ts, g)
-        return (*grads, None) if not ctx.has_bias else tuple(grads)
+        return tuple(_gemm_bias_backward(ctx.needs_input_grad, *ctx.saved_tensors,
+                                         g.contiguous()))
 
 
 class _LayerNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
-        ctx.save_for_backward(x, scale, bias)
+        ctx.save_for_backward(x, scale)
         ctx.eps = eps
         return _launch_layer_norm(x, scale, bias, eps)
 
     @staticmethod
     def backward(ctx, g):
-        with torch.enable_grad():
-            ts = _recompute_inputs(ctx)
-            out = _layer_norm_reference(*ts, ctx.eps)
-        return (*_input_grads(ctx, out, ts, g), None)
+        x, scale = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx, dscale, dbias = _launch_layer_norm_backward(
+            x, scale, g.contiguous(), ctx.eps, need[1] or need[2])
+        return (dx if need[0] else None, dscale if need[1] else None,
+                dbias if need[2] else None, None)
 
 
 def _needs_grad(*tensors) -> bool:
@@ -593,6 +882,7 @@ def _packed_attention(qkv: torch.Tensor, n_heads: int, group_len: int,
 
 
 packed_attention.launches = 0
+packed_attention.backward_launches = 0
 
 
 def fused_attention_block(p: Mapping, x: torch.Tensor, n_heads: int,
@@ -632,6 +922,7 @@ def _fused_attention_block(p: Mapping, x: torch.Tensor, n_heads: int,
 
 
 fused_attention_block.launches = 0
+fused_attention_block.backward_launches = 0
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -664,6 +955,7 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 layer_norm.launches = 0
+layer_norm.backward_launches = 0
 
 
 def gemm_bias(a: torch.Tensor, w: torch.Tensor,

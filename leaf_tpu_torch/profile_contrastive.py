@@ -8,8 +8,8 @@ weights, a batch of 256 seeded 224 x 224 images and 256 token rows of 3 to
 30 random words (77-token context), already on the card; the step of
 `python -m leaf_tpu_torch.train.contrastive_driver` with AdamW at lr 5e-4
 and wd 0.2 (`train.contrastive.make_contrastive_train_step`: forward of
-both towers, InfoNCE, backward recomputing through the plain versions,
-the update).  By `profile_serve.profile_cell`: host-clock ms per step
+both towers, InfoNCE, the backward on the hand backward kernels and
+cuBLAS, the update).  By `profile_serve.profile_cell`: host-clock ms per step
 without the profiler (each step ends in a synchronise), then
 `torch.profiler` over one step after three, the device's kernel intervals
 merged into busy time and split by kernel family.

@@ -38,8 +38,12 @@ MODEL = "ViT-L-14-quickgelu"
 SOT, EOT = 49406, 49407
 # unprofiled batches timed per cell (fewer of the much longer image batches)
 TEXT_BATCHES, IMAGE_BATCHES = 20, 5
-# kernel families, by a substring of the kernel's name; the first match wins
-FAMILIES = (("attention kernel", ("attention_kernel",)),
+# kernel families, by a substring of the kernel's name; the first match wins;
+# what none names is "other", split by where it was launched: in autograd's
+# backward (the engine's evaluate_function ranges, remat's recompute among
+# them) or before it (the forward's glue, the update)
+FAMILIES = (("backward kernels", ("attention_backward", "layer_norm_backward")),
+            ("attention kernel", ("attention_kernel",)),
             ("hand GEMMs", ("gemm_bias_",)),
             ("LayerNorm kernel", ("layer_norm_rows_kernel", "layer_norm_regs_kernel",
                                   "layer_norm_global_kernel")),
@@ -72,11 +76,46 @@ def _tokens(rng, batch: int, seq_len: int, lo: int, hi: int) -> np.ndarray:
     return toks
 
 
-def _family(name: str) -> str:
+def _family(name: str, backward: bool = False) -> str:
     for family, keys in FAMILIES:
         if any(k in name for k in keys):
             return family
-    return "other"
+    return "other: backward" if backward else "other: forward glue"
+
+
+def _backward_other_us(events) -> float:
+    """Device time (us) of the "other" kernels launched inside autograd's
+    backward: the kernels that the profiler ties to a host call (a
+    `cudaLaunchKernel`, its `kernels`) that starts within an
+    `autograd::engine::evaluate_function` range of its thread."""
+    import bisect
+    from torch.autograd import DeviceType
+    spans = {}
+    for e in events:
+        if (e.device_type == DeviceType.CPU
+                and e.name.startswith("autograd::engine::evaluate_function")):
+            spans.setdefault(e.thread, []).append((e.time_range.start,
+                                                   e.time_range.end))
+    merged = {}
+    for thread, ranges in spans.items():
+        out = []
+        for lo, hi in sorted(ranges):
+            if out and lo <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], hi)
+            else:
+                out.append([lo, hi])
+        merged[thread] = ([lo for lo, _ in out], [hi for _, hi in out])
+    us = 0.0
+    for e in events:
+        if (e.device_type != DeviceType.CPU or not e.kernels
+                or e.thread not in merged):
+            continue
+        starts, ends = merged[e.thread]
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start < ends[i]:
+            us += sum(k.duration for k in e.kernels
+                      if _family(k.name, True) == "other: backward")
+    return us
 
 
 def _busy_us(intervals) -> float:
@@ -110,7 +149,8 @@ def profile_cell(name: str, batch_fn, batches: int, warm: int = 3,
         for _ in range(profiled):
             batch_fn()
         window_ms = (time.perf_counter() - t0) * 1e3 / profiled
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
     if not device:
         raise RuntimeError(f"{name}: the profiler recorded no device events")
     busy_ms = _busy_us((e.time_range.start, e.time_range.end)
@@ -120,6 +160,11 @@ def profile_cell(name: str, batch_fn, batches: int, warm: int = 3,
         fam = _family(e.name)
         by_family[fam] = by_family.get(fam, 0.0) + \
             (e.time_range.end - e.time_range.start) / 1e3 / profiled
+    backward_other = min(_backward_other_us(events) / 1e3 / profiled,
+                         by_family.get("other: forward glue", 0.0))
+    if backward_other:
+        by_family["other: backward"] = backward_other
+        by_family["other: forward glue"] -= backward_other
     row = {"cell": name, "ms_per_batch": plain_ms,
            "profiled_ms_per_batch": window_ms, "busy_ms_per_batch": busy_ms,
            "idle_share": max(0.0, 1 - busy_ms / plain_ms),

@@ -277,9 +277,33 @@ def test_flash_launches_directly_where_autograd_records_nothing(
 GRAD_CASES = [(8, 4, True), (16, 2, False), (13, 1, True)]   # S, G, causal
 
 
+def _plain_backward_launchers(monkeypatch):
+    """The backwards' launchers stood in for by their plain versions."""
+    def recompute(x, s, b, qw, qb, h, g, c, eps):
+        R, L, D = x.shape
+        hh = tpa._layer_norm_reference(x, s, b, eps)
+        qkv = tpa._gemm_bias_reference(hh.reshape(R * L, D), qw, qb)
+        qkv = qkv.reshape(R, L, 3 * D)
+        return hh, qkv, tpa._reference(qkv, h, g, c)
+
+    def ln_backward(x, scale, dy, eps, params):
+        dx, ds, db = tpa._layer_norm_backward_reference(x, scale, None, eps,
+                                                        dy)
+        return (dx, ds, db) if params else (dx, None, None)
+
+    monkeypatch.setattr(tpa, "_launch_block_recompute", recompute)
+    monkeypatch.setattr(tpa, "_launch_layer_norm_backward", ln_backward)
+    monkeypatch.setattr(
+        tpa, "_launch_packed_attention_backward",
+        lambda qkv, out, dout, h, g, c:
+        tpa._packed_attention_backward_reference(qkv, out, None, dout, h, g,
+                                                 c))
+
+
 @pytest.mark.parametrize("S,G,causal", GRAD_CASES)
 def test_packed_attention_gradient_matches_jax(S, G, causal, monkeypatch):
     monkeypatch.setattr(tpa, "_launch_packed_attention", tpa._reference)
+    _plain_backward_launchers(monkeypatch)
     rng = np.random.default_rng(4)
     H, hd = 2, 8
     qkv = (rng.standard_normal((2, G * S, 3 * H * hd)) * 0.3).astype(np.float32)
@@ -300,6 +324,7 @@ def test_fused_block_gradients_match_jax(S, G, causal, monkeypatch):
             x, h, g, c, eps)
 
     monkeypatch.setattr(tpa, "_launch_fused_block", plain_launch)
+    _plain_backward_launchers(monkeypatch)
     rng = np.random.default_rng(5)
     H, D = 2, 16
     x = (rng.standard_normal((2, G * S, D)) * 0.3).astype(np.float32)

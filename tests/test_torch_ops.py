@@ -255,12 +255,37 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         tpa.fused_attention_block(p, x, 2, 16)
 
 
+def _plain_backward_launchers(monkeypatch):
+    """The backwards' launchers stood in for by their plain versions: the
+    block's recomputation, the attention and LayerNorm backwards."""
+    def recompute(x, s, b, qw, qb, h, g, c, eps):
+        R, L, D = x.shape
+        hh = tpa._layer_norm_reference(x, s, b, eps)
+        qkv = tpa._gemm_bias_reference(hh.reshape(R * L, D), qw, qb)
+        qkv = qkv.reshape(R, L, 3 * D)
+        return hh, qkv, tpa._reference(qkv, h, g, c)
+
+    def ln_backward(x, scale, dy, eps, params):
+        dx, ds, db = tpa._layer_norm_backward_reference(x, scale, None, eps,
+                                                        dy)
+        return (dx, ds, db) if params else (dx, None, None)
+
+    monkeypatch.setattr(tpa, "_launch_block_recompute", recompute)
+    monkeypatch.setattr(tpa, "_launch_layer_norm_backward", ln_backward)
+    monkeypatch.setattr(
+        tpa, "_launch_packed_attention_backward",
+        lambda qkv, out, dout, h, g, c:
+        tpa._packed_attention_backward_reference(qkv, out, None, dout, h, g,
+                                                 c))
+
+
 def test_backward_recomputes_through_plain_version(monkeypatch):
     """The autograd wrappers' gradients equal the JAX custom_vjp's; the
-    kernel launch is stood in for by the plain version so that the
-    wrappers run on the CPU."""
+    kernel launches, forward and backward, are stood in for by their plain
+    versions so that the wrappers run on the CPU."""
     monkeypatch.setattr(tpa, "_launch_packed_attention",
                         lambda qkv, h, g, c: tpa._reference(qkv, h, g, c))
+    _plain_backward_launchers(monkeypatch)
     rng = np.random.default_rng(3)
     qkv = _qkv(rng, 2, 32, 32)
     t = torch.from_numpy(qkv).requires_grad_()
@@ -298,17 +323,25 @@ def test_backward_recomputes_through_plain_version(monkeypatch):
 
 def test_backward_of_a_frozen_block_gives_the_input_gradient_alone(
         monkeypatch):
-    """PGD on a frozen tower: the wrappers' backwards differentiate their
-    recomputation for the input alone, leave the weights without a
-    gradient and give the input the one the plain version gives."""
-    asked = []
-    grad = torch.autograd.grad
+    """PGD on a frozen tower: the wrappers' backwards take the input's
+    gradient alone (the block two input-gradient products and no weight
+    product, each LayerNorm backward no parameter sums), leave the weights
+    without a gradient and give the input the one the plain version
+    gives."""
+    _plain_backward_launchers(monkeypatch)
+    asked, products = [], []
+    ln_backward, mm = tpa._launch_layer_norm_backward, tpa._mm
 
-    def recording(outputs, inputs, *a, **kw):
-        asked.append(len(inputs))
-        return grad(outputs, inputs, *a, **kw)
+    def recording_ln(x, scale, dy, eps, params):
+        asked.append(params)
+        return ln_backward(x, scale, dy, eps, params)
 
-    monkeypatch.setattr(torch.autograd, "grad", recording)
+    def recording_mm(a, b):
+        products.append((tuple(a.shape), tuple(b.shape)))
+        return mm(a, b)
+
+    monkeypatch.setattr(tpa, "_launch_layer_norm_backward", recording_ln)
+    monkeypatch.setattr(tpa, "_mm", recording_mm)
     monkeypatch.setattr(tpa, "_launch_fused_block",
                         lambda x, s, b, qw, qb, ow, ob, h, g, c, eps:
                         tpa._block_reference(
@@ -332,7 +365,8 @@ def test_backward_of_a_frozen_block_gives_the_input_gradient_alone(
     tpa._layer_norm_reference(tpa._block_reference(tp, ref, 2, 8, True, 1e-5),
                               leaves[0], leaves[1], 1e-5).sin().sum() \
         .backward()
-    assert asked == [1, 1]      # the LayerNorm's backward, the block's
+    assert asked == [False, False]   # the LayerNorm op's backward, the block's
+    assert products == [((64, D), (D, D)), ((64, 3 * D), (3 * D, D))]
     assert all(leaf.grad is None for leaf in leaves)
     np.testing.assert_allclose(tx.grad.numpy(), ref.grad.numpy(),
                                atol=1e-6, rtol=1e-5)
@@ -423,9 +457,11 @@ def test_layer_norm_matches_jax(shape, dtype):
 
 @pytest.mark.parametrize("shape", [(6, 32), (2, 5, 24)])
 def test_layer_norm_gradients_match_jax(shape, monkeypatch):
-    """The autograd wrapper (kernel launch stood in for by the plain
-    version) gives `jax.grad`'s gradients for x, scale and bias."""
+    """The autograd wrapper (kernel launches, forward and backward, stood in
+    for by the plain versions) gives `jax.grad`'s gradients for x, scale
+    and bias."""
     monkeypatch.setattr(tpa, "_launch_layer_norm", tpa._layer_norm_reference)
+    _plain_backward_launchers(monkeypatch)
     x, scale, bias = _ln_inputs(np.random.default_rng(8), shape)
     leaves = [torch.from_numpy(a).requires_grad_() for a in (x, scale, bias)]
     tpa._LayerNorm.apply(*leaves, 1e-5).sin().sum().backward()
