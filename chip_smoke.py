@@ -632,6 +632,12 @@ BWD_SWEEP_HEAD_WIDTHS = {"bfloat16": (8, 32, 64, 72, 80, 128),
 LN_BWD_SWEEP_D = (8, 128, 160, 768, 1025, 2730, 4096, 8192)
 LN_BWD_SWEEP_M = (1, 333)
 GRAD_TOLERANCE = {"bfloat16": 2e-2, "float32": 1e-4}   # of the largest
+# the forward's log-sum-exp against the plain one's (fp32 logits in both
+# dtypes), of the largest
+LSE_TOLERANCE = 1e-5
+# `max_whole` that sends every attention backward block through the ring of
+# two 64-row chunks, timed and held equal to staging whole in (c)
+RING_WHOLE = 16
 # published peaks of one H100 SXM (dense, at a 700 W limit): device memory
 # rate; bf16 on the tensor cores; fp32 products on the tensor cores as three
 # TF32 products each ("3xtf32": 495 / 3 TFLOP/s), what both attention
@@ -1347,16 +1353,44 @@ def _turns(kernel, plain, library=None, n: int = 10):
     return (k1 + k2) / 2, (p1 + p2) / 2, lib
 
 
+def _forward_lse(qkv, H: int, S: int, causal: bool, what: str):
+    """The training forward's packed kernel at qkv (uncounted): its output,
+    equal bit for bit to serving's (no log-sum-exp asked), and its
+    log-sum-exp, held to the plain forward's within `LSE_TOLERANCE` of the
+    largest; returns (out, lse, the largest difference over the largest)."""
+    import torch
+    from leaf_tpu_torch.ops import packed_attention as pa
+    with torch.no_grad():
+        out, lse = pa._packed_attention_kernel(qkv, H, S, causal,
+                                               with_lse=True)
+        serving = pa._packed_attention_kernel(qkv, H, S, causal)
+        _, want = pa._reference(qkv, H, S, causal, with_lse=True)
+    torch.cuda.synchronize()
+    require(torch.equal(out, serving),
+            f"{what}: the forward that writes the log-sum-exp gives another "
+            "output")
+    require(lse.shape == want.shape and bool(torch.isfinite(lse).all()),
+            f"{what}: log-sum-exp {tuple(lse.shape)} not finite or not "
+            f"{tuple(want.shape)}")
+    err = ((lse - want).abs().max() / want.abs().max()).item()
+    require(err <= LSE_TOLERANCE, f"{what}: the forward's log-sum-exp is "
+            f"{err:.3g} of the largest from the plain one's")
+    return out, lse, err
+
+
 def phase_backward():
     """(c) the backward kernels against their plain versions: the attention
-    backward (`leaf_packed_attention_backward`) and the LayerNorm backward
-    at the differentiated paths' shapes, timed (kernel, plain version,
-    the library's backward: SDPA's, `F.layer_norm`'s) and held to autograd
-    through the plain forward and to the explicit plain backward, two runs
-    equal bit for bit, the schedule and the plan equal to their Python
-    mirrors; the fused block's backward (all gradients, and the input's
-    alone) against autograd through `_block_reference`; then an untimed
-    sweep of head widths, groups and LayerNorm widths."""
+    backward (`leaf_packed_attention_backward`, from the log-sum-exp that
+    the training forward's packed kernel writes, itself held to the plain
+    log-sum-exp) and the LayerNorm backward at the differentiated paths'
+    shapes, timed (kernel, plain version, the library's backward: SDPA's,
+    `F.layer_norm`'s; the attention's also through the ring of 64-row
+    chunks, `RING_WHOLE`, equal bit for bit to staging whole) and held to
+    autograd through the plain forward and to the explicit plain backward,
+    two runs equal bit for bit, the schedule and the plan equal to their
+    Python mirrors; the fused block's backward (all gradients, and the
+    input's alone) against autograd through `_block_reference`; then an
+    untimed sweep of head widths, groups and LayerNorm widths."""
     import torch
     from torch.nn import functional as F
     from leaf_tpu_torch.ops import packed_attention as pa
@@ -1375,26 +1409,33 @@ def phase_backward():
     for name, R, L, S, causal, D, H, dt in BWD_SHAPES:
         dtype = getattr(torch, dt)
         esize, hd = (2 if dt == "bfloat16" else 4), D // H
-        require(pa.kernel_backward_schedule(L, S, causal)
-                == pa.backward_schedule(L, S, causal),
-                f"backward_schedule({L}, {S}, {causal}) is not the library's")
+        for max_whole in (0, RING_WHOLE):
+            require(pa.kernel_backward_schedule(L, S, causal, dtype, max_whole)
+                    == pa.backward_schedule(L, S, causal, dtype, max_whole),
+                    f"backward_schedule({L}, {S}, {causal}, {dt}, "
+                    f"{max_whole}) is not the library's")
         qkv = dev(R, L, 3 * D, dtype=dtype)
         dout = dev(R, L, D, dtype=dtype)
-        with torch.no_grad():
-            out = pa.packed_attention(qkv, H, S, causal)
+        out, lse, lse_err = _forward_lse(qkv, H, S, causal, f"{name}")
 
-        def kernel(qkv=qkv, out=out, dout=dout):
-            return pa._launch_packed_attention_backward(qkv, out, dout, H, S,
-                                                        causal)
+        def kernel(qkv=qkv, out=out, lse=lse, dout=dout, max_whole=0):
+            return pa._launch_packed_attention_backward(
+                qkv, out, lse, dout, H, S, causal, max_whole)
 
-        def plain(qkv=qkv, out=out, dout=dout):
-            return pa._packed_attention_backward_reference(qkv, out, None,
+        def ring(kernel=kernel):
+            return kernel(max_whole=RING_WHOLE)
+
+        def plain(qkv=qkv, out=out, lse=lse, dout=dout):
+            return pa._packed_attention_backward_reference(qkv, out, lse,
                                                            dout, H, S, causal)
 
         got, again = kernel(), kernel()
         torch.cuda.synchronize()
         require(torch.equal(got, again),
                 f"attention backward {name}: two runs differ")
+        require(torch.equal(got, ring()),
+                f"attention backward {name}: the ring differs from staging "
+                "whole")
         want = autograd(lambda t: pa._reference(t, H, S, causal), [qkv],
                         dout)
         err, rel = _grad_err([got], want, f"attention backward {name} "
@@ -1419,22 +1460,30 @@ def phase_backward():
                 f"attention backward {name}: SDPA's backward computes "
                 f"another function ({lib_err})")
         ms, pms, lib = _turns(kernel, plain, library)
+        ring_ms = (_time_ms(ring, 10) + _time_ms(ring, 10)) / 2
 
         def recompute(qkv=qkv, dout=dout):
             return autograd(lambda t: pa._reference(t, H, S, causal), [qkv],
                             dout)
         recompute_ms = _time_ms(recompute, 3)
         pairs = _visible_pairs(L, S, causal) * H * R
+        sched = pa.backward_schedule(L, S, causal, dtype)
         rows["packed_attention_backward"].append(_row(
             "packed_attention backward", name, dt, err, ms, pms, lib,
-            8.0 * R * L * D * esize, 10.0 * hd * pairs, R=R, L=L,
-            group_len=S, causal=causal, D=D, heads=H, rel_err=rel,
-            recompute_ms=recompute_ms,
+            8.0 * R * L * D * esize + 4.0 * R * H * L, 10.0 * hd * pairs,
+            R=R, L=L, group_len=S, causal=causal, D=D, heads=H, rel_err=rel,
+            recompute_ms=recompute_ms, ring_ms=ring_ms, lse_err=lse_err,
+            plan={k: sched[k] for k in ("warps", "blocks", "dq_whole",
+                                        "dkv_whole")},
             peak="bfloat16" if dt == "bfloat16" else "3xtf32"))
-        say(f"(c) packed_attention backward {name}: autograd through the "
-            f"plain forward (the backward before) {recompute_ms:.4f} ms; "
-            f"largest difference {rel:.3g} of the largest gradient; two runs "
-            "equal bit for bit")
+        say(f"(c) packed_attention backward {name}: plan "
+            f"{rows['packed_attention_backward'][-1]['plan']}; through the "
+            f"ring of {pa.BWD_CHUNK}-row chunks {ring_ms:.4f} ms "
+            f"(the same bits); autograd through the plain forward (the "
+            f"backward before) {recompute_ms:.4f} ms; largest difference "
+            f"{rel:.3g} of the largest gradient; two runs equal bit for bit; "
+            f"the forward's log-sum-exp within {lse_err:.3g} of the plain "
+            "one's largest")
         del sdpa, lq, q, k, v, got, again
         torch.cuda.empty_cache()
 
@@ -1502,10 +1551,10 @@ def phase_backward():
     for name, M, D, dt in LN_BWD_SHAPES:
         dtype = getattr(torch, dt)
         esize = 2 if dt == "bfloat16" else 4
-        plan = pa.kernel_layer_norm_backward_plan(M, D)
-        require(plan == pa.layer_norm_backward_plan(M, D),
-                f"layer_norm_backward_plan({M}, {D}) is not the library's "
-                f"plan {plan}")
+        plan = pa.kernel_layer_norm_backward_plan(M, D, dtype)
+        require(plan == pa.layer_norm_backward_plan(M, D, dtype),
+                f"layer_norm_backward_plan({M}, {D}, {dt}) is not the "
+                f"library's plan {plan}")
         x = dev(M, D, scale=2.0, shift=0.5, dtype=dtype)
         dy = dev(M, D, dtype=dtype)
         # fp32 parameters that bf16 holds exactly (the library call takes
@@ -1560,10 +1609,13 @@ def phase_backward():
                     (2, L, 3 * H * hd)).astype(np.float32)).to("cuda", dtype)
                 dout = torch.from_numpy(rng.standard_normal(
                     (2, L, H * hd)).astype(np.float32)).to("cuda", dtype)
-                with torch.no_grad():
-                    out = pa.packed_attention(qkv, H, S, causal)
-                got = pa._launch_packed_attention_backward(qkv, out, dout, H,
-                                                           S, causal)
+                what = f"S={S} G={G} causal={causal} hd={hd} {dt}"
+                out, lse, _ = _forward_lse(qkv, H, S, causal, what)
+                got = pa._launch_packed_attention_backward(qkv, out, lse,
+                                                           dout, H, S, causal)
+                require(torch.equal(got, pa._launch_packed_attention_backward(
+                    qkv, out, lse, dout, H, S, causal, RING_WHOLE)),
+                    f"attention backward {what}: the ring differs")
                 want = autograd(lambda t: pa._reference(t, H, S, causal),
                                 [qkv], dout)
                 worst = max(worst, _grad_err(
@@ -1573,14 +1625,15 @@ def phase_backward():
         say(f"(c) sweep packed_attention backward {dt}: {cases} shapes "
             f"(group_len, groups, causal) in {BWD_SWEEP} x head widths "
             f"{widths}, largest difference {worst:.3g} of the largest "
-            "gradient")
+            "gradient; the forward's log-sum-exp held to the plain one's, "
+            "the ring equal to staging whole at each")
     for dt in ("bfloat16", "float32"):
         dtype, worst = getattr(torch, dt), 0.0
         for D in LN_BWD_SWEEP_D:
             for M in LN_BWD_SWEEP_M:
-                require(pa.kernel_layer_norm_backward_plan(M, D)
-                        == pa.layer_norm_backward_plan(M, D),
-                        f"layer_norm_backward_plan({M}, {D})")
+                require(pa.kernel_layer_norm_backward_plan(M, D, dtype)
+                        == pa.layer_norm_backward_plan(M, D, dtype),
+                        f"layer_norm_backward_plan({M}, {D}, {dt})")
                 x, dy = (torch.from_numpy(rng.standard_normal((M, D)).astype(
                     np.float32)).to("cuda", dtype) for _ in range(2))
                 scale = torch.from_numpy((1 + 0.1 * rng.standard_normal(D))

@@ -113,7 +113,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # every launcher ends in (device index, cudaStream_t) and returns a
     # cudaError_t
-    lib.leaf_packed_attention.argtypes = [p, p, i, i, i, i, i, i, i, f, i, p]
+    # qkv, out, the log-sum-exp (or null); dtype, R, L, heads, head width,
+    # group_len, causal, scale
+    lib.leaf_packed_attention.argtypes = [p, p, p, i, i, i, i, i, i, i, f, i, p]
     lib.leaf_packed_attention.restype = i
     lib.leaf_layer_norm.argtypes = [p, p, p, p, i, i, i, f, i, p]
     lib.leaf_layer_norm.restype = i
@@ -128,9 +130,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     # LN eps, attention scale
     lib.leaf_fused_block.argtypes = [p] * 11 + [i] * 7 + [f, f, i, p]
     lib.leaf_fused_block.restype = i
-    # qkv, out, dout, dqkv, the fp32 scratch; dtype, R, L, heads, head width,
-    # group_len, causal, attention scale
-    lib.leaf_packed_attention_backward.argtypes = [p] * 5 + [i] * 7 + [f, i, p]
+    # qkv, out, lse, dout, dqkv, the fp32 delta scratch; dtype, R, L, heads,
+    # head width, group_len, causal, attention scale, rows staged whole
+    lib.leaf_packed_attention_backward.argtypes = [p] * 6 + [i] * 7 + [f, i, i, p]
     lib.leaf_packed_attention_backward.restype = i
     # x, scale, dy, dx, dscale, dbias, partials; dtype, M, D, eps
     lib.leaf_layer_norm_backward.argtypes = [p] * 7 + [i, i, i, f, i, p]
@@ -143,9 +145,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.leaf_attention_schedule.restype = i
     lib.leaf_layer_norm_plan.argtypes = [i, i, i, ints]
     lib.leaf_layer_norm_plan.restype = i
-    lib.leaf_attention_backward_schedule.argtypes = [i, i, i, ints, i]
+    lib.leaf_attention_backward_schedule.argtypes = [i, i, i, i, i, ints, ints,
+                                                     i]
     lib.leaf_attention_backward_schedule.restype = i
-    lib.leaf_layer_norm_backward_plan.argtypes = [i, i, ints]
+    lib.leaf_layer_norm_backward_plan.argtypes = [i, i, i, ints]
     lib.leaf_layer_norm_backward_plan.restype = i
     lib.leaf_error_string.argtypes = [i]
     lib.leaf_error_string.restype = ctypes.c_char_p

@@ -69,6 +69,10 @@
 //     final division by the sum.  Longer rows (the vision tower's, whose 272
 //     logit columns would need ~135 registers a thread) and every
 //     flash-attention call take it.
+// Where the caller sets `lse` (the packed kernel's training forward), each
+// query's log-sum-exp, m + log2(l) in natural units, is written beside the
+// output for the backward kernels (attention_backward.cu); serving and flash
+// attention leave it null.
 // A warp with two m16 tiles (32 queries, every K and V fragment feeding two
 // products) was tried for the bf16 online softmax: 214 registers, one block
 // per SM, and more than twice the time at the vision shape; not kept.
@@ -118,6 +122,7 @@ template <typename T> struct ParamsT {
   int blocks;         // blocks per (row, head)
   int vec;            // fp32: rows move in 16-byte pieces (else word by word)
   float scale_log2e;  // softmax scale times log2(e): the exponentials are exp2
+  float* lse;         // [B, H, L]: each query's log-sum-exp (natural log), or null
 };
 using Params = ParamsT<bf16>;
 
@@ -336,6 +341,23 @@ struct Tile {
   int tile_vis0, tile_vis1, lane, a_row, a_col, b_row, b_col;
 };
 
+// The row sum of this lane's row r (the quad's whole in the exact softmax,
+// which kept it in `l`; this lane's share in the online one) and, where the
+// caller asked for it (p.lse), the row's log-sum-exp, natural log, written by
+// the quad's first lane: the backward kernels' softmax statistic.  m is the
+// running maximum of the logits times scale log2(e); every query sees itself,
+// so it is finite on every row the tile stores.
+template <bool kExact, typename P>
+__device__ __forceinline__ float row_sum_lse(const P& p, const Geometry& gm, float m,
+                                             float l, int r, int lane) {
+  const float sum = kExact ? l : quad_sum(l);
+  const int qi = gm.wq0 + lane / 4 + 8 * r;
+  if (p.lse != nullptr && lane % 4 == 0 && qi < gm.wq1)
+    p.lse[((long long)gm.row * p.H + gm.head) * p.L + qi] =
+        (m + log2f(sum)) * 0.6931471805599453f;
+  return sum;
+}
+
 // One pass's softmax on the logits `s` of the tile against the `steps`
 // 16-key steps from `key0` (keys at or past `key_end` are not this pass's):
 // scale, mask, row maxima, exponentials; in place, `s` becomes the
@@ -402,10 +424,11 @@ __device__ __forceinline__ void softmax_pass(float scale_log2e, const Tile& tile
       }
   if (kExact) {
     // the whole row is here: normalise (then, in bf16, round: the JAX
-    // packed kernel)
+    // packed kernel); `l` keeps the row's sum for its log-sum-exp
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float inv = 1.f / fmaxf(quad_sum(sum[r]), 1e-30f);
+      l[r] = quad_sum(sum[r]);
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         s[j][2 * r] *= inv;
@@ -564,7 +587,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32) attention_kernel(const Params 
   bf16* tile = Qs + warp * kTile * kStride;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float inv = kExact ? 1.f : 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+    const float sum = row_sum_lse<kExact>(p, gm, m[r], l[r], r, lane);
+    const float inv = kExact ? 1.f : 1.f / fmaxf(sum, 1e-30f);
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j)
       *reinterpret_cast<uint32_t*>(tile + (lane / 4 + 8 * r) * kStride + 8 * j +
@@ -775,7 +799,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float inv = kExact ? 1.f : 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+    const float sum = row_sum_lse<kExact>(p, gm, m[r], l[r], r, lane);
+    const float inv = kExact ? 1.f : 1.f / fmaxf(sum, 1e-30f);
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j)
       *reinterpret_cast<float2*>(Qw + (g + 8 * r) * kStride + 8 * j + 2 * t) =

@@ -81,9 +81,9 @@
 
 extern "C" int leaf_layer_norm(const void* x, const void* scale, const void* bias, void* y,
                                int dtype, int M, int D, float eps, int device, void* stream);
-extern "C" int leaf_packed_attention(const void* qkv, void* out, int dtype, int R, int L,
-                                     int n_heads, int head_dim, int group_len, int causal,
-                                     float scale, int device, void* stream);
+extern "C" int leaf_packed_attention(const void* qkv, void* out, void* lse, int dtype, int R,
+                                     int L, int n_heads, int head_dim, int group_len,
+                                     int causal, float scale, int device, void* stream);
 
 namespace {
 
@@ -621,8 +621,8 @@ extern "C" int leaf_fused_block(const void* x, const void* ln_scale, const void*
   if (err != cudaSuccess) return err;
   err = leaf_gemm_bias(h, qkv_w, qkv_b, nullptr, qkv, dtype, M, 3 * D, D, device, stream);
   if (err != cudaSuccess) return err;
-  err = leaf_packed_attention(qkv, attn, dtype, R, L, n_heads, D / n_heads, group_len, causal,
-                              scale, device, stream);
+  err = leaf_packed_attention(qkv, attn, nullptr, dtype, R, L, n_heads, D / n_heads,
+                              group_len, causal, scale, device, stream);
   if (err != cudaSuccess) return err;
   return leaf_gemm_bias(attn, out_w, out_b, x, out, dtype, M, D, D, device, stream);
 }

@@ -45,11 +45,15 @@
 // `leaf_layer_norm_plan` gives the plan; ops/packed_attention.py::
 // layer_norm_plan mirrors it in Python, and chip_smoke.py holds the two
 // equal at every row it times.
-#include "common.cuh"
+#include "row_units.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using leaf::ln::EdgeUnit;
+using leaf::ln::load_params;
+using leaf::ln::load_params_at;
+using leaf::ln::Unit;
 
 constexpr int kLnThreads = 256;  // a block
 constexpr int kLnWarps = kLnThreads / 32;
@@ -102,62 +106,6 @@ LnPlan make_plan(int D, int esize, bool aligned) {
   return pl;
 }
 
-// ---- a row's pieces (16 bytes) and edge units (4 bytes, one bf16), as floats ----
-
-template <typename T, typename U> struct Unit;
-template <typename T> struct Unit<T, uint4> {
-  static constexpr int kE = 16 / sizeof(T);
-  __device__ __forceinline__ static void unpack(uint4 u, float* f) {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) leaf::Word<T>::unpack(w[i], f + i * leaf::Word<T>::kElems);
-  }
-  __device__ __forceinline__ static uint4 pack(const float* f) {
-    constexpr int kW = leaf::Word<T>::kElems;
-    return make_uint4(leaf::Word<T>::pack(f), leaf::Word<T>::pack(f + kW),
-                      leaf::Word<T>::pack(f + 2 * kW), leaf::Word<T>::pack(f + 3 * kW));
-  }
-};
-template <typename T> struct Unit<T, uint32_t> {
-  static constexpr int kE = 4 / sizeof(T);
-  __device__ __forceinline__ static void unpack(uint32_t u, float* f) {
-    leaf::Word<T>::unpack(u, f);
-  }
-  __device__ __forceinline__ static uint32_t pack(const float* f) {
-    return leaf::Word<T>::pack(f);
-  }
-};
-template <> struct Unit<bf16, uint16_t> {
-  static constexpr int kE = 1;
-  __device__ __forceinline__ static void unpack(uint16_t u, float* f) {
-    f[0] = __uint_as_float(static_cast<uint32_t>(u) << 16);
-  }
-  __device__ __forceinline__ static uint16_t pack(const float* f) {
-    return __bfloat16_as_ushort(__float2bfloat16(f[0]));
-  }
-};
-
-// kE fp32 parameters from p (aligned to kE floats, at most 16 bytes a load)
-template <int kE>
-__device__ __forceinline__ void load_params(const float* __restrict__ p, float* f) {
-  if constexpr (kE % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < kE; i += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(p + i);
-      f[i] = v.x;
-      f[i + 1] = v.y;
-      f[i + 2] = v.z;
-      f[i + 3] = v.w;
-    }
-  } else if constexpr (kE == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    f[0] = v.x;
-    f[1] = v.y;
-  } else {
-    f[0] = *p;
-  }
-}
-
 // The sum of v over the kThreads threads of a row (consecutive threads, the
 // same in all of them); past a warp through `red`, one float a warp of the
 // block, and a block barrier that every thread of the block reaches.
@@ -179,30 +127,11 @@ __device__ __forceinline__ float row_sum(float v, float* red) {
   return v;
 }
 
-// kE fp32 parameters from p, which lies `shift` floats past a boundary of
-// kE floats (a row's pieces start where its head ends)
-template <int kE>
-__device__ __forceinline__ void load_params_at(const float* __restrict__ p, float* f,
-                                               int shift) {
-  if (shift % 4 == 0) {
-    load_params<kE>(p, f);
-  } else if (shift % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < kE; i += 2) load_params<2>(p + i, f + i);
-  } else {
-#pragma unroll
-    for (int i = 0; i < kE; ++i) f[i] = p[i];
-  }
-}
-
 // ---------------------------------------------------------------------------
 // registers: a row of 16-byte pieces spread over kThreads threads, kPer
 // pieces each; kEdge: the bytes of a head or tail unit (0: the rows are whole
 // pieces, every one starting on a 16-byte boundary)
 // ---------------------------------------------------------------------------
-
-template <typename T, int kEdge> struct EdgeUnit { using type = uint32_t; };
-template <> struct EdgeUnit<bf16, 2> { using type = uint16_t; };
 
 template <typename T, int kEdge, int kThreads, int kPer>
 __global__ void __launch_bounds__(kLnThreads)

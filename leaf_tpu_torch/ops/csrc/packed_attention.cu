@@ -70,23 +70,28 @@ leaf::mma::ParamsT<T> views(const T* qkv, T* out, int R, int L, int n_heads, int
 
 }  // namespace
 
-extern "C" int leaf_packed_attention(const void* qkv, void* out, int dtype, int R,
+// out [R, L, D] from qkv [R, L, 3D]; where `lse` is not null, also each
+// query's log-sum-exp (natural log, fp32 [R, n_heads, L]) for the backward
+// kernels (attention_backward.cu).  Serving passes none.
+extern "C" int leaf_packed_attention(const void* qkv, void* out, void* lse, int dtype, int R,
                                      int L, int n_heads, int head_dim, int group_len,
                                      int causal, float scale, int device, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case leaf::kFloat32:
-      return leaf::mma::launch_f32<leaf::mma::PackedF32, /*kAllowExact=*/true>(
-          views(static_cast<const float*>(qkv), static_cast<float*>(out), R, L, n_heads,
-                head_dim, group_len, causal),
-          scale, s);
-    case leaf::kBFloat16:
-      return leaf::mma::launch<PackedTag, /*kAllowExact=*/true>(
-          views(static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), R,
-                L, n_heads, head_dim, group_len, causal),
-          scale, s);
+    case leaf::kFloat32: {
+      auto p = views(static_cast<const float*>(qkv), static_cast<float*>(out), R, L, n_heads,
+                     head_dim, group_len, causal);
+      p.lse = static_cast<float*>(lse);
+      return leaf::mma::launch_f32<leaf::mma::PackedF32, /*kAllowExact=*/true>(p, scale, s);
+    }
+    case leaf::kBFloat16: {
+      auto p = views(static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
+                     R, L, n_heads, head_dim, group_len, causal);
+      p.lse = static_cast<float*>(lse);
+      return leaf::mma::launch<PackedTag, /*kAllowExact=*/true>(p, scale, s);
+    }
     default:
       return cudaErrorInvalidValue;
   }

@@ -58,15 +58,26 @@ the block, not under `layer_norm` or `gemm_bias`.
 Each CUDA path is a `torch.autograd.Function` whose backward runs hand
 kernels and cuBLAS products, never a plain version:
 
-  * `packed_attention`: `csrc/attention_backward.cu`, two kernels (dQ with
-    each query's log-sum-exp and delta, then dK and dV), from qkv, the
-    saved output and its gradient to dqkv in the fused token-major layout;
-  * `layer_norm`: `csrc/layer_norm_backward.cu`, dx a row at a time and the
-    parameters' gradients as per-block partials summed by a second pass
-    (skipped where the input's gradient alone is asked for);
+  * `packed_attention`: the training forward asks the packed kernel for
+    each query's log-sum-exp (fp32 `[R, H, L]`, beside the output; serving
+    asks for none) and saves it; the backward, `csrc/attention_backward.cu`,
+    runs two kernels (dQ with each query's delta, then dK and dV) from qkv,
+    the saved output, its log-sum-exp and the output's gradient to dqkv in
+    the fused token-major layout, each block staging the other operand
+    whole in 64-row chunks whose copies overlap the products (a ring of two
+    past 352 bf16 or 144 fp32 rows), each warp's own 16 rows held in
+    registers; `backward_schedule` mirrors its plan;
+  * `layer_norm`: `csrc/layer_norm_backward.cu`, dx by row streams (4 to 16
+    threads, or 1 to 8 warps, a row, the rows in registers, the next row's
+    loads issued before the current row is reduced), the parameters'
+    gradients summed in registers over a stream's rows, as one partial row
+    a block, then by a second pass over 8-column slices (skipped where the
+    input's gradient alone is asked for); `layer_norm_backward_plan`
+    mirrors its plan;
   * `fused_attention_block`: saves its inputs alone, as the JAX `_block_fwd`
-    does, and recomputes ln_1, the qkv projection and the attention with
-    the forward kernels (`_launch_block_recompute`), then takes the
+    does, and recomputes ln_1, the qkv projection and the attention (with
+    its log-sum-exp) by the forward kernels (`_launch_block_recompute`),
+    then takes the
     out-projection's and the qkv projection's gradients as cuBLAS products
     (`_mm`), dqkv by the attention backward and dx by the LayerNorm
     backward, each only where `ctx.needs_input_grad` asks (PGD through a
@@ -288,78 +299,131 @@ def kernel_layer_norm_plan(D: int, dtype, aligned: bool = True) -> dict:
             "threads": threads, "per": per, "rows": rows}
 
 
-BWD_TILE = 64         # queries or keys an attention backward block owns
 MAX_HEAD_DIM = 128    # the widest head both attention kernels take
+BWD_MAX_WARPS = 6     # 16-row tiles (warps) of an attention backward block
+BWD_CHUNK = 64        # rows of an attention backward block's staged chunk
 
 
-def backward_schedule(L: int, group_len: int, causal: bool) -> dict:
-    """The attention backward kernels' schedule for one row of L tokens,
-    as `leaf_attention_backward_schedule` in `csrc/attention_backward.cu`
-    computes it: for each `BWD_TILE`-query tile of the dQ kernel `(q0, q1,
-    k0, k1)`, its queries and the keys it visits (in chunks of
-    `BWD_TILE` from k0), and for each key tile of the dK/dV kernel `(k0,
-    k1, i0, i1)`, its keys and the queries that see them."""
+def _query_range(k0: int, k1: int, L: int, group_len: int, causal: bool):
+    """Queries [i0, i1) of one row that attend to keys [k0, k1)."""
+    i0 = k0 // group_len * group_len
+    i1 = min(((k1 - 1) // group_len + 1) * group_len, L)
+    return (max(i0, k0) if causal else i0), i1
+
+
+def backward_schedule(L: int, group_len: int, causal: bool,
+                      dtype=torch.bfloat16, max_whole: int = 0) -> dict:
+    """The attention backward kernels' plan for one row of L tokens in
+    `dtype`, as `leaf_attention_backward_schedule` in
+    `csrc/attention_backward.cu` computes it.  Both kernels split the row
+    into 16-row tiles, a warp each, and the tiles into the fewest blocks
+    of at most `BWD_MAX_WARPS`, evenly: `warps` a block, `blocks` a (row,
+    head).  `dq`: each dQ block's `(q0, q1, k0, k1)`, its queries and the
+    keys they see; `dkv`: each dK/dV block's `(k0, k1, i0, i1)`, its keys
+    and the queries that see them.  A block stages that range of the other
+    operand in `BWD_CHUNK`-row chunks: whole where the kernel's widest
+    range, rounded up to 16, is at most `MAX_WHOLE_CHUNK[dtype]` (or
+    `max_whole`, where that is positive and lower): `dq_whole` /
+    `dkv_whole` rows, else 0: a ring of two chunks."""
+    limit = MAX_WHOLE_CHUNK[dtype]
+    if 0 < max_whole < limit:
+        limit = max_whole
+    tiles = -(-L // TILE)
+    blocks = -(-tiles // BWD_MAX_WARPS)
+    warps = -(-tiles // blocks)
     dq, dkv = [], []
-    for a0 in range(0, L, BWD_TILE):
-        a1 = min(a0 + BWD_TILE, L)
+    for a0 in range(0, L, warps * TILE):
+        a1 = min(a0 + warps * TILE, L)
         dq.append((a0, a1, *_key_range(a0, a1, L, group_len, causal)))
-        i0 = a0 // group_len * group_len
-        i1 = min(((a1 - 1) // group_len + 1) * group_len, L)
-        dkv.append((a0, a1, max(i0, a0) if causal else i0, i1))
-    return {"tile": BWD_TILE, "dq": dq, "dkv": dkv}
+        dkv.append((a0, a1, *_query_range(a0, a1, L, group_len, causal)))
+
+    def whole(ranges):
+        rows = (max(b1 - b0 for _, _, b0, b1 in ranges) + 15) & ~15
+        return rows if rows <= limit else 0
+    return {"warps": warps, "blocks": blocks, "chunk": BWD_CHUNK,
+            "dq_whole": whole(dq), "dkv_whole": whole(dkv), "dq": dq,
+            "dkv": dkv}
 
 
-def kernel_backward_schedule(L: int, group_len: int, causal: bool) -> dict:
+def kernel_backward_schedule(L: int, group_len: int, causal: bool,
+                             dtype=torch.bfloat16,
+                             max_whole: int = 0) -> dict:
     """What `backward_schedule` mirrors, from the built library itself.
     Needs the CUDA toolkit, not a card; `chip_smoke.py` holds the two
     equal."""
     import ctypes
-    cap = 8 * -(-L // BWD_TILE)
-    ranges = (ctypes.c_int * cap)()
+    cap = 8 * -(-L // TILE)
+    plan, ranges = (ctypes.c_int * 4)(), (ctypes.c_int * cap)()
     n = build.library().leaf_attention_backward_schedule(
-        L, group_len, int(causal), ranges, cap)
+        L, group_len, int(causal), _DTYPE_CODES[dtype], max_whole, plan,
+        ranges, cap)
     if n < 0:
         raise RuntimeError(f"leaf_attention_backward_schedule({L}, "
-                           f"{group_len}, {causal}) returned {n}")
-    quads = [tuple(ranges[4 * t:4 * t + 4]) for t in range(2 * n)]
-    return {"tile": BWD_TILE, "dq": quads[:n], "dkv": quads[n:]}
+                           f"{group_len}, {causal}, {dtype}) returned {n}")
+    quads = [tuple(ranges[4 * b:4 * b + 4]) for b in range(2 * n)]
+    warps, blocks, dq_whole, dkv_whole = plan
+    return {"warps": warps, "blocks": blocks, "chunk": BWD_CHUNK,
+            "dq_whole": dq_whole, "dkv_whole": dkv_whole, "dq": quads[:n],
+            "dkv": quads[n:]}
 
 
-LN_BWD_MAX_BLOCKS = 2048   # blocks of the LayerNorm backward's first kernel
-LN_BWD_MAX_D = 8192        # the widest row it takes (32 elements a thread)
+LN_BWD_MAX_BLOCKS = 264      # blocks of the LayerNorm backward's first kernel
+LN_BWD_MAX_ROW_BYTES = 32_768  # the widest row it takes: 8 pieces a thread
+LN_BWD_PIECES = 6            # pieces a lane of a warp-a-row plan, at most
+_LN_BWD_KEYS = ("threads", "per", "edge", "rows", "blocks")
 
 
-def layer_norm_backward_plan(M: int, D: int) -> dict:
-    """The LayerNorm backward kernel's plan for M rows of D elements, as
-    `make_plan` in `csrc/layer_norm_backward.cu` computes it: `threads` a
-    row (a block: the fewest multiple of 32 that holds the row at 8
-    elements a thread, at most `LN_THREADS`), `per` elements a thread as
-    compiled (0: D is wider than `LN_BWD_MAX_D`), `blocks` and `rows` a
-    block (at most `LN_BWD_MAX_BLOCKS` blocks, each writing one row of the
-    parameters' partial sums)."""
-    threads = min(LN_THREADS, 32 * -(-D // 256))
-    need = -(-D // threads)
-    per = next((p for p in (4, 8, 12, 32) if need <= p), 0)
-    rows = -(-M // LN_BWD_MAX_BLOCKS)
-    return {"threads": threads, "per": per, "blocks": -(-M // rows),
-            "rows": rows}
+def layer_norm_backward_plan(M: int, D: int, dtype=torch.bfloat16) -> dict:
+    """The LayerNorm backward kernel's plan for M rows of D elements of
+    `dtype`, as `make_plan` in `csrc/layer_norm_backward.cu` computes it.
+    A row moves in 16-byte pieces, its head and tail (where its bytes are
+    no whole number of pieces) in `edge`-byte units (4, or 2 in bf16 rows
+    of odd width; 0: none).  `threads` a row: 4, 8 or 16 where the row is
+    at most 64 whole pieces, else the fewest warps (up to 8) that hold it
+    at `LN_BWD_PIECES` pieces a lane; `per`: pieces a thread as compiled
+    (4, 5, 6 or 8; 0: the row is wider than `LN_BWD_MAX_ROW_BYTES`);
+    `rows`: row streams a block of `LN_THREADS`; `blocks`: at most
+    `LN_BWD_MAX_BLOCKS`, each writing one row of the parameters' partial
+    sums."""
+    nbytes = D * dtype.itemsize
+    pieces = nbytes // 16
+    edge = 0 if nbytes % 16 == 0 else 4 if nbytes % 4 == 0 else dtype.itemsize
+    if nbytes > LN_BWD_MAX_ROW_BYTES:
+        threads, per = LN_THREADS, 0
+    elif edge == 0 and pieces <= 64:
+        threads, per = 4 if pieces <= 16 else 8 if pieces <= 32 else 16, 4
+    else:
+        warps = 1
+        while (warps < LN_THREADS // 32
+               and -(-pieces // (32 * warps)) > LN_BWD_PIECES):
+            warps *= 2
+        threads = 32 * warps
+        need = -(-pieces // threads)
+        per = (4 if need <= 4 else 5 if need <= 5 and edge != 2
+               else 6 if need <= 6 else 8)
+    rows = LN_THREADS // threads
+    return dict(zip(_LN_BWD_KEYS, (threads, per, edge, rows,
+                                   min(-(-M // rows), LN_BWD_MAX_BLOCKS))))
 
 
-def kernel_layer_norm_backward_plan(M: int, D: int) -> dict:
+def kernel_layer_norm_backward_plan(M: int, D: int,
+                                    dtype=torch.bfloat16) -> dict:
     """What `layer_norm_backward_plan` mirrors, from the built library
     (`leaf_layer_norm_backward_plan`, run on the host)."""
     import ctypes
-    plan = (ctypes.c_int * 4)()
-    build.check(build.library().leaf_layer_norm_backward_plan(M, D, plan),
-                "leaf_layer_norm_backward_plan")
-    return dict(zip(("threads", "per", "blocks", "rows"), plan))
+    plan = (ctypes.c_int * 5)()
+    build.check(build.library().leaf_layer_norm_backward_plan(
+        M, D, _DTYPE_CODES[dtype], plan), "leaf_layer_norm_backward_plan")
+    return dict(zip(_LN_BWD_KEYS, plan))
 
 
 def _reference(qkv: torch.Tensor, n_heads: int, group_len: int,
-               causal: bool) -> torch.Tensor:
+               causal: bool, with_lse: bool = False):
     """Token-major attention with the block-diagonal semantics (numerics of
     `layers.attention`): fp32 logits and softmax, probabilities in the
-    input dtype, PV accumulated in fp32."""
+    input dtype, PV accumulated in fp32.  `with_lse`: also each query's
+    log-sum-exp of its masked logits, fp32 `[R, H, L]`, what the backward
+    takes (the kernel's training forward writes it)."""
     _note_plain(qkv)
     R, L, threeD = qkv.shape
     D = threeD // 3
@@ -369,7 +433,8 @@ def _reference(qkv: torch.Tensor, n_heads: int, group_len: int,
     s = s.masked_fill(~block_mask(L, group_len, causal, qkv.device), _NEG)
     p = torch.softmax(s, dim=-1).to(qkv.dtype)
     o = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float())
-    return o.to(qkv.dtype).reshape(R, L, D)
+    o = o.to(qkv.dtype).reshape(R, L, D)
+    return (o, torch.logsumexp(s, dim=-1)) if with_lse else o
 
 
 def _layer_norm_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -427,8 +492,8 @@ def _packed_attention_backward_reference(
     logits, probabilities and sums; delta = rowsum(dout * out); dP = dout
     v^T and the probabilities that multiply dout rounded to the dtype, as
     the autograd of `_reference` rounds them.  `lse`: the rows' fp32
-    log-sum-exp `[R, H, L]`, or None to take it from qkv, as the kernel
-    does.  Returns dqkv `[R, L, 3D]` in the dtype."""
+    log-sum-exp `[R, H, L]` (the forward's, as the kernel takes it), or
+    None to take it from qkv.  Returns dqkv `[R, L, 3D]` in the dtype."""
     _note_plain(qkv)
     R, L, threeD = qkv.shape
     D = threeD // 3
@@ -521,34 +586,43 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _packed_attention_kernel(qkv: torch.Tensor, n_heads: int,
-                             group_len: int, causal: bool) -> torch.Tensor:
+                             group_len: int, causal: bool,
+                             with_lse: bool = False):
     """The packed-attention kernel's launch, uncounted (its callers count
-    it: the op, or the block's backward)."""
+    it: the op, or the block's backward).  `with_lse`: the kernel also
+    writes each query's log-sum-exp, fp32 `[R, H, L]`, for the backward,
+    and the launch returns `(out, lse)`; serving asks for none."""
     R, L, threeD = qkv.shape
     D = threeD // 3
     hd = D // n_heads
     out = torch.empty((R, L, D), dtype=qkv.dtype, device=qkv.device)
+    lse = (torch.empty((R, n_heads, L), dtype=torch.float32,
+                       device=qkv.device) if with_lse else None)
     build.check(build.library().leaf_packed_attention(
-        qkv.data_ptr(), out.data_ptr(), _DTYPE_CODES[qkv.dtype], R, L,
-        n_heads, hd, group_len, int(causal), hd ** -0.5, qkv.device.index,
-        _stream(qkv)), "packed_attention kernel")
-    return out
+        qkv.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+        _DTYPE_CODES[qkv.dtype], R, L, n_heads, hd, group_len, int(causal),
+        hd ** -0.5, qkv.device.index, _stream(qkv)), "packed_attention kernel")
+    return (out, lse) if with_lse else out
 
 
 def _launch_packed_attention(qkv: torch.Tensor, n_heads: int, group_len: int,
-                             causal: bool) -> torch.Tensor:
-    out = _packed_attention_kernel(qkv, n_heads, group_len, causal)
+                             causal: bool, with_lse: bool = False):
+    out = _packed_attention_kernel(qkv, n_heads, group_len, causal, with_lse)
     packed_attention.launches += 1
     return out
 
 
 def _launch_packed_attention_backward(qkv: torch.Tensor, out: torch.Tensor,
-                                      dout: torch.Tensor, n_heads: int,
-                                      group_len: int,
-                                      causal: bool) -> torch.Tensor:
-    """dqkv from qkv, the forward's output and its gradient: one C call
+                                      lse: torch.Tensor, dout: torch.Tensor,
+                                      n_heads: int, group_len: int,
+                                      causal: bool,
+                                      max_whole: int = 0) -> torch.Tensor:
+    """dqkv from qkv, the forward's output, its log-sum-exp (fp32 `[R, H,
+    L]`, the training forward's) and the output's gradient: one C call
     (`leaf_packed_attention_backward`) for the dQ and the dK/dV kernels,
-    with an fp32 scratch of each query's log-sum-exp and delta."""
+    with an fp32 scratch of each query's delta.  `max_whole` lowers the
+    rows a block stages whole (`backward_schedule`; 0: the dtype's
+    limit)."""
     R, L, threeD = qkv.shape
     D = threeD // 3
     hd = D // n_heads
@@ -556,15 +630,16 @@ def _launch_packed_attention_backward(qkv: torch.Tensor, out: torch.Tensor,
         raise ValueError(f"packed_attention backward: head width {hd}; the "
                          f"kernel takes at most {MAX_HEAD_DIM}")
     _check_tensor("out", out, qkv.dtype, (R, L, D), qkv.device)
+    _check_tensor("lse", lse, torch.float32, (R, n_heads, L), qkv.device)
     _check_tensor("dout", dout, qkv.dtype, (R, L, D), qkv.device)
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((2, R, n_heads, L), dtype=torch.float32,
+    delta = torch.empty((R, n_heads, L), dtype=torch.float32,
                         device=qkv.device)
     build.check(build.library().leaf_packed_attention_backward(
-        qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
-        stats.data_ptr(), _DTYPE_CODES[qkv.dtype], R, L, n_heads, hd,
-        group_len, int(causal), hd ** -0.5, qkv.device.index, _stream(qkv)),
-        "packed_attention backward kernels")
+        qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+        dqkv.data_ptr(), delta.data_ptr(), _DTYPE_CODES[qkv.dtype], R, L,
+        n_heads, hd, group_len, int(causal), hd ** -0.5, max_whole,
+        qkv.device.index, _stream(qkv)), "packed_attention backward kernels")
     packed_attention.backward_launches += 1
     return dqkv
 
@@ -669,10 +744,11 @@ def _launch_layer_norm_backward(x: torch.Tensor, scale: torch.Tensor,
         zeros = torch.zeros(D, dtype=torch.float32, device=x.device)
         return torch.empty_like(x), *((zeros, zeros.clone()) if params
                                       else (None, None))
-    plan = layer_norm_backward_plan(M, D)
+    plan = layer_norm_backward_plan(M, D, x.dtype)
     if not plan["per"]:
         raise ValueError(f"layer_norm backward: rows of {D} elements; the "
-                         f"kernel takes at most {LN_BWD_MAX_D}")
+                         "kernel takes at most "
+                         f"{LN_BWD_MAX_ROW_BYTES // x.dtype.itemsize}")
     dx = torch.empty_like(x)
     dscale = dbias = partials = None
     if params:
@@ -694,15 +770,17 @@ def _launch_block_recompute(x, ln_scale, ln_bias, qkv_w, qkv_b, n_heads: int,
                             group_len: int, causal: bool, ln_eps: float):
     """The fused block's intermediates for its backward, by the forward
     kernels: `h = ln_1(x)` (LayerNorm kernel), `qkv = h @ qkv_w + qkv_b`
-    (GEMM kernel) and the attention output `o` (packed kernel), counted
-    once as the block's backward."""
+    (GEMM kernel), the attention output `o` and its log-sum-exp `lse`
+    (packed kernel, asked for it), counted once as the block's
+    backward."""
     R, L, D = x.shape
     h = _layer_norm_kernel(x, ln_scale, ln_bias, ln_eps)
     qkv = _launch_gemm_bias(h.reshape(R * L, D), qkv_w, qkv_b)
     qkv = qkv.reshape(R, L, 3 * D)
-    o = _packed_attention_kernel(qkv, n_heads, group_len, causal)
+    o, lse = _packed_attention_kernel(qkv, n_heads, group_len, causal,
+                                      with_lse=True)
     fused_attention_block.backward_launches += 1
-    return h, qkv, o
+    return h, qkv, o, lse
 
 
 # ---------------------------------------------------------------------------
@@ -719,16 +797,17 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class _PackedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, n_heads, group_len, causal):
-        out = _launch_packed_attention(qkv, n_heads, group_len, causal)
-        ctx.save_for_backward(qkv, out)
+        out, lse = _launch_packed_attention(qkv, n_heads, group_len, causal,
+                                            with_lse=True)
+        ctx.save_for_backward(qkv, out, lse)
         ctx.args = (n_heads, group_len, causal)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        qkv, out = ctx.saved_tensors
-        return (_launch_packed_attention_backward(qkv, out, g.contiguous(),
-                                                  *ctx.args),
+        qkv, out, lse = ctx.saved_tensors
+        return (_launch_packed_attention_backward(qkv, out, lse,
+                                                  g.contiguous(), *ctx.args),
                 None, None, None)
 
 
@@ -756,15 +835,17 @@ def _block_backward(need, g, x, ln_scale, ln_bias, qkv_w, qkv_b, out_w,
         grads[6] = g2.sum(0)
     if not (need_qkv or need_ow):
         return grads
-    h, qkv, o = _launch_block_recompute(x, ln_scale, ln_bias, qkv_w, qkv_b,
-                                        n_heads, group_len, causal, ln_eps)
+    h, qkv, o, lse = _launch_block_recompute(x, ln_scale, ln_bias, qkv_w,
+                                             qkv_b, n_heads, group_len,
+                                             causal, ln_eps)
     if need_ow:
         grads[5] = _mm(o.reshape(M, D).t(), g2)
     if not need_qkv:
         return grads
     do = _mm(g2, out_w.t()).reshape(R, L, D)
-    dqkv = _launch_packed_attention_backward(qkv, o, do, n_heads, group_len,
-                                             causal).reshape(M, 3 * D)
+    dqkv = _launch_packed_attention_backward(qkv, o, lse, do, n_heads,
+                                             group_len, causal
+                                             ).reshape(M, 3 * D)
     if need_qw:
         grads[3] = _mm(h.reshape(M, D).t(), dqkv)
     if need_qb:

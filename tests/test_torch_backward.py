@@ -2,10 +2,12 @@
 the JAX package's ops.
 
 On the CPU the backward kernels cannot run: what runs here is each one's
-plain version (explicit formulas, not autograd), the autograd wrappers'
-composition with their launchers stood in for by the plain versions, a
-Python walk of the attention backward's tiles in the kernel's order, and
-the Python mirrors of the kernels' schedules.  The kernels themselves are
+plain version (explicit formulas, not autograd; the attention's given the
+log-sum-exp of a plain forward that returns it, as the kernels take the
+training forward's), the autograd wrappers' composition with their
+launchers stood in for by the plain versions, a Python walk of the
+attention backward's blocks, warps, chunks and 16-row steps in the
+kernels' order, and the Python mirrors of the kernels' plans.  The kernels themselves are
 held to these plain versions on the card by `chip_smoke.py` (c).  Inputs
 are made with numpy from a seed and handed to both packages.
 """
@@ -68,22 +70,27 @@ def test_packed_attention_backward_reference_matches_jax(S, G, causal, hd,
     qkv, dout = _attention_inputs(rng, R, G * S, H, hd)
     tdt = getattr(torch, dtype)
     tq, tdo = (torch.from_numpy(a).to(tdt) for a in (qkv, dout))
-    out = tpa._reference(tq, H, S, causal)
-    got = tpa._packed_attention_backward_reference(tq, out, None, tdo, H, S,
+    out, lse = tpa._reference(tq, H, S, causal, with_lse=True)
+    assert torch.equal(out, tpa._reference(tq, H, S, causal))
+    got = tpa._packed_attention_backward_reference(tq, out, lse, tdo, H, S,
                                                    causal)
     assert got.dtype == tdt and got.shape == tq.shape
     want = _jax_attention_vjp(tq.float().numpy(), tdo.float().numpy(), H, S,
                               causal, dtype)
     _close_to_largest(got.float().numpy(), want, dtype)
-    # the rows' log-sum-exp handed in (as a saved one would be) gives the
-    # same gradient as the one taken from qkv
+    # the forward's log-sum-exp: fp32 [R, H, L], that of each query's
+    # visible logits, and the same gradient as the one taken from qkv
+    assert lse.dtype == torch.float32 and lse.shape == (R, H, G * S)
     q, k = (t.reshape(R, G * S, H, hd).transpose(1, 2).float()
             for t in tq.split(H * hd, dim=-1)[:2])
     s = (q @ k.transpose(-1, -2)) * hd ** -0.5
-    s = s.masked_fill(~tpa.block_mask(G * S, S, causal), tpa._NEG)
-    given = tpa._packed_attention_backward_reference(
-        tq, out, torch.logsumexp(s, dim=-1), tdo, H, S, causal)
-    assert torch.equal(given, got)
+    mask = tpa.block_mask(G * S, S, causal)
+    want_lse = torch.stack([torch.logsumexp(s[..., i, mask[i]], dim=-1)
+                            for i in range(G * S)], dim=-1)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-6, atol=1e-6)
+    recomputed = tpa._packed_attention_backward_reference(
+        tq, out, None, tdo, H, S, causal)
+    assert torch.equal(recomputed, got)
 
 
 LN_SHAPES = [(6, 32), (2, 5, 24), (3, 128), (2, 160), (4, 640)]
@@ -122,7 +129,8 @@ def _plain_recompute(x, s, b, qw, qb, n_heads, group_len, causal, eps):
     h = tpa._layer_norm_reference(x, s, b, eps)
     qkv = tpa._gemm_bias_reference(h.reshape(R * L, D), qw, qb)
     qkv = qkv.reshape(R, L, 3 * D)
-    return h, qkv, tpa._reference(qkv, n_heads, group_len, causal)
+    return (h, qkv, *tpa._reference(qkv, n_heads, group_len, causal,
+                                    with_lse=True))
 
 
 def _plain_layer_norm_backward(x, scale, dy, eps, params):
@@ -163,11 +171,8 @@ def plain_launchers(monkeypatch):
                             x, s, b, eps))
     monkeypatch.setattr(tpa, "_launch_layer_norm_backward", ln_backward)
     monkeypatch.setattr(tpa, "_launch_packed_attention", tpa._reference)
-    monkeypatch.setattr(
-        tpa, "_launch_packed_attention_backward",
-        lambda qkv, out, dout, h, g, c:
-        tpa._packed_attention_backward_reference(qkv, out, None, dout, h, g,
-                                                 c))
+    monkeypatch.setattr(tpa, "_launch_packed_attention_backward",
+                        tpa._packed_attention_backward_reference)
     monkeypatch.setattr(tpa, "_launch_gemm",
                         lambda a, w, b: tpa._gemm_bias_reference(a, w, b))
     return record
@@ -305,88 +310,141 @@ def test_layer_norm_wrapper_backward_matches_jax(plain_launchers):
 SCHEDULE_CASES = [(L, g, c) for L, g in ((16, 16), (64, 64), (128, 16),
                                          (128, 64), (96, 48), (77, 77),
                                          (50, 50), (257, 257), (200, 40),
-                                         (729, 729), (39, 13), (130, 65))
+                                         (729, 729), (39, 13), (130, 65),
+                                         (65, 65), (129, 129), (257, 64))
                   for c in (False, True)]
 
 
 @pytest.mark.parametrize("L,group_len,causal", SCHEDULE_CASES)
 def test_backward_schedule_covers_every_visible_pair_once(L, group_len,
                                                           causal):
-    """Both kernels' tiles partition the row, and the keys (queries) a
-    tile visits, in chunks of `BWD_TILE` from its first, hold every key
-    (query) that any of its queries (keys) sees: each visible pair lands
-    in one dQ block and one dK/dV block."""
-    sched = tpa.backward_schedule(L, group_len, causal)
+    """Both kernels split the row into 16-row tiles, at most
+    `BWD_MAX_WARPS` a block, in the fewest blocks, evenly (no block for a tail tile: a
+    257-token row's last token is one warp's tile); a block's range of
+    the other operand holds every row that any of its rows meets, so
+    each visible pair lands in one dQ block and one dK/dV block; a block
+    stages the range whole where the kernel's widest, rounded up to 16,
+    fits the dtype's limit (or `max_whole`), else through the ring."""
     mask = tpa.block_mask(L, group_len, causal).numpy()
-    for kind in ("dq", "dkv"):
-        seen = np.zeros((L, L), np.int32)    # [query, key]
-        starts = [t[0] for t in sched[kind]]
-        assert starts == list(range(0, L, tpa.BWD_TILE))
-        for a0, a1, b0, b1 in sched[kind]:
-            assert a1 - a0 <= tpa.BWD_TILE and 0 <= b0 < b1 <= L
-            if kind == "dq":
-                seen[a0:a1, b0:b1] += 1
-                rows = mask[a0:a1]
-                need = np.flatnonzero(rows.any(axis=0))
-            else:
-                seen[b0:b1, a0:a1] += 1
-                need = np.flatnonzero(mask[:, a0:a1].any(axis=1))
-            assert need.min() >= b0 and need.max() < b1, (kind, a0, need)
-        assert (seen[mask] == 1).all(), kind
+    tiles = -(-L // tpa.TILE)
+    for dtype in (torch.bfloat16, torch.float32):
+        for max_whole in (0, 64):
+            sched = tpa.backward_schedule(L, group_len, causal, dtype,
+                                          max_whole)
+            warps, blocks = sched["warps"], sched["blocks"]
+            assert blocks == -(-tiles // tpa.BWD_MAX_WARPS), sched
+            assert warps <= tpa.BWD_MAX_WARPS and (blocks - 1) * warps < tiles
+            assert blocks * warps >= tiles and sched["chunk"] == 64
+            limit = min(tpa.MAX_WHOLE_CHUNK[dtype], max_whole or L + 16)
+            for kind in ("dq", "dkv"):
+                seen = np.zeros((L, L), np.int32)    # [query, key]
+                assert [t[0] for t in sched[kind]] == list(
+                    range(0, L, warps * tpa.TILE))
+                for a0, a1, b0, b1 in sched[kind]:
+                    assert 0 < a1 - a0 <= warps * tpa.TILE
+                    assert 0 <= b0 < b1 <= L
+                    if kind == "dq":
+                        seen[a0:a1, b0:b1] += 1
+                        need = np.flatnonzero(mask[a0:a1].any(axis=0))
+                    else:
+                        seen[b0:b1, a0:a1] += 1
+                        need = np.flatnonzero(mask[:, a0:a1].any(axis=1))
+                    assert need.min() >= b0 and need.max() < b1, (kind, a0)
+                assert (seen[mask] == 1).all(), kind
+                widest = (max(b1 - b0 for *_, b0, b1 in sched[kind])
+                          + 15) & ~15
+                whole = sched[f"{kind}_whole"]
+                assert whole == (widest if widest <= limit else 0), (
+                    kind, dtype, max_whole, whole, widest)
 
 
-def _walk_backward_tiles(qkv, out, dout, n_heads, group_len, causal):
-    """dqkv as the two kernels compute it, tile by tile in their order (in
-    fp32 on the CPU): the dQ blocks' online log-sum-exp over 64-key chunks,
-    then dS and dQ; the dK/dV blocks' P and dS again from the saved lse and
-    delta.  Holds the kernels' tiling and masking, not their arithmetic."""
+def _walk_backward_tiles(qkv, out, lse, dout, n_heads, group_len, causal):
+    """dqkv as the two kernels compute it (in fp32 on the CPU), from the
+    forward's log-sum-exp: block by block of `backward_schedule`, warp by
+    warp (16 rows), chunk by chunk of 64 rows of the block's range, the
+    16-row steps of the chunk from the one that holds the warp's first
+    visible row; a step that every row of the tile sees entirely runs
+    unmasked, as the kernels' fast path does, with the rows past the end
+    left as the kernels leave them (zero in the fragments, never stored).
+    The dQ kernel writes delta, the dK/dV kernel reads it.  Holds the
+    kernels' tiling and masking, not their arithmetic."""
     R, L, threeD = qkv.shape
     D = threeD // 3
     hd = D // n_heads
     scale = hd ** -0.5
-    dt = qkv.dtype
+    dt, g = qkv.dtype, group_len
     q, k, v = (t.reshape(R, L, n_heads, hd).transpose(1, 2).float()
                for t in qkv.split(D, dim=-1))
     do, o = (t.reshape(R, L, n_heads, hd).transpose(1, 2).float()
              for t in (dout, out))
-    mask = tpa.block_mask(L, group_len, causal)
-    sched = tpa.backward_schedule(L, group_len, causal)
-    T = sched["tile"]
-    lse = torch.empty(R, n_heads, L)
-    delta = (do * o).sum(-1)
+    mask = tpa.block_mask(L, g, causal)
+    sched = tpa.backward_schedule(L, g, causal, dt)
+    T, C = tpa.TILE, sched["chunk"]
+
+    def rows(t, a, b):       # rows [a, b) of [R, H, L, hd], zero past L
+        part = t[:, :, a:min(b, L)]
+        return torch.nn.functional.pad(part, (0, 0, 0, b - a - part.shape[2]))
+
+    def steps(a0, a1, b0, b1, w0, w1, wb0, wb1, all0, all1):
+        """(first row of the 16-row step, whether it runs unmasked) of a
+        warp's tile [w0, w1) over its range [wb0, wb1) of [b0, b1)"""
+        for cs in range(b0, b1, C):
+            ce = min(cs + C, b1)
+            lo, hi = max(wb0, cs), min(wb1, ce)
+            for r in range((lo - cs) & ~15, hi - cs, T):
+                yield cs + r, cs + r >= all0 and cs + r + T <= all1
+
+    delta = torch.zeros(R, n_heads, L)
     dq, dk, dv = (torch.zeros(R, n_heads, L, hd) for _ in range(3))
-    for q0, q1, k0, k1 in sched["dq"]:
-        m = torch.full((R, n_heads, q1 - q0), -1e30)
-        l = torch.zeros(R, n_heads, q1 - q0)
-        for kc in range(k0, k1, T):
-            ke = min(kc + T, k1)
-            s = (q[:, :, q0:q1] @ k[:, :, kc:ke].transpose(-1, -2)) * scale
-            vis = mask[q0:q1, kc:ke]
-            s = s.masked_fill(~vis, -float("inf"))
-            mn = torch.maximum(m, s.max(-1).values)
-            l = l * torch.exp(m - mn) + torch.exp(s - mn[..., None]).sum(-1)
-            m = mn
-        lse[:, :, q0:q1] = m + torch.log(l)
-        for kc in range(k0, k1, T):
-            ke = min(kc + T, k1)
-            s = (q[:, :, q0:q1] @ k[:, :, kc:ke].transpose(-1, -2)) * scale
-            vis = mask[q0:q1, kc:ke]
-            p = torch.exp(s - lse[:, :, q0:q1, None]) * vis
-            dp = (do[:, :, q0:q1] @ v[:, :, kc:ke].transpose(-1, -2)) \
-                .to(dt).float()
-            ds = p * (dp - delta[:, :, q0:q1, None]) * scale
-            dq[:, :, q0:q1] += ds @ k[:, :, kc:ke]
-    for k0, k1, i0, i1 in sched["dkv"]:
-        for qc in range(i0, i1, T):
-            qe = min(qc + T, i1)
-            s = (q[:, :, qc:qe] @ k[:, :, k0:k1].transpose(-1, -2)) * scale
-            vis = mask[qc:qe, k0:k1]
-            p = torch.exp(s - lse[:, :, qc:qe, None]) * vis
-            dp = (do[:, :, qc:qe] @ v[:, :, k0:k1].transpose(-1, -2)) \
-                .to(dt).float()
-            ds = p * (dp - delta[:, :, qc:qe, None]) * scale
-            dv[:, :, k0:k1] += p.to(dt).float().transpose(-1, -2) @ do[:, :, qc:qe]
-            dk[:, :, k0:k1] += ds.transpose(-1, -2) @ q[:, :, qc:qe]
+    for a0, a1, b0, b1 in sched["dq"]:
+        for w0 in range(a0, a1, T):
+            w1 = min(w0 + T, a1)
+            wb0, wb1 = tpa._key_range(w0, w1, L, g, causal)
+            all0 = (w1 - 1) // g * g
+            all1 = w0 + 1 if causal else min((w0 // g + 1) * g, L)
+            qw, dow = rows(q, w0, w0 + T), rows(do, w0, w0 + T)
+            dlt = (dow * rows(o, w0, w0 + T)).sum(-1)
+            lse2 = rows(lse[..., None], w0, w0 + T)[..., 0]
+            delta[:, :, w0:w1] = dlt[:, :, :w1 - w0]
+            acc = torch.zeros(R, n_heads, T, hd)
+            for c0, full in steps(a0, a1, b0, b1, w0, w1, wb0, wb1, all0,
+                                  all1):
+                kc, vc = rows(k, c0, c0 + T), rows(v, c0, c0 + T)
+                s = (qw @ kc.transpose(-1, -2)) * scale
+                p = torch.exp(s - lse2[..., None])
+                if not full:
+                    vis = torch.zeros(T, T, dtype=torch.bool)
+                    vis[:w1 - w0, :min(c0 + T, b1) - c0] = \
+                        mask[w0:w1, c0:min(c0 + T, b1)]
+                    p = p * vis
+                dp = (dow @ vc.transpose(-1, -2)).to(dt).float()
+                acc += (p * (dp - dlt[..., None]) * scale) @ kc
+            dq[:, :, w0:w1] = acc[:, :, :w1 - w0]
+    for a0, a1, b0, b1 in sched["dkv"]:
+        for w0 in range(a0, a1, T):
+            w1 = min(w0 + T, a1)
+            wb0, wb1 = tpa._query_range(w0, w1, L, g, causal)
+            all0 = max((w1 - 1) // g * g, w1 - 1 if causal else 0)
+            all1 = min((w0 // g + 1) * g, L)
+            kw, vw = rows(k, w0, w0 + T), rows(v, w0, w0 + T)
+            acc_k, acc_v = (torch.zeros(R, n_heads, T, hd) for _ in range(2))
+            for c0, full in steps(a0, a1, b0, b1, w0, w1, wb0, wb1, all0,
+                                  all1):
+                qc, doc = rows(q, c0, c0 + T), rows(do, c0, c0 + T)
+                lse2 = rows(lse[..., None], c0, c0 + T)[..., 0]
+                dlt = rows(delta[..., None], c0, c0 + T)[..., 0]
+                s = (kw @ qc.transpose(-1, -2)) * scale    # [key, query]
+                p = torch.exp(s - lse2[:, :, None, :])
+                if not full:
+                    vis = torch.zeros(T, T, dtype=torch.bool)
+                    vis[:w1 - w0, :min(c0 + T, b1) - c0] = \
+                        mask[c0:min(c0 + T, b1), w0:w1].T
+                    p = p * vis
+                dp = (vw @ doc.transpose(-1, -2)).to(dt).float()
+                acc_v += p.to(dt).float() @ doc
+                acc_k += (p * (dp - dlt[:, :, None, :]) * scale) @ qc
+            dk[:, :, w0:w1] = acc_k[:, :, :w1 - w0]
+            dv[:, :, w0:w1] = acc_v[:, :, :w1 - w0]
     return torch.cat([t.transpose(1, 2).reshape(R, L, D) for t in (dq, dk, dv)],
                      dim=-1).to(dt)
 
@@ -394,7 +452,9 @@ def _walk_backward_tiles(qkv, out, dout, n_heads, group_len, causal):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("L,group_len,causal", [(128, 16, True), (96, 48, True),
                                                 (130, 130, False),
-                                                (200, 40, False), (77, 77, True)])
+                                                (200, 40, False), (77, 77, True),
+                                                (257, 257, False), (65, 65, True),
+                                                (129, 43, False)])
 def test_backward_tiles_walked_equal_the_plain_backward(L, group_len, causal,
                                                         dtype):
     rng = np.random.default_rng(6)
@@ -402,42 +462,74 @@ def test_backward_tiles_walked_equal_the_plain_backward(L, group_len, causal,
     qkv, dout = _attention_inputs(rng, R, L, H, hd)
     tdt = getattr(torch, dtype)
     tq, tdo = (torch.from_numpy(a).to(tdt) for a in (qkv, dout))
-    out = tpa._reference(tq, H, group_len, causal)
-    walked = _walk_backward_tiles(tq, out, tdo, H, group_len, causal)
-    plain = tpa._packed_attention_backward_reference(tq, out, None, tdo, H,
+    out, lse = tpa._reference(tq, H, group_len, causal, with_lse=True)
+    walked = _walk_backward_tiles(tq, out, lse, tdo, H, group_len, causal)
+    plain = tpa._packed_attention_backward_reference(tq, out, lse, tdo, H,
                                                      group_len, causal)
     _close_to_largest(walked.float().numpy(), plain.float().numpy(), dtype)
 
 
-# the widths the paths that train give the LayerNorm backward: the towers'
-# (512 to 1280), EVA02-L's `mlp.ln` (2730), the conv stems (128, 160)
-LN_BWD_WIDTHS = {128: (32, 4), 160: (32, 8), 512: (64, 8), 640: (96, 8),
-                 768: (96, 8), 1024: (128, 8), 1280: (160, 8),
-                 2730: (256, 12)}
+# the plans of the widths the paths that train give the LayerNorm backward:
+# (D, dtype) -> (threads a row, pieces a thread, edge bytes): the towers'
+# (512 to 1280; a warp a row from 513 to 1536 bf16), EVA02-L's `mlp.ln`
+# (2730: two warps, word edges), the conv stems (128, 160: several threads
+# a row), the eval's fp32 rows (1024: two warps)
+LN_BWD_WIDTHS = {(128, "bfloat16"): (4, 4, 0), (160, "bfloat16"): (8, 4, 0),
+                 (512, "bfloat16"): (16, 4, 0), (640, "bfloat16"): (32, 4, 0),
+                 (768, "bfloat16"): (32, 4, 0), (1024, "bfloat16"): (32, 4, 0),
+                 (1280, "bfloat16"): (32, 5, 0), (2730, "bfloat16"): (64, 6, 4),
+                 (128, "float32"): (8, 4, 0), (160, "float32"): (16, 4, 0),
+                 (768, "float32"): (32, 6, 0), (1024, "float32"): (64, 4, 0)}
 
 
 def test_layer_norm_backward_plan_covers_every_row():
-    """At every width a block's threads hold the row (at most `per`
-    elements a thread, as compiled), `threads` is a multiple of 32 up to
-    `LN_THREADS`; widths past `LN_BWD_MAX_D` are refused (`per` 0); the
-    blocks cover the rows, none empty, at most `LN_BWD_MAX_BLOCKS`."""
-    for D in range(1, tpa.LN_BWD_MAX_D + 200):
-        plan = tpa.layer_norm_backward_plan(1, D)
-        t, per = plan["threads"], plan["per"]
-        assert t % 32 == 0 and 32 <= t <= tpa.LN_THREADS, (D, plan)
-        if D > tpa.LN_BWD_MAX_D:
-            assert per == 0, (D, plan)
-            continue
-        assert per in (4, 8, 12, 32) and t * per >= D, (D, plan)
-        assert t * 8 >= D or t == tpa.LN_THREADS, (D, plan)
+    """At every width of both dtypes a row's threads hold its 16-byte
+    pieces (at most `per` a thread, as compiled) and its head and tail
+    units (the edge, where its bytes are no whole number of pieces, at
+    most 3 words or 7 elements: 32 threads or more); narrow plans (4, 8,
+    16 threads) only for rows of whole pieces, at most 64; a warp a row
+    for bf16 rows of 65 to 128 pieces (513 to 1024 wide); wider rows on
+    the fewest warps at `LN_BWD_PIECES` a lane; rows past
+    `LN_BWD_MAX_ROW_BYTES` refused (`per` 0).  The blocks cover the rows
+    (at most `LN_BWD_MAX_BLOCKS`, a multiple of 8, so that a stream's rows
+    share their 16-byte phase)."""
+    assert tpa.LN_BWD_MAX_BLOCKS % 8 == 0
+    for dtype in (torch.bfloat16, torch.float32):
+        es = dtype.itemsize
+        for D in range(1, tpa.LN_BWD_MAX_ROW_BYTES // es + 200):
+            plan = tpa.layer_norm_backward_plan(1, D, dtype)
+            t, per, edge = plan["threads"], plan["per"], plan["edge"]
+            nbytes = D * es
+            assert edge == (0 if nbytes % 16 == 0 else
+                            4 if nbytes % 4 == 0 else 2), (D, plan)
+            assert plan["rows"] * t == tpa.LN_THREADS, (D, plan)
+            if nbytes > tpa.LN_BWD_MAX_ROW_BYTES:
+                assert per == 0, (D, plan)
+                continue
+            pieces = nbytes // 16
+            assert per in (4, 5, 6, 8) and t * per >= pieces, (D, plan)
+            assert per < 8 or t == tpa.LN_THREADS, (D, plan)
+            if t < 32:
+                assert edge == 0 and pieces <= 64, (D, plan)
+            else:
+                assert t % 32 == 0 and (edge or pieces > 64), (D, plan)
+                assert (t == 32 or -(-pieces // (t // 2))
+                        > tpa.LN_BWD_PIECES), (D, plan)
+            if dtype == torch.bfloat16 and 512 < D <= 1024 and D % 8 == 0:
+                assert t == 32, (D, plan)
     for M in (1, 7, 333, 2048, 2049, 19_712, 32_896, 802_816):
-        plan = tpa.layer_norm_backward_plan(M, 768)
-        blocks, rows = plan["blocks"], plan["rows"]
-        assert blocks <= tpa.LN_BWD_MAX_BLOCKS, (M, plan)
-        assert blocks * rows >= M > (blocks - 1) * rows, (M, plan)
-    for D, (threads, per) in LN_BWD_WIDTHS.items():
-        plan = tpa.layer_norm_backward_plan(32_896, D)
-        assert (plan["threads"], plan["per"]) == (threads, per), D
+        for D, dtype in ((768, torch.bfloat16), (2730, torch.bfloat16),
+                         (128, torch.float32)):
+            plan = tpa.layer_norm_backward_plan(M, D, dtype)
+            blocks, rows = plan["blocks"], plan["rows"]
+            assert 0 < blocks <= tpa.LN_BWD_MAX_BLOCKS, (M, plan)
+            assert (blocks - 1) * rows < M, (M, plan)
+            assert blocks * rows >= M or blocks == tpa.LN_BWD_MAX_BLOCKS
+            if blocks * rows < M:     # streams take several rows
+                assert blocks * rows * D * dtype.itemsize % 16 == 0
+    for (D, dt), want in LN_BWD_WIDTHS.items():
+        plan = tpa.layer_norm_backward_plan(32_896, D, getattr(torch, dt))
+        assert (plan["threads"], plan["per"], plan["edge"]) == want, (D, dt)
 
 
 # ---------------------------------------------------------------------------
@@ -473,27 +565,99 @@ def fake_library(monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_backward_launch_is_one_call(dtype, fake_library):
+    """One C call for both kernels, given the forward's log-sum-exp (fp32
+    [R, H, L]) and an fp32 delta scratch of the same shape."""
     R, L, H, hd = 2, 24, 3, 16
     qkv = torch.zeros(R, L, 3 * H * hd, dtype=dtype)
     out, dout = (torch.zeros(R, L, H * hd, dtype=dtype) for _ in range(2))
-    dqkv = tpa._launch_packed_attention_backward(qkv, out, dout, H, 8, True)
+    lse = torch.zeros(R, H, L)
+    dqkv = tpa._launch_packed_attention_backward(qkv, out, lse, dout, H, 8,
+                                                 True)
     (name, args), = fake_library.calls
     assert name == "leaf_packed_attention_backward"
-    assert args[:4] == (qkv.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                        dqkv.data_ptr())
-    assert args[5:12] == (tpa._DTYPE_CODES[dtype], R, L, H, hd, 8, 1)
-    assert args[12] == pytest.approx(hd ** -0.5) and args[13:] == (None, 1234)
+    assert args[:5] == (qkv.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                        dout.data_ptr(), dqkv.data_ptr())
+    assert args[5] not in args[:5]
+    assert args[6:13] == (tpa._DTYPE_CODES[dtype], R, L, H, hd, 8, 1)
+    assert args[13] == pytest.approx(hd ** -0.5)
+    assert args[14:] == (0, None, 1234)
     assert dqkv.shape == qkv.shape and dqkv.dtype == dtype
     assert tpa.packed_attention.backward_launches == 1
     assert tpa.packed_attention.launches == 0
+    tpa._launch_packed_attention_backward(qkv, out, lse, dout, H, 8, True,
+                                          max_whole=64)
+    assert fake_library.calls[-1][1][14] == 64
     with pytest.raises(ValueError, match="dout"):
-        tpa._launch_packed_attention_backward(qkv, out, dout[:, :5], H, 8, True)
+        tpa._launch_packed_attention_backward(qkv, out, lse, dout[:, :5], H,
+                                              8, True)
     with pytest.raises(TypeError, match="out"):
-        tpa._launch_packed_attention_backward(qkv, out.half(), dout, H, 8, True)
+        tpa._launch_packed_attention_backward(qkv, out.half(), lse, dout, H,
+                                              8, True)
+    with pytest.raises(ValueError, match="lse"):
+        tpa._launch_packed_attention_backward(qkv, out, lse[:, :2], dout, H,
+                                              8, True)
+    with pytest.raises(TypeError, match="lse"):
+        tpa._launch_packed_attention_backward(qkv, out, lse.to(dtype).double(),
+                                              dout, H, 8, True)
     wide = torch.zeros(1, 4, 3 * 136)
     with pytest.raises(ValueError, match="head width 136"):
         tpa._launch_packed_attention_backward(
-            wide, torch.zeros(1, 4, 136), torch.zeros(1, 4, 136), 1, 4, False)
+            wide, torch.zeros(1, 4, 136), torch.zeros(1, 1, 4),
+            torch.zeros(1, 4, 136), 1, 4, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_forward_saves_the_kernels_lse(dtype, fake_library):
+    """Serving's launch asks the packed kernel for no log-sum-exp; the
+    training forward (`_PackedAttention`) hands it an fp32 [R, H, L]
+    buffer, saves it, and its backward passes that buffer to one
+    `leaf_packed_attention_backward` call."""
+    R, L, H, hd = 2, 24, 3, 16
+    qkv = torch.zeros(R, L, 3 * H * hd, dtype=dtype)
+    tpa._launch_packed_attention(qkv, H, 8, True)
+    (name, args), = fake_library.calls
+    assert name == "leaf_packed_attention" and args[2] is None
+    assert args[:2] == (qkv.data_ptr(), args[1])
+    fake_library.calls.clear()
+    t = qkv.clone().requires_grad_()
+    out = tpa._PackedAttention.apply(t, H, 8, True)
+    (name, args), = fake_library.calls
+    assert name == "leaf_packed_attention" and args[2] is not None
+    assert args[1] == out.data_ptr() and args[3:11] == (
+        tpa._DTYPE_CODES[dtype], R, L, H, hd, 8, 1, args[10])
+    saved = out.grad_fn.saved_tensors
+    lse = next(x for x in saved if x.data_ptr() == args[2])
+    assert lse.dtype == torch.float32 and lse.shape == (R, H, L)
+    out.backward(torch.ones_like(out))
+    backward = [a for n, a in fake_library.calls
+                if n == "leaf_packed_attention_backward"]
+    assert len(backward) == 1 and backward[0][2] == lse.data_ptr()
+    assert (tpa.packed_attention.launches,
+            tpa.packed_attention.backward_launches) == (2, 1)
+
+
+def test_block_backward_passes_the_recomputed_lse(fake_library):
+    """The block's backward asks its recomputing packed launch for the
+    log-sum-exp (no launch of its own for it) and hands that buffer to its
+    one attention backward call."""
+    R, L, D, H = 2, 12, 16, 2
+    x = torch.zeros(R, L, D, dtype=torch.bfloat16, requires_grad=True)
+    leaves = [torch.ones(D), torch.zeros(D)] + [
+        torch.zeros(*shape, dtype=torch.bfloat16)
+        for shape in ((D, 3 * D), (3 * D,), (D, D), (D,))]
+    out = tpa._FusedAttentionBlock.apply(x, *leaves, H, 6, True, 1e-5)
+    fake_library.calls.clear()
+    out.backward(torch.ones_like(out))
+    names = [n for n, _ in fake_library.calls]
+    assert names == ["leaf_layer_norm", "leaf_gemm_bias_tile",
+                     "leaf_packed_attention", "leaf_packed_attention_backward",
+                     "leaf_layer_norm_backward"]
+    forward, backward = (a for n, a in fake_library.calls
+                         if n.startswith("leaf_packed_attention"))
+    assert forward[2] is not None and backward[2] == forward[2]
+    assert backward[:2] == (forward[0], forward[1])
+    assert (tpa.fused_attention_block.backward_launches,
+            tpa.packed_attention.backward_launches) == (1, 1)
 
 
 @pytest.mark.parametrize("params", [True, False])
@@ -523,20 +687,22 @@ def test_layer_norm_backward_launch_passes_the_plan(params, fake_library):
 
 def test_block_recompute_launches_the_forward_kernels(fake_library):
     """The block's backward recomputes ln_1, the qkv projection and the
-    attention by three kernel calls, counted once as the block's backward
-    and under no forward counter."""
+    attention (its output and log-sum-exp) by three kernel calls, counted
+    once as the block's backward and under no forward counter."""
     R, L, D, H = 2, 12, 16, 2
     x = torch.zeros(R, L, D, dtype=torch.bfloat16)
     p = {"ln_1": {"scale": torch.ones(D), "bias": torch.zeros(D)},
          "attn": {"qkv_w": torch.zeros(D, 3 * D, dtype=torch.bfloat16),
                   "qkv_b": torch.zeros(3 * D, dtype=torch.bfloat16)}}
-    h, qkv, o = tpa._launch_block_recompute(
+    h, qkv, o, lse = tpa._launch_block_recompute(
         x, p["ln_1"]["scale"], p["ln_1"]["bias"], p["attn"]["qkv_w"],
         p["attn"]["qkv_b"], H, 6, True, 1e-5)
     assert [name for name, _ in fake_library.calls] == [
         "leaf_layer_norm", "leaf_gemm_bias_tile", "leaf_packed_attention"]
     assert (h.shape, qkv.shape, o.shape) == ((R, L, D), (R, L, 3 * D),
                                              (R, L, D))
+    assert lse.dtype == torch.float32 and lse.shape == (R, H, L)
+    assert fake_library.calls[-1][1][2] == lse.data_ptr()
     assert tpa.fused_attention_block.backward_launches == 1
     assert (tpa.layer_norm.launches, tpa.packed_attention.launches,
             tpa.fused_attention_block.launches) == (0, 0, 0)

@@ -284,7 +284,7 @@ def _plain_backward_launchers(monkeypatch):
         hh = tpa._layer_norm_reference(x, s, b, eps)
         qkv = tpa._gemm_bias_reference(hh.reshape(R * L, D), qw, qb)
         qkv = qkv.reshape(R, L, 3 * D)
-        return hh, qkv, tpa._reference(qkv, h, g, c)
+        return (hh, qkv, *tpa._reference(qkv, h, g, c, with_lse=True))
 
     def ln_backward(x, scale, dy, eps, params):
         dx, ds, db = tpa._layer_norm_backward_reference(x, scale, None, eps,
@@ -293,11 +293,8 @@ def _plain_backward_launchers(monkeypatch):
 
     monkeypatch.setattr(tpa, "_launch_block_recompute", recompute)
     monkeypatch.setattr(tpa, "_launch_layer_norm_backward", ln_backward)
-    monkeypatch.setattr(
-        tpa, "_launch_packed_attention_backward",
-        lambda qkv, out, dout, h, g, c:
-        tpa._packed_attention_backward_reference(qkv, out, None, dout, h, g,
-                                                 c))
+    monkeypatch.setattr(tpa, "_launch_packed_attention_backward",
+                        tpa._packed_attention_backward_reference)
 
 
 @pytest.mark.parametrize("S,G,causal", GRAD_CASES)

@@ -263,7 +263,7 @@ def _plain_backward_launchers(monkeypatch):
         hh = tpa._layer_norm_reference(x, s, b, eps)
         qkv = tpa._gemm_bias_reference(hh.reshape(R * L, D), qw, qb)
         qkv = qkv.reshape(R, L, 3 * D)
-        return hh, qkv, tpa._reference(qkv, h, g, c)
+        return (hh, qkv, *tpa._reference(qkv, h, g, c, with_lse=True))
 
     def ln_backward(x, scale, dy, eps, params):
         dx, ds, db = tpa._layer_norm_backward_reference(x, scale, None, eps,
@@ -272,19 +272,15 @@ def _plain_backward_launchers(monkeypatch):
 
     monkeypatch.setattr(tpa, "_launch_block_recompute", recompute)
     monkeypatch.setattr(tpa, "_launch_layer_norm_backward", ln_backward)
-    monkeypatch.setattr(
-        tpa, "_launch_packed_attention_backward",
-        lambda qkv, out, dout, h, g, c:
-        tpa._packed_attention_backward_reference(qkv, out, None, dout, h, g,
-                                                 c))
+    monkeypatch.setattr(tpa, "_launch_packed_attention_backward",
+                        tpa._packed_attention_backward_reference)
 
 
 def test_backward_recomputes_through_plain_version(monkeypatch):
     """The autograd wrappers' gradients equal the JAX custom_vjp's; the
     kernel launches, forward and backward, are stood in for by their plain
     versions so that the wrappers run on the CPU."""
-    monkeypatch.setattr(tpa, "_launch_packed_attention",
-                        lambda qkv, h, g, c: tpa._reference(qkv, h, g, c))
+    monkeypatch.setattr(tpa, "_launch_packed_attention", tpa._reference)
     _plain_backward_launchers(monkeypatch)
     rng = np.random.default_rng(3)
     qkv = _qkv(rng, 2, 32, 32)
