@@ -2052,8 +2052,8 @@ class _Steps(logging.Handler):
 class _CaptionBatches:
     """Batches of seeded captions, one range of lengths per batch.  The
     loop comes back for the next batch between two steps: `marks` keeps
-    what `seconds` (running totals of host and device or wait seconds)
-    held then."""
+    what `seconds` (running totals of the unfused attack's host and device
+    seconds, or the fused step's host seconds) held then."""
 
     def __init__(self, batches, seconds):
         self.batches = batches
@@ -2096,16 +2096,37 @@ def _report_unfused(tag, steps, seconds):
     return dict(out, attack_s=attack_s, host_s=host_s, device_s=dev_s)
 
 
-def _report_fused(tag, steps, before, fused_step):
+def _fused_waits(spans):
+    """From the spans of a recording (`utils.tracing`) over fused steps:
+    the seconds each step waited for its best-probe readbacks
+    (`train.fused.wait`), in step order, and how many of the pipelined
+    steps' first readbacks returned while the second half's phase 1 still
+    ran ("early") and after it ("late")."""
+    steps = [i for i, s in enumerate(spans) if s.name == "train.fused.step"]
+    waits, early, late = [0.0] * len(steps), 0, 0
+    for s in spans:
+        if s.name != "train.fused.wait":
+            continue
+        root = s.parent
+        while spans[root].name != "train.fused.step":
+            root = spans[root].parent
+        waits[steps.index(root)] += s.ms / 1e3
+        if "early" in s.counts:
+            early += s.counts["early"]
+            late += 1 - s.counts["early"]
+    return waits, early, late
+
+
+def _report_fused(tag, steps, host_s, spans):
     """Print rates of the fused loop's `steps` and, from the fused step's
-    running totals since `before`, the host's preparation and waiting
-    seconds per step and where the first readbacks returned."""
+    host seconds over them (`host_s`) and the spans recorded over them,
+    the host's preparation and waiting seconds per step and where the
+    first readbacks returned."""
     step_s, out = _step_times(tag, steps)
     n = len(steps)
-    host_s = (fused_step.seconds["host"] - before["host"]) / n
-    wait_s = (fused_step.seconds["wait"] - before["wait"]) / n
-    early = fused_step.readbacks["early"] - before["early"]
-    late = fused_step.readbacks["late"] - before["late"]
+    host_s = host_s / n
+    waits, early, late = _fused_waits(spans)
+    wait_s = sum(waits) / n
     require(early + late == n and early > 0,
             f"{tag}: of the first readbacks of {n} pipelined steps, {early} "
             f"returned before the second half's phase 1 had finished and "
@@ -2122,10 +2143,6 @@ def _report_fused(tag, steps, before, fused_step):
         f"finished in {early} of {n} steps")
     return dict(out, host_s=host_s, wait_s=wait_s, steady_step_s=steady,
                 readbacks_early=early, readbacks_late=late)
-
-
-def _fused_marks(fused_step):
-    return {**fused_step.seconds, **fused_step.readbacks}
 
 
 class _Counters:
@@ -2205,6 +2222,7 @@ def phase_train(workdir: str):
     from leaf_tpu_torch.models import interop
     from leaf_tpu_torch.models.factory import create_model, get_tokenizer
     from leaf_tpu_torch.train import driver, fused, loop, params, step
+    from leaf_tpu_torch.utils import tracing
 
     n_steps = 8
     handler = _Steps()
@@ -2217,7 +2235,9 @@ def phase_train(workdir: str):
         # ---- driver.main, fused, unconstrained, the synthetic caption
         tok_before = dict(tok.counts)
         counters.zero()
-        out = driver.main(TRAIN_FLAGS + ["--logs", workdir, "--name", "free"])
+        with tracing.recording():
+            out = driver.main(TRAIN_FLAGS + ["--logs", workdir, "--name",
+                                             "free"])
         cfg, layers = out["cfg"], out["cfg"].text.layers
         fs = out["fused_step"]
         # per step: 2 probe + 2 candidate scoring encodes and the train
@@ -2230,7 +2250,7 @@ def phase_train(workdir: str):
                       "cache hit ever after")
         results["fused_s16"] = _report_fused(
             "train.driver fused, caption 'Dummy caption' (bucket 16)",
-            handler.steps, dict.fromkeys(_fused_marks(fs), 0), fs)
+            handler.steps, fs.seconds["host"], tracing.recorded())
         require(len(handler.steps) == n_steps, f"{len(handler.steps)} steps")
         times = _check_run_files(out, (0, 1), n_steps)
         say(f"(j) times_False.csv: {n_steps} rows, attack seconds "
@@ -2266,8 +2286,9 @@ def phase_train(workdir: str):
         unfused_steps = 4
 
         def run_loop(batches, epoch, seed, fused_step=None, constraint=None):
-            """One epoch of the loop over caption batches; returns the
-            unfused attack's host/device seconds and the loader."""
+            """One epoch of the loop over caption batches, its spans
+            recorded; returns the unfused attack's host/device seconds and
+            the loader."""
             handler.steps.clear()
             seconds = {"host": 0.0, "device": 0.0}
             watched = fused_step.seconds if fused_step is not None else seconds
@@ -2275,11 +2296,13 @@ def phase_train(workdir: str):
             data = {"train": DataInfo(loader, num_batches=len(batches),
                                       num_samples=BATCH * len(batches))}
             counters.zero()
-            loop.train_one_epoch_text_only(
-                state, frozen_text, scorer, step.make_anchor_encode(),
-                step.make_train_step(), tok, edits.DEFAULT_VOCAB, data, epoch,
-                args, constraint=constraint, rng=np.random.default_rng(seed),
-                seconds=seconds, fused_step=fused_step)
+            with tracing.recording():
+                loop.train_one_epoch_text_only(
+                    state, frozen_text, scorer, step.make_anchor_encode(),
+                    step.make_train_step(), tok, edits.DEFAULT_VOCAB, data,
+                    epoch, args, constraint=constraint,
+                    rng=np.random.default_rng(seed), seconds=seconds,
+                    fused_step=fused_step)
             torch.cuda.synchronize()
             loader.marks.append(dict(watched))
             return seconds, loader
@@ -2302,8 +2325,10 @@ def phase_train(workdir: str):
                                      ["--epochs", "2", "--resume", "latest"])):
             handler.steps.clear()
             counters.zero()
-            out = driver.main(TRAIN_FLAGS + ["--constrain", "--logs", workdir,
-                                             "--name", "constrained"] + extra)
+            with tracing.recording():
+                out = driver.main(TRAIN_FLAGS + [
+                    "--constrain", "--logs", workdir, "--name",
+                    "constrained"] + extra)
             fs = out["fused_step"]
             counters.hold(f"train.driver fused --constrain, leg {leg + 1}",
                           6 * n_steps + 1, layers,
@@ -2311,7 +2336,7 @@ def phase_train(workdir: str):
             results[f"constrained_s16_leg{leg + 1}"] = _report_fused(
                 "train.driver fused --constrain, caption 'Dummy caption', "
                 + ("epoch 1" if leg == 0 else "--resume latest, epoch 2"),
-                handler.steps, dict.fromkeys(_fused_marks(fs), 0), fs)
+                handler.steps, fs.seconds["host"], tracing.recorded())
             require(out["state"].step == n_steps * (leg + 1),
                     f"step {out['state'].step} after leg {leg + 1}")
             if leg == 0:
@@ -2372,22 +2397,23 @@ def phase_train(workdir: str):
                  for n in needs] == [16, 32, 48, 64], f"buckets of {needs}")
 
         def fused_cell(tag, fs, epoch, cache):
-            before = _fused_marks(fs)
+            before = fs.seconds["host"]
             misses = _anchor_misses(batches, cache)
             _, loader = run_loop(batches, epoch, 5, fused_step=fs,
                                  constraint=fs.constraint)
+            spans = tracing.recorded()
             counters.hold(tag, 6 * len(batches) + misses, layers,
                           f"{len(batches)} steps x 6 half encodes + {misses} "
                           "anchor encodes of halves that missed the cache")
+            waits = _fused_waits(spans)[0]
             for i, (bucket, a) in enumerate(zip((16, 32, 48, 64),
                                                 handler.steps)):
-                host, wait = (loader.marks[i + 1][key] - loader.marks[i][key]
-                              for key in ("host", "wait"))
+                host = loader.marks[i + 1]["host"] - loader.marks[i]["host"]
                 say(f"(j) {tag}, bucket {bucket}: step {a[5]:.3f} s, host "
-                    f"preparation {host:.3f} s, waited {wait:.3f} s, loss "
-                    f"{a[8]:.4f}")
+                    f"preparation {host:.3f} s, waited {waits[i]:.3f} s, "
+                    f"loss {a[8]:.4f}")
             return _report_fused(tag + " (buckets 16-64)", handler.steps,
-                                 before, fs)
+                                 fs.seconds["host"] - before, spans)
 
         kw = dict(cfg=cfg, tokenizer=tok, rho=RHO, k=K, device="cuda")
         fs_free = fused.FusedLeafStep(**kw)
@@ -2609,6 +2635,7 @@ def phase_recipe(workdir: str):
     from leaf_tpu_torch.data import get_data
     from leaf_tpu_torch.models.factory import get_tokenizer
     from leaf_tpu_torch.train import driver, fused, loop, params, step
+    from leaf_tpu_torch.utils import tracing
 
     rng = np.random.default_rng(12)
     tars = _write_tar_set(os.path.join(workdir, "tars"), rng)
@@ -2691,17 +2718,20 @@ def phase_recipe(workdir: str):
             data = {"train": get_data(args, None, text_only=True)["train"]}
             handler.steps.clear()
             seconds = {"host": 0.0, "device": 0.0}
-            before = _fused_marks(fs)
+            before = fs.seconds["host"]
             counters.zero()
-            loop.train_one_epoch_text_only(
-                state, frozen, scorer, step.make_anchor_encode(),
-                step.make_train_step(), tok, edits.DEFAULT_VOCAB, data, epoch,
-                args,
-                rng=np.random.default_rng(13), seconds=seconds,
-                fused_step=fused_step)
+            with tracing.recording():
+                loop.train_one_epoch_text_only(
+                    state, frozen, scorer, step.make_anchor_encode(),
+                    step.make_train_step(), tok, edits.DEFAULT_VOCAB, data,
+                    epoch, args,
+                    rng=np.random.default_rng(13), seconds=seconds,
+                    fused_step=fused_step)
             torch.cuda.synchronize()
             name = f"{tag} loop, recipe tar set (unique captions of 3-58 words)"
-            loops[tag] = (_report_fused(name, handler.steps, before, fs)
+            loops[tag] = (_report_fused(name, handler.steps,
+                                        fs.seconds["host"] - before,
+                                        tracing.recorded())
                           if fused_step is not None else
                           _report_unfused(name, handler.steps, seconds))
         f_sps, u_sps = (loops[t]["samples_per_s"] for t in ("fused", "unfused"))

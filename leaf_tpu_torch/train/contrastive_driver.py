@@ -87,8 +87,8 @@ from leaf_tpu_torch.train.schedules import make_scheduler
 from leaf_tpu_torch.utils.file_utils import copy_codebase, start_run_mirror
 from leaf_tpu_torch.utils.logging_utils import setup_logging
 from leaf_tpu_torch.utils.meters import AverageMeter
-from leaf_tpu_torch.utils.profiler import TraceWindow
 from leaf_tpu_torch.utils.results import ResultsLedger
+from leaf_tpu_torch.utils.tracing import TraceWindow
 from leaf_tpu_torch.utils.trackers import create_tracker
 
 LOG = logging.getLogger(__name__)

@@ -34,7 +34,7 @@ the run directory (`utils.file_utils`), and `--resume latest` then also
 looks for a newer checkpoint in the mirror; `--report-to
 tensorboard,wandb` logs each logged step and each eval
 (`utils.trackers`); `--profile-dir` writes a `torch.profiler` trace of
-batches 2 to 5 of epoch 0 (`utils.profiler.TraceWindow`);
+batches 2 to 5 of epoch 0 (`utils.tracing.TraceWindow`);
 `--matmul-precision` sets torch's fp32 matmul precision
 (`train.params.MATMUL_PRECISIONS`).
 

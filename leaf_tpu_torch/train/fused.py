@@ -62,6 +62,7 @@ from leaf_tpu_torch.models.config import CLIPConfig
 from leaf_tpu_torch.parallel.distributed import (global_max_int32, pmean,
                                                  world_size)
 from leaf_tpu_torch.train.step import TrainState
+from leaf_tpu_torch.utils.tracing import span
 
 
 def _scoring_anchors(anchors: torch.Tensor, objective: str) -> torch.Tensor:
@@ -88,6 +89,25 @@ def _take_rows(tokens: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
     """tokens [B, N, C], best [B] -> tokens[i, best[i]] as [B, C]."""
     index = best[:, None, None].expand(-1, 1, tokens.shape[-1])
     return tokens.gather(1, index)[:, 0]
+
+
+def _own_tokens(tokens) -> int:
+    """Tokens from SOT to EOT summed over the rows of a token grid: EOT is
+    a row's largest id, where the tower pools."""
+    if isinstance(tokens, torch.Tensor):
+        tokens = tokens.cpu().numpy()
+    return int(tokens.argmax(-1).sum()) + tokens[..., 0].size
+
+
+def _count_grid(s, tokens) -> None:
+    """Add a token grid's rows, slots (rows x width) and own tokens to the
+    open span `s`; a device grid's own tokens are counted when the
+    recording is read."""
+    slots = int(np.prod(tokens.shape))
+    s.add("rows", slots // tokens.shape[-1])
+    s.add("slots", slots)
+    s.add("own_tokens", (lambda: _own_tokens(tokens))
+          if isinstance(tokens, torch.Tensor) else _own_tokens(tokens))
 
 
 def _marker(device: torch.device):
@@ -153,10 +173,15 @@ def make_fused_phase2_step(normalize: bool = False, remat: bool = False,
             best = _score(state.text, cand_tokens, anchors, objective)
             adv_tokens = _take_rows(cand_tokens, best)
         marker = _marker(cand_tokens.device)
-        adv_feats = state.text.encode_text(adv_tokens, normalize, remat=remat)
-        diff = anchors.float() - adv_feats.float()
-        loss = w_fare_text * diff.square().sum(dim=-1).mean()
-        return state, best, _update(state, loss), marker
+        with span("train.fused.enqueue.update") as s:
+            adv_feats = state.text.encode_text(adv_tokens, normalize,
+                                               remat=remat)
+            diff = anchors.float() - adv_feats.float()
+            loss = w_fare_text * diff.square().sum(dim=-1).mean()
+            metrics = _update(state, loss)
+            if s:
+                _count_grid(s, adv_tokens)
+        return state, best, metrics, marker
 
     return step_fn
 
@@ -249,13 +274,19 @@ class FusedLeafStep:
     k >= 1 and the constrained recipe; only the per-sentence charmer
     configuration takes the unfused path.
 
-    `seconds` sums, over the steps so far, the wall seconds the host
-    spent preparing tokens ("host": position draws, the probe and
-    candidate grids, constraint masks, `prepare_probes` included) and
-    blocked on best-probe readbacks ("wait").  `readbacks` counts the
-    pipelined step's first readbacks that returned while the second
-    half's phase 1 was still running on the device ("early") or after it
-    ("late"); on the CPU both stay 0."""
+    `seconds["host"]` sums, over the steps so far, the wall seconds the
+    host spent preparing tokens (position draws, the probe and candidate
+    grids, constraint masks, `prepare_probes` included): the durations of
+    the spans `train.fused.prepare`, `.candidates` and `.clean`.
+
+    Spans (`utils.tracing`, kept while a recording is on):
+    `train.fused.step` around a step; the host grids above; each
+    best-probe readback's wait, `train.fused.wait`, whose count `early`
+    (the pipelined step's first wait, on a card) is 1 where the readback
+    returned while the second half's phase 1 still ran on the device; and
+    the enqueueing of each encode, `train.fused.enqueue.phase1`, `.score`
+    and `.update`, with the `rows`, `slots` (rows x bucket width) and
+    `own_tokens` (SOT to EOT) of the token grids it encodes."""
 
     # anchor cache size guard: 1M captions x 768 bf16 = 1.5 GB
     MAX_CACHED_ANCHORS = 1_000_000
@@ -320,8 +351,7 @@ class FusedLeafStep:
         self.phase2_score = make_fused_phase2_score(objective)
         self.train_only = make_fused_train_only(normalize, remat, w_fare_text)
         self._copy_stream = None
-        self.seconds = {"host": 0.0, "wait": 0.0}
-        self.readbacks = {"early": 0, "late": 0}
+        self.seconds = {"host": 0.0}
 
     # -- host <-> device ----------------------------------------------------
 
@@ -345,16 +375,21 @@ class FusedLeafStep:
             self._copy_stream = torch.cuda.Stream(self.device)
         return _Readback(tensor, self._copy_stream)
 
-    def _wait(self, readback: _Readback) -> np.ndarray:
-        t0 = time.perf_counter()
-        out = readback.wait()
-        self.seconds["wait"] += time.perf_counter() - t0
+    def _wait(self, readback: _Readback, phase1_done=None) -> np.ndarray:
+        """The readback's value; with `phase1_done` (the pipelined step's
+        marker behind both halves' phase 1) the span counts whether it
+        returned before that marker."""
+        with span("train.fused.wait") as s:
+            out = readback.wait()
+            if s and phase1_done is not None:
+                s.add("early", int(not phase1_done.query()))
         return out
 
-    def _timed_host(self, fn: Callable, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        self.seconds["host"] += time.perf_counter() - t0
+    def _timed_host(self, name: str, fn: Callable, *args):
+        with span(name):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            self.seconds["host"] += time.perf_counter() - t0
         return out
 
     # -- host-side token grids ---------------------------------------------
@@ -440,7 +475,8 @@ class FusedLeafStep:
         hides behind the device's step.  RNG draws happen at call time,
         so calling it *after* batch i's step preserves the exact
         unoverlapped rng stream."""
-        return self._timed_host(self._prepare, list(texts), rng)
+        return self._timed_host("train.fused.prepare", self._prepare,
+                                list(texts), rng)
 
     def _prepared_or_new(self, texts, rng, prepared):
         if prepared is None or prepared["texts"] != texts:
@@ -488,7 +524,7 @@ class FusedLeafStep:
         clean_tokens = None                     # halves share the shape
         if clean_raw is None and self._cached_anchors(texts) is None:
             clean_raw = self._timed_host(
-                lambda: np.asarray(self.tokenizer(texts)))
+                "train.fused.clean", lambda: np.asarray(self.tokenizer(texts)))
         if clean_raw is not None:
             # bucket the clean tokens once, full-batch, so both halves'
             # phase 1 share one shape
@@ -498,30 +534,33 @@ class FusedLeafStep:
         halves = []
         for rows in (slice(0, h), slice(h, B)):
             t_h = texts[rows]
-            pt = self._put(probe_tokens[rows])
-            anch = self._cached_anchors(t_h)
-            if anch is not None:
-                bp = self.phase1_cached(state.text, pt, anch)
-            else:
-                anch, bp = self.phase1(frozen_text, state.text,
-                                       self._put(clean_tokens[rows]), pt)
-                self._fill_cache(t_h, anch)
-            halves.append({"rows": rows, "texts": t_h, "anch": anch,
-                           "bp": self._readback(bp)})
+            with span("train.fused.enqueue.phase1") as s:
+                pt = self._put(probe_tokens[rows])
+                anch = self._cached_anchors(t_h)
+                if anch is not None:
+                    bp = self.phase1_cached(state.text, pt, anch)
+                else:
+                    anch, bp = self.phase1(frozen_text, state.text,
+                                           self._put(clean_tokens[rows]), pt)
+                    self._fill_cache(t_h, anch)
+                    if s:
+                        _count_grid(s, clean_tokens[rows])
+                halves.append({"rows": rows, "texts": t_h, "anch": anch,
+                               "bp": self._readback(bp)})
+                if s:
+                    _count_grid(s, probe_tokens[rows])
         phase1_done = _marker(self.device)
 
         outs = []
         for hd in halves:
             # hard sync, overlapped by the other half's enqueued work
-            bp = self._wait(hd["bp"])
-            if phase1_done is not None and not outs:
-                early = not phase1_done.query()
-                self.readbacks["early" if early else "late"] += 1
+            bp = self._wait(hd["bp"], None if outs else phase1_done)
             pos_rows = positions[hd["rows"]]
             best_pos = [int(pos_rows[i][bp[i]]) for i in range(h)]
             us = self._draw_chars(rng, h)
             cand_raw = self._timed_host(
-                self._candidates, hd["texts"], best_pos, us,
+                "train.fused.candidates", self._candidates, hd["texts"],
+                best_pos, us,
                 None if clean_raw is None else clean_raw[hd["rows"]])
             cand_tokens = self._bucket(cand_raw)
             if self._do_bucket \
@@ -534,16 +573,23 @@ class FusedLeafStep:
                 # the only towers _do_bucket enables).
                 pad = probe_tokens.shape[-1] - cand_tokens.shape[-1]
                 cand_tokens = np.pad(cand_tokens, ((0, 0), (0, 0), (0, pad)))
-            best, adv = self.phase2_score(state.text, self._put(cand_tokens),
-                                          hd["anch"])
+            with span("train.fused.enqueue.score") as s:
+                best, adv = self.phase2_score(
+                    state.text, self._put(cand_tokens), hd["anch"])
+                if s:
+                    _count_grid(s, cand_tokens)
             outs.append({"best_pos": best_pos, "us": us, "best": best,
                          "adv": adv})
         # the attack's device work ends here, BEFORE the train update
         marker = _marker(self.device)
 
-        state, metrics = self.train_only(
-            state, outs[0]["adv"], halves[0]["anch"],
-            outs[1]["adv"], halves[1]["anch"])
+        with span("train.fused.enqueue.update") as s:
+            state, metrics = self.train_only(
+                state, outs[0]["adv"], halves[0]["anch"],
+                outs[1]["adv"], halves[1]["anch"])
+            if s:
+                for out in outs:
+                    _count_grid(s, out["adv"])
         info = {"best_pos": outs[0]["best_pos"] + outs[1]["best_pos"],
                 "best_char_idx": (outs[0]["best"], outs[1]["best"]),
                 "us": np.concatenate([outs[0]["us"], outs[1]["us"]]),
@@ -559,10 +605,18 @@ class FusedLeafStep:
         halves' on the pipelined path), `us`, `base_texts`, `metrics`
         (`loss` and `grad_norm`, on the device) and `attack_marker`."""
         texts_cur = list(texts)
+        with span("train.fused.step"):
+            if self._use_pipeline(len(texts_cur)):
+                return self._pipelined(state, frozen_text, texts_cur, rng,
+                                       prepared)
+            return self._rounds(state, frozen_text, texts_cur, rng, prepared)
+
+    def _rounds(self, state: TrainState, frozen_text: TextTower, texts_cur,
+                rng: np.random.Generator, prepared: Optional[dict]
+                ) -> Tuple[TrainState, dict]:
+        """The unpipelined step: k edit rounds over the whole batch, the
+        train update fused into the last."""
         B = len(texts_cur)
-        if self._use_pipeline(B):
-            return self._pipelined(state, frozen_text, texts_cur, rng,
-                                   prepared)
         anchors = None
 
         for r in range(self.k):
@@ -576,6 +630,7 @@ class FusedLeafStep:
                     # tokenised up front: if any rank misses, every rank
                     # runs phase 1 and needs its clean tokens
                     clean_raw = self._timed_host(
+                        "train.fused.clean",
                         lambda: np.asarray(self.tokenizer(texts_cur)))
                 g = self._global_max([
                     bucket_need(probe_raw) if self._do_bucket else 0,
@@ -586,39 +641,56 @@ class FusedLeafStep:
                 clean_need = int(g[2]) or None
                 if int(g[1]):
                     cached = None
-            probe_tokens = self._put(self._bucket(probe_raw, probe_need))
+            probe_grid = self._bucket(probe_raw, probe_need)
             if anchors is None:
                 anchors = cached
-            if anchors is not None:
-                best_probe = self.phase1_cached(state.text, probe_tokens,
-                                                anchors)
-            else:
+            clean_grid = None
+            if anchors is None:
                 if clean_raw is None:
                     clean_raw = self._timed_host(
+                        "train.fused.clean",
                         lambda: np.asarray(self.tokenizer(texts_cur)))
-                anchors, best_probe = self.phase1(
-                    frozen_text, state.text,
-                    self._put(self._bucket(clean_raw, clean_need)),
-                    probe_tokens)
-                self._fill_cache(texts_cur, anchors)
-            best_probe = self._wait(self._readback(best_probe))  # hard sync
+                clean_grid = self._bucket(clean_raw, clean_need)
+            with span("train.fused.enqueue.phase1") as s:
+                probe_tokens = self._put(probe_grid)
+                if clean_grid is None:
+                    best_probe = self.phase1_cached(state.text, probe_tokens,
+                                                    anchors)
+                else:
+                    anchors, best_probe = self.phase1(
+                        frozen_text, state.text, self._put(clean_grid),
+                        probe_tokens)
+                    self._fill_cache(texts_cur, anchors)
+                    if s:
+                        _count_grid(s, clean_grid)
+                readback = self._readback(best_probe)
+                if s:
+                    _count_grid(s, probe_grid)
+            best_probe = self._wait(readback)  # hard sync
             best_pos = [int(positions[i][best_probe[i]]) for i in range(B)]
 
             us = self._draw_chars(rng, B)
-            cand_raw = self._timed_host(self._candidates, texts_cur, best_pos,
+            cand_raw = self._timed_host("train.fused.candidates",
+                                        self._candidates, texts_cur, best_pos,
                                         us, clean_raw)
             cand_need = None
             if self._agree and self._do_bucket:
                 cand_need = int(self._global_max([bucket_need(cand_raw)])[0])
-            cand_tokens = self._put(self._bucket(cand_raw, cand_need))
+            cand_grid = self._bucket(cand_raw, cand_need)
+            with span("train.fused.enqueue.score") as s:
+                cand_tokens = self._put(cand_grid)
+                if r < self.k - 1:
+                    readback = self._readback(self.phase1_cached(
+                        state.text, cand_tokens, anchors))
+                else:
+                    state, best, metrics, marker = self.phase2(
+                        state, cand_tokens, anchors)
+                if s:
+                    _count_grid(s, cand_grid)
             if r < self.k - 1:
                 # intermediate round: pick the winner, edit on the host
-                best = self._wait(self._readback(self.phase1_cached(
-                    state.text, cand_tokens, anchors)))
+                best = self._wait(readback)
                 texts_cur = self._apply_winners(texts_cur, best_pos, us, best)
-            else:
-                state, best, metrics, marker = self.phase2(
-                    state, cand_tokens, anchors)
 
         info = {"best_pos": best_pos, "best_char_idx": best, "us": us,
                 "base_texts": texts_cur, "metrics": metrics,

@@ -44,8 +44,8 @@ from leaf_tpu_torch.models.clip import TextTower
 from leaf_tpu_torch.parallel.distributed import world_size
 from leaf_tpu_torch.train.step import TrainState
 from leaf_tpu_torch.utils.meters import AverageMeter
-from leaf_tpu_torch.utils.profiler import TraceWindow
 from leaf_tpu_torch.utils.results import AsyncAttackTimer, TimingLedger
+from leaf_tpu_torch.utils.tracing import TraceWindow, span
 
 LOG = logging.getLogger(__name__)
 
@@ -102,7 +102,8 @@ def train_one_epoch_text_only(
     `attack_text_charmer_batched`); the fused step keeps its own
     (`FusedLeafStep.seconds`).  Each logged step's `log_data` also goes
     to `tracker`, and with `args.profile_dir` batches 2 to 5 of epoch 0
-    are traced (`utils.profiler.TraceWindow`)."""
+    are traced (`utils.tracing.TraceWindow`).  Each pull from the loader
+    is the span `train.loop.next_batch` (`utils.tracing`)."""
     rng = rng or np.random.default_rng(args.seed + 1000 * epoch)
     world = world_size()
     # across ranks the width is agreed per buffer (one small all-reduce)
@@ -153,11 +154,15 @@ def train_one_epoch_text_only(
     def put(tokens) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(tokens)).to(device)
 
+    def next_batch(it):
+        with span("train.loop.next_batch"):
+            return next(it, None)
+
     attack_timer = None
     if fused_step is not None and timing is not None:
         attack_timer = AsyncAttackTimer(timing)
     loader_it = iter(info.loader)
-    batch = next(loader_it, None)
+    batch = next_batch(loader_it)
     prepared = None
     trace = TraceWindow(getattr(args, "profile_dir", None), epoch)
     i = -1
@@ -191,7 +196,7 @@ def train_one_epoch_text_only(
             # tokenisation + constraint masks).  The rng draw order is that
             # of the unoverlapped loop: positions for i+1 were always drawn
             # after batch i's characters.
-            batch = next(loader_it, None)
+            batch = next_batch(loader_it)
             prepared = None
             if batch is not None:
                 prepared = fused_step.prepare_probes(list(batch[1]), rng)
@@ -209,7 +214,7 @@ def train_one_epoch_text_only(
 
             adv_tokens = put(_bucket(tokenizer(adv_texts)))
             state, metrics = train_step(state, adv_tokens, anchors)
-            batch = next(loader_it, None)
+            batch = next_batch(loader_it)
 
         batch_time_m.update(time.time() - end)
         end = time.time()

@@ -51,6 +51,7 @@ import torch
 
 from leaf_tpu_torch.parallel.distributed import all_reduce_mean_
 from leaf_tpu_torch.parallel.sharding import Grid, param_split, split_norm_sq
+from leaf_tpu_torch.utils.tracing import span
 
 # Path components that put a parameter in the no-decay group.
 _NO_DECAY_KEYS = {"ln_1", "ln_2", "ln_pre", "ln_post", "ln_final",
@@ -141,43 +142,46 @@ class Optimizer:
         `schedule(step // accum_freq)` and clear the gradients; under
         accumulation only every `accum_freq`-th call does that, on the
         mean of the gradients since the last one.  Returns the global
-        norm of this call's gradients before clipping."""
-        grads = [p.grad for p in self.parameters() if p.grad is not None]
-        if self.grid is not None and len(grads) != len(self.split):
-            raise RuntimeError("a tensor-parallel update needs a gradient "
-                               "on every parameter")
-        # across ranks, the mean of the gradients comes first: under GSPMD
-        # the JAX package's clip, accumulation and Adam see the psum'd
-        # gradient (a no-op on one rank)
-        if self.grid is None:
-            all_reduce_mean_(grads)
-        else:
-            self.grid.data_mean_(grads)
-        norm = clip_norm = self._norm(grads)
-        if self.accum_freq > 1:
-            mini_step = step % self.accum_freq
-            self._accumulate(mini_step)
-            if mini_step != self.accum_freq - 1:
-                self.adamw.zero_grad(set_to_none=True)
-                return norm
-            grads, self.accumulated = self.accumulated, None
-            for p, g in zip(self.parameters(), grads):
-                p.grad = g
-            clip_norm = self._norm(grads)
-        if self.grad_clip_norm:
-            # optax's clip_by_global_norm: g * max_norm / norm above the
-            # threshold, untouched below it (torch's clip_grad_norm_ would
-            # divide by norm + 1e-6)
-            scale = torch.where(clip_norm < self.grad_clip_norm,
-                                torch.ones_like(clip_norm),
-                                self.grad_clip_norm / clip_norm)
-            torch._foreach_mul_(grads, scale)
-        lr = float(self.schedule(step // self.accum_freq))
-        for group in self.adamw.param_groups:
-            group["lr"] = lr * group.get("lr_scale", 1.0)
-        self.adamw.step()
-        self.adamw.zero_grad(set_to_none=True)
-        return norm
+        norm of this call's gradients before clipping.  The span
+        `train.optim.update` (`utils.tracing`) times the call on the host
+        and, on a card, its device work."""
+        with span("train.optim.update", device=True):
+            grads = [p.grad for p in self.parameters() if p.grad is not None]
+            if self.grid is not None and len(grads) != len(self.split):
+                raise RuntimeError("a tensor-parallel update needs a gradient "
+                                   "on every parameter")
+            # across ranks, the mean of the gradients comes first: under GSPMD
+            # the JAX package's clip, accumulation and Adam see the psum'd
+            # gradient (a no-op on one rank)
+            if self.grid is None:
+                all_reduce_mean_(grads)
+            else:
+                self.grid.data_mean_(grads)
+            norm = clip_norm = self._norm(grads)
+            if self.accum_freq > 1:
+                mini_step = step % self.accum_freq
+                self._accumulate(mini_step)
+                if mini_step != self.accum_freq - 1:
+                    self.adamw.zero_grad(set_to_none=True)
+                    return norm
+                grads, self.accumulated = self.accumulated, None
+                for p, g in zip(self.parameters(), grads):
+                    p.grad = g
+                clip_norm = self._norm(grads)
+            if self.grad_clip_norm:
+                # optax's clip_by_global_norm: g * max_norm / norm above the
+                # threshold, untouched below it (torch's clip_grad_norm_ would
+                # divide by norm + 1e-6)
+                scale = torch.where(clip_norm < self.grad_clip_norm,
+                                    torch.ones_like(clip_norm),
+                                    self.grad_clip_norm / clip_norm)
+                torch._foreach_mul_(grads, scale)
+            lr = float(self.schedule(step // self.accum_freq))
+            for group in self.adamw.param_groups:
+                group["lr"] = lr * group.get("lr_scale", 1.0)
+            self.adamw.step()
+            self.adamw.zero_grad(set_to_none=True)
+            return norm
 
 
 def make_optimizer(

@@ -1,6 +1,6 @@
 """Model profiler: parameters, operations and bytes of both encoders
-(port of `leaf_tpu/utils/profiler.py`), and the trainers' `--profile-dir`
-trace window.
+(port of `leaf_tpu/utils/profiler.py`).  The trainers' `--profile-dir`
+trace window is `utils.tracing.TraceWindow`.
 
     python -m leaf_tpu_torch.utils.profiler --model ViT-B-32 [--results out.csv]
 
@@ -30,8 +30,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import os
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -109,47 +108,6 @@ def profile_model(model_name: str, batch_size: int = 1,
         "gbytes_image": img_bytes / 1e9,
         "gbytes_text": txt_bytes / 1e9,
     }
-
-
-class TraceWindow:
-    """`--profile-dir`: a `torch.profiler` trace of batches 2 to 5 of
-    epoch 0 (past the first batches' kernel builds and warm-up), written
-    as a Chrome trace `trace_epoch0_batches2-5.json` into the directory.
-    Call `step(i)` before batch i and `close()` after the loop, which
-    ends a window that the epoch cut short."""
-
-    def __init__(self, profile_dir: Optional[str], epoch: int,
-                 first: int = 2, stop: int = 6):
-        self.dir = profile_dir if profile_dir and epoch == 0 else None
-        self.first, self.stop = first, stop
-        self.prof = None
-        self.last = first     # the last batch index inside the window
-
-    def step(self, i: int) -> None:
-        if self.dir is None:
-            return
-        if i == self.first and self.prof is None:
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            self.prof = torch.profiler.profile(activities=activities)
-            self.prof.start()
-        elif self.prof is not None:
-            if i == self.stop:
-                self.close()
-            else:
-                self.last = i
-
-    def close(self) -> Optional[str]:
-        if self.prof is None:
-            return None
-        self.prof.stop()
-        os.makedirs(self.dir, exist_ok=True)
-        path = os.path.join(self.dir, f"trace_epoch0_batches{self.first}-"
-                                      f"{self.last}.json")
-        self.prof.export_chrome_trace(path)
-        self.prof = None
-        return path
 
 
 def main(argv=None) -> List[Dict]:

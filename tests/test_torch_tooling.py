@@ -6,6 +6,7 @@ and `--export`.
 """
 import collections
 import glob
+import json
 import os
 import sys
 import types
@@ -424,3 +425,9 @@ def test_profile_dir_leaves_a_trace_after_six_batches(tmp_path):
     traces = os.listdir(tmp_path / "trace")
     assert traces == ["trace_epoch0_batches2-5.json"]
     assert os.path.getsize(tmp_path / "trace" / traces[0]) > 0
+    # the program's spans sit in it as ranges (this run takes the fused
+    # step)
+    with open(tmp_path / "trace" / traces[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"train.loop.next_batch", "train.fused.step",
+            "train.fused.enqueue.score", "train.optim.update"} <= names
