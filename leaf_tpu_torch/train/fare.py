@@ -54,7 +54,6 @@ from leaf_tpu_torch.parallel import distributed
 from leaf_tpu_torch.train.optim import Optimizer, adamw_kwargs
 from leaf_tpu_torch.train.schedules import cosine_lr
 from leaf_tpu_torch.utils.meters import AverageMeter
-from leaf_tpu_torch.utils.tracing import span
 
 LOG = logging.getLogger(__name__)
 
@@ -361,9 +360,7 @@ def train_fare(visual: VisionTower, cfg: CLIPConfig, fcfg: FareConfig,
     "steps", "final_loss", "times"}: "frozen" is the anchor tower, "times"
     holds, per step, the seconds the loader kept the host waiting
     ("wait_s") and the device's seconds for the anchors, the attack and the
-    update and for the whole step.  The spans `train.fare.load` (the
-    loader's wait and the batch's put), `.anchors`, `.attack` and
-    `.update` (`utils.tracing`) mark the same phases on the host."""
+    update and for the whole step."""
     device = next(visual.parameters()).device
     # the anchors come from the weights the run started from, also when
     # it resumes
@@ -400,31 +397,27 @@ def train_fare(visual: VisionTower, cfg: CLIPConfig, fcfg: FareConfig,
     pending = None
     batches = iter(data_iter)
     while state.step < fcfg.steps:
-        with span("train.fare.load"):
-            t_wait = time.perf_counter()
-            try:
-                images, targets = next(batches)
-            except StopIteration:
-                break
-            wait_s = time.perf_counter() - t_wait
-            n = len(images)
-            marks = _Marks(device)
-            images = put_batch(images, device, torch.float32)
-            targets = put_batch(targets if targets is not None
-                                else np.zeros((n,), np.int64), device,
-                                torch.long)
+        t_wait = time.perf_counter()
+        try:
+            images, targets = next(batches)
+        except StopIteration:
+            break
+        wait_s = time.perf_counter() - t_wait
+        n = len(images)
+        marks = _Marks(device)
+        images = put_batch(images, device, torch.float32)
+        targets = put_batch(targets if targets is not None
+                            else np.zeros((n,), np.int64), device, torch.long)
         marks("start")
-        with span("train.fare.anchors"), torch.no_grad():
+        with torch.no_grad():
             embedding_orig = encode_vision(frozen, cfg, images,
                                            fcfg.output_normalize)
         marks("anchor")
-        with span("train.fare.attack"):
-            adv = attack(images, embedding_orig, targets, classifier,
-                         generator, None if starts is None else next(starts))
+        adv = attack(images, embedding_orig, targets, classifier, generator,
+                     None if starts is None else next(starts))
         marks("attack")
-        with span("train.fare.update"):
-            metrics = train_step(state.step, embedding_orig, images, adv,
-                                 targets, classifier)
+        metrics = train_step(state.step, embedding_orig, images, adv, targets,
+                             classifier)
         marks("update")
         state.step += 1
         flush(pending)

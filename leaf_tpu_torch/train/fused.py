@@ -100,14 +100,11 @@ def _own_tokens(tokens) -> int:
 
 
 def _count_grid(s, tokens) -> None:
-    """Add a token grid's rows, slots (rows x width) and own tokens to the
-    open span `s`; a device grid's own tokens are counted when the
-    recording is read."""
-    slots = int(np.prod(tokens.shape))
-    s.add("rows", slots // tokens.shape[-1])
-    s.add("slots", slots)
-    s.add("own_tokens", (lambda: _own_tokens(tokens))
-          if isinstance(tokens, torch.Tensor) else _own_tokens(tokens))
+    """Add a token grid's slots (rows x width) and own tokens to span `s`;
+    the own tokens are counted when the recording is read, so that the
+    step spends no host time on them."""
+    s.add("slots", int(np.prod(tokens.shape)))
+    s.add("own_tokens", lambda: _own_tokens(tokens))
 
 
 def _marker(device: torch.device):
@@ -161,36 +158,29 @@ def _update(state: TrainState, loss: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"loss": mean, "grad_norm": grad_norm}
 
 
-def make_fused_phase2_step(normalize: bool = False, remat: bool = False,
-                           objective: str = "l2", w_fare_text: float = 1.0):
-    """(state, cand_tokens [B,N,C], anchors [B,D]) ->
-    (state, best_idx [B], metrics, attack marker).  The marker is
-    recorded between the winners' selection and the train forward."""
+def make_fused_train(normalize: bool = False, remat: bool = False,
+                     w_fare_text: float = 1.0):
+    """(state, adv_tokens [B,C], anchors [B,D]) -> (state, metrics): one
+    TextFARE update of the unpipelined step, on the winners that
+    `make_fused_phase2_score` took."""
 
-    def step_fn(state: TrainState, cand_tokens: torch.Tensor,
+    def step_fn(state: TrainState, adv_tokens: torch.Tensor,
                 anchors: torch.Tensor):
-        with torch.no_grad():
-            best = _score(state.text, cand_tokens, anchors, objective)
-            adv_tokens = _take_rows(cand_tokens, best)
-        marker = _marker(cand_tokens.device)
-        with span("train.fused.enqueue.update") as s:
-            adv_feats = state.text.encode_text(adv_tokens, normalize,
-                                               remat=remat)
-            diff = anchors.float() - adv_feats.float()
-            loss = w_fare_text * diff.square().sum(dim=-1).mean()
-            metrics = _update(state, loss)
-            if s:
-                _count_grid(s, adv_tokens)
-        return state, best, metrics, marker
+        adv_feats = state.text.encode_text(adv_tokens, normalize,
+                                           remat=remat)
+        diff = anchors.float() - adv_feats.float()
+        loss = w_fare_text * diff.square().sum(dim=-1).mean()
+        return state, _update(state, loss)
 
     return step_fn
 
 
 def make_fused_phase2_score(objective: str = "l2"):
     """(train_text, cand_tokens [b,N,C], anchors [b,D]) ->
-    (best [b], adv_tokens [b,C]): the scoring half of phase 2, used by
-    the pipelined step (the update is deferred to `make_fused_train_only`
-    so the two half-batches can share one optimizer step)."""
+    (best [b], adv_tokens [b,C]): the scoring half of phase 2 (the update
+    follows as `make_fused_train`, or on the pipelined step as
+    `make_fused_train_only`, so that the two half-batches share one
+    optimizer step)."""
 
     @torch.no_grad()
     def body(train_text: TextTower, cand_tokens: torch.Tensor,
@@ -207,7 +197,7 @@ def make_fused_train_only(normalize: bool = False, remat: bool = False,
     (state, metrics): one TextFARE update over the concatenation of two
     half-batches, computed as two half encodes (so the halves may sit in
     different context buckets: no pad/concat).  The loss is the mean
-    over ALL 2b rows, exactly `make_fused_phase2_step`'s
+    over ALL 2b rows, exactly `make_fused_train`'s
     `sum(-1).mean()`, as two half sums."""
 
     def step_fn(state: TrainState, adv1, anch1, adv2, anch2):
@@ -285,8 +275,8 @@ class FusedLeafStep:
     (the pipelined step's first wait, on a card) is 1 where the readback
     returned while the second half's phase 1 still ran on the device; and
     the enqueueing of each encode, `train.fused.enqueue.phase1`, `.score`
-    and `.update`, with the `rows`, `slots` (rows x bucket width) and
-    `own_tokens` (SOT to EOT) of the token grids it encodes."""
+    and `.update`, with the `slots` (rows x bucket width) and `own_tokens`
+    (SOT to EOT) of the token grids it encodes."""
 
     # anchor cache size guard: 1M captions x 768 bf16 = 1.5 GB
     MAX_CACHED_ANCHORS = 1_000_000
@@ -332,8 +322,6 @@ class FusedLeafStep:
         self._agree = (world_size() if grid is None else grid.data) > 1
         self.phase1 = make_fused_phase1(normalize, objective)
         self.phase1_cached = make_fused_phase1_cached(objective)
-        self.phase2 = make_fused_phase2_step(normalize, remat, objective,
-                                             w_fare_text)
         # half-batch pipelining (k=1 only): split the batch in two, keep
         # BOTH halves' phase 1 enqueued, and overlap each half's
         # best-probe readback (the step's only hard host sync) and the
@@ -349,6 +337,7 @@ class FusedLeafStep:
         # split.
         self._pipeline = pipeline
         self.phase2_score = make_fused_phase2_score(objective)
+        self.train = make_fused_train(normalize, remat, w_fare_text)
         self.train_only = make_fused_train_only(normalize, remat, w_fare_text)
         self._copy_stream = None
         self.seconds = {"host": 0.0}
@@ -537,18 +526,19 @@ class FusedLeafStep:
             with span("train.fused.enqueue.phase1") as s:
                 pt = self._put(probe_tokens[rows])
                 anch = self._cached_anchors(t_h)
-                if anch is not None:
+                cached = anch is not None
+                if cached:
                     bp = self.phase1_cached(state.text, pt, anch)
                 else:
                     anch, bp = self.phase1(frozen_text, state.text,
                                            self._put(clean_tokens[rows]), pt)
                     self._fill_cache(t_h, anch)
-                    if s:
-                        _count_grid(s, clean_tokens[rows])
                 halves.append({"rows": rows, "texts": t_h, "anch": anch,
                                "bp": self._readback(bp)})
-                if s:
-                    _count_grid(s, probe_tokens[rows])
+            if s:
+                _count_grid(s, probe_tokens[rows])
+                if not cached:
+                    _count_grid(s, clean_tokens[rows])
         phase1_done = _marker(self.device)
 
         outs = []
@@ -576,8 +566,8 @@ class FusedLeafStep:
             with span("train.fused.enqueue.score") as s:
                 best, adv = self.phase2_score(
                     state.text, self._put(cand_tokens), hd["anch"])
-                if s:
-                    _count_grid(s, cand_tokens)
+            if s:
+                _count_grid(s, cand_tokens)
             outs.append({"best_pos": best_pos, "us": us, "best": best,
                          "adv": adv})
         # the attack's device work ends here, BEFORE the train update
@@ -587,9 +577,9 @@ class FusedLeafStep:
             state, metrics = self.train_only(
                 state, outs[0]["adv"], halves[0]["anch"],
                 outs[1]["adv"], halves[1]["anch"])
-            if s:
-                for out in outs:
-                    _count_grid(s, out["adv"])
+        if s:
+            for out in outs:
+                _count_grid(s, out["adv"])
         info = {"best_pos": outs[0]["best_pos"] + outs[1]["best_pos"],
                 "best_char_idx": (outs[0]["best"], outs[1]["best"]),
                 "us": np.concatenate([outs[0]["us"], outs[1]["us"]]),
@@ -615,7 +605,7 @@ class FusedLeafStep:
                 rng: np.random.Generator, prepared: Optional[dict]
                 ) -> Tuple[TrainState, dict]:
         """The unpipelined step: k edit rounds over the whole batch, the
-        train update fused into the last."""
+        train update behind the last."""
         B = len(texts_cur)
         anchors = None
 
@@ -661,11 +651,11 @@ class FusedLeafStep:
                         frozen_text, state.text, self._put(clean_grid),
                         probe_tokens)
                     self._fill_cache(texts_cur, anchors)
-                    if s:
-                        _count_grid(s, clean_grid)
                 readback = self._readback(best_probe)
-                if s:
-                    _count_grid(s, probe_grid)
+            if s:
+                _count_grid(s, probe_grid)
+                if clean_grid is not None:
+                    _count_grid(s, clean_grid)
             best_probe = self._wait(readback)  # hard sync
             best_pos = [int(positions[i][best_probe[i]]) for i in range(B)]
 
@@ -683,14 +673,21 @@ class FusedLeafStep:
                     readback = self._readback(self.phase1_cached(
                         state.text, cand_tokens, anchors))
                 else:
-                    state, best, metrics, marker = self.phase2(
-                        state, cand_tokens, anchors)
-                if s:
-                    _count_grid(s, cand_grid)
+                    best, adv = self.phase2_score(state.text, cand_tokens,
+                                                  anchors)
+            if s:
+                _count_grid(s, cand_grid)
             if r < self.k - 1:
                 # intermediate round: pick the winner, edit on the host
                 best = self._wait(readback)
                 texts_cur = self._apply_winners(texts_cur, best_pos, us, best)
+
+        # the attack's device work ends here, BEFORE the train update
+        marker = _marker(self.device)
+        with span("train.fused.enqueue.update") as s:
+            state, metrics = self.train(state, adv, anchors)
+        if s:
+            _count_grid(s, adv)
 
         info = {"best_pos": best_pos, "best_char_idx": best, "us": us,
                 "base_texts": texts_cur, "metrics": metrics,

@@ -3,10 +3,10 @@ window.
 
 A span marks one piece of a layer's work on the host:
 
-    with tracing.span("train.fused.enqueue.score", rows=n) as s:
+    with tracing.span("train.fused.enqueue.score", slots=n) as s:
         ...
-        if s:                       # false while nothing records
-            s.add("own_tokens", k)
+    if s:                           # false while nothing records
+        s.add("own_tokens", k)
 
 It records its name, the span it opened inside, the host clock at open and
 close (`time.perf_counter_ns`) and integer counts given at open or added
@@ -28,10 +28,11 @@ that does nothing: it reads no clock, records no event and keeps nothing.
 in the order they opened.  A new recording clears the previous one; a new
 profiler session is seen as new when a span opens, so that a span opened
 between two sessions keeps them apart.  A span open when a recording starts
-or stops is closed as usual and left out of it.
+or stops is closed as usual and left out of it.  `TraceWindow`, whose
+trace has no reader of `recorded()`, drops its recording when it closes.
 
 Names carry the port's module path (`train.fused.*`, `train.loop.*`,
-`train.fare.*`, `train.optim.*`); none starts with a name that the
+`train.optim.*`); none starts with a name that the
 benchmark gives its own ranges (`leaf.`, `fare.`, `portbench.`).  Spans are
 opened and closed on the thread that drives the trainer.
 """
@@ -260,4 +261,8 @@ class TraceWindow:
                                       f"{self.last}.json")
         self.prof.export_chrome_trace(path)
         self.prof = None
+        if not _RECORDER.explicit:
+            # the spans, and the values their counts hold, are let go
+            _RECORDER.begin()
+            _RECORDER.live = False
         return path

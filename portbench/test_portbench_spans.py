@@ -32,14 +32,11 @@ def _spans(step_end=6.0):
     return [
         _span("train.fused.prepare", None, 0.5, 1.4),             # 0
         _span("train.fused.step", None, 2.5, step_end + 0.5),      # 1
-        _span(e + "phase1", 1, 2.6, 2.8, rows=10, slots=100,       # 2
-              own_tokens=20),
+        _span(e + "phase1", 1, 2.6, 2.8, slots=100, own_tokens=20),  # 2
         _span("train.fused.wait", 1, 2.8, 3.5, early=1),           # 3
         _span("train.fused.candidates", 1, 3.5, 4.0),              # 4
-        _span(e + "score", 1, 4.0, 4.2, rows=10, slots=100,        # 5
-              own_tokens=30),
-        _span(e + "update", 1, 4.5, 6.0, rows=1, slots=10,         # 6
-              own_tokens=5),
+        _span(e + "score", 1, 4.0, 4.2, slots=100, own_tokens=30),   # 5
+        _span(e + "update", 1, 4.5, 6.0, slots=10, own_tokens=5),    # 6
         _span(program.OPTIM, 6, 5.0, 5.5, device_ms=3.0),         # 7
         _span("train.loop.next_batch", None, 6.6, 6.8),            # 8
     ]
