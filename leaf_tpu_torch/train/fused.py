@@ -13,6 +13,10 @@ into the last round):
     (`argmax`, `gather` on the candidate token buffer) -> TextFARE loss,
     backward and the AdamW update.
 
+On one rank each caption's probe and candidate rows are encoded at that
+caption's own context bucket (`FusedLeafStep._score_groups`), so one long
+caption no longer pads the whole batch's rows to its width.
+
 The adversarial *strings* never return to the host: the winning tokens
 feed the train forward on the device.  Selection semantics are those of
 `attack_text_leaf` (same probe and candidate generation, same argmax);
@@ -52,7 +56,8 @@ import numpy as np
 import torch
 
 from leaf_tpu_torch.attacks import edits
-from leaf_tpu_torch.attacks.engine import (bucket_need, bucket_tokens,
+from leaf_tpu_torch.attacks.engine import (CONTEXT_BUCKETS, bucket_need,
+                                           bucket_tokens,
                                            can_bucket as engine_can_bucket,
                                            objective_loss)
 from leaf_tpu_torch.attacks.text import _edit_tokens_fast
@@ -61,8 +66,17 @@ from leaf_tpu_torch.models.clip import TextTower, l2_normalize
 from leaf_tpu_torch.models.config import CLIPConfig
 from leaf_tpu_torch.parallel.distributed import (global_max_int32, pmean,
                                                  world_size)
-from leaf_tpu_torch.train.step import TrainState
+from leaf_tpu_torch.train.step import TrainState, make_anchor_encode
 from leaf_tpu_torch.utils.tracing import span
+
+# A single-rank step scores each caption's probe and candidate rows at that
+# caption's own context bucket (`FusedLeafStep._score_groups`).  One more
+# encode costs its launches, so a narrower group of captions is split off
+# only where the token slots it saves (its rows times the next wider
+# group's width less its own) exceed this many; else it joins that group.
+# On an H100 the host takes 7-10 ms to enqueue one more scoring group of
+# the ViT-L text tower, the card 0.57 us a slot at bucket 16 (PERF.md).
+SPLIT_MIN_SLOTS = 16_000
 
 
 def _scoring_anchors(anchors: torch.Tensor, objective: str) -> torch.Tensor:
@@ -99,12 +113,46 @@ def _own_tokens(tokens) -> int:
     return int(tokens.argmax(-1).sum()) + tokens[..., 0].size
 
 
-def _count_grid(s, tokens) -> None:
-    """Add a token grid's slots (rows x width) and own tokens to span `s`;
-    the own tokens are counted when the recording is read, so that the
-    step spends no host time on them."""
-    s.add("slots", int(np.prod(tokens.shape)))
+def _count_grid(s, tokens, groups=None) -> None:
+    """Add a token grid's slots, own tokens and encodes to span `s`: the
+    slots are its rows times the width they were encoded at, `groups`'
+    widths where given (`_split_groups`), else the grid's own in one
+    encode.  The own tokens are counted when the recording is read, so
+    that the step spends no host time on them."""
+    if groups is None:
+        groups = [(tokens, tokens.shape[-1])]
+    per = int(np.prod(tokens.shape[1:-1]))
+    s.add("slots", sum(len(idx) * per * w for idx, w in groups))
+    s.add("groups", len(groups))
     s.add("own_tokens", lambda: _own_tokens(tokens))
+
+
+def _caption_widths(grid: np.ndarray) -> np.ndarray:
+    """[B, N, C] token grid -> [B]: the width `bucket_tokens` gives each
+    caption's N rows alone, the smallest bucket that holds their largest
+    EOT+1 (C where none does)."""
+    C = grid.shape[-1]
+    widths = np.array(sorted({b for b in CONTEXT_BUCKETS if b < C} | {C}))
+    return widths[np.searchsorted(widths, grid.argmax(-1).max(-1) + 1)]
+
+
+def _split_groups(widths: np.ndarray, rows: int
+                  ) -> List[Tuple[np.ndarray, int]]:
+    """Captions of `widths` [B] (`rows` token rows each) grouped by width,
+    narrowest first: [(caption indices in row order, width)].  A group
+    that would save no more than `SPLIT_MIN_SLOTS` slots joins the next
+    wider one, so a grid of one width is one group."""
+    present = np.unique(widths)
+    groups, carry = [], np.zeros(0, np.int64)
+    for w, wider in zip(present, list(present[1:]) + [None]):
+        idx = np.concatenate([carry, np.flatnonzero(widths == w)])
+        if wider is not None \
+                and len(idx) * rows * (wider - w) <= SPLIT_MIN_SLOTS:
+            carry = idx
+            continue
+        groups.append((np.sort(idx), int(w)))
+        carry = np.zeros(0, np.int64)
+    return groups
 
 
 def _marker(device: torch.device):
@@ -275,8 +323,9 @@ class FusedLeafStep:
     (the pipelined step's first wait, on a card) is 1 where the readback
     returned while the second half's phase 1 still ran on the device; and
     the enqueueing of each encode, `train.fused.enqueue.phase1`, `.score`
-    and `.update`, with the `slots` (rows x bucket width) and `own_tokens`
-    (SOT to EOT) of the token grids it encodes."""
+    and `.update`, with the `slots` (rows x the width each was encoded
+    at), `own_tokens` (SOT to EOT) and `groups` (the encodes made) of the
+    token grids it encodes."""
 
     # anchor cache size guard: 1M captions x 768 bf16 = 1.5 GB
     MAX_CACHED_ANCHORS = 1_000_000
@@ -320,6 +369,11 @@ class FusedLeafStep:
         self._multihost = world_size() > 1
         self.grid = grid
         self._agree = (world_size() if grid is None else grid.data) > 1
+        # one rank alone scores each caption at its own bucket
+        # (`_score_groups`); across ranks and on a grid the widths agreed
+        # for the whole grid hold
+        self._split = self._do_bucket and not self._agree and grid is None
+        self.anchor_encode = make_anchor_encode(normalize)
         self.phase1 = make_fused_phase1(normalize, objective)
         self.phase1_cached = make_fused_phase1_cached(objective)
         # half-batch pipelining (k=1 only): split the batch in two, keep
@@ -380,6 +434,47 @@ class FusedLeafStep:
             out = fn(*args)
             self.seconds["host"] += time.perf_counter() - t0
         return out
+
+    def _score_groups(self, text: TextTower, grid: np.ndarray,
+                      anchors: torch.Tensor, winners: bool = False):
+        """Score a bucketed host grid [b, N, C] against `anchors` [b, D]:
+        (best [b], the winners' tokens [b, W] where `winners`, else None,
+        the groups encoded).  Where `_split`, each group of captions
+        (`_split_groups`) is encoded at its own width and the results are
+        put back in row order on the device; W is the widest group's
+        width, narrower winners zero-padded past EOT (feature-invariant
+        for the towers `_do_bucket` admits).  A grid of one group is one
+        encode of the whole grid, as is every grid elsewhere."""
+        if self._split:
+            groups = _split_groups(_caption_widths(grid), grid.shape[1])
+        else:
+            groups = [(np.arange(len(grid)), grid.shape[-1])]
+        if len(groups) == 1:
+            tokens = self._put(grid[..., :groups[0][1]])
+            if winners:
+                best, adv = self.phase2_score(text, tokens, anchors)
+                return best, adv, groups
+            return self.phase1_cached(text, tokens, anchors), None, groups
+        order = np.concatenate([idx for idx, _ in groups])
+        # the groups' anchor rows, then the way back to row order
+        perm = self._put(np.concatenate([order, np.argsort(order)]))
+        width = groups[-1][1]
+        bests, advs, at = [], [], 0
+        for idx, w in groups:
+            tokens = self._put(grid[idx, :, :w])
+            anch = anchors.index_select(0, perm[at:at + len(idx)])
+            at += len(idx)
+            if winners:
+                best, adv = self.phase2_score(text, tokens, anch)
+                advs.append(torch.nn.functional.pad(adv, (0, width - w)))
+            else:
+                best = self.phase1_cached(text, tokens, anch)
+            bests.append(best)
+        back = perm[len(order):]
+        best = torch.cat(bests).index_select(0, back)
+        if winners:
+            return best, torch.cat(advs).index_select(0, back), groups
+        return best, None, groups
 
     # -- host-side token grids ---------------------------------------------
 
@@ -509,8 +604,8 @@ class FusedLeafStep:
         h = B // 2
         positions, probe_raw, clean_raw = self._prepared_or_new(
             texts, rng, prepared)
-        probe_tokens = self._bucket(probe_raw)  # full-batch bucket: both
-        clean_tokens = None                     # halves share the shape
+        probe_tokens = self._bucket(probe_raw)
+        clean_tokens = None
         if clean_raw is None and self._cached_anchors(texts) is None:
             clean_raw = self._timed_host(
                 "train.fused.clean", lambda: np.asarray(self.tokenizer(texts)))
@@ -524,19 +619,18 @@ class FusedLeafStep:
         for rows in (slice(0, h), slice(h, B)):
             t_h = texts[rows]
             with span("train.fused.enqueue.phase1") as s:
-                pt = self._put(probe_tokens[rows])
                 anch = self._cached_anchors(t_h)
                 cached = anch is not None
-                if cached:
-                    bp = self.phase1_cached(state.text, pt, anch)
-                else:
-                    anch, bp = self.phase1(frozen_text, state.text,
-                                           self._put(clean_tokens[rows]), pt)
+                if not cached:
+                    anch = self.anchor_encode(frozen_text,
+                                              self._put(clean_tokens[rows]))
                     self._fill_cache(t_h, anch)
+                bp, _, groups = self._score_groups(
+                    state.text, probe_tokens[rows], anch)
                 halves.append({"rows": rows, "texts": t_h, "anch": anch,
                                "bp": self._readback(bp)})
             if s:
-                _count_grid(s, probe_tokens[rows])
+                _count_grid(s, probe_tokens[rows], groups)
                 if not cached:
                     _count_grid(s, clean_tokens[rows])
         phase1_done = _marker(self.device)
@@ -553,24 +647,15 @@ class FusedLeafStep:
                 best_pos, us,
                 None if clean_raw is None else clean_raw[hd["rows"]])
             cand_tokens = self._bucket(cand_raw)
-            if self._do_bucket \
-                    and cand_tokens.shape[-1] < probe_tokens.shape[-1]:
-                # pad each half's candidates up to the shared probe
-                # bucket: candidates replace the probe's inserted space
-                # at the same slot, so both halves almost always share
-                # that width.  Zero-pad past EOT is exactly what a wider
-                # bucket is (feature-invariant for causal+argmax towers,
-                # the only towers _do_bucket enables).
-                pad = probe_tokens.shape[-1] - cand_tokens.shape[-1]
-                cand_tokens = np.pad(cand_tokens, ((0, 0), (0, 0), (0, pad)))
             with span("train.fused.enqueue.score") as s:
-                best, adv = self.phase2_score(
-                    state.text, self._put(cand_tokens), hd["anch"])
+                best, adv, groups = self._score_groups(
+                    state.text, cand_tokens, hd["anch"], winners=True)
             if s:
-                _count_grid(s, cand_tokens)
+                _count_grid(s, cand_tokens, groups)
             outs.append({"best_pos": best_pos, "us": us, "best": best,
                          "adv": adv})
-        # the attack's device work ends here, BEFORE the train update
+        # the attack's device work ends here, BEFORE the train update;
+        # each half's winners are encoded at that half's width
         marker = _marker(self.device)
 
         with span("train.fused.enqueue.update") as s:
@@ -642,18 +727,22 @@ class FusedLeafStep:
                         lambda: np.asarray(self.tokenizer(texts_cur)))
                 clean_grid = self._bucket(clean_raw, clean_need)
             with span("train.fused.enqueue.phase1") as s:
-                probe_tokens = self._put(probe_grid)
-                if clean_grid is None:
-                    best_probe = self.phase1_cached(state.text, probe_tokens,
-                                                    anchors)
-                else:
+                groups = None
+                if clean_grid is not None and not self._split:
                     anchors, best_probe = self.phase1(
                         frozen_text, state.text, self._put(clean_grid),
-                        probe_tokens)
+                        self._put(probe_grid))
+                else:
+                    if clean_grid is not None:
+                        anchors = self.anchor_encode(frozen_text,
+                                                     self._put(clean_grid))
+                    best_probe, _, groups = self._score_groups(
+                        state.text, probe_grid, anchors)
+                if clean_grid is not None:
                     self._fill_cache(texts_cur, anchors)
                 readback = self._readback(best_probe)
             if s:
-                _count_grid(s, probe_grid)
+                _count_grid(s, probe_grid, groups)
                 if clean_grid is not None:
                     _count_grid(s, clean_grid)
             best_probe = self._wait(readback)  # hard sync
@@ -668,15 +757,12 @@ class FusedLeafStep:
                 cand_need = int(self._global_max([bucket_need(cand_raw)])[0])
             cand_grid = self._bucket(cand_raw, cand_need)
             with span("train.fused.enqueue.score") as s:
-                cand_tokens = self._put(cand_grid)
+                best, adv, groups = self._score_groups(
+                    state.text, cand_grid, anchors, winners=r == self.k - 1)
                 if r < self.k - 1:
-                    readback = self._readback(self.phase1_cached(
-                        state.text, cand_tokens, anchors))
-                else:
-                    best, adv = self.phase2_score(state.text, cand_tokens,
-                                                  anchors)
+                    readback = self._readback(best)
             if s:
-                _count_grid(s, cand_grid)
+                _count_grid(s, cand_grid, groups)
             if r < self.k - 1:
                 # intermediate round: pick the winner, edit on the host
                 best = self._wait(readback)

@@ -352,23 +352,23 @@ def test_use_pipeline_decision_matrix(towers):
 
 def test_pipelined_heterogeneous_halves_share_bucket(towers):
     """Halves whose captions land in different context buckets: each half's
-    candidates are padded up to the full batch's probe bucket, and winners
-    and loss equal the unpipelined step's."""
-    texts = ["a cat", "hi there",
-             "an extremely long caption about the market rally that "
-             "keeps going with many more words to cross a bucket "
-             "boundary for sure",
-             "another quite long sentence padded with extra words to "
-             "stay in the wide context bucket alongside its neighbour"]
-    seen = []
+    candidates are scored at that half's own bucket, not at the full
+    batch's, and its winners are trained at it; winners and loss equal
+    the unpipelined step's."""
+    texts = ["a cat", "hi there", LONG[0], LONG[1]]
+    seen, trained = [], []
     fused_p = _port_fused(towers, rho=5)
-    score = fused_p.phase2_score
+    score, train_only = fused_p.phase2_score, fused_p.train_only
 
     def spy(text, cand_tokens, anchors):
         seen.append(tuple(cand_tokens.shape))
         return score(text, cand_tokens, anchors)
 
-    fused_p.phase2_score = spy
+    def spy_train(state, adv1, anch1, adv2, anch2):
+        trained.append((adv1.shape[-1], adv2.shape[-1]))
+        return train_only(state, adv1, anch1, adv2, anch2)
+
+    fused_p.phase2_score, fused_p.train_only = spy, spy_train
     state, frozen = _port_state(towers)
     state, info_p = fused_p(state, frozen, list(texts),
                             np.random.default_rng(41))
@@ -377,7 +377,168 @@ def test_pipelined_heterogeneous_halves_share_bucket(towers):
     np.testing.assert_allclose(float(info_p["metrics"]["loss"]),
                                plain[0]["loss"], rtol=1e-5)
     assert isinstance(info_p["best_char_idx"], tuple)
-    assert len(seen) == 2 and seen[0] == seen[1] and seen[0][-1] == 32
+    assert seen == [(2, 5, 16), (2, 5, 32)]
+    assert trained == [(16, 32)]
+
+
+# ---------------------------------------------------------------------------
+# each caption at its own bucket
+# ---------------------------------------------------------------------------
+
+# captions of bucket 32 (17-32 tokens); TEXTS and MORE are of bucket 16
+LONG = ["an extremely long caption about the market rally that keeps going "
+        "with many more words to cross a bucket boundary for sure",
+        "another quite long sentence padded with extra words to stay in "
+        "the wide context bucket alongside its neighbour"]
+MIXED = [LONG[0], "a cat", "hi there", LONG[1]]
+
+
+def _groups_seen(monkeypatch):
+    """Every scoring grid's groups, in call order, with a split taken
+    wherever two widths meet (`SPLIT_MIN_SLOTS` 0)."""
+    monkeypatch.setattr(tfused, "SPLIT_MIN_SLOTS", 0)
+    seen, split = [], tfused._split_groups
+
+    def spy(widths, rows):
+        seen.append(split(widths, rows))
+        return seen[-1]
+    monkeypatch.setattr(tfused, "_split_groups", spy)
+    return seen
+
+
+def test_split_rule_on_the_recipes_grid():
+    """128 captions of 50 rows: a group is split off where the slots it
+    saves exceed `SPLIT_MIN_SLOTS`, else it joins the next wider group;
+    one width is one group."""
+    def groups(counts):
+        widths = np.repeat(list(counts), list(counts.values()))
+        return [(len(idx), w) for idx, w in tfused._split_groups(widths, 50)]
+
+    assert groups({16: 128}) == [(128, 16)]
+    assert groups({16: 127, 77: 1}) == [(127, 16), (1, 77)]
+    assert groups({16: 100, 32: 27, 77: 1}) == [(100, 16), (27, 32), (1, 77)]
+    # one caption at 16 saves 50 x 16 = 800 slots: not an encode's worth
+    assert 800 <= tfused.SPLIT_MIN_SLOTS
+    assert groups({16: 1, 32: 127}) == [(128, 32)]
+    # merged upward twice: 1,600 then 3,200 slots
+    assert groups({16: 2, 32: 2, 48: 124}) == [(128, 48)]
+    # the groups hold every caption once, in row order within a group
+    rng = np.random.default_rng(0)
+    widths = rng.choice([16, 32, 77], 128)
+    got = tfused._split_groups(widths, 50)
+    idx = np.concatenate([i for i, _ in got])
+    assert sorted(idx) == list(range(128))
+    assert all((np.diff(i) > 0).all() for i, _ in got)
+    assert all((widths[i] <= w).all() for i, w in got)
+
+
+def test_caption_widths_are_each_captions_bucket():
+    tok = port_tokenizer()
+    rng = np.random.default_rng(3)
+    words = "cat dog on a the market rally long caption words".split()
+    texts = [" ".join(rng.choice(words, int(n)))
+             for n in rng.integers(1, 60, 24)]
+    grid = np.asarray(tok(texts)).reshape(8, 3, -1)
+    widths = tfused._caption_widths(grid)
+    assert list(widths) == [bucket_tokens(g).shape[-1] for g in grid]
+    assert len(set(widths)) > 2
+    # a grid already cut to its bucket keeps its width as the widest
+    cut = bucket_tokens(grid)
+    assert list(tfused._caption_widths(cut)) == list(widths)
+    assert tfused._caption_widths(cut).max() == cut.shape[-1]
+
+
+@pytest.mark.parametrize("objective", ["l2", "sim"])
+def test_grouped_scoring_equals_one_padded_encode(towers, objective,
+                                                  monkeypatch):
+    """A mixed grid scored group by group at each caption's bucket: the
+    features of every row within 1e-6 of the one padded encode's, the
+    losses too, the same argmax and the same winners' tokens."""
+    seen = _groups_seen(monkeypatch)
+    tcfg, sd = towers[2], towers[3]
+    text = tclip.TextTower(tcfg.text, tcfg.quick_gelu)
+    text.load_state_dict(sd)
+    tok = port_tokenizer()
+    fused = _port_fused(towers, rho=5, objective=objective)
+    prepared = fused._prepare(list(MIXED), np.random.default_rng(2))
+    grid = bucket_tokens(prepared["probe_raw"])
+    assert grid.shape[-1] == 32
+    with torch.no_grad():
+        anchors = text.encode_text(torch.from_numpy(bucket_tokens(tok(MORE))))
+        best, adv, groups = fused._score_groups(
+            text, grid, anchors, winners=True)
+        want = tfused._score(text, torch.from_numpy(grid), anchors,
+                             objective)
+        padded = text.encode_text(torch.from_numpy(grid.reshape(20, 32)),
+                                  objective == "sim").reshape(4, 5, -1)
+        feats = torch.zeros_like(padded)
+        for idx, w in groups:
+            rows = torch.from_numpy(np.ascontiguousarray(
+                grid[idx, :, :w]).reshape(-1, w))
+            feats[idx] = text.encode_text(
+                rows, objective == "sim").reshape(len(idx), 5, -1)
+    assert [w for _, w in groups] == [16, 32] and seen[-1] is groups
+    np.testing.assert_allclose(feats.numpy(), padded.numpy(), atol=1e-6,
+                               rtol=0)
+    anchor_rows = tfused._scoring_anchors(anchors, objective)
+    np.testing.assert_allclose(
+        tfused.objective_loss(feats, anchor_rows, objective).numpy(),
+        tfused.objective_loss(padded, anchor_rows, objective).numpy(),
+        atol=1e-6, rtol=1e-6)
+    assert torch.equal(best, want)
+    assert adv.shape == (4, 32)
+    assert torch.equal(adv, tfused._take_rows(torch.from_numpy(grid), want))
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("unpipelined", dict(rho=6, pipeline=False)),
+    ("pipelined", dict(rho=5)),
+    ("constrained", dict(rho=8, constrain=True, pipeline=False)),
+    ("constrained-pipelined", dict(rho=6, constrain=True)),
+    ("k2", dict(rho=6, k=2)),
+])
+def test_mixed_buckets_split_matches_the_whole_batch_grid(towers, name, kw,
+                                                          monkeypatch):
+    """Batches mixing buckets 16 and 32, each caption scored at its own
+    bucket, against the JAX package's step, which scores every row at the
+    whole batch's bucket: the same positions, characters, sentences,
+    losses and parameters after three steps; the split was taken."""
+    seen = _groups_seen(monkeypatch)
+    batches = [MIXED, TEXTS, MIXED]
+    want, jparams = _jax_run(towers, batches, 17, **kw)
+    got, state, _ = _port_run(towers, batches, 17, **kw)
+    _same_decisions(got, want)
+    _same_params(state.text, jparams, 3)
+    assert any(len(g) > 1 for g in seen)
+    assert any(len(g) == 1 for g in seen)          # TEXTS: one bucket
+
+
+@pytest.mark.parametrize("pipeline", [True, False],
+                         ids=["pipelined", "unpipelined"])
+def test_one_bucket_batch_encodes_as_before(towers, pipeline, monkeypatch):
+    """A batch of one bucket makes the encodes of the whole-batch grid,
+    call for call and shape for shape, whatever `SPLIT_MIN_SLOTS` is:
+    per half (or batch) the anchors, then the probes, the candidates and
+    the winners."""
+    seen = _groups_seen(monkeypatch)
+    calls = []
+    encode = tclip.TextTower.encode_text
+
+    def spy(self, tokens, *args, **kwargs):
+        calls.append(("frozen" if self is frozen else "train",
+                      tuple(tokens.shape)))
+        return encode(self, tokens, *args, **kwargs)
+
+    monkeypatch.setattr(tclip.TextTower, "encode_text", spy)
+    fused = _port_fused(towers, rho=5, pipeline=pipeline)
+    state, frozen = _port_state(towers)
+    fused(state, frozen, list(TEXTS), np.random.default_rng(5))
+    b = 2 if pipeline else 4
+    want = [("frozen", (b, 16)), ("train", (5 * b, 16))] * (4 // b)
+    want += [("train", (5 * b, 16))] * (4 // b)
+    want += [("train", (b, 16))] * (4 // b)
+    assert calls == want
+    assert all(len(g) == 1 for g in seen) and seen
 
 
 def test_filter_tokens_replaces_invalid_rows_only():

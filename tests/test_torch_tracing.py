@@ -210,12 +210,8 @@ def test_fused_step_spans_in_order_with_their_counts(tiny, pipeline):
     us = info["us"]
     for rows in halves:
         best_pos = info["best_pos"][rows]
-        grid = bucket_tokens(fs._candidates(TEXTS[rows], best_pos, us[rows],
-                                            None))
-        if pipeline:
-            pad = probes.shape[-1] - grid.shape[-1]
-            grid = np.pad(grid, ((0, 0), (0, 0), (0, max(pad, 0))))
-        cands.append(grid)
+        cands.append(bucket_tokens(fs._candidates(TEXTS[rows], best_pos,
+                                                  us[rows], None)))
     adv = tok(fs.adv_sentences(TEXTS, info))
     adv = bucket_tokens(np.asarray(adv))
     by_name = {}
@@ -225,17 +221,72 @@ def test_fused_step_spans_in_order_with_their_counts(tiny, pipeline):
             for k, v in s.counts.items():
                 by_name.setdefault(kind, {}).setdefault(k, 0)
                 by_name[kind][k] += v
+    # one bucket: one encode per grid (probes and clean rows a half)
     assert by_name["phase1"] == {
         "slots": probes.size + clean.size,
-        "own_tokens": _own_by_hand(probes, eot) + _own_by_hand(clean, eot)}
+        "own_tokens": _own_by_hand(probes, eot) + _own_by_hand(clean, eot),
+        "groups": 2 * len(halves)}
     assert by_name["score"] == {
         "slots": sum(c.size for c in cands),
-        "own_tokens": sum(_own_by_hand(c, eot) for c in cands)}
+        "own_tokens": sum(_own_by_hand(c, eot) for c in cands),
+        "groups": len(halves)}
     assert by_name["update"]["slots"] == sum(
         len(TEXTS) // len(halves) * c.shape[-1] for c in cands)
     assert by_name["update"]["own_tokens"] == _own_by_hand(adv, eot)
+    assert by_name["update"]["groups"] == len(halves)
     # on the CPU no readback is early or late: no count
     assert all(s.counts == {} for s in spans if s.name == "train.fused.wait")
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_fused_step_slots_count_the_groups_encoded(tiny, pipeline,
+                                                   monkeypatch):
+    """Captions of buckets 16 and 32 in one batch, each scored at its own
+    bucket: the scoring spans' slots are each caption's rows times its
+    bucket, summed, below the whole grid's, and `groups` counts the
+    encodes: more than one a scoring grid."""
+    monkeypatch.setattr(tfused, "SPLIT_MIN_SLOTS", 0)
+    cfg, _ = tiny
+    tok = get_tokenizer()
+    long = ("an extremely long caption about the market rally that keeps "
+            "going with many more words to cross a bucket boundary")
+    texts = ["a photo of a cat", long, "hello world", long + " for sure"]
+    fs = tfused.FusedLeafStep(cfg, tok, rho=3, device="cpu",
+                              pipeline=pipeline)
+    state, frozen = _state(tiny)
+    rng = np.random.default_rng(4)
+    prepared = fs._prepare(list(texts), np.random.default_rng(4))
+    with tracing.recording():
+        state, info = fs(state, frozen, texts, rng)
+    spans = tracing.recorded()
+    halves = ((slice(0, 2), slice(2, 4)) if pipeline else (slice(0, 4),))
+
+    def own_buckets(grid):
+        return sum(bucket_tokens(g).size for g in grid)
+
+    grids = {"phase1": [prepared["probe_raw"]], "score": []}
+    for rows in halves:
+        grids["score"].append(fs._candidates(
+            texts[rows], info["best_pos"][rows], info["us"][rows], None))
+    clean = bucket_tokens(np.asarray(tok(texts)))
+    got = {}
+    for s in spans:
+        if s.name.startswith("train.fused.enqueue."):
+            kind = s.name.rsplit(".", 1)[1]
+            for k, v in s.counts.items():
+                got.setdefault(kind, {}).setdefault(k, 0)
+                got[kind][k] += v
+    assert got["phase1"]["slots"] == own_buckets(grids["phase1"][0]) \
+        + clean.size
+    assert got["score"]["slots"] == sum(own_buckets(g)
+                                        for g in grids["score"])
+    # each half, or the batch, holds both buckets: two encodes a grid,
+    # plus the clean rows' one
+    assert got["phase1"]["groups"] == 3 * len(halves)
+    assert got["score"]["groups"] == 2 * len(halves)
+    assert got["update"]["groups"] == len(halves)
+    whole = bucket_tokens(prepared["probe_raw"]).size
+    assert own_buckets(grids["phase1"][0]) < whole
 
 
 def test_fare_spans_in_order_and_its_times_unchanged(tiny):
